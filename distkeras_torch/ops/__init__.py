@@ -1,0 +1,1 @@
+"""Operators and hand-written CUDA kernels of the PyTorch port."""
