@@ -15,7 +15,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
    plain per-op step on the same prompt for token agreement;
 4. scoring (main path): Model.apply on [8, 640] tokens, compared with the
    same forward through dense attention;
-5. report: one JSON line of kernels, the card's name and power limit, and
+5. training (main path): make_lm_train_step on the JAX bench's headline LM
+   leg (seq 2048, batch 8, 512 wide, 8 layers, 4 heads of 128, vocab 8192,
+   bf16 compute, f32 params, sgd 0.01): one step on the fused backward
+   (B2), one on the split backward (B3a + B3b), one through dense
+   attention for comparison, 20 adam steps on a fixed batch (the loss must
+   fall), then timed and profiled steps;
+6. report: one JSON line of kernels, the card's name and power limit, and
    the final {"ok": true, ...} line.
 
 Weights are random, drawn from seed 0.  Needs nothing but this checkout,
@@ -40,6 +46,11 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 VOCAB, DIM, HEADS, LAYERS, MLP = 8192, 512, 8, 8, 4
 BATCH, PROMPT, NEW = 8, 128, 512
 SCORE_LEN = 640
+# training: bench.py's headline LM leg (_bench_lm at seq 2048, batch 8)
+TRAIN_LEN, TRAIN_BATCH, TRAIN_HEADS = 2048, 8, 4
+TRAIN_D = DIM // TRAIN_HEADS
+ADAM_STEPS, TIMED_STEPS = 20, 5
+ADAM_MIN_DROP = 1.0  # measured on an H100: 9.52 -> 7.75 in 20 steps
 
 
 class SmokeFailure(Exception):
@@ -165,6 +176,97 @@ def flash_timing(torch, fa, q, k, v, gen):
               f"kernel {t_k:.4f} ms, dense {t_d:.4f} ms")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": lib_ms}
+
+
+def _rel_err(got, want):
+    """Largest |got - want| and that over max |want|, per tensor pair."""
+    out = []
+    for g, w in zip(got, want):
+        err = (g.float() - w.float()).abs().max().item()
+        out.append((err, err / max(w.float().abs().max().item(), 1e-30)))
+    return out
+
+
+def flash_bwd_phase(torch, fa):
+    """B2, B3a, B3b: kernels vs plain at the training shape [8, 2048, 4, 128]
+    bf16, three masking cases, a nonzero lse cotangent in one."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    shape = (TRAIN_BATCH, TRAIN_LEN, TRAIN_HEADS, TRAIN_D)
+    # q/k/v as the model hands them over: strided views of one qkv tensor
+    qkv = torch.randn((TRAIN_BATCH, TRAIN_LEN, 3, TRAIN_HEADS, TRAIN_D), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    dlse = torch.randn((TRAIN_BATCH, TRAIN_HEADS, TRAIN_LEN), generator=gen, device="cuda")
+    cases = [("causal", True, 0, 0, None), ("non-causal, dlse", False, 0, 0, dlse),
+             ("q_offset<k_offset", True, 0, TRAIN_LEN // 2, None)]
+    # bf16 grads: an f32 sum in another order (B2's atomics, the lane
+    # reductions) can flip the rounding of p or ds; 1e-2 of max |grad| is
+    # about 2.5 bf16 ulps at it
+    tol = 1e-2
+    worst = {"flash_bwd_fused": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for name, causal, qo, ko, dl in cases:
+        o, lse = fa.flash_forward_cuda(q, k, v, causal, qo, ko)
+        fused = fa.flash_backward_cuda(q, k, v, o, lse, do, dl, causal, qo, ko, split=False)
+        split = fa.flash_backward_cuda(q, k, v, o, lse, do, dl, causal, qo, ko, split=True)
+        torch.cuda.synchronize()
+        ref = fa.flash_backward_plain(q, k, v, o, lse, do, dl, causal, qo, ko)
+        errs_f, errs_s = _rel_err(fused, ref), _rel_err(split, ref)
+        print(f"flash_bwd {name}: max|d - d_plain| (rel to max|d|) fused dq/dk/dv "
+              + ", ".join(f"{e:.3e} ({r:.1e})" for e, r in errs_f) + "; split dq/dk/dv "
+              + ", ".join(f"{e:.3e} ({r:.1e})" for e, r in errs_s) + f" (tol {tol:.0e} rel)")
+        for errs, label in ((errs_f, "fused"), (errs_s, "split")):
+            check(all(r <= tol for _, r in errs), f"flash_bwd {label} {name}: disagrees with plain")
+        for g in (*fused, *split):
+            check(bool(torch.isfinite(g.float()).all()), f"flash_bwd {name}: non-finite grad")
+        if ko > qo:
+            dead_q, dead_k = ko - qo, ko - qo
+            for label, (dq, dk, dv) in (("fused", fused), ("split", split)):
+                check(bool((dq[:, :dead_q] == 0).all() and (dk[:, TRAIN_LEN - dead_k:] == 0).all()
+                           and (dv[:, TRAIN_LEN - dead_k:] == 0).all()),
+                      f"flash_bwd {label}: rows that see no key (keys no row sees) must get 0")
+        worst["flash_bwd_fused"] = max(worst["flash_bwd_fused"], *(e for e, _ in errs_f))
+        worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], errs_s[0][0])
+        worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], errs_s[1][0], errs_s[2][0])
+    return worst, lambda: flash_bwd_timing(torch, fa, q, k, v, do)
+
+
+def flash_bwd_timing(torch, fa, q, k, v, do):
+    """B2 / B3a / B3b device times at the training shape (causal), the plain
+    backward and SDPA's backward."""
+    o, lse = fa.flash_forward_cuda(q, k, v, True, 0, 0)
+    fused = lambda: fa.flash_backward_cuda(q, k, v, o, lse, do, None, True, 0, 0, split=False)
+    split = lambda: fa.flash_backward_cuda(q, k, v, o, lse, do, None, True, 0, 0, split=True)
+    ms = {"flash_bwd_fused": device_ms(torch, fused, "flash_bwd_fused_kernel", reps=10),
+          "flash_bwd_dq": device_ms(torch, split, "flash_bwd_dq_kernel", reps=10),
+          "flash_bwd_dkv": device_ms(torch, split, "flash_bwd_dkv_kernel", reps=10)}
+    wrapper_ms = {"fused": time_ms(torch, fused, reps=10), "split": time_ms(torch, split, reps=10)}
+    plain_ms = device_ms(torch, lambda: fa.flash_backward_plain(q, k, v, o, lse, do), reps=3,
+                         warmup=1)
+    # SDPA's backward alone: the forward runs once outside the profiled calls
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    lib_ms = device_ms(torch, lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                          retain_graph=True), reps=10)
+    n_elem = TRAIN_BATCH * TRAIN_LEN * TRAIN_HEADS * TRAIN_D
+    stats = 2 * TRAIN_BATCH * TRAIN_HEADS * TRAIN_LEN * 4          # lse, delta
+    visible = TRAIN_BATCH * TRAIN_HEADS * TRAIN_LEN * (TRAIN_LEN + 1) // 2
+    # flops per visible score: s, dp, dv, dk (and dq) are 2 * D each
+    work = {"flash_bwd_fused": (7 * n_elem * 2 + stats, 10 * TRAIN_D * visible),
+            "flash_bwd_dq": (5 * n_elem * 2 + stats, 6 * TRAIN_D * visible),
+            "flash_bwd_dkv": (6 * n_elem * 2 + stats, 8 * TRAIN_D * visible)}
+    out_t = {}
+    for name, (nbytes, flops) in work.items():
+        bms, by = bound_ms(nbytes, flops, "bfloat16")
+        out_t[name] = {"ms": ms[name], "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                       "library_ms": lib_ms}
+        print(f"{name} device time [8,2048,4,128] bf16 causal: kernel {ms[name]:.4f} ms, "
+              f"bound {bms:.4f} ms ({by}); plain backward {plain_ms:.4f} ms, sdpa backward "
+              f"{lib_ms:.4f} ms")
+    print(f"flash backward wrapper between CUDA events (delta, workspace, cast included): "
+          f"fused {wrapper_ms['fused']:.4f} ms, split {wrapper_ms['split']:.4f} ms")
+    return out_t
 
 
 def decode_phase(torch, model, ds, dec):
@@ -321,6 +423,160 @@ def scoring_phase(torch, np, model, fa, base):
     return launched
 
 
+def _update_gap(p0, pa, pb):
+    """How far update ``pa - p0`` is from update ``pb - p0``: over all params
+    ``||dA - dB|| / ||dB||``, and the worst single param by the same ratio."""
+    num = den = 0.0
+    worst, worst_name = 0.0, None
+    for name in p0:
+        du_b = (pb[name] - p0[name]).float()
+        gap = ((pa[name] - p0[name]).float() - du_b).norm().item()
+        norm = du_b.norm().item()
+        num, den = num + gap ** 2, den + norm ** 2
+        if gap / max(norm, 1e-30) > worst:
+            worst, worst_name = gap / max(norm, 1e-30), name
+    return (num / max(den, 1e-60)) ** 0.5, worst, worst_name
+
+
+def _attn_kernels(fa):
+    return (fa.FLASH_FWD, fa.FLASH_BWD_FUSED, fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV)
+
+
+def _counts(fa):
+    return {k.symbol[len("dk_"):]: k.launches for k in _attn_kernels(fa)}
+
+
+def _zero_counts(fa):
+    for k in _attn_kernels(fa):
+        k.launches = 0
+
+
+def training_phase(torch, np, base, fa):
+    """Main path, part 3: make_lm_train_step at the bench's headline LM leg.
+
+    Returns the launch counts of the fused step and of the split step, each
+    read right after its run with the counts set to 0 right before it, and
+    the timing of the step, to run last."""
+    from distkeras_torch import make_lm_train_step, shift_targets, small_lm_spec
+    from distkeras_torch.ops.optimizers import get_optimizer
+
+    spec = small_lm_spec(vocab_size=VOCAB, model_dim=DIM, num_heads=TRAIN_HEADS,
+                         num_layers=LAYERS, max_seq_len=TRAIN_LEN)
+    spec.config["compute_dtype"] = "bfloat16"
+    params = spec.init_params(seed=0, device="cuda")
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, VOCAB, (TRAIN_BATCH, TRAIN_LEN))
+    targets = shift_targets(tokens)
+    sgd = get_optimizer("sgd", 0.01)
+    step = make_lm_train_step(spec, sgd, device="cuda")
+
+    _zero_counts(fa)
+    p_fused, _, loss = step(dict(params), sgd.init(params), tokens, targets)
+    torch.cuda.synchronize()
+    fused_counts = _counts(fa)
+    print(f"training step (fused backward): loss {loss.item():.6f} (ln V = "
+          f"{np.log(VOCAB):.6f}); launches {fused_counts}")
+    check(fused_counts == {"flash_fwd": LAYERS, "flash_bwd_fused": LAYERS, "flash_bwd_dq": 0,
+                           "flash_bwd_dkv": 0}, f"fused step launches {fused_counts}")
+    check(bool(torch.isfinite(loss)) and all(bool(torch.isfinite(t).all())
+                                             for t in p_fused.values()),
+          "non-finite loss or params after the fused step")
+
+    cap = fa.FUSED_DQ_WORKSPACE_CAP
+    fa.FUSED_DQ_WORKSPACE_CAP = 0
+    try:
+        _zero_counts(fa)
+        p_split, _, loss_split = step(dict(params), sgd.init(params), tokens, targets)
+        torch.cuda.synchronize()
+        split_counts = _counts(fa)
+    finally:
+        fa.FUSED_DQ_WORKSPACE_CAP = cap
+    gap_split, worst, worst_name = _update_gap(params, p_split, p_fused)
+    print(f"training step (split backward): loss {loss_split.item():.6f}; launches "
+          f"{split_counts}; update gap to the fused step {gap_split:.3e} of its norm "
+          f"(tol 1e-2), worst param {worst_name} {worst:.3e} (tol 5e-2)")
+    check(split_counts == {"flash_fwd": LAYERS, "flash_bwd_fused": 0, "flash_bwd_dq": LAYERS,
+                           "flash_bwd_dkv": LAYERS}, f"split step launches {split_counts}")
+    # the tiers differ only in the order of B2's f32 atomics into dQ; a
+    # bf16 rounding of dq that flips carries through the layers below, most
+    # visibly into params whose update is small (measured on an H100:
+    # 3.5e-3 over all params, 1.1e-2 for the worst)
+    check(gap_split <= 1e-2 and worst <= 5e-2
+          and abs(loss_split.item() - loss.item()) <= 1e-6 * loss.item(),
+          "split-tier step disagrees with the fused step")
+
+    dense_spec = base.ModelSpec.from_dict(spec.to_dict())
+    dense_spec.config["attn_impl"] = "dense"
+    dense_step = make_lm_train_step(dense_spec, sgd, device="cuda")
+    p_dense, _, loss_dense = dense_step(dict(params), sgd.init(params), tokens, targets)
+    gap_dense, worst, worst_name = _update_gap(params, p_fused, p_dense)
+    loss_gap = abs(loss.item() - loss_dense.item()) / loss_dense.item()
+    print(f"training step (dense attention): loss {loss_dense.item():.6f}, relative gap "
+          f"{loss_gap:.3e} (tol 1e-4); update gap flash vs dense {gap_dense:.3e} of its norm "
+          f"(tol 3e-2), worst param {worst_name} {worst:.3e}")
+    # dense attention rounds its logits and probabilities to bf16, flash
+    # keeps them in f32: the gradients part by bf16 rounding of the scores
+    # (measured on an H100: loss 4.4e-6, update 7.2e-3)
+    check(loss_gap <= 1e-4 and gap_dense <= 3e-2, "flash step disagrees with the dense step")
+    del p_split, p_dense
+
+    adam = get_optimizer("adam", 3e-3)
+    adam_step = make_lm_train_step(spec, adam, device="cuda")
+    p, state, losses = dict(params), adam.init(params), []
+    for _ in range(ADAM_STEPS):
+        p, state, l_ = adam_step(p, state, tokens, targets)
+        losses.append(l_.item())
+    print(f"adam 3e-3, fixed batch, {ADAM_STEPS} steps: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (want a drop of at least {ADAM_MIN_DROP})")
+    check(losses[-1] < losses[0] - ADAM_MIN_DROP, "the loss did not fall on a fixed batch")
+    del p, state
+    return fused_counts, split_counts, lambda: train_timing(torch, step, sgd, params, tokens,
+                                                            targets)
+
+
+def train_timing(torch, step, sgd, params, tokens, targets):
+    """Timed sgd steps: ms/step, tokens/s, matmul-FLOP share; then a profile."""
+    p, state = dict(params), sgd.init(params)
+    p, state, _ = step(p, state, tokens, targets)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        p, state, l_ = step(p, state, tokens, targets)
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t0) / TIMED_STEPS
+    # bench.py's count: 6 T P_matmul + 6 layers B L^2 E (causal attention)
+    p_matmul = 12 * DIM * DIM * LAYERS + DIM * VOCAB
+    tokens_per_step = TRAIN_BATCH * TRAIN_LEN
+    flops = 6 * tokens_per_step * p_matmul + 6 * LAYERS * TRAIN_BATCH * TRAIN_LEN ** 2 * DIM
+    print(f"training: {sec * 1e3:.2f} ms/step, {tokens_per_step / sec:.1f} tokens/s, "
+          f"{flops / 1e12:.3f} TFLOP/step, matmul-FLOP share of 989 TFLOP/s "
+          f"{100 * flops / sec / PEAK_FLOPS['bfloat16']:.2f} % (host clock, {TIMED_STEPS} "
+          f"steps)")
+    train_profile(torch, step, p, state, tokens, targets)
+
+
+def train_profile(torch, step, p, state, tokens, targets):
+    """Where one training step's time goes: device time by kernel, idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(p, state, tokens, targets)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            busy[e.key] = busy.get(e.key, 0.0) + us
+    total_us = sum(busy.values())
+    print(f"training profile (one step, under the profiler): wall {wall * 1e3:.1f} ms, device "
+          f"busy {total_us / 1e3:.1f} ms; device idle share "
+          f"{100 * (1 - total_us / 1e6 / wall):.1f} %")
+    for key, us in sorted(busy.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"  {us / 1e3:9.3f} ms  {100 * us / total_us:5.1f} %  {key[:110]}")
+
+
 def run() -> int:
     try:
         import torch
@@ -359,21 +615,31 @@ def run() -> int:
     model = base.Model.init(spec, seed=0, device="cuda")
 
     flash_err, flash_timing_fn = flash_phase(torch, fa)
+    bwd_err, bwd_timing_fn = flash_bwd_phase(torch, fa)
     step_err, step_timing_fn = decode_phase(torch, model, ds, dec)
 
-    # the main path (one generate request, one scoring forward): counts start
-    # at 0 and each phase reads them right after its counted run
+    # the main path (one generate request, one scoring forward, the training
+    # steps): counts start at 0 and each phase reads them right after its
+    # counted run
     fa.FLASH_FWD.launches = 0
     ds.DECODE_STEP.launches = 0
     serve_b4, serve_b1, profile_fn = serving_phase(torch, np, model, dec, ds, fa)
     score_b1 = scoring_phase(torch, np, model, fa, base)
-    launches = {"flash_fwd": serve_b1 + score_b1, "decode_step": serve_b4}
+    fused_counts, split_counts, train_timing_fn = training_phase(torch, np, base, fa)
+    launches = {"flash_fwd": serve_b1 + score_b1 + fused_counts["flash_fwd"]
+                + split_counts["flash_fwd"],
+                "decode_step": serve_b4,
+                "flash_bwd_fused": fused_counts["flash_bwd_fused"],
+                "flash_bwd_dq": split_counts["flash_bwd_dq"],
+                "flash_bwd_dkv": split_counts["flash_bwd_dkv"]}
     check(min(launches.values()) > 0, f"a kernel is not on the main path: {launches}")
 
     # timings last: the profiler slows what runs after it
     flash = dict(max_abs_err=flash_err, **flash_timing_fn())
+    bwd = bwd_timing_fn()
     step = dict(max_abs_err=step_err, **step_timing_fn())
     profile_fn()
+    train_timing_fn()
 
     kernels = [
         dict(name="flash_fwd", route="cuda", source="distkeras_torch/csrc/flash_fwd.cu",
@@ -383,6 +649,10 @@ def run() -> int:
              replaces="distkeras_tpu/ops/decode_step.py:241",
              launches=launches["decode_step"], **step),
     ]
+    for name, line in (("flash_bwd_fused", 234), ("flash_bwd_dq", 185), ("flash_bwd_dkv", 208)):
+        kernels.append(dict(name=name, route="cuda", source="distkeras_torch/csrc/flash_bwd.cu",
+                            replaces=f"distkeras_tpu/ops/flash_attention.py:{line}",
+                            launches=launches[name], max_abs_err=bwd_err[name], **bwd[name]))
     for k in kernels:
         k["bound_us"] = k["bound_ms"] * 1e3
     print(json.dumps({"kernels": kernels}))

@@ -97,6 +97,17 @@ class ModelSpec:
         module.reset_parameters(torch.Generator().manual_seed(seed))
         return {k: v.detach().to(dev) for k, v in module.state_dict().items()}
 
+    def reject_silent_aux(self, where: str) -> None:
+        """Raise if training this spec through a plain step would drop the
+        MoE load-balance aux losses (``moe_experts`` on transformer_lm specs,
+        ``num_experts`` on moe_mlp_classifier specs), as the JAX package
+        does."""
+        if self.config.get("moe_experts") or self.config.get("num_experts"):
+            raise ValueError(
+                f"{where} would silently drop the MoE load-balance aux losses; "
+                "MoE training (make_moe_train_step / make_moe_lm_train_step) is "
+                "a later slice of the PyTorch port")
+
     def to_dict(self) -> Dict[str, Any]:
         return {
             "name": self.name,

@@ -12,8 +12,9 @@ use as Flax's ``promote_dtype`` does.  Parity points with the Flax modules:
 - the tied unembedding runs in the compute dtype (Flax's ``Embed.attend``
   promotes its float32 query to the module dtype).
 
-Sequence parallelism (``seq_axis``), tensor parallelism (``tp_axis``),
-MoE FFNs and rematerialisation belong to later slices and raise.
+Sequence parallelism (``seq_axis``), tensor parallelism (``tp_axis``) and
+MoE FFNs belong to later slices and raise.  ``remat=True`` checkpoints each
+block (``torch.utils.checkpoint``), so its forward runs twice in training.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from typing import Optional
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from distkeras_torch.models.base import ModelSpec, register_model, resolve_dtype
 from distkeras_torch.ops.attention import attention
@@ -135,6 +137,11 @@ class TransformerBlock(nn.Module):
         return x + _linear(y, self.down, dt)
 
 
+def _replay_block(blk: "TransformerBlock", names, x: torch.Tensor, pos_offset: int,
+                  *tensors: torch.Tensor) -> torch.Tensor:
+    return torch.func.functional_call(blk, dict(zip(names, tensors)), (x, pos_offset))
+
+
 @register_model("transformer_lm")
 class TransformerLM(nn.Module):
     """Causal LM over integer tokens [B, L] -> logits [B, L, vocab].
@@ -152,7 +159,7 @@ class TransformerLM(nn.Module):
                  moe_dispatch: str = "auto", ep_axis: Optional[str] = None,
                  ep_size: int = 1, compute_dtype=None):
         super().__init__()
-        _unsupported(remat=remat)
+        self.remat = remat
         self.positional = positional
         self.dtype = resolve_dtype(compute_dtype)
         self.embed = nn.Embedding(vocab_size, model_dim)
@@ -196,7 +203,17 @@ class TransformerLM(nn.Module):
     def _trunk(self, tokens: torch.Tensor, pos_offset: int = 0) -> torch.Tensor:
         x = self.embed_tokens(tokens, pos_offset)
         for blk in self.blocks():
-            x = blk(x, pos_offset)
+            if not self.remat:
+                x = blk(x, pos_offset)
+                continue
+            # remat: the backward replays the block's forward instead of
+            # keeping its activations (nn.remat in the JAX package).  The
+            # block's parameters ride as inputs of the checkpoint, so the
+            # replay sees the tensors of this call even when they were bound
+            # by torch.func.functional_call, which has returned by then.
+            names, tensors = zip(*blk.named_parameters())
+            x = checkpoint(_replay_block, blk, names, x, pos_offset, *tensors,
+                           use_reentrant=False)
         return x
 
     def hidden(self, tokens: torch.Tensor, pos_offset: int = 0) -> torch.Tensor:

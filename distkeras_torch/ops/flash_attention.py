@@ -1,25 +1,31 @@
-"""Flash-attention forward: a hand-written CUDA kernel and its plain version.
+"""Flash attention: hand-written CUDA kernels and their plain versions.
 
-Counterpart of ``distkeras_tpu/ops/flash_attention.py``.  The CUDA kernel
-(``csrc/flash_fwd.cu``) replaces the Pallas forward kernel ``_fwd_kernel``;
-the three backward kernels are the training slice's work, so the
-``autograd.Function`` around the kernel refuses a backward pass.
+Counterpart of ``distkeras_tpu/ops/flash_attention.py``.  ``csrc/flash_fwd.cu``
+replaces the Pallas forward kernel ``_fwd_kernel``; ``csrc/flash_bwd.cu``
+replaces the three backward kernels: ``_bwd_fused_kernel`` (the default
+tier) and the split pair ``_bwd_dq_kernel`` + ``_bwd_dkv_kernel``, taken
+when the fused tier's f32 dQ workspace would pass
+:data:`FUSED_DQ_WORKSPACE_CAP`.  The JAX package's q-chunked fused tier
+exists only to fit TPU VMEM and has no counterpart here.
 
-Public layout is the framework's ``[B, L, H, D]``; the kernel reads it
+Public layout is the framework's ``[B, L, H, D]``; the kernels read it
 through strides (no transpose copy).  Semantics as in the JAX package:
 ``causal`` masks ``q_offset + i < k_offset + j`` by global position, ``lse``
 is the per-row logsumexp of the scaled scores ``[B, H, Lq]`` in float32,
-and fully masked rows give ``o = 0`` and ``lse = 0``.
+fully masked rows give ``o = 0``, ``lse = 0`` and zero gradients, and both
+outputs are differentiable: the lse cotangent folds into the backward as
+``delta = rowsum(dO * O) - dlse``.
 
-A CPU tensor takes the plain version (same function, plain PyTorch); a CUDA
-tensor launches the kernel or raises.  There is no fallback between them.
+A CPU tensor takes the plain versions (same functions, plain PyTorch, same
+autograd node); a CUDA tensor launches the kernels or raises.  There is no
+fallback between them.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -29,28 +35,52 @@ _c = ctypes
 FLASH_FWD = _build.Kernel(
     "flash_fwd", "dk_flash_fwd",
     [_c.c_void_p] * 5 + [_c.c_longlong] * 9 + [_c.c_int] * 9 + [_c.c_float, _c.c_void_p])
+_BWD_ARGS = [_c.c_void_p] * 9 + [_c.c_longlong] * 12 + [_c.c_int] * 9 + [_c.c_float,
+                                                                        _c.c_void_p]
+FLASH_BWD_FUSED = _build.Kernel("flash_bwd", "dk_flash_bwd_fused", _BWD_ARGS)
+FLASH_BWD_DQ = _build.Kernel("flash_bwd", "dk_flash_bwd_dq", _BWD_ARGS)
+FLASH_BWD_DKV = _build.Kernel("flash_bwd", "dk_flash_bwd_dkv", _BWD_ARGS)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
+
+# The fused backward keeps dQ in an f32 workspace of B*H*Lq*D*4 bytes (the
+# counterpart of the Pallas kernel's [Lq, D] scratch, capped there by
+# _FUSED_DQ_SCRATCH_CAP / _FUSED_WIDE_CAP); above this many bytes the split
+# tier runs instead.  The training shape [8, 2048, 4, 128] needs 32 MiB.
+FUSED_DQ_WORKSPACE_CAP = 1 << 30
+
+
+def use_split_backward(q: torch.Tensor) -> bool:
+    """The tier rule: split when the fused tier's dQ workspace passes the cap."""
+    b, lq, h, d = q.shape
+    return b * h * lq * d * 4 > FUSED_DQ_WORKSPACE_CAP
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool, q_offset: int,
+            k_offset: int) -> torch.Tensor:
+    """Scaled f32 scores ``[B, H, Lq, Lk]`` from the input-dtype operands,
+    ``-inf`` where the causal mask hides a key."""
+    # times the f32 scale, as the kernels do (not divided by sqrt(D))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(q.shape[-1]))
+    if causal:
+        q_pos = q_offset + torch.arange(q.shape[1], device=q.device)
+        k_pos = k_offset + torch.arange(k.shape[1], device=q.device)
+        s = s.masked_fill(q_pos[:, None] < k_pos[None, :], float("-inf"))
+    return s
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True, q_offset: int = 0,
                           k_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: ``(o [B, Lq, H, D], lse [B, H, Lq])``.
+    """Plain PyTorch version of the forward kernel: ``(o [B, Lq, H, D], lse
+    [B, H, Lq])``.
 
     The arithmetic of the Pallas kernel run as one block: f32 scores from
     the input-dtype operands, ``p = exp(s - max)`` in f32, ``p`` rounded to
     v's dtype before ``p @ v`` with f32 accumulation, then divided by the
     f32 row sum."""
-    d = q.shape[-1]
-    scale = 1.0 / (d ** 0.5)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    if causal:
-        q_pos = q_offset + torch.arange(q.shape[1], device=q.device)
-        k_pos = k_offset + torch.arange(k.shape[1], device=q.device)
-        visible = q_pos[:, None] >= k_pos[None, :]
-        s = s.masked_fill(~visible, float("-inf"))
+    s = _scores(q, k, causal, q_offset, k_offset)
     m = s.amax(dim=-1, keepdim=True)
     safe_m = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
     p = torch.exp(s - safe_m)
@@ -60,6 +90,38 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.where(l_sum > 0, safe_m[..., 0] + torch.log(l_sum.clamp_min(1e-30)),
                       torch.zeros_like(l_sum))
     return o.to(q.dtype), lse
+
+
+def _delta(o: torch.Tensor, do: torch.Tensor, dlse: Optional[torch.Tensor]) -> torch.Tensor:
+    """``rowsum(dO * O) - dlse`` in f32, ``[B, H, Lq]`` contiguous: the
+    softmax-jacobian row term with the lse cotangent folded in."""
+    delta = torch.einsum("bqhd,bqhd->bhq", do.float(), o.float())
+    if dlse is not None:
+        delta = delta - dlse.float()
+    return delta.contiguous()
+
+
+def flash_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                         dlse: Optional[torch.Tensor] = None, causal: bool = True,
+                         q_offset: int = 0, k_offset: int = 0, split: bool = False):
+    """Plain PyTorch version of the backward kernels: ``(dq, dk, dv)`` in
+    ``[B, L, H, D]``.
+
+    The arithmetic of the Pallas backward run as one block: ``p`` rebuilt
+    from ``lse`` (masked entries exactly 0), ``ds = p * (dp - delta)`` in
+    f32; dV takes ``p`` rounded to dO's dtype, dK ``ds`` rounded to q's
+    dtype, dQ ``ds`` rounded to q's dtype (fused tier) or k's (``split``);
+    dq and dk are scaled at the end."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.exp(_scores(q, k, causal, q_offset, k_offset) - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = p * (dp - _delta(o, do, dlse)[..., None])
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float()) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype if split else q.dtype).float(),
+                      k.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check_cuda_inputs(q, k, v):
@@ -79,19 +141,23 @@ def _check_cuda_inputs(q, k, v):
 
 
 def _rows_aligned(t: torch.Tensor) -> bool:
-    """The kernel moves rows 16 bytes at a time: a contiguous head dim, a
+    """The kernels move rows 16 bytes at a time: a contiguous head dim, a
     16-byte aligned base and strides that keep every row 16-byte aligned."""
     vec = 16 // t.element_size()
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
             and all(s % vec == 0 for s in t.stride()[:-1]))
 
 
+def _aligned(*ts):
+    return [t if _rows_aligned(t) else t.clone(memory_format=torch.contiguous_format)
+            for t in ts]
+
+
 def flash_forward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        causal: bool, q_offset: int, k_offset: int):
     """Launch ``csrc/flash_fwd.cu`` on CUDA tensors: ``(o, lse)``."""
     _check_cuda_inputs(q, k, v)
-    q, k, v = (t if _rows_aligned(t) else t.clone(memory_format=torch.contiguous_format)
-               for t in (q, k, v))
+    q, k, v = _aligned(q, k, v)
     b, lq, h, d = q.shape
     lk = k.shape[1]
     o = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
@@ -110,30 +176,91 @@ def flash_forward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
-class _FlashForward(torch.autograd.Function):
-    """The kernel as an autograd node; its gradient is the training slice's
-    kernels (B2/B3), so backward raises instead of recomputing in PyTorch."""
+def flash_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        dlse: Optional[torch.Tensor] = None, causal: bool = True,
+                        q_offset: int = 0, k_offset: int = 0, split: bool = False):
+    """Launch ``csrc/flash_bwd.cu`` on CUDA tensors: ``(dq, dk, dv)``.
+
+    ``split=False`` runs the fused kernel (one launch, dQ summed with f32
+    atomics into a workspace that is then scaled and cast); ``split=True``
+    runs the dq kernel, then the dkv kernel."""
+    _check_cuda_inputs(q, k, v)
+    for name, t in (("o", o), ("dO", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or not t.is_cuda:
+            raise ValueError(f"flash backward: {name} must match q, got {tuple(t.shape)} "
+                             f"{t.dtype} for q {tuple(q.shape)} {q.dtype}")
+    stats = (q.shape[0], q.shape[2], q.shape[1])
+    for name, t in (("lse", lse), ("dlse", dlse)):
+        if t is not None and (tuple(t.shape) != stats or not t.is_cuda):
+            raise ValueError(f"flash backward: {name} must be [B, H, Lq] = {stats} on the "
+                             f"card, got {tuple(t.shape)} on {t.device}")
+    q, k, v, do = _aligned(q, k, v, do)
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    if b * h * lq * lk == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    dk = torch.empty((b, lk, h, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, lk, h, d), dtype=v.dtype, device=v.device)
+    delta = _delta(o, do, dlse)
+    lse = lse.float().contiguous()
+    p = _build.ptr
+    if split:
+        dq = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
+        launches = ((FLASH_BWD_DQ, dq), (FLASH_BWD_DKV, None))
+    else:
+        dq = torch.zeros((b, lq, h, d), dtype=torch.float32, device=q.device)
+        launches = ((FLASH_BWD_FUSED, dq),)
+    for kernel, dq_out in launches:
+        kernel.launch(
+            p(q), p(k), p(v), p(do), p(lse), p(delta),
+            None if dq_out is None else p(dq_out), p(dk), p(dv),
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            do.stride(0), do.stride(1), do.stride(2),
+            b, h, lq, lk, d, _DTYPE_CODES[q.dtype], int(bool(causal)),
+            int(q_offset), int(k_offset), scale, _build.stream_of(q))
+    if not split:
+        dq = (dq * scale).to(q.dtype)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """One autograd node on both devices: the kernels on CUDA tensors, the
+    plain versions on CPU tensors, with the same saved tensors and the same
+    rounding points."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, q_offset, k_offset):
-        o, lse = flash_forward_cuda(q, k, v, causal, q_offset, k_offset)
-        ctx.mark_non_differentiable(lse)
+        fwd = flash_forward_cuda if q.is_cuda else flash_attention_plain
+        o, lse = fwd(q, k, v, causal, q_offset, k_offset)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = (causal, q_offset, k_offset)
+        ctx.set_materialize_grads(False)  # an unused lse costs nothing
         return o, lse
 
     @staticmethod
     def backward(ctx, do, dlse):
-        raise NotImplementedError("flash backward: training slice, see ROADMAP")
+        if do is None and dlse is None:
+            return None, None, None, None, None, None
+        q, k, v, o, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(o)
+        bwd = flash_backward_cuda if q.is_cuda else flash_backward_plain
+        dq, dk, dv = bwd(q, k, v, o, lse, do, dlse, *ctx.mask,
+                         split=use_split_backward(q))
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              causal: bool = True, q_offset: int = 0,
                              k_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(o [B, Lq, H, D], lse [B, H, Lq] float32)``; see the module note."""
-    if q.is_cuda:
-        return _FlashForward.apply(q, k, v, bool(causal), int(q_offset), int(k_offset))
-    if k.is_cuda or v.is_cuda:
+    if not q.is_cuda and (k.is_cuda or v.is_cuda):
         raise ValueError("flash_attention: q, k and v must share one device")
-    return flash_attention_plain(q, k, v, causal, q_offset, k_offset)
+    return _FlashAttention.apply(q, k, v, bool(causal), int(q_offset), int(k_offset))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -24,6 +24,8 @@ def _run(code: str, **env):
 def test_import_leaves_jax_out_of_sys_modules():
     r = _run("import sys, distkeras_torch, distkeras_torch.bridge\n"
              "import distkeras_torch.ops.decode_step, distkeras_torch.ops.flash_attention\n"
+             "import distkeras_torch.ops.losses, distkeras_torch.ops.optimizers\n"
+             "import distkeras_torch.parallel\n"
              f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
              "print(bad)\n"
              "sys.exit(1 if bad else 0)")
@@ -53,15 +55,18 @@ def test_entry_points_raise_without_cuda():
     CUDA_VISIBLE_DEVICES hides any card this machine may have."""
     code = """
 import torch
-from distkeras_torch import Model, generate, make_generate_fn, small_lm_spec
+from distkeras_torch import (Model, generate, make_generate_fn, make_lm_train_step,
+                             small_lm_spec)
 from distkeras_torch.bridge import params_from_jax
+from distkeras_torch.ops.optimizers import get_optimizer
 from distkeras_torch.models.decode import init_cache
 from distkeras_torch.platform import default_device
 assert not torch.cuda.is_available()
 spec = small_lm_spec(vocab_size=11, model_dim=16, num_heads=2, num_layers=1, max_seq_len=8)
 calls = [lambda: default_device(), lambda: Model.init(spec),
          lambda: make_generate_fn(spec, 2), lambda: init_cache(spec.config, 1, 4),
-         lambda: params_from_jax({}, spec)]
+         lambda: params_from_jax({}, spec),
+         lambda: make_lm_train_step(spec, get_optimizer("sgd"))]
 model = Model.init(spec, device="cpu")
 calls.append(lambda: generate(model, [[1, 2]], 2))
 for i, call in enumerate(calls):
