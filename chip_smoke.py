@@ -6,10 +6,16 @@
 Phases, in order; any failure exits non-zero and prints no result line:
 
 1. build: compile every kernel under distkeras_torch/csrc/ with nvcc
-   (sm_90a), one process per source, all started together;
+   (sm_90a), one process per source, all started together; then count the
+   tensor-core instructions (HMMA) of each bf16 flash kernel in the built
+   library with cuobjdump -sass (none is a failure), and read its registers
+   and stack frame with cuobjdump -res-usage (a stack frame, where spilled
+   registers go, is a failure);
 2. kernels: hold each kernel against its plain PyTorch version on the card,
-   at the shapes of the main path, and time kernel, plain version and (where
-   one exists) the PyTorch library call computing the same function;
+   at the shapes of the main path (bf16), plus one float32 case for each
+   flash kernel that has a separate float32 instance (B1, B2), and time
+   kernel, plain version and (where one exists) the PyTorch library call
+   computing the same function;
 3. serving (main path): make_generate_fn at batch 8, prompt 128, 512 new
    greedy tokens on the 8-layer, 512-wide, 8192-vocab decode model, then the
    plain per-op step on the same prompt for token agreement;
@@ -32,6 +38,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -116,6 +123,79 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# the bf16 tensor-core kernels, by library: the profiler and cuobjdump
+# select them by these substrings (the float32 instances are named
+# flash_fwd_f32_kernel and flash_bwd_fused_f32_kernel)
+MMA_KERNELS = (("flash_fwd", "flash_fwd_kernel"), ("flash_bwd", "flash_bwd_fused_kernel"))
+
+
+def _cuobjdump(_build, flag, lib):
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    out = subprocess.run([cuobjdump, flag, str(_build.library_path(lib))],
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump {flag} failed for {lib}: {out.stderr[-500:]}")
+    return out.stdout.splitlines()
+
+
+def sass_phase(_build):
+    """Per instance (D 32, 64, 128) of the bf16 flash kernels: its HMMA
+    instructions, from cuobjdump -sass of the built library, and its
+    registers and stack frame, from cuobjdump -res-usage.  An instance
+    without HMMA (the tensor cores unused) or with a stack frame (registers
+    spilled to local memory) fails."""
+    for lib, kernel in MMA_KERNELS:
+        hmma, fn = {}, None
+        for line in _cuobjdump(_build, "-sass", lib):
+            m = re.search(r"Function\s*:?\s*(\w+)", line)
+            if m:
+                fn = m.group(1) if kernel in m.group(1) else None
+                if fn:
+                    hmma[fn] = 0
+            elif fn and "HMMA" in line:
+                hmma[fn] += 1
+        check(len(hmma) == 3, f"{kernel}: want 3 instances (D 32/64/128) in the SASS, "
+                              f"found {len(hmma)}")
+        usage, fn = {}, None
+        for line in _cuobjdump(_build, "-res-usage", lib):
+            m = re.search(r"Function\s*:?\s*(\w+)", line)
+            if m:
+                fn = m.group(1)
+            elif fn in hmma and "REG:" in line:
+                usage[fn] = {k: int(n) for k, n in re.findall(r"(REG|STACK):(\d+)", line)}
+        for f, count in hmma.items():
+            d = re.search(r"ILi(\d+)E", f)
+            use = usage.get(f, {})
+            print(f"sass {kernel}<{d.group(1) if d else '?'}>: {count} HMMA, "
+                  f"{use.get('REG', '?')} registers, stack frame {use.get('STACK', '?')} bytes")
+            check(count > 0, f"{f}: no HMMA instruction, the tensor cores are not used")
+            check(use.get("STACK") == 0, f"{f}: stack frame {use.get('STACK', 'not reported')} "
+                                         f"bytes, registers spill")
+
+
+def check_fwd(torch, fa, q, k, v, name, causal, qo, ko):
+    """B1's output and lse against the plain forward on the same inputs;
+    returns the kernel's output, its lse and the largest |o - o_plain|."""
+    o, lse = fa.flash_attention_with_lse(q, k, v, causal=causal, q_offset=qo, k_offset=ko)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, causal, qo, ko)
+    err_o = (o.float() - o_ref.float()).abs()
+    # bf16 output: 2e-2 absolute + 1e-2 relative covers a one-ulp
+    # difference from rounding p against another running max
+    tol_o = 2e-2 + 1e-2 * o_ref.float().abs()
+    err_lse = (lse - lse_ref).abs().max().item()
+    shape = ",".join(str(n) for n in q.shape)
+    print(f"flash_fwd [{shape}] {name}: max|o-o_plain| {err_o.max().item():.3e} "
+          f"(tol 2e-2 + 1e-2|o|), max|lse-lse_plain| {err_lse:.3e} (tol 1e-3)")
+    check(bool((err_o <= tol_o).all()), f"flash_fwd [{shape}] {name}: o disagrees with plain")
+    check(err_lse <= 1e-3, f"flash_fwd [{shape}] {name}: lse disagrees with plain")
+    check(bool(torch.isfinite(o.float()).all()), f"flash_fwd [{shape}] {name}: non-finite o")
+    if ko > qo:
+        dead = ko - qo
+        check(bool((o[:, :dead] == 0).all() and (lse[:, :, :dead] == 0).all()),
+              f"flash_fwd [{shape}]: fully masked rows must give o = 0 and lse = 0")
+    return o, lse, err_o.max().item()
+
+
 def flash_phase(torch, fa):
     """B1: kernel vs plain on the scoring shape, three masking cases."""
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -127,25 +207,20 @@ def flash_phase(torch, fa):
              ("q_offset<k_offset", True, 0, SCORE_LEN // 2)]
     worst = 0.0
     for name, causal, qo, ko in cases:
-        o, lse = fa.flash_attention_with_lse(q, k, v, causal=causal, q_offset=qo,
-                                             k_offset=ko)
-        torch.cuda.synchronize()
-        o_ref, lse_ref = fa.flash_attention_plain(q, k, v, causal, qo, ko)
-        err_o = (o.float() - o_ref.float()).abs()
-        # bf16 output: 2e-2 absolute + 1e-2 relative covers a one-ulp
-        # difference from rounding p against another running max
-        tol_o = 2e-2 + 1e-2 * o_ref.float().abs()
-        err_lse = (lse - lse_ref).abs().max().item()
-        print(f"flash_fwd {name}: max|o-o_plain| {err_o.max().item():.3e} "
-              f"(tol 2e-2 + 1e-2|o|), max|lse-lse_plain| {err_lse:.3e} (tol 1e-3)")
-        check(bool((err_o <= tol_o).all()), f"flash_fwd {name}: o disagrees with plain")
-        check(err_lse <= 1e-3, f"flash_fwd {name}: lse disagrees with plain")
-        check(bool(torch.isfinite(o.float()).all()), f"flash_fwd {name}: non-finite o")
-        if ko > qo:
-            dead = ko - qo
-            check(bool((o[:, :dead] == 0).all() and (lse[:, :, :dead] == 0).all()),
-                  "flash_fwd: fully masked rows must give o = 0 and lse = 0")
-        worst = max(worst, err_o.max().item())
+        worst = max(worst, check_fwd(torch, fa, q, k, v, name, causal, qo, ko)[2])
+
+    # float32 runs the CUDA-core instance (no TF32): same check, f32 tolerance
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    o, lse = fa.flash_attention_with_lse(q32, k32, v32, causal=True)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.flash_attention_plain(q32, k32, v32, True, 0, 0)
+    err_o = (o - o_ref).abs()
+    err_lse = (lse - lse_ref).abs().max().item()
+    # f32: the same arithmetic in another summation order
+    print(f"flash_fwd float32 causal: max|o-o_plain| {err_o.max().item():.3e} (tol 1e-5 + "
+          f"1e-5|o|), max|lse-lse_plain| {err_lse:.3e} (tol 1e-5)")
+    check(bool((err_o <= 1e-5 + 1e-5 * o_ref.abs()).all()) and err_lse <= 1e-5,
+          "flash_fwd float32 disagrees with plain")
     return worst, lambda: flash_timing(torch, fa, q, k, v, gen)
 
 
@@ -164,6 +239,27 @@ def flash_timing(torch, fa, q, k, v, gen):
     print(f"flash_fwd device time [8,640,8,64] bf16 causal: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
 
+    # the training shape [8, 2048, 4, 128], as the train step hands it over
+    x = torch.randn((TRAIN_BATCH, TRAIN_LEN, 3, TRAIN_HEADS, TRAIN_D), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    a, b_, c = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    train = {"ms": device_ms(torch, lambda: fa.flash_forward_cuda(a, b_, c, True, 0, 0),
+                             "flash_fwd_kernel"),
+             "plain_ms": device_ms(torch, lambda: fa.flash_attention_plain(a, b_, c, True, 0, 0),
+                                   reps=3, warmup=1)}
+    at, bt, ct = (t.transpose(1, 2) for t in (a, b_, c))
+    train["library_ms"] = device_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+        at, bt, ct, is_causal=True))
+    visible = TRAIN_LEN * (TRAIN_LEN + 1) // 2
+    nbytes = (4 * TRAIN_BATCH * TRAIN_LEN * TRAIN_HEADS * TRAIN_D * 2
+              + TRAIN_BATCH * TRAIN_HEADS * TRAIN_LEN * 4)
+    flops = 4 * TRAIN_BATCH * TRAIN_HEADS * visible * TRAIN_D
+    train["bound_ms"], train["bound_by"] = bound_ms(nbytes, flops, "bfloat16")
+    print(f"flash_fwd device time [8,2048,4,128] bf16 causal: kernel {train['ms']:.4f} ms, "
+          f"plain {train['plain_ms']:.4f} ms, sdpa {train['library_ms']:.4f} ms, bound "
+          f"{train['bound_ms']:.4f} ms ({train['bound_by']}); "
+          f"{flops / train['ms'] / 1e9:.1f} TFLOP/s")
+
     # the card's crossover for attention(impl=None): kernel vs dense_attention
     from distkeras_torch.ops.attention import dense_attention
     for length in (128, 256, 640, 1024, 2048):
@@ -175,7 +271,7 @@ def flash_timing(torch, fa, q, k, v, gen):
         print(f"attention crossover B8 H8 D64 bf16 causal L={length}: device time flash "
               f"kernel {t_k:.4f} ms, dense {t_d:.4f} ms")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": lib_ms}
+            "library_ms": lib_ms, "at_train_shape": train}
 
 
 def _rel_err(got, want):
@@ -189,7 +285,9 @@ def _rel_err(got, want):
 
 def flash_bwd_phase(torch, fa):
     """B2, B3a, B3b: kernels vs plain at the training shape [8, 2048, 4, 128]
-    bf16, three masking cases, a nonzero lse cotangent in one."""
+    bf16, three masking cases, a nonzero lse cotangent in one.  B1's output
+    there (the D = 128 instance the train step runs) is held against the
+    plain forward first; returns B1's largest error with the others."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     shape = (TRAIN_BATCH, TRAIN_LEN, TRAIN_HEADS, TRAIN_D)
     # q/k/v as the model hands them over: strided views of one qkv tensor
@@ -204,9 +302,11 @@ def flash_bwd_phase(torch, fa):
     # reductions) can flip the rounding of p or ds; 1e-2 of max |grad| is
     # about 2.5 bf16 ulps at it
     tol = 1e-2
-    worst = {"flash_bwd_fused": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    worst = {"flash_fwd": 0.0, "flash_bwd_fused": 0.0, "flash_bwd_dq": 0.0,
+             "flash_bwd_dkv": 0.0}
     for name, causal, qo, ko, dl in cases:
-        o, lse = fa.flash_forward_cuda(q, k, v, causal, qo, ko)
+        o, lse, err = check_fwd(torch, fa, q, k, v, name, causal, qo, ko)
+        worst["flash_fwd"] = max(worst["flash_fwd"], err)
         fused = fa.flash_backward_cuda(q, k, v, o, lse, do, dl, causal, qo, ko, split=False)
         split = fa.flash_backward_cuda(q, k, v, o, lse, do, dl, causal, qo, ko, split=True)
         torch.cuda.synchronize()
@@ -228,6 +328,17 @@ def flash_bwd_phase(torch, fa):
         worst["flash_bwd_fused"] = max(worst["flash_bwd_fused"], *(e for e, _ in errs_f))
         worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], errs_s[0][0])
         worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], errs_s[1][0], errs_s[2][0])
+
+    # float32 runs the CUDA-core fused instance (no TF32): causal, fused tier;
+    # 1e-5 of max |grad| covers the summation order and B2's atomics
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+    o, lse = fa.flash_forward_cuda(q32, k32, v32, True, 0, 0)
+    fused = fa.flash_backward_cuda(q32, k32, v32, o, lse, do32, None, True, 0, 0, split=False)
+    torch.cuda.synchronize()
+    errs = _rel_err(fused, fa.flash_backward_plain(q32, k32, v32, o, lse, do32, None, True))
+    print("flash_bwd float32 causal: max|d - d_plain| (rel to max|d|) fused dq/dk/dv "
+          + ", ".join(f"{e:.3e} ({r:.1e})" for e, r in errs) + " (tol 1e-05 rel)")
+    check(all(r <= 1e-5 for _, r in errs), "flash_bwd float32 fused disagrees with plain")
     return worst, lambda: flash_bwd_timing(torch, fa, q, k, v, do)
 
 
@@ -608,6 +719,7 @@ def run() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s ({', '.join(_build.sources())})")
+    sass_phase(_build)
 
     spec = small_lm_spec(vocab_size=VOCAB, model_dim=DIM, num_heads=HEADS,
                          num_layers=LAYERS, max_seq_len=PROMPT + NEW + 16)
@@ -635,7 +747,7 @@ def run() -> int:
     check(min(launches.values()) > 0, f"a kernel is not on the main path: {launches}")
 
     # timings last: the profiler slows what runs after it
-    flash = dict(max_abs_err=flash_err, **flash_timing_fn())
+    flash = dict(max_abs_err=max(flash_err, bwd_err["flash_fwd"]), **flash_timing_fn())
     bwd = bwd_timing_fn()
     step = dict(max_abs_err=step_err, **step_timing_fn())
     profile_fn()

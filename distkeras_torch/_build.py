@@ -7,10 +7,11 @@ first use into its own shared library with
 
 then loaded with ``ctypes``: pointers and the CUDA stream travel as
 ``c_void_p``, sizes as ``c_int``.  Libraries land in ``_build/`` next to
-this file (ignored by git), named by a hash of their source, so an edited
-source rebuilds and an unchanged one is reused.  :func:`build_all` starts
-one ``nvcc`` per source at once; a failed build raises with the compiler's
-output.
+this file (ignored by git), named by a hash of their source and of every
+header ``csrc/*.cuh`` (a source may include any of them), so an edited
+source or header rebuilds and an unchanged one is reused.  :func:`build_all`
+starts one ``nvcc`` per source at once; a failed build raises with the
+compiler's output.
 
 Every launch function returns ``cudaGetLastError()``; :meth:`Kernel.launch`
 raises on anything but success, because a refused launch never runs and
@@ -52,14 +53,23 @@ def nvcc_path() -> str:
                        "compiled at first use and need the CUDA toolkit")
 
 
-def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+def source_digest(name: str) -> str:
+    """Hash of ``csrc/<name>.cu`` and of every ``csrc/*.cuh`` (names and
+    bytes): the part of a library's file name that says what it was built
+    from."""
+    h = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` is (or will be) built."""
+    return BUILD_DIR / f"lib{name}_{source_digest(name)}.so"
 
 
 def _start(name: str) -> Tuple[Path, Optional[subprocess.Popen], Optional[Path]]:
-    out = _lib_path(name)
+    out = library_path(name)
     if out.exists():
         return out, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -114,7 +124,7 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(_lib_path(name)))
+            lib = ctypes.CDLL(str(library_path(name)))
             lib.dk_error_string.argtypes = [ctypes.c_int]
             lib.dk_error_string.restype = ctypes.c_char_p
             _LIBS[name] = lib

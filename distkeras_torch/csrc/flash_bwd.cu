@@ -5,48 +5,72 @@
 //   dk_flash_bwd_fused -> _bwd_fused_kernel (launched by _fused_backward_call)
 //   dk_flash_bwd_dq    -> _bwd_dq_kernel    (the split tier, launched by _backward)
 //   dk_flash_bwd_dkv   -> _bwd_dkv_kernel   (the split tier, launched by _backward)
-// All three rebuild the same [q row, key] terms as _recompute_p_ds, in one
-// device function: s = (q . k) * scale from input-dtype operands with f32
-// accumulation, p = exp(s - lse) (masked entries exactly 0), dp = dO . v,
-// ds = p * (dp - delta), where delta = rowsum(dO * O) - dlse comes from the
-// wrapper.  Rounding points follow the Pallas code: dV takes p rounded to
-// dO's dtype, dK takes ds rounded to q's dtype, dQ takes ds rounded to q's
-// dtype (fused) or k's dtype (split); the kernels take one dtype for all
-// four, so the rounding is the same in both tiers.  dq and dk are scaled by
-// `scale` at the end.
+// All rebuild the same [q row, key] terms as _recompute_p_ds: s = (q . k) *
+// scale from input-dtype operands with f32 accumulation, p = exp(s - lse)
+// (masked entries exactly 0), dp = dO . v, ds = p * (dp - delta), where
+// delta = rowsum(dO * O) - dlse comes from the wrapper.  Rounding points
+// follow the Pallas code: dV takes p rounded to dO's dtype, dK takes ds
+// rounded to q's dtype, dQ takes ds rounded to q's dtype (fused) or k's
+// dtype (split); the kernels take one dtype for all four, so the rounding
+// is the same in both tiers.  dq and dk are scaled by `scale` at the end.
 //
-// Design.  A row of the block's own tile is shared by D/16 threads, each
-// holding 16 elements of it in registers (16-byte vectors interleaved over
-// the lanes, so a row read from shared memory is conflict-free).  The dot
-// products reduce over those lanes with warp shuffles.
-// - dkv / fused: one block per (batch, head, tile of 64 key rows), holding
-//   k, v and the f32 dK, dV accumulators of its rows.  It streams 64-row
-//   tiles of q and dO (with their lse and delta) through shared memory and
-//   skips the q rows that see none of its keys (the causal counterpart of
-//   _block_visible).  The fused kernel also writes the rounded ds of each
-//   q tile to shared memory and adds ds . K for that tile into an f32 dQ
-//   workspace [B, Lq, H, D] with atomicAdd: the GPU form of the Pallas
-//   kernel's [Lq, D] scratch.  The wrapper scales and casts it.  The order
-//   of the atomic adds varies from run to run, so dQ of the fused tier is
-//   not bitwise reproducible; the split tier is.
-// - dq: one block per (batch, head, tile of 64 q rows), holding q, dO and
-//   the f32 dQ accumulator, streaming 64-row tiles of k and v, stopping at
-//   the last key any of its rows can see.
+// flash_bwd_fused_kernel (bfloat16, B2): the tensor cores, through
+// mma.sync m16n8k16 (flash_mma.cuh).  One block per (batch, head, 128
+// keys), eight warps, each owning 16 key rows and the f32 dK and dV
+// accumulators of those rows in registers.  K and V stay in shared memory for the whole
+// block (at D = 128 their fragments next to both accumulators would pass
+// the 255 registers a thread may hold; ldmatrix reads them back per
+// k-step).  The block streams 64-row tiles of q and dO, with their lse and
+// delta, through shared memory, double-buffered with cp.async, skipping the
+// q rows that see none of its keys, and for each tile, in two halves of 32
+// q rows, runs the products in key-major orientation so that P^T and dS^T
+// come out of the accumulators already in A-fragment layout:
+//   S^T = K Q^T, dP^T = V dO^T, dV += bf16(P^T) dO, dK += bf16(dS^T) Q,
+// then, once dS^T of the whole tile is staged in shared memory (bf16, read
+// back transposed by ldmatrix.trans), dQ_partial = bf16(dS) K for the
+// tile's 64 q rows, which every block adds into an f32 [B, Lq, H, D]
+// workspace with 16-byte atomicAdd (float4, result unused: a RED
+// instruction): the GPU form of the Pallas kernel's [Lq, D] scratch.  The
+// wrapper scales and casts it.  The atomics are what held this kernel back
+// most (PERF.md), hence 16 bytes per add and 128 keys per block, which
+// halves the adds per dQ element against 64.
+// The order of the atomic adds varies from run to run, so dQ of the fused
+// tier is not bitwise reproducible; the split tier is.  Block y = 0 (key
+// tile 0, which sees the most q rows under causal masking) launches first.
+//
+// float32 inputs, and the split tier in both dtypes, run CUDA-core kernels
+// (no TF32 anywhere): a row of the block's own tile is shared by D/16
+// threads, each holding 16 elements of it in registers (16-byte vectors
+// interleaved over the lanes, so a row read from shared memory is
+// conflict-free), and the dot products reduce over those lanes with warp
+// shuffles.
+// - flash_bwd_fused_f32_kernel / flash_bwd_dkv_kernel: one block per
+//   (batch, head, tile of 64 key rows), holding k, v and the f32 dK, dV
+//   accumulators of its rows; it streams 64-row tiles of q and dO (with
+//   their lse and delta) through shared memory and skips the q rows that
+//   see none of its keys.  The fused one also adds ds . K for each q tile
+//   into the f32 dQ workspace with atomicAdd.
+// - flash_bwd_dq_kernel: one block per (batch, head, tile of 64 q rows),
+//   holding q, dO and the f32 dQ accumulator, streaming 64-row tiles of k
+//   and v, stopping at the last key any of its rows can see.
 // Inputs are read in the framework's [B, L, H, D] layout through strides;
 // the head dim must be contiguous and every row 16-byte aligned.  Outputs
-// are contiguous [B, L, H, D].  Shared memory is dynamic (up to 114 KB for
-// the fused kernel at D = 128 in float32), so each launch first raises the
-// kernel's limit with cudaFuncSetAttribute.
+// are contiguous [B, L, H, D].  Shared memory is dynamic (up to 114 KB), so
+// each launch first raises the kernel's limit with cudaFuncSetAttribute.
 //
 // Bound.  At the training shape (B 8, L 2048, H 4, D 128, bf16, causal) the
 // fused backward does 10 * D flops per visible score (~86 GFLOP) and moves
-// ~118 MB: operations-bound on the tensor cores (~0.087 ms).  These first
-// kernels use CUDA-core FMAs, not mma / wgmma, so they sit far above that
-// bound; PERF.md records their times.
+// ~118 MB: operations-bound on the tensor cores (~0.087 ms).  mma.sync
+// reaches a part of that rate (wgmma the rest), and the split tier's
+// CUDA-core kernels sit far above it; PERF.md records the times.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+
+#include <type_traits>
+
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -296,9 +320,10 @@ __device__ __forceinline__ void kv_tile(const T* __restrict__ q, const T* __rest
 #define DK_KV_ARGS q, k, v, dout, lse, delta, dq_acc, dk, dv, st, H, Lq, Lk, causal, \
                    q_offset, k_offset, scale
 
-// B2: dK, dV and the atomic dQ partial sums
+// B2 for float32: dK, dV and the atomic dQ partial sums
 template <typename T, int D>
-__global__ void __launch_bounds__(Layout<D>::kThreads) flash_bwd_fused_kernel(DK_KV_PARAMS) {
+__global__ void __launch_bounds__(Layout<D>::kThreads) flash_bwd_fused_f32_kernel(DK_KV_PARAMS) {
+  static_assert(std::is_same<T, float>::value, "bf16 takes flash_bwd_fused_kernel");
   kv_tile<T, D, true>(DK_KV_ARGS);
 }
 
@@ -385,7 +410,8 @@ enum Which { kFused = 0, kDkv = 1, kDq = 2 };
 
 template <typename T, int D, bool FUSED>
 cudaError_t launch_kv(const Args& a) {
-  auto kernel = FUSED ? flash_bwd_fused_kernel<T, D> : flash_bwd_dkv_kernel<T, D>;
+  auto kernel = flash_bwd_dkv_kernel<T, D>;
+  if constexpr (FUSED) kernel = flash_bwd_fused_f32_kernel<T, D>;
   const size_t smem = kv_smem_bytes<T, D, FUSED>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -397,6 +423,260 @@ cudaError_t launch_kv(const Args& a) {
       static_cast<const float*>(a.delta), static_cast<float*>(a.dq), static_cast<T*>(a.dk),
       static_cast<T*>(a.dv), a.st, a.H, a.Lq, a.Lk, a.causal, a.q_offset, a.k_offset,
       a.scale);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------- B2, bf16, mma.sync
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kMmaWarps = 8;
+constexpr int kMmaKeys = 16 * kMmaWarps;  // keys per block, 16 per warp
+constexpr int kMmaQ = 64;                 // q rows per streamed tile
+constexpr int kMmaThreads = 32 * kMmaWarps;
+
+template <int D>
+struct MmaSmem {  // byte offsets into the block's dynamic shared memory
+  static constexpr uint32_t kTileQ = kMmaQ * D * sizeof(bf16);
+  static constexpr uint32_t K = 0;
+  static constexpr uint32_t V = K + kMmaKeys * D * sizeof(bf16);
+  static constexpr uint32_t Q = V + kMmaKeys * D * sizeof(bf16);  // two tiles
+  static constexpr uint32_t dO = Q + 2 * kTileQ;                   // two tiles
+  static constexpr uint32_t dS = dO + 2 * kTileQ;                  // [keys][q] bf16
+  static constexpr uint32_t stats = dS + kMmaKeys * kMmaQ * sizeof(bf16);  // lse[2], delta[2]
+  static constexpr uint32_t bytes = stats + 4 * kMmaQ * sizeof(float);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       float* __restrict__ dq_acc, bf16* __restrict__ dk,
+                       bf16* __restrict__ dv, Strides st, int H, int Lq, int Lk, int causal,
+                       int q_offset, int k_offset, float scale) {
+  using namespace flash_mma;
+  using Sw = Swizzle<D>;
+  using SwS = Swizzle<kMmaQ>;
+  using L = MmaSmem<D>;
+  constexpr int KS = D / 16;  // k-steps over the head dim
+  constexpr int NO = D / 8;   // n-blocks of a [16, D] accumulator
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t base = smem_addr(smem);
+  const float* stats = reinterpret_cast<const float*>(smem + L::stats);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int k0 = blockIdx.y * kMmaKeys;
+  const int krow = warp * 16;  // the warp's first key row in the block
+
+  // q rows before the first one that sees key k0 contribute nothing
+  int q_begin = 0;
+  if (causal) q_begin = max(0, min(Lq, k_offset + k0 - q_offset));
+  const int n_qt = (Lq - q_begin + kMmaQ - 1) / kMmaQ;
+  const bf16* qb = q + b * st.qb + h * st.qh;
+  const bf16* ob = dout + b * st.ob + h * st.oh;
+  const long long stat0 = ((long long)b * H + h) * Lq;
+
+  auto load_q_tile = [&](int it) {
+    const int q0 = q_begin + it * kMmaQ;
+    const int n = min(kMmaQ, Lq - q0);
+    const uint32_t buf = it & 1;
+    load_tile_async<D, kMmaQ, kMmaThreads>(base + L::Q + buf * L::kTileQ, qb + q0 * st.ql,
+                                           st.ql, n, tid);
+    load_tile_async<D, kMmaQ, kMmaThreads>(base + L::dO + buf * L::kTileQ, ob + q0 * st.ol,
+                                           st.ol, n, tid);
+    if (tid < 2 * kMmaQ) {
+      const int i = tid % kMmaQ;
+      const bool ok = i < n;
+      const float* src = (tid < kMmaQ ? lse : delta) + stat0 + q0 + (ok ? i : 0);
+      const uint32_t slot = (tid < kMmaQ ? buf : 2 + buf) * kMmaQ + i;
+      cp_async4(base + L::stats + slot * 4, src, ok ? 4 : 0);
+    }
+  };
+
+  {
+    const int nk = min(kMmaKeys, Lk - k0);
+    load_tile_async<D, kMmaKeys, kMmaThreads>(base + L::K, k + b * st.kb + h * st.kh + k0 * st.kl,
+                                              st.kl, nk, tid);
+    load_tile_async<D, kMmaKeys, kMmaThreads>(base + L::V, v + b * st.vb + h * st.vh + k0 * st.vl,
+                                              st.vl, nk, tid);
+    if (n_qt > 0) load_q_tile(0);
+    cp_async_commit();
+  }
+
+  float dka[NO][4], dva[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+  }
+
+  for (int it = 0; it < n_qt; ++it) {
+    const int q0 = q_begin + it * kMmaQ;
+    if (it + 1 < n_qt) load_q_tile(it + 1);  // streams in under this tile
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const uint32_t cQ = base + L::Q + (it & 1) * L::kTileQ;
+    const uint32_t cO = base + L::dO + (it & 1) * L::kTileQ;
+    const float* lse_s = stats + (it & 1) * kMmaQ;
+    const float* delta_s = stats + (2 + (it & 1)) * kMmaQ;
+    const bool edge = q0 + kMmaQ > Lq || k0 + kMmaKeys > Lk ||
+                      (causal && q_offset + q0 < k_offset + k0 + kMmaKeys - 1);
+
+#pragma unroll 1
+    for (int hq = 0; hq < 2; ++hq) {  // q columns hq * 32 .. hq * 32 + 31
+      // S^T = K Q^T and dP^T = V dO^T: the warp's 16 keys x 32 q rows
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t ka[4], va[4];
+        ldmatrix_x4(ka, base + L::K + Sw::chunk(krow + (lane & 15), 2 * kk + (lane >> 4)));
+        ldmatrix_x4(va, base + L::V + Sw::chunk(krow + (lane & 15), 2 * kk + (lane >> 4)));
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const uint32_t off = Sw::chunk(hq * 32 + p * 16 + (lane & 7) + ((lane >> 4) << 3),
+                                         2 * kk + ((lane >> 3) & 1));
+          uint32_t bq[4], bo[4];
+          ldmatrix_x4(bq, cQ + off);
+          mma_bf16(s[2 * p], ka, bq[0], bq[1]);
+          mma_bf16(s[2 * p + 1], ka, bq[2], bq[3]);
+          ldmatrix_x4(bo, cO + off);
+          mma_bf16(dp[2 * p], va, bo[0], bo[1]);
+          mma_bf16(dp[2 * p + 1], va, bo[2], bo[3]);
+        }
+      }
+
+      // p and ds; element (j, e) is key krow + g + 8 (e / 2), q column
+      // hq * 32 + 8 j + 2 t + e % 2.  bf16(P^T), bf16(dS^T) become A
+      // fragments (two k-steps of 16 q), dS^T also goes to shared memory.
+      uint32_t pa[2][4], da[2][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int qc = hq * 32 + j * 8 + 2 * t;
+        float pv[4], dsv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = qc + (e & 1);
+          float pe = exp_approx(s[j][e] * scale - lse_s[col]);
+          if (edge) {
+            const int kj = k0 + krow + g + 8 * (e >> 1);
+            const int qi = q0 + col;
+            if (kj >= Lk || qi >= Lq || (causal && q_offset + qi < k_offset + kj)) pe = 0.f;
+          }
+          pv[e] = pe;
+          dsv[e] = pe * (dp[j][e] - delta_s[col]);
+        }
+        const int ks = j >> 1, hi = 2 * (j & 1);
+        pa[ks][hi] = pack_bf16(pv[0], pv[1]);
+        pa[ks][hi + 1] = pack_bf16(pv[2], pv[3]);
+        da[ks][hi] = pack_bf16(dsv[0], dsv[1]);
+        da[ks][hi + 1] = pack_bf16(dsv[2], dsv[3]);
+        *reinterpret_cast<uint32_t*>(smem + L::dS + SwS::elem(krow + g, qc)) = da[ks][hi];
+        *reinterpret_cast<uint32_t*>(smem + L::dS + SwS::elem(krow + g + 8, qc)) = da[ks][hi + 1];
+      }
+
+      // dV += bf16(P^T) dO and dK += bf16(dS^T) Q over these 32 q rows
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        const int r = hq * 32 + ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+        for (int jp = 0; jp < NO / 2; ++jp) {
+          const uint32_t off = Sw::chunk(r, 2 * jp + (lane >> 4));
+          uint32_t bo[4], bq[4];
+          ldmatrix_x4_trans(bo, cO + off);
+          mma_bf16(dva[2 * jp], pa[ks], bo[0], bo[1]);
+          mma_bf16(dva[2 * jp + 1], pa[ks], bo[2], bo[3]);
+          ldmatrix_x4_trans(bq, cQ + off);
+          mma_bf16(dka[2 * jp], da[ks], bq[0], bq[1]);
+          mma_bf16(dka[2 * jp + 1], da[ks], bq[2], bq[3]);
+        }
+      }
+    }
+    __syncthreads();  // dS^T of the whole tile is in shared memory
+
+    // dQ partial = bf16(dS) K over the block's keys for q rows 16 rg ..
+    // 16 rg + 15 of the tile and the warp's share of the head dim, added
+    // into the f32 workspace 16 bytes at a time: lanes t and t ^ 1 swap a
+    // row's pair of columns so that each holds four neighbours of one row
+    constexpr int kParts = kMmaWarps / 4;      // warps sharing a row group
+    constexpr int kPairs = D / 16 / kParts;    // 16-column pairs per warp
+    constexpr int kChunk = kPairs < 2 ? kPairs : 2;
+    const int rg = warp % 4, part = warp / 4;
+    uint32_t dsq[kMmaKeys / 16][4];
+#pragma unroll
+    for (int ks = 0; ks < kMmaKeys / 16; ++ks)
+      ldmatrix_x4_trans(dsq[ks], base + L::dS + SwS::chunk(ks * 16 + (lane & 7) + ((lane >> 4) << 3),
+                                                           2 * rg + ((lane >> 3) & 1)));
+    const bool odd = t & 1;
+    const int qi = q0 + rg * 16 + g + (odd ? 8 : 0);
+    float* dq_row = dq_acc + (((long long)b * Lq + qi) * H + h) * D + 4 * (t >> 1);
+#pragma unroll 1
+    for (int c0 = 0; c0 < kPairs; c0 += kChunk) {
+      float acc[2 * kChunk][4];
+#pragma unroll
+      for (int j = 0; j < 2 * kChunk; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+      const int jp0 = part * kPairs + c0;
+#pragma unroll
+      for (int ks = 0; ks < kMmaKeys / 16; ++ks) {
+#pragma unroll
+        for (int jj = 0; jj < kChunk; ++jj) {
+          uint32_t bk[4];
+          ldmatrix_x4_trans(bk, base + L::K + Sw::chunk(ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                                        2 * (jp0 + jj) + (lane >> 4)));
+          mma_bf16(acc[2 * jj], dsq[ks], bk[0], bk[1]);
+          mma_bf16(acc[2 * jj + 1], dsq[ks], bk[2], bk[3]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 2 * kChunk; ++j) {
+        const float x0 = __shfl_xor_sync(0xffffffffu, odd ? acc[j][0] : acc[j][2], 1);
+        const float x1 = __shfl_xor_sync(0xffffffffu, odd ? acc[j][1] : acc[j][3], 1);
+        const float4 val = odd ? make_float4(x0, x1, acc[j][2], acc[j][3])
+                               : make_float4(acc[j][0], acc[j][1], x0, x1);
+        if (qi < Lq) atomicAdd(reinterpret_cast<float4*>(dq_row + (jp0 * 2 + j) * 8), val);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = k0 + krow + g + 8 * r;
+    if (kj >= Lk) continue;
+    const long long row = (((long long)b * Lk + kj) * H + h) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      *reinterpret_cast<uint32_t*>(dk + row + j * 8) =
+          flash_mma::pack_bf16(dka[j][2 * r] * scale, dka[j][2 * r + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dv + row + j * 8) =
+          flash_mma::pack_bf16(dva[j][2 * r], dva[j][2 * r + 1]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_fused_mma(const Args& a) {
+  const size_t smem = MmaSmem<D>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_fused_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid(a.B * a.H, (a.Lk + kMmaKeys - 1) / kMmaKeys);
+  flash_bwd_fused_kernel<D><<<grid, kMmaThreads, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<float*>(a.dq), static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.st,
+      a.H, a.Lq, a.Lk, a.causal, a.q_offset, a.k_offset, a.scale);
   return cudaGetLastError();
 }
 
@@ -419,7 +699,9 @@ cudaError_t launch_dq(const Args& a) {
 template <typename T, int D>
 cudaError_t launch(Which which, const Args& a) {
   switch (which) {
-    case kFused: return launch_kv<T, D, true>(a);
+    case kFused:
+      if constexpr (std::is_same<T, __nv_bfloat16>::value) return launch_fused_mma<D>(a);
+      else return launch_kv<T, D, true>(a);
     case kDkv: return launch_kv<T, D, false>(a);
     case kDq: return launch_dq<T, D>(a);
   }

@@ -8,6 +8,13 @@ when the fused tier's f32 dQ workspace would pass
 :data:`FUSED_DQ_WORKSPACE_CAP`.  The JAX package's q-chunked fused tier
 exists only to fit TPU VMEM and has no counterpart here.
 
+Each entry point picks its kernel by dtype: bfloat16 runs the tensor-core
+kernels (``mma.sync`` through ``csrc/flash_mma.cuh``: B1's
+``flash_fwd_kernel`` and B2's ``flash_bwd_fused_kernel``), float32 runs
+CUDA-core kernels (``flash_fwd_f32_kernel``, ``flash_bwd_fused_f32_kernel``)
+so that no float32 product is rounded to TF32.  The split tier (B3a, B3b)
+runs CUDA-core kernels in both dtypes.
+
 Public layout is the framework's ``[B, L, H, D]``; the kernels read it
 through strides (no transpose copy).  Semantics as in the JAX package:
 ``causal`` masks ``q_offset + i < k_offset + j`` by global position, ``lse``

@@ -27,6 +27,9 @@ def cuda():
 @pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("case", FLASH_CASES)
 def test_flash_kernel_matches_plain(cuda, dtype, d, case):
+    """B1 against flash_attention_plain: bf16 runs the tensor-core kernel,
+    float32 the CUDA-core one; ragged lengths, a q shard after the keys,
+    and fully masked rows."""
     from distkeras_torch.ops import flash_attention as fa
 
     causal, qo, ko, lq, lk = case
@@ -43,6 +46,9 @@ def test_flash_kernel_matches_plain(cuda, dtype, d, case):
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
     torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    if causal and ko > qo:  # rows that see no key: o = 0 and lse = 0 exactly
+        dead = min(ko - qo, lq)
+        assert (o[:, :dead] == 0).all() and (lse[:, :, :dead] == 0).all()
 
 
 def _bwd_inputs(cuda, dtype, d, case, b=2, h=3):
@@ -82,8 +88,11 @@ def test_flash_backward_kernels_match_plain(cuda, dtype, d, case):
             assert g.dtype == dtype and g.shape == r.shape
             err = (g.float() - r.float()).abs().max().item()
             assert err <= rel * r.float().abs().max().item(), (split, err)
-        if ko > qo:  # rows that see no key: exactly zero dq
+        if causal and ko > qo:  # rows that see no key: exactly zero dq
             assert (got[0][:, :ko - qo] == 0).all(), split
+        if causal:  # keys that no row sees: exactly zero dk and dv
+            unseen = max(0, qo + lq - ko)
+            assert (got[1][:, unseen:] == 0).all() and (got[2][:, unseen:] == 0).all(), split
 
 
 def test_flash_backward_through_autograd_and_tiers(cuda, monkeypatch):
