@@ -13,7 +13,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    registers go, is a failure);
 2. kernels: hold each kernel against its plain PyTorch version on the card,
    at the shapes of the main path (bf16), plus one float32 case for each
-   flash kernel that has a separate float32 instance (B1, B2), and time
+   flash kernel (its float32 instance runs on the CUDA cores), check that
+   the split backward (B3a + B3b) is bitwise reproducible, and time
    kernel, plain version and (where one exists) the PyTorch library call
    computing the same function;
 3. serving (main path): make_generate_fn at batch 8, prompt 128, 512 new
@@ -125,8 +126,10 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
 
 # the bf16 tensor-core kernels, by library: the profiler and cuobjdump
 # select them by these substrings (the float32 instances are named
-# flash_fwd_f32_kernel and flash_bwd_fused_f32_kernel)
-MMA_KERNELS = (("flash_fwd", "flash_fwd_kernel"), ("flash_bwd", "flash_bwd_fused_kernel"))
+# flash_fwd_f32_kernel, flash_bwd_fused_f32_kernel, flash_bwd_dq_f32_kernel
+# and flash_bwd_dkv_f32_kernel)
+MMA_KERNELS = (("flash_fwd", "flash_fwd_kernel"), ("flash_bwd", "flash_bwd_fused_kernel"),
+               ("flash_bwd", "flash_bwd_dq_kernel"), ("flash_bwd", "flash_bwd_dkv_kernel"))
 
 
 def _cuobjdump(_build, flag, lib):
@@ -329,16 +332,28 @@ def flash_bwd_phase(torch, fa):
         worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], errs_s[0][0])
         worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], errs_s[1][0], errs_s[2][0])
 
-    # float32 runs the CUDA-core fused instance (no TF32): causal, fused tier;
+    # the split tier has no atomics: two calls on the same inputs agree to the bit
+    o, lse = fa.flash_forward_cuda(q, k, v, True, 0, 0)
+    first = fa.flash_backward_cuda(q, k, v, o, lse, do, dlse, True, 0, 0, split=True)
+    again = fa.flash_backward_cuda(q, k, v, o, lse, do, dlse, True, 0, 0, split=True)
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(first, again)]
+    print(f"flash_bwd split bf16 causal, two calls: dq/dk/dv bitwise equal {same}")
+    check(all(same), "flash_bwd split tier is not bitwise reproducible")
+
+    # float32 runs the CUDA-core instances (no TF32): causal, both tiers;
     # 1e-5 of max |grad| covers the summation order and B2's atomics
     q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
     o, lse = fa.flash_forward_cuda(q32, k32, v32, True, 0, 0)
-    fused = fa.flash_backward_cuda(q32, k32, v32, o, lse, do32, None, True, 0, 0, split=False)
-    torch.cuda.synchronize()
-    errs = _rel_err(fused, fa.flash_backward_plain(q32, k32, v32, o, lse, do32, None, True))
-    print("flash_bwd float32 causal: max|d - d_plain| (rel to max|d|) fused dq/dk/dv "
-          + ", ".join(f"{e:.3e} ({r:.1e})" for e, r in errs) + " (tol 1e-05 rel)")
-    check(all(r <= 1e-5 for _, r in errs), "flash_bwd float32 fused disagrees with plain")
+    for split in (False, True):
+        got = fa.flash_backward_cuda(q32, k32, v32, o, lse, do32, None, True, 0, 0, split=split)
+        torch.cuda.synchronize()
+        errs = _rel_err(got, fa.flash_backward_plain(q32, k32, v32, o, lse, do32, None, True,
+                                                     split=split))
+        label = "split" if split else "fused"
+        print(f"flash_bwd float32 causal: max|d - d_plain| (rel to max|d|) {label} dq/dk/dv "
+              + ", ".join(f"{e:.3e} ({r:.1e})" for e, r in errs) + " (tol 1e-05 rel)")
+        check(all(r <= 1e-5 for _, r in errs), f"flash_bwd float32 {label} disagrees with plain")
     return worst, lambda: flash_bwd_timing(torch, fa, q, k, v, do)
 
 

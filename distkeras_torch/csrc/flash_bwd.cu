@@ -13,66 +13,93 @@
 // rounded to q's dtype, dQ takes ds rounded to q's dtype (fused) or k's
 // dtype (split); the kernels take one dtype for all four, so the rounding
 // is the same in both tiers.  dq and dk are scaled by `scale` at the end.
+// Query rows that see no key get dq = 0, keys that no row sees dk = dv = 0.
 //
-// flash_bwd_fused_kernel (bfloat16, B2): the tensor cores, through
-// mma.sync m16n8k16 (flash_mma.cuh).  One block per (batch, head, 128
-// keys), eight warps, each owning 16 key rows and the f32 dK and dV
-// accumulators of those rows in registers.  K and V stay in shared memory for the whole
-// block (at D = 128 their fragments next to both accumulators would pass
-// the 255 registers a thread may hold; ldmatrix reads them back per
-// k-step).  The block streams 64-row tiles of q and dO, with their lse and
-// delta, through shared memory, double-buffered with cp.async, skipping the
-// q rows that see none of its keys, and for each tile, in two halves of 32
-// q rows, runs the products in key-major orientation so that P^T and dS^T
-// come out of the accumulators already in A-fragment layout:
-//   S^T = K Q^T, dP^T = V dO^T, dV += bf16(P^T) dO, dK += bf16(dS^T) Q,
-// then, once dS^T of the whole tile is staged in shared memory (bf16, read
-// back transposed by ldmatrix.trans), dQ_partial = bf16(dS) K for the
-// tile's 64 q rows, which every block adds into an f32 [B, Lq, H, D]
+// bfloat16 runs on the tensor cores, through mma.sync m16n8k16
+// (flash_mma.cuh), with tiles in XOR-swizzled shared memory that ldmatrix
+// reads without bank conflicts and that cp.async fills (zeros past a
+// tensor's end):
+//
+// flash_bwd_fused_kernel (B2) and flash_bwd_dkv_kernel (B3b) share one body
+// (kv_mma_tile).  One block per (batch, head, 128 keys), eight warps, each
+// owning 16 key rows and the f32 dK and dV accumulators of those rows in
+// registers.  K and V stay in shared memory for the whole block (at D = 128
+// their fragments next to both accumulators would pass the 255 registers a
+// thread may hold; ldmatrix reads them back per k-step).  The block streams
+// 64-row tiles of q and dO, with their lse and delta, double-buffered with
+// cp.async, skipping the q rows that see none of its keys, and for each
+// tile, in two halves of 32 q rows, runs the products in key-major
+// orientation so that P^T and dS^T come out of the accumulators already in
+// A-fragment layout:
+//   S^T = K Q^T, dP^T = V dO^T, dV += bf16(P^T) dO, dK += bf16(dS^T) Q.
+// B2 then also stages dS^T of the whole tile in shared memory (bf16, read
+// back transposed by ldmatrix.trans) and forms dQ_partial = bf16(dS) K for
+// the tile's 64 q rows, which every block adds into an f32 [B, Lq, H, D]
 // workspace with 16-byte atomicAdd (float4, result unused: a RED
 // instruction): the GPU form of the Pallas kernel's [Lq, D] scratch.  The
-// wrapper scales and casts it.  The atomics are what held this kernel back
-// most (PERF.md), hence 16 bytes per add and 128 keys per block, which
-// halves the adds per dQ element against 64.
-// The order of the atomic adds varies from run to run, so dQ of the fused
-// tier is not bitwise reproducible; the split tier is.  Block y = 0 (key
-// tile 0, which sees the most q rows under causal masking) launches first.
+// wrapper scales and casts it.  The atomics are what held B2 back most
+// (PERF.md), hence 16 bytes per add and 128 keys per block, which halves
+// the adds per dQ element against 64.  The order of the atomic adds varies
+// from run to run, so dQ of the fused tier is not bitwise reproducible.
+// B3b drops the dS staging, the dS K products and the atomics.  Block y = 0
+// (key tile 0, which sees the most q rows under causal masking) launches
+// first.
 //
-// float32 inputs, and the split tier in both dtypes, run CUDA-core kernels
-// (no TF32 anywhere): a row of the block's own tile is shared by D/16
-// threads, each holding 16 elements of it in registers (16-byte vectors
-// interleaved over the lanes, so a row read from shared memory is
-// conflict-free), and the dot products reduce over those lanes with warp
-// shuffles.
-// - flash_bwd_fused_f32_kernel / flash_bwd_dkv_kernel: one block per
+// flash_bwd_dq_kernel (B3a) is q-major: one block per (batch, head, 64 q
+// rows), four warps, each owning 16 q rows whose Q and dO fragments it
+// loads into registers once and whose f32 dQ accumulator it keeps there.
+// K and V move in 64-key tiles, double-buffered with cp.async, up to the
+// last key any row of the block can see; per tile, in two halves of 32
+// keys (registers: at D = 128 the Q and dO fragments and the accumulator
+// take 128 of them), S = Q K^T and dP = dO V^T (K and V as the col-major B
+// operand), ds on the f32 fragments, bf16(dS) re-packed in registers as
+// the A operand of dQ += bf16(dS) K (K read k-major by ldmatrix.trans).
+// Only tiles that straddle the diagonal or a ragged end are masked.  dQ is
+// scaled and written once, by its block.  Blocks are numbered so that the
+// longest causal rows (the last q tiles) start first.
+// Neither split kernel uses atomics: the split tier is bitwise
+// reproducible.
+//
+// float32 inputs run CUDA-core kernels (no TF32 anywhere): a row of the
+// block's own tile is shared by D/16 threads, each holding 16 elements of
+// it in registers (16-byte vectors interleaved over the lanes, so a row
+// read from shared memory is conflict-free), and the dot products reduce
+// over those lanes with warp shuffles.
+// - flash_bwd_fused_f32_kernel / flash_bwd_dkv_f32_kernel: one block per
 //   (batch, head, tile of 64 key rows), holding k, v and the f32 dK, dV
 //   accumulators of its rows; it streams 64-row tiles of q and dO (with
 //   their lse and delta) through shared memory and skips the q rows that
 //   see none of its keys.  The fused one also adds ds . K for each q tile
 //   into the f32 dQ workspace with atomicAdd.
-// - flash_bwd_dq_kernel: one block per (batch, head, tile of 64 q rows),
-//   holding q, dO and the f32 dQ accumulator, streaming 64-row tiles of k
-//   and v, stopping at the last key any of its rows can see.
+// - flash_bwd_dq_f32_kernel: one block per (batch, head, tile of 64 q
+//   rows), holding q, dO and the f32 dQ accumulator, streaming 64-row
+//   tiles of k and v, stopping at the last key any of its rows can see.
 // Inputs are read in the framework's [B, L, H, D] layout through strides;
 // the head dim must be contiguous and every row 16-byte aligned.  Outputs
-// are contiguous [B, L, H, D].  Shared memory is dynamic (up to 114 KB), so
+// are contiguous [B, L, H, D].  Shared memory is dynamic (up to 145 KB), so
 // each launch first raises the kernel's limit with cudaFuncSetAttribute.
 //
 // Bound.  At the training shape (B 8, L 2048, H 4, D 128, bf16, causal) the
 // fused backward does 10 * D flops per visible score (~86 GFLOP) and moves
-// ~118 MB: operations-bound on the tensor cores (~0.087 ms).  mma.sync
-// reaches a part of that rate (wgmma the rest), and the split tier's
-// CUDA-core kernels sit far above it; PERF.md records the times.
+// ~118 MB: operations-bound on the tensor cores (~0.087 ms); B3a does 6 * D
+// (~0.052 ms), B3b 8 * D (~0.069 ms).  mma.sync reaches a part of that
+// rate (wgmma the rest); PERF.md records the times.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 
-#include <type_traits>
-
 #include "flash_mma.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+struct Strides {  // in elements: batch, row and head stride of q, k, v, dO
+  long long qb, ql, qh, kb, kl, kh, vb, vl, vh, ob, ol, oh;
+};
+
+// ------------------------------------------------- float32, CUDA cores
 
 constexpr int kRows = 64;  // rows a block owns: keys (dkv, fused) or queries (dq)
 constexpr int kTile = 64;  // rows of each tile streamed through shared memory
@@ -83,43 +110,18 @@ template <int D> struct Layout {
   static constexpr int kThreads = kRows * kLanes;
 };
 
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-// x rounded to T and read back: the Pallas kernel's `.astype(dtype)`
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
-// 16 bytes of T <-> floats (rows are 16-byte aligned)
-template <typename T> struct Vec16 {
-  static constexpr int N = 16 / sizeof(T);
-  __device__ __forceinline__ static void load(const T* p, float* out) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < N; ++i) out[i] = to_f(e[i]);
-  }
-  __device__ __forceinline__ static void store(T* p, const float* in) {
-    uint4 raw;
-    T* e = reinterpret_cast<T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < N; ++i) e[i] = from_f<T>(in[i]);
-    *reinterpret_cast<uint4*>(p) = raw;
-  }
-};
-
-// first element of the c-th 16-byte vector a lane holds of a row
-template <typename T, int D>
+// first element of the c-th float4 a lane holds of a row
+template <int D>
 __device__ __forceinline__ int vec_col(int c, int part) {
-  return (c * Layout<D>::kLanes + part) * Vec16<T>::N;
+  return (c * Layout<D>::kLanes + part) * 4;
+}
+
+__device__ __forceinline__ void load4(const float* p, float* out) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  out[0] = x.x;
+  out[1] = x.y;
+  out[2] = x.z;
+  out[3] = x.w;
 }
 
 template <int LANES> __device__ __forceinline__ float lane_sum(float x) {
@@ -129,18 +131,18 @@ template <int LANES> __device__ __forceinline__ float lane_sum(float x) {
 }
 
 // a lane's 16 elements of row `r` of a [rows, D] tile (global or shared)
-template <typename T, int D>
-__device__ __forceinline__ void load_slice(const T* r, int part, float* out) {
-  constexpr int V = Vec16<T>::N;
+template <int D>
+__device__ __forceinline__ void load_slice(const float* r, int part, float* out) {
 #pragma unroll
-  for (int c = 0; c < kSlice / V; ++c) Vec16<T>::load(r + vec_col<T, D>(c, part), out + c * V);
+  for (int c = 0; c < kSlice / 4; ++c) load4(r + vec_col<D>(c, part), out + 4 * c);
 }
 
-template <typename T, int D>
-__device__ __forceinline__ void store_slice(T* r, int part, const float* in) {
-  constexpr int V = Vec16<T>::N;
+template <int D>
+__device__ __forceinline__ void store_slice(float* r, int part, const float* in) {
 #pragma unroll
-  for (int c = 0; c < kSlice / V; ++c) Vec16<T>::store(r + vec_col<T, D>(c, part), in + c * V);
+  for (int c = 0; c < kSlice / 4; ++c)
+    *reinterpret_cast<float4*>(r + vec_col<D>(c, part)) =
+        make_float4(in[4 * c], in[4 * c + 1], in[4 * c + 2], in[4 * c + 3]);
 }
 
 // The shared recompute (_recompute_p_ds): for one (q row, key) pair whose
@@ -148,21 +150,20 @@ __device__ __forceinline__ void store_slice(T* r, int part, const float* in) {
 // lane-reduced dot products.  `a` and `g` are the q and dO rows (dkv /
 // fused) or the k and v rows (dq); `x`, `y` the lane's register slices of
 // the other side.
-template <typename T, int D>
-__device__ __forceinline__ void dots(const T* a, const T* g, const float* x,
+template <int D>
+__device__ __forceinline__ void dots(const float* a, const float* g, const float* x,
                                      const float* y, int part, float& s, float& dp) {
-  constexpr int V = Vec16<T>::N;
   s = 0.f;
   dp = 0.f;
 #pragma unroll
-  for (int c = 0; c < kSlice / V; ++c) {
-    float af[V], gf[V];
-    Vec16<T>::load(a + vec_col<T, D>(c, part), af);
-    Vec16<T>::load(g + vec_col<T, D>(c, part), gf);
+  for (int c = 0; c < kSlice / 4; ++c) {
+    float af[4], gf[4];
+    load4(a + vec_col<D>(c, part), af);
+    load4(g + vec_col<D>(c, part), gf);
 #pragma unroll
-    for (int t = 0; t < V; ++t) {
-      s += af[t] * x[c * V + t];
-      dp += gf[t] * y[c * V + t];
+    for (int t = 0; t < 4; ++t) {
+      s += af[t] * x[c * 4 + t];
+      dp += gf[t] * y[c * 4 + t];
     }
   }
   s = lane_sum<Layout<D>::kLanes>(s);
@@ -177,63 +178,59 @@ __device__ __forceinline__ void p_ds(float s, float dp, float lse, float delta,
 }
 
 // a lane's slice of y += w * row
-template <typename T, int D>
-__device__ __forceinline__ void axpy(const T* row, float w, int part, float* y) {
-  constexpr int V = Vec16<T>::N;
+template <int D>
+__device__ __forceinline__ void axpy(const float* row, float w, int part, float* y) {
 #pragma unroll
-  for (int c = 0; c < kSlice / V; ++c) {
-    float f[V];
-    Vec16<T>::load(row + vec_col<T, D>(c, part), f);
+  for (int c = 0; c < kSlice / 4; ++c) {
+    float f[4];
+    load4(row + vec_col<D>(c, part), f);
 #pragma unroll
-    for (int t = 0; t < V; ++t) y[c * V + t] += w * f[t];
+    for (int t = 0; t < 4; ++t) y[c * 4 + t] += w * f[t];
   }
 }
-
-struct Strides {  // in elements: batch, row and head stride of q, k, v, dO
-  long long qb, ql, qh, kb, kl, kh, vb, vl, vh, ob, ol, oh;
-};
 
 // copy rows [r0, r0 + n) of a strided [B, L, H, D] tensor into a [kTile, D]
 // shared tile, zero-filling the rest
-template <typename T, int D, int THREADS>
-__device__ __forceinline__ void stage(T* dst, const T* src, long long rs, int r0, int n,
-                                      int tid) {
-  constexpr int V = Vec16<T>::N;
-  for (int idx = tid; idx < kTile * (D / V); idx += THREADS) {
-    const int i = idx / (D / V), d = (idx % (D / V)) * V;
-    uint4 x = make_uint4(0, 0, 0, 0);
-    if (i < n) x = *reinterpret_cast<const uint4*>(src + (long long)(r0 + i) * rs + d);
-    *reinterpret_cast<uint4*>(dst + i * D + d) = x;
+template <int D, int THREADS>
+__device__ __forceinline__ void stage(float* dst, const float* src, long long rs, int r0,
+                                      int n, int tid) {
+  for (int idx = tid; idx < kTile * (D / 4); idx += THREADS) {
+    const int i = idx / (D / 4), d = (idx % (D / 4)) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (i < n) x = *reinterpret_cast<const float4*>(src + (long long)(r0 + i) * rs + d);
+    *reinterpret_cast<float4*>(dst + i * D + d) = x;
   }
 }
 
-template <typename T, int D, bool FUSED>
+template <int D, bool FUSED>
 size_t kv_smem_bytes() {
-  size_t n = 2 * kTile * D * sizeof(T) + 2 * kTile * sizeof(float);
-  if (FUSED) n += kRows * D * sizeof(T) + kTile * (kRows + 1) * sizeof(float);
+  size_t n = 2 * kTile * D * sizeof(float) + 2 * kTile * sizeof(float);
+  if (FUSED) n += kRows * D * sizeof(float) + kTile * (kRows + 1) * sizeof(float);
   return n;
 }
 
 // dK and dV (and, FUSED, the dQ partial sums) for one tile of key rows:
 // the body of the fused and the dkv kernel
-template <typename T, int D, bool FUSED>
-__device__ __forceinline__ void kv_tile(const T* __restrict__ q, const T* __restrict__ k,
-                                        const T* __restrict__ v, const T* __restrict__ dout,
+template <int D, bool FUSED>
+__device__ __forceinline__ void kv_tile(const float* __restrict__ q,
+                                        const float* __restrict__ k,
+                                        const float* __restrict__ v,
+                                        const float* __restrict__ dout,
                                         const float* __restrict__ lse,
                                         const float* __restrict__ delta,
-                                        float* __restrict__ dq_acc, T* __restrict__ dk,
-                                        T* __restrict__ dv, const Strides& st, int H, int Lq,
-                                        int Lk, int causal, int q_offset, int k_offset,
-                                        float scale) {
+                                        float* __restrict__ dq_acc, float* __restrict__ dk,
+                                        float* __restrict__ dv, const Strides& st, int H,
+                                        int Lq, int Lk, int causal, int q_offset,
+                                        int k_offset, float scale) {
   constexpr int LANES = Layout<D>::kLanes;
   constexpr int THREADS = Layout<D>::kThreads;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* qs = reinterpret_cast<T*>(smem);                         // [kTile][D]
-  T* dos = qs + kTile * D;                                    // [kTile][D]
-  float* lse_s = reinterpret_cast<float*>(dos + kTile * D);  // [kTile]
-  float* delta_s = lse_s + kTile;                             // [kTile]
-  T* ks = reinterpret_cast<T*>(delta_s + kTile);              // FUSED: [kRows][D]
-  float* ds_s = reinterpret_cast<float*>(ks + kRows * D);     // FUSED: [kTile][kRows + 1]
+  float* qs = reinterpret_cast<float*>(smem);  // [kTile][D]
+  float* dos = qs + kTile * D;                 // [kTile][D]
+  float* lse_s = dos + kTile * D;              // [kTile]
+  float* delta_s = lse_s + kTile;              // [kTile]
+  float* ks = delta_s + kTile;                 // FUSED: [kRows][D]
+  float* ds_s = ks + kRows * D;                // FUSED: [kTile][kRows + 1]
 
   const int tid = threadIdx.x;
   const int row = tid / LANES;
@@ -248,15 +245,15 @@ __device__ __forceinline__ void kv_tile(const T* __restrict__ q, const T* __rest
   float kr[kSlice], vr[kSlice], dkr[kSlice], dvr[kSlice];
   {
     const long long kc = min(kj, Lk - 1);
-    load_slice<T, D>(k + b * st.kb + kc * st.kl + h * st.kh, part, kr);
-    load_slice<T, D>(v + b * st.vb + kc * st.vl + h * st.vh, part, vr);
+    load_slice<D>(k + b * st.kb + kc * st.kl + h * st.kh, part, kr);
+    load_slice<D>(v + b * st.vb + kc * st.vl + h * st.vh, part, vr);
 #pragma unroll
     for (int t = 0; t < kSlice; ++t) {
       if (!row_valid) kr[t] = vr[t] = 0.f;
       dkr[t] = 0.f;
       dvr[t] = 0.f;
     }
-    if constexpr (FUSED) store_slice<T, D>(ks + row * D, part, kr);  // exact: kr came from T
+    if constexpr (FUSED) store_slice<D>(ks + row * D, part, kr);
   }
 
   // q rows before the first one that sees key k0 contribute nothing
@@ -267,8 +264,8 @@ __device__ __forceinline__ void kv_tile(const T* __restrict__ q, const T* __rest
   for (int q0 = q_begin; q0 < Lq; q0 += kTile) {
     const int nq = min(kTile, Lq - q0);
     __syncthreads();  // previous tile fully consumed
-    stage<T, D, THREADS>(qs, q + b * st.qb + h * st.qh, st.ql, q0, nq, tid);
-    stage<T, D, THREADS>(dos, dout + b * st.ob + h * st.oh, st.ol, q0, nq, tid);
+    stage<D, THREADS>(qs, q + b * st.qb + h * st.qh, st.ql, q0, nq, tid);
+    stage<D, THREADS>(dos, dout + b * st.ob + h * st.oh, st.ol, q0, nq, tid);
     for (int i = tid; i < kTile; i += THREADS) {
       lse_s[i] = i < nq ? lse[stat0 + q0 + i] : 0.f;
       delta_s[i] = i < nq ? delta[stat0 + q0 + i] : 0.f;
@@ -277,14 +274,13 @@ __device__ __forceinline__ void kv_tile(const T* __restrict__ q, const T* __rest
 
     for (int i = 0; i < nq; ++i) {
       float s, dp, p, ds;
-      dots<T, D>(qs + i * D, dos + i * D, kr, vr, part, s, dp);
+      dots<D>(qs + i * D, dos + i * D, kr, vr, part, s, dp);
       const bool visible = row_valid && (!causal || q_offset + q0 + i >= k_pos);
       p_ds(s, dp, lse_s[i], delta_s[i], visible, scale, p, ds);
-      const float dsr = round_to<T>(ds);
-      axpy<T, D>(dos + i * D, round_to<T>(p), part, dvr);
-      axpy<T, D>(qs + i * D, dsr, part, dkr);
+      axpy<D>(dos + i * D, p, part, dvr);
+      axpy<D>(qs + i * D, ds, part, dkr);
       if constexpr (FUSED) {
-        if (part == 0) ds_s[i * (kRows + 1) + row] = dsr;
+        if (part == 0) ds_s[i * (kRows + 1) + row] = ds;
       }
     }
 
@@ -296,7 +292,7 @@ __device__ __forceinline__ void kv_tile(const T* __restrict__ q, const T* __rest
         const float* dsrow = ds_s + i * (kRows + 1);
         float acc = 0.f;
 #pragma unroll 8
-        for (int j = 0; j < kRows; ++j) acc += dsrow[j] * to_f(ks[j * D + d]);
+        for (int j = 0; j < kRows; ++j) acc += dsrow[j] * ks[j * D + d];
         atomicAdd(dq_acc + (((long long)b * Lq + q0 + i) * H + h) * D + d, acc);
       }
     }
@@ -306,46 +302,47 @@ __device__ __forceinline__ void kv_tile(const T* __restrict__ q, const T* __rest
     const long long base = (((long long)b * Lk + kj) * H + h) * D;
 #pragma unroll
     for (int t = 0; t < kSlice; ++t) dkr[t] *= scale;
-    store_slice<T, D>(dk + base, part, dkr);
-    store_slice<T, D>(dv + base, part, dvr);
+    store_slice<D>(dk + base, part, dkr);
+    store_slice<D>(dv + base, part, dvr);
   }
 }
 
-#define DK_KV_PARAMS                                                                   \
-  const T *__restrict__ q, const T *__restrict__ k, const T *__restrict__ v,           \
-      const T *__restrict__ dout, const float *__restrict__ lse,                        \
-      const float *__restrict__ delta, float *__restrict__ dq_acc, T *__restrict__ dk,  \
-      T *__restrict__ dv, Strides st, int H, int Lq, int Lk, int causal, int q_offset,  \
-      int k_offset, float scale
+#define DK_KV_F32_PARAMS                                                                 \
+  const float *__restrict__ q, const float *__restrict__ k, const float *__restrict__ v, \
+      const float *__restrict__ dout, const float *__restrict__ lse,                      \
+      const float *__restrict__ delta, float *__restrict__ dq_acc,                        \
+      float *__restrict__ dk, float *__restrict__ dv, Strides st, int H, int Lq, int Lk,  \
+      int causal, int q_offset, int k_offset, float scale
 #define DK_KV_ARGS q, k, v, dout, lse, delta, dq_acc, dk, dv, st, H, Lq, Lk, causal, \
                    q_offset, k_offset, scale
 
 // B2 for float32: dK, dV and the atomic dQ partial sums
-template <typename T, int D>
-__global__ void __launch_bounds__(Layout<D>::kThreads) flash_bwd_fused_f32_kernel(DK_KV_PARAMS) {
-  static_assert(std::is_same<T, float>::value, "bf16 takes flash_bwd_fused_kernel");
-  kv_tile<T, D, true>(DK_KV_ARGS);
-}
-
-// B3b: dK and dV only (the split tier's second kernel)
-template <typename T, int D>
-__global__ void __launch_bounds__(Layout<D>::kThreads) flash_bwd_dkv_kernel(DK_KV_PARAMS) {
-  kv_tile<T, D, false>(DK_KV_ARGS);
-}
-
-// B3a: dQ for one tile of q rows (the split tier's first kernel)
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(Layout<D>::kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    T* __restrict__ dq, Strides st, int H, int Lq, int Lk, int causal,
-                    int q_offset, int k_offset, float scale) {
+flash_bwd_fused_f32_kernel(DK_KV_F32_PARAMS) {
+  kv_tile<D, true>(DK_KV_ARGS);
+}
+
+// B3b for float32: dK and dV only
+template <int D>
+__global__ void __launch_bounds__(Layout<D>::kThreads)
+flash_bwd_dkv_f32_kernel(DK_KV_F32_PARAMS) {
+  kv_tile<D, false>(DK_KV_ARGS);
+}
+
+// B3a for float32: dQ for one tile of q rows
+template <int D>
+__global__ void __launch_bounds__(Layout<D>::kThreads)
+flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        float* __restrict__ dq, Strides st, int H, int Lq, int Lk,
+                        int causal, int q_offset, int k_offset, float scale) {
   constexpr int LANES = Layout<D>::kLanes;
   constexpr int THREADS = Layout<D>::kThreads;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);  // [kTile][D]
-  T* vs = ks + kTile * D;              // [kTile][D]
+  float* ks = reinterpret_cast<float*>(smem);  // [kTile][D]
+  float* vs = ks + kTile * D;                  // [kTile][D]
 
   const int tid = threadIdx.x;
   const int row = tid / LANES;
@@ -359,8 +356,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   float qr[kSlice], gr[kSlice], dqr[kSlice];
   const long long qc = min(qi, Lq - 1);
-  load_slice<T, D>(q + b * st.qb + qc * st.ql + h * st.qh, part, qr);
-  load_slice<T, D>(dout + b * st.ob + qc * st.ol + h * st.oh, part, gr);
+  load_slice<D>(q + b * st.qb + qc * st.ql + h * st.qh, part, qr);
+  load_slice<D>(dout + b * st.ob + qc * st.ol + h * st.oh, part, gr);
 #pragma unroll
   for (int t = 0; t < kSlice; ++t) dqr[t] = 0.f;
   const long long stat = ((long long)b * H + h) * Lq + qc;
@@ -377,23 +374,23 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
     const int nk = min(kTile, k_end - k0);
     __syncthreads();  // previous tile fully consumed
-    stage<T, D, THREADS>(ks, k + b * st.kb + h * st.kh, st.kl, k0, nk, tid);
-    stage<T, D, THREADS>(vs, v + b * st.vb + h * st.vh, st.vl, k0, nk, tid);
+    stage<D, THREADS>(ks, k + b * st.kb + h * st.kh, st.kl, k0, nk, tid);
+    stage<D, THREADS>(vs, v + b * st.vb + h * st.vh, st.vl, k0, nk, tid);
     __syncthreads();
 
     for (int j = 0; j < nk; ++j) {
       float s, dp, p, ds;
-      dots<T, D>(ks + j * D, vs + j * D, qr, gr, part, s, dp);
+      dots<D>(ks + j * D, vs + j * D, qr, gr, part, s, dp);
       const bool visible = row_valid && (!causal || q_pos >= k_offset + k0 + j);
       p_ds(s, dp, lse_i, delta_i, visible, scale, p, ds);
-      axpy<T, D>(ks + j * D, round_to<T>(ds), part, dqr);
+      axpy<D>(ks + j * D, ds, part, dqr);
     }
   }
 
   if (row_valid) {
 #pragma unroll
     for (int t = 0; t < kSlice; ++t) dqr[t] *= scale;
-    store_slice<T, D>(dq + (((long long)b * Lq + qi) * H + h) * D, part, dqr);
+    store_slice<D>(dq + (((long long)b * Lq + qi) * H + h) * D, part, dqr);
   }
 }
 
@@ -408,57 +405,78 @@ struct Args {
 
 enum Which { kFused = 0, kDkv = 1, kDq = 2 };
 
-template <typename T, int D, bool FUSED>
-cudaError_t launch_kv(const Args& a) {
-  auto kernel = flash_bwd_dkv_kernel<T, D>;
-  if constexpr (FUSED) kernel = flash_bwd_fused_f32_kernel<T, D>;
-  const size_t smem = kv_smem_bytes<T, D, FUSED>();
+template <int D, bool FUSED>
+cudaError_t launch_kv_f32(const Args& a) {
+  auto kernel = flash_bwd_dkv_f32_kernel<D>;
+  if constexpr (FUSED) kernel = flash_bwd_fused_f32_kernel<D>;
+  const size_t smem = kv_smem_bytes<D, FUSED>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   dim3 grid((a.Lk + kRows - 1) / kRows, a.H, a.B);
   kernel<<<grid, Layout<D>::kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<float*>(a.dq), static_cast<T*>(a.dk),
-      static_cast<T*>(a.dv), a.st, a.H, a.Lq, a.Lk, a.causal, a.q_offset, a.k_offset,
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<float*>(a.dq), static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.st,
+      a.H, a.Lq, a.Lk, a.causal, a.q_offset, a.k_offset, a.scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq_f32(const Args& a) {
+  const size_t smem = 2 * kTile * D * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_f32_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.Lq + kRows - 1) / kRows, a.H, a.B);
+  flash_bwd_dq_f32_kernel<D><<<grid, Layout<D>::kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<float*>(a.dq), a.st, a.H, a.Lq, a.Lk, a.causal, a.q_offset, a.k_offset,
       a.scale);
   return cudaGetLastError();
 }
 
-// ------------------------------------------------------- B2, bf16, mma.sync
+// ------------------------------------------- B2, B3b: bf16, key-major mma
 
-using bf16 = __nv_bfloat16;
+using namespace flash_mma;
 
 constexpr int kMmaWarps = 8;
 constexpr int kMmaKeys = 16 * kMmaWarps;  // keys per block, 16 per warp
 constexpr int kMmaQ = 64;                 // q rows per streamed tile
 constexpr int kMmaThreads = 32 * kMmaWarps;
 
-template <int D>
+template <int D, bool WITH_DQ>
 struct MmaSmem {  // byte offsets into the block's dynamic shared memory
   static constexpr uint32_t kTileQ = kMmaQ * D * sizeof(bf16);
   static constexpr uint32_t K = 0;
   static constexpr uint32_t V = K + kMmaKeys * D * sizeof(bf16);
   static constexpr uint32_t Q = V + kMmaKeys * D * sizeof(bf16);  // two tiles
   static constexpr uint32_t dO = Q + 2 * kTileQ;                   // two tiles
-  static constexpr uint32_t dS = dO + 2 * kTileQ;                  // [keys][q] bf16
-  static constexpr uint32_t stats = dS + kMmaKeys * kMmaQ * sizeof(bf16);  // lse[2], delta[2]
-  static constexpr uint32_t bytes = stats + 4 * kMmaQ * sizeof(float);
+  static constexpr uint32_t dS = dO + 2 * kTileQ;                  // WITH_DQ: [keys][q] bf16
+  static constexpr uint32_t stats = dS + (WITH_DQ ? kMmaKeys * kMmaQ * sizeof(bf16) : 0);
+  static constexpr uint32_t bytes = stats + 4 * kMmaQ * sizeof(float);  // lse[2], delta[2]
 };
 
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                       const float* __restrict__ lse, const float* __restrict__ delta,
-                       float* __restrict__ dq_acc, bf16* __restrict__ dk,
-                       bf16* __restrict__ dv, Strides st, int H, int Lq, int Lk, int causal,
-                       int q_offset, int k_offset, float scale) {
-  using namespace flash_mma;
+// dK and dV of the block's 128 keys and, WITH_DQ, the atomic dQ partial
+// sums: the body of B2 (flash_bwd_fused_kernel) and B3b (flash_bwd_dkv_kernel)
+template <int D, bool WITH_DQ>
+__device__ __forceinline__ void kv_mma_tile(const bf16* __restrict__ q,
+                                            const bf16* __restrict__ k,
+                                            const bf16* __restrict__ v,
+                                            const bf16* __restrict__ dout,
+                                            const float* __restrict__ lse,
+                                            const float* __restrict__ delta,
+                                            float* __restrict__ dq_acc, bf16* __restrict__ dk,
+                                            bf16* __restrict__ dv, const Strides& st, int H,
+                                            int Lq, int Lk, int causal, int q_offset,
+                                            int k_offset, float scale) {
   using Sw = Swizzle<D>;
   using SwS = Swizzle<kMmaQ>;
-  using L = MmaSmem<D>;
+  using L = MmaSmem<D, WITH_DQ>;
   constexpr int KS = D / 16;  // k-steps over the head dim
   constexpr int NO = D / 8;   // n-blocks of a [16, D] accumulator
   extern __shared__ __align__(128) unsigned char smem[];
@@ -557,7 +575,7 @@ flash_bwd_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
       // p and ds; element (j, e) is key krow + g + 8 (e / 2), q column
       // hq * 32 + 8 j + 2 t + e % 2.  bf16(P^T), bf16(dS^T) become A
-      // fragments (two k-steps of 16 q), dS^T also goes to shared memory.
+      // fragments (two k-steps of 16 q); B2 also puts dS^T in shared memory.
       uint32_t pa[2][4], da[2][4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -580,8 +598,11 @@ flash_bwd_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         pa[ks][hi + 1] = pack_bf16(pv[2], pv[3]);
         da[ks][hi] = pack_bf16(dsv[0], dsv[1]);
         da[ks][hi + 1] = pack_bf16(dsv[2], dsv[3]);
-        *reinterpret_cast<uint32_t*>(smem + L::dS + SwS::elem(krow + g, qc)) = da[ks][hi];
-        *reinterpret_cast<uint32_t*>(smem + L::dS + SwS::elem(krow + g + 8, qc)) = da[ks][hi + 1];
+        if constexpr (WITH_DQ) {
+          *reinterpret_cast<uint32_t*>(smem + L::dS + SwS::elem(krow + g, qc)) = da[ks][hi];
+          *reinterpret_cast<uint32_t*>(smem + L::dS + SwS::elem(krow + g + 8, qc)) =
+              da[ks][hi + 1];
+        }
       }
 
       // dV += bf16(P^T) dO and dK += bf16(dS^T) Q over these 32 q rows
@@ -601,48 +622,53 @@ flash_bwd_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       }
     }
-    __syncthreads();  // dS^T of the whole tile is in shared memory
-
-    // dQ partial = bf16(dS) K over the block's keys for q rows 16 rg ..
-    // 16 rg + 15 of the tile and the warp's share of the head dim, added
-    // into the f32 workspace 16 bytes at a time: lanes t and t ^ 1 swap a
-    // row's pair of columns so that each holds four neighbours of one row
-    constexpr int kParts = kMmaWarps / 4;      // warps sharing a row group
-    constexpr int kPairs = D / 16 / kParts;    // 16-column pairs per warp
-    constexpr int kChunk = kPairs < 2 ? kPairs : 2;
-    const int rg = warp % 4, part = warp / 4;
-    uint32_t dsq[kMmaKeys / 16][4];
+    // every warp is done with this q tile (its buffer is free for it + 2)
+    // and, WITH_DQ, dS^T of the whole tile is in shared memory
+    __syncthreads();
+    if constexpr (WITH_DQ) {
+      // dQ partial = bf16(dS) K over the block's keys for q rows 16 rg ..
+      // 16 rg + 15 of the tile and the warp's share of the head dim, added
+      // into the f32 workspace 16 bytes at a time: lanes t and t ^ 1 swap a
+      // row's pair of columns so that each holds four neighbours of one row
+      constexpr int kParts = kMmaWarps / 4;      // warps sharing a row group
+      constexpr int kPairs = D / 16 / kParts;    // 16-column pairs per warp
+      constexpr int kChunk = kPairs < 2 ? kPairs : 2;
+      const int rg = warp % 4, part = warp / 4;
+      uint32_t dsq[kMmaKeys / 16][4];
 #pragma unroll
-    for (int ks = 0; ks < kMmaKeys / 16; ++ks)
-      ldmatrix_x4_trans(dsq[ks], base + L::dS + SwS::chunk(ks * 16 + (lane & 7) + ((lane >> 4) << 3),
-                                                           2 * rg + ((lane >> 3) & 1)));
-    const bool odd = t & 1;
-    const int qi = q0 + rg * 16 + g + (odd ? 8 : 0);
-    float* dq_row = dq_acc + (((long long)b * Lq + qi) * H + h) * D + 4 * (t >> 1);
+      for (int ks = 0; ks < kMmaKeys / 16; ++ks)
+        ldmatrix_x4_trans(dsq[ks], base + L::dS +
+                                       SwS::chunk(ks * 16 + (lane & 7) + ((lane >> 4) << 3),
+                                                  2 * rg + ((lane >> 3) & 1)));
+      const bool odd = t & 1;
+      const int qi = q0 + rg * 16 + g + (odd ? 8 : 0);
+      float* dq_row = dq_acc + (((long long)b * Lq + qi) * H + h) * D + 4 * (t >> 1);
 #pragma unroll 1
-    for (int c0 = 0; c0 < kPairs; c0 += kChunk) {
-      float acc[2 * kChunk][4];
+      for (int c0 = 0; c0 < kPairs; c0 += kChunk) {
+        float acc[2 * kChunk][4];
 #pragma unroll
-      for (int j = 0; j < 2 * kChunk; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-      const int jp0 = part * kPairs + c0;
+        for (int j = 0; j < 2 * kChunk; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+        const int jp0 = part * kPairs + c0;
 #pragma unroll
-      for (int ks = 0; ks < kMmaKeys / 16; ++ks) {
+        for (int ks = 0; ks < kMmaKeys / 16; ++ks) {
 #pragma unroll
-        for (int jj = 0; jj < kChunk; ++jj) {
-          uint32_t bk[4];
-          ldmatrix_x4_trans(bk, base + L::K + Sw::chunk(ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
-                                                        2 * (jp0 + jj) + (lane >> 4)));
-          mma_bf16(acc[2 * jj], dsq[ks], bk[0], bk[1]);
-          mma_bf16(acc[2 * jj + 1], dsq[ks], bk[2], bk[3]);
+          for (int jj = 0; jj < kChunk; ++jj) {
+            uint32_t bk[4];
+            ldmatrix_x4_trans(bk, base + L::K +
+                                      Sw::chunk(ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                                2 * (jp0 + jj) + (lane >> 4)));
+            mma_bf16(acc[2 * jj], dsq[ks], bk[0], bk[1]);
+            mma_bf16(acc[2 * jj + 1], dsq[ks], bk[2], bk[3]);
+          }
         }
-      }
 #pragma unroll
-      for (int j = 0; j < 2 * kChunk; ++j) {
-        const float x0 = __shfl_xor_sync(0xffffffffu, odd ? acc[j][0] : acc[j][2], 1);
-        const float x1 = __shfl_xor_sync(0xffffffffu, odd ? acc[j][1] : acc[j][3], 1);
-        const float4 val = odd ? make_float4(x0, x1, acc[j][2], acc[j][3])
-                               : make_float4(acc[j][0], acc[j][1], x0, x1);
-        if (qi < Lq) atomicAdd(reinterpret_cast<float4*>(dq_row + (jp0 * 2 + j) * 8), val);
+        for (int j = 0; j < 2 * kChunk; ++j) {
+          const float x0 = __shfl_xor_sync(0xffffffffu, odd ? acc[j][0] : acc[j][2], 1);
+          const float x1 = __shfl_xor_sync(0xffffffffu, odd ? acc[j][1] : acc[j][3], 1);
+          const float4 val = odd ? make_float4(x0, x1, acc[j][2], acc[j][3])
+                                 : make_float4(acc[j][0], acc[j][1], x0, x1);
+          if (qi < Lq) atomicAdd(reinterpret_cast<float4*>(dq_row + (jp0 * 2 + j) * 8), val);
+        }
       }
     }
   }
@@ -656,22 +682,41 @@ flash_bwd_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NO; ++j) {
       *reinterpret_cast<uint32_t*>(dk + row + j * 8) =
-          flash_mma::pack_bf16(dka[j][2 * r] * scale, dka[j][2 * r + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + row + j * 8) =
-          flash_mma::pack_bf16(dva[j][2 * r], dva[j][2 * r + 1]);
+          pack_bf16(dka[j][2 * r] * scale, dka[j][2 * r + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dv + row + j * 8) = pack_bf16(dva[j][2 * r], dva[j][2 * r + 1]);
     }
   }
 }
 
+#define DK_KV_MMA_PARAMS                                                                  \
+  const bf16 *__restrict__ q, const bf16 *__restrict__ k, const bf16 *__restrict__ v,     \
+      const bf16 *__restrict__ dout, const float *__restrict__ lse,                        \
+      const float *__restrict__ delta, float *__restrict__ dq_acc, bf16 *__restrict__ dk,  \
+      bf16 *__restrict__ dv, Strides st, int H, int Lq, int Lk, int causal, int q_offset,  \
+      int k_offset, float scale
+
+// B2: dK, dV and the atomic dQ partial sums
 template <int D>
-cudaError_t launch_fused_mma(const Args& a) {
-  const size_t smem = MmaSmem<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_fused_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+__global__ void __launch_bounds__(kMmaThreads) flash_bwd_fused_kernel(DK_KV_MMA_PARAMS) {
+  kv_mma_tile<D, true>(DK_KV_ARGS);
+}
+
+// B3b: dK and dV only (the split tier's second kernel)
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads) flash_bwd_dkv_kernel(DK_KV_MMA_PARAMS) {
+  kv_mma_tile<D, false>(DK_KV_ARGS);
+}
+
+template <int D, bool WITH_DQ>
+cudaError_t launch_kv_mma(const Args& a) {
+  auto kernel = flash_bwd_dkv_kernel<D>;
+  if constexpr (WITH_DQ) kernel = flash_bwd_fused_kernel<D>;
+  const size_t smem = MmaSmem<D, WITH_DQ>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   dim3 grid(a.B * a.H, (a.Lk + kMmaKeys - 1) / kMmaKeys);
-  flash_bwd_fused_kernel<D><<<grid, kMmaThreads, smem, a.stream>>>(
+  kernel<<<grid, kMmaThreads, smem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
@@ -680,42 +725,212 @@ cudaError_t launch_fused_mma(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dq(const Args& a) {
-  auto kernel = flash_bwd_dq_kernel<T, D>;
-  const size_t smem = 2 * kTile * D * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+// ---------------------------------------------------- B3a: bf16, q-major mma
+
+constexpr int kDqRows = 64;  // q rows per block, 16 per warp
+constexpr int kDqKeys = 64;  // keys per K / V tile
+constexpr int kDqWarps = 4;
+constexpr int kDqThreads = 32 * kDqWarps;
+
+template <int D>
+struct DqSmem {  // byte offsets into the block's dynamic shared memory
+  static constexpr uint32_t kTileK = kDqKeys * D * sizeof(bf16);
+  static constexpr uint32_t Q = 0;
+  static constexpr uint32_t dO = Q + kDqRows * D * sizeof(bf16);
+  static constexpr uint32_t K = dO + kDqRows * D * sizeof(bf16);  // two tiles
+  static constexpr uint32_t V = K + 2 * kTileK;                   // two tiles
+  static constexpr uint32_t bytes = V + 2 * kTileK;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kDqThreads)
+flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dq, Strides st, int H, int Lq, int Lk, int causal,
+                    int q_offset, int k_offset, float scale) {
+  using Sw = Swizzle<D>;
+  using L = DqSmem<D>;
+  constexpr int KS = D / 16;  // k-steps over the head dim
+  constexpr int NO = D / 8;   // n-blocks of the [16, D] dQ accumulator
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t base = smem_addr(smem);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kDqRows;  // longest rows first
+  const int nq = min(kDqRows, Lq - q0);
+
+  // keys past the block's last visible position are never loaded
+  int k_end = Lk;
+  if (causal) k_end = max(0, min(Lk, q_offset + q0 + nq - 1 - k_offset + 1));
+  const int n_tiles = (k_end + kDqKeys - 1) / kDqKeys;
+
+  const bf16* kb = k + b * st.kb + h * st.kh;
+  const bf16* vb = v + b * st.vb + h * st.vh;
+  auto load_kv_tile = [&](int tile) {
+    const int k0 = tile * kDqKeys;
+    const int n = min(kDqKeys, Lk - k0);
+    const uint32_t buf = (tile & 1) * L::kTileK;
+    load_tile_async<D, kDqKeys, kDqThreads>(base + L::K + buf, kb + k0 * st.kl, st.kl, n, tid);
+    load_tile_async<D, kDqKeys, kDqThreads>(base + L::V + buf, vb + k0 * st.vl, st.vl, n, tid);
+  };
+  load_tile_async<D, kDqRows, kDqThreads>(base + L::Q, q + b * st.qb + h * st.qh + q0 * st.ql,
+                                          st.ql, nq, tid);
+  load_tile_async<D, kDqRows, kDqThreads>(base + L::dO,
+                                          dout + b * st.ob + h * st.oh + q0 * st.ol, st.ol, nq,
+                                          tid);
+  if (n_tiles > 0) load_kv_tile(0);
+  cp_async_commit();
+
+  // rows g and g + 8 of the warp's 16: lse (times log2 e, for ex2) and delta
+  const int row0 = warp * 16 + g;
+  const long long stat0 = ((long long)b * H + h) * Lq + q0;
+  const float scale_l2 = scale * kLog2e;
+  float lse_l2[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = row0 + 8 * r;
+    lse_l2[r] = i < nq ? lse[stat0 + i] * kLog2e : 0.f;
+    delta_r[r] = i < nq ? delta[stat0 + i] : 0.f;
+  }
+
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  uint32_t qf[KS][4], of[KS][4];
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int k0 = tile * kDqKeys;
+    cp_async_wait<0>();
+    __syncthreads();  // this tile is in, and every warp is done with the last one
+    if (tile + 1 < n_tiles) load_kv_tile(tile + 1);  // streams in under this tile
+    cp_async_commit();
+    if (tile == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const uint32_t off = Sw::chunk(warp * 16 + (lane & 15), 2 * kk + (lane >> 4));
+        ldmatrix_x4(qf[kk], base + L::Q + off);
+        ldmatrix_x4(of[kk], base + L::dO + off);
+      }
+    }
+    const uint32_t cK = base + L::K + (tile & 1) * L::kTileK;
+    const uint32_t cV = base + L::V + (tile & 1) * L::kTileK;
+    const bool edge = k0 + kDqKeys > Lk || q0 + kDqRows > Lq ||
+                      (causal && q_offset + q0 < k_offset + k0 + kDqKeys - 1);
+
+#pragma unroll 1
+    for (int hk = 0; hk < 2; ++hk) {  // keys hk * 32 .. hk * 32 + 31 of the tile
+      // S = Q K^T and dP = dO V^T: the warp's 16 q rows x 32 keys
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const uint32_t off = Sw::chunk(hk * 32 + p * 16 + (lane & 7) + ((lane >> 4) << 3),
+                                         2 * kk + ((lane >> 3) & 1));
+          uint32_t bk[4], bv[4];
+          ldmatrix_x4(bk, cK + off);
+          mma_bf16(s[2 * p], qf[kk], bk[0], bk[1]);
+          mma_bf16(s[2 * p + 1], qf[kk], bk[2], bk[3]);
+          ldmatrix_x4(bv, cV + off);
+          mma_bf16(dp[2 * p], of[kk], bv[0], bv[1]);
+          mma_bf16(dp[2 * p + 1], of[kk], bv[2], bv[3]);
+        }
+      }
+
+      // ds; element (j, e) is q row row0 + 8 (e / 2), key hk * 32 + 8 j +
+      // 2 t + e % 2 of the tile.  bf16(dS) becomes the A fragments of two
+      // k-steps of 16 keys.
+      uint32_t da[2][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float dsv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float pe = exp2_approx(fmaf(s[j][e], scale_l2, -lse_l2[r]));
+          if (edge) {
+            const int kj = k0 + hk * 32 + j * 8 + 2 * t + (e & 1);
+            const int qi = q0 + row0 + 8 * r;
+            if (kj >= Lk || qi >= Lq || (causal && q_offset + qi < k_offset + kj)) pe = 0.f;
+          }
+          dsv[e] = pe * (dp[j][e] - delta_r[r]);
+        }
+        const int ks = j >> 1, hi = 2 * (j & 1);
+        da[ks][hi] = pack_bf16(dsv[0], dsv[1]);
+        da[ks][hi + 1] = pack_bf16(dsv[2], dsv[3]);
+      }
+
+      // dQ += bf16(dS) K over these 32 keys
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        const int r = hk * 32 + ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+        for (int jp = 0; jp < NO / 2; ++jp) {
+          uint32_t bk[4];
+          ldmatrix_x4_trans(bk, cK + Sw::chunk(r, 2 * jp + (lane >> 4)));
+          mma_bf16(acc[2 * jp], da[ks], bk[0], bk[1]);
+          mma_bf16(acc[2 * jp + 1], da[ks], bk[2], bk[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + row0 + 8 * r;
+    if (qi >= Lq) continue;
+    bf16* row = dq + (((long long)b * Lq + qi) * H + h) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      *reinterpret_cast<uint32_t*>(row + j * 8) =
+          pack_bf16(acc[j][2 * r] * scale, acc[j][2 * r + 1] * scale);
+  }
+}
+
+template <int D>
+cudaError_t launch_dq_mma(const Args& a) {
+  const size_t smem = DqSmem<D>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  dim3 grid((a.Lq + kRows - 1) / kRows, a.H, a.B);
-  kernel<<<grid, Layout<D>::kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<T*>(a.dq), a.st, a.H, a.Lq, a.Lk,
-      a.causal, a.q_offset, a.k_offset, a.scale);
+  dim3 grid(a.B * a.H, (a.Lq + kDqRows - 1) / kDqRows);
+  flash_bwd_dq_kernel<D><<<grid, kDqThreads, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<bf16*>(a.dq), a.st, a.H, a.Lq, a.Lk, a.causal, a.q_offset, a.k_offset,
+      a.scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch(Which which, const Args& a) {
-  switch (which) {
-    case kFused:
-      if constexpr (std::is_same<T, __nv_bfloat16>::value) return launch_fused_mma<D>(a);
-      else return launch_kv<T, D, true>(a);
-    case kDkv: return launch_kv<T, D, false>(a);
-    case kDq: return launch_dq<T, D>(a);
+// dtype 0 (float32) takes the CUDA-core kernels, 1 (bfloat16) the mma ones
+template <int D>
+cudaError_t launch(int dtype, Which which, const Args& a) {
+  if (dtype == 0) {
+    switch (which) {
+      case kFused: return launch_kv_f32<D, true>(a);
+      case kDkv: return launch_kv_f32<D, false>(a);
+      case kDq: return launch_dq_f32<D>(a);
+    }
+  } else if (dtype == 1) {
+    switch (which) {
+      case kFused: return launch_kv_mma<D, true>(a);
+      case kDkv: return launch_kv_mma<D, false>(a);
+      case kDq: return launch_dq_mma<D>(a);
+    }
   }
   return cudaErrorInvalidValue;
-}
-
-template <typename T>
-cudaError_t dispatch_d(int D, Which which, const Args& a) {
-  switch (D) {
-    case 32: return launch<T, 32>(which, a);
-    case 64: return launch<T, 64>(which, a);
-    case 128: return launch<T, 128>(which, a);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 int run(Which which, const void* q, const void* k, const void* v, const void* dout,
@@ -727,12 +942,11 @@ int run(Which which, const void* q, const void* k, const void* v, const void* do
                B, H, Lq, Lk, causal, q_offset, k_offset, scale,
                static_cast<cudaStream_t>(stream)};
   cudaError_t err;
-  if (dtype == 0) {
-    err = dispatch_d<float>(D, which, a);
-  } else if (dtype == 1) {
-    err = dispatch_d<__nv_bfloat16>(D, which, a);
-  } else {
-    err = cudaErrorInvalidValue;
+  switch (D) {
+    case 32: err = launch<32>(dtype, which, a); break;
+    case 64: err = launch<64>(dtype, which, a); break;
+    case 128: err = launch<128>(dtype, which, a); break;
+    default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }

@@ -10,10 +10,13 @@ exists only to fit TPU VMEM and has no counterpart here.
 
 Each entry point picks its kernel by dtype: bfloat16 runs the tensor-core
 kernels (``mma.sync`` through ``csrc/flash_mma.cuh``: B1's
-``flash_fwd_kernel`` and B2's ``flash_bwd_fused_kernel``), float32 runs
-CUDA-core kernels (``flash_fwd_f32_kernel``, ``flash_bwd_fused_f32_kernel``)
-so that no float32 product is rounded to TF32.  The split tier (B3a, B3b)
-runs CUDA-core kernels in both dtypes.
+``flash_fwd_kernel``, B2's ``flash_bwd_fused_kernel``, and the split
+tier's ``flash_bwd_dq_kernel`` (B3a) and ``flash_bwd_dkv_kernel`` (B3b)),
+float32 runs CUDA-core kernels (the same names with ``_f32``:
+``flash_fwd_f32_kernel``, ``flash_bwd_fused_f32_kernel``,
+``flash_bwd_dq_f32_kernel``, ``flash_bwd_dkv_f32_kernel``) so that no
+float32 product is rounded to TF32.  The split tier uses no atomics, so
+its gradients are bitwise reproducible; the fused tier's dQ is not.
 
 Public layout is the framework's ``[B, L, H, D]``; the kernels read it
 through strides (no transpose copy).  Semantics as in the JAX package:

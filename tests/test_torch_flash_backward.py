@@ -187,3 +187,76 @@ def test_backward_without_grad_needed_costs_nothing():
     o, lse = tfa.flash_attention_with_lse(qg, kt, vt)
     (g,) = torch.autograd.grad(o.sum(), qg)
     assert g.shape == qg.shape and torch.isfinite(g).all()
+
+
+# name: (causal, q_offset, k_offset, Lq, Lk, differentiate lse)
+SPLIT_CASES = {
+    "causal": (True, 0, 0, 32, 32, False),
+    "non-causal-dlse": (False, 0, 0, 32, 32, True),
+    "fully-masked-rows": (True, 0, 8, 16, 16, False),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_tier_matches_pallas_split_kernels(monkeypatch, case, dtype):
+    """The split tier on both sides: the JAX package's ``_bwd_dq_kernel`` +
+    ``_bwd_dkv_kernel`` (its fused tier capped away, run by the Pallas
+    interpreter) against the port's split backward (``FUSED_DQ_WORKSPACE_CAP``
+    0), whose plain version is what the card's B3a and B3b are held to.
+    float32 in 8-wide blocks: only summation order differs (``TOL_F32``).
+    bfloat16 in full-length blocks: both round p and ds at the same points
+    (dQ takes ds in k's dtype), so as in the bf16 test above a quarter of a
+    bf16 ulp of each grad's largest magnitude and 1 % of the elements."""
+    import distkeras_tpu.ops.flash_attention as jfa
+
+    causal, qo, ko, lq, lk, with_lse = SPLIT_CASES[case]
+    np_dtype = np.float32 if dtype == "float32" else ml_dtypes.bfloat16
+    q, k, v, w, w_lse = _arrays(7, lq, lk, dtype=np_dtype)
+    blocks = dict(block_q=8, block_k=8) if dtype == "float32" else {}
+
+    def no_fused(*args, **kwargs):
+        raise AssertionError("the JAX fused backward ran; the split tier was wanted")
+
+    monkeypatch.setattr(jfa, "_FUSED_WIDE_CAP", 0)
+    monkeypatch.setattr(jfa, "_FUSED_DQ_SCRATCH_CAP", 0)
+    monkeypatch.setattr(jfa, "_fused_backward_call", no_fused)
+    monkeypatch.setattr(tfa, "FUSED_DQ_WORKSPACE_CAP", 0)
+    splits = []
+    plain = tfa.flash_backward_plain
+
+    def recording(*args, split=False, **kwargs):
+        splits.append(split)
+        return plain(*args, split=split, **kwargs)
+
+    monkeypatch.setattr(tfa, "flash_backward_plain", recording)
+
+    def jax_loss(q, k, v):
+        o, lse = jfa.flash_attention_with_lse(q, k, v, causal=causal, q_offset=qo,
+                                              k_offset=ko, interpret=True, **blocks)
+        loss = jnp.sum(o.astype(jnp.float32) * w)
+        return loss + jnp.sum(lse * w_lse) if with_lse else loss
+
+    def torch_loss(q, k, v):
+        o, lse = tfa.flash_attention_with_lse(q, k, v, causal=causal, q_offset=qo,
+                                              k_offset=ko)
+        loss = (o.float() * torch.from_numpy(w)).sum()
+        return loss + (lse * torch.from_numpy(w_lse)).sum() if with_lse else loss
+
+    want = _jax_grads(jax_loss, q, k, v)
+    got = _torch_grads(torch_loss, q, k, v, dtype=getattr(torch, dtype))
+    assert splits == [True]
+    for g, r, name in zip(got, want, "qkv"):
+        if dtype == "float32":
+            np.testing.assert_allclose(g, r, atol=TOL_F32, rtol=TOL_F32, err_msg=f"d{name}")
+        else:
+            tol = 0.25 * BF16_ULP * np.abs(r).max()
+            assert np.abs(g - r).max() <= tol, (name, np.abs(g - r).max(), tol)
+            assert (g != r).mean() <= 0.01, (name, (g != r).mean())
+    if ko > qo:
+        # query rows that see no key, and keys no query sees: exactly zero
+        dead_q, dead_k = ko - qo, lk - (qo + lq - 1 - ko) - 1
+        for grads in (got, want):
+            assert (grads[0][:, :dead_q] == 0).all()
+            assert (grads[1][:, lk - dead_k:] == 0).all()
+            assert (grads[2][:, lk - dead_k:] == 0).all()
