@@ -7,16 +7,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 1. build: compile every kernel under distkeras_torch/csrc/ with nvcc
    (sm_90a), one process per source, all started together; then count the
-   tensor-core instructions (HMMA) of each bf16 flash kernel in the built
-   library with cuobjdump -sass (none is a failure), and read its registers
-   and stack frame with cuobjdump -res-usage (a stack frame, where spilled
-   registers go, is a failure);
+   tensor-core instructions (HMMA) of each bf16 flash and decode kernel in
+   the built library with cuobjdump -sass (none is a failure), and read its
+   registers and stack frame with cuobjdump -res-usage (a stack frame, where
+   spilled registers go, is a failure);
 2. kernels: hold each kernel against its plain PyTorch version on the card,
    at the shapes of the main path (bf16), plus one float32 case for each
    flash kernel (its float32 instance runs on the CUDA cores), check that
-   the split backward (B3a + B3b) is bitwise reproducible, and time
-   kernel, plain version and (where one exists) the PyTorch library call
-   computing the same function;
+   the split backward (B3a + B3b) and the decode step are bitwise
+   reproducible, hold the decode step against its plain version at two
+   more shapes (head dims 32 and 128, a shallow shared-memory plan, a tile
+   deal with no blocks kept for the down projection), and time kernel,
+   plain version and (where one exists) the PyTorch library call
+   computing the same function; the decode step's stamped probe splits
+   its time by phase (LN0 + qkv, attention, proj, LN1 + up, down), times
+   an empty grid barrier, and must agree with the profiler's time;
 3. serving (main path): make_generate_fn at batch 8, prompt 128, 512 new
    greedy tokens on the 8-layer, 512-wide, 8192-vocab decode model, then the
    plain per-op step on the same prompt for token agreement;
@@ -99,23 +104,35 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
 
 def device_ms(torch, fn, kernel=None, reps: int = 20, warmup: int = 3) -> float:
     """Device time per call of ``fn``: the profiler's sum of the kernels whose
-    name contains ``kernel`` (all kernels when None), over ``reps`` calls."""
+    name contains ``kernel`` (all kernels when None), over ``reps`` calls.
+    The trace must hold device time and, with a kernel named, the same
+    number of its launches for every call: on an H100 the profiler has
+    returned traces that lost launches (a B4 time far below its per-phase
+    stamps) or held none, so such a trace is taken again, and the run
+    fails if three in a row are short."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    for e in prof.key_averages():
-        if kernel is None or kernel in e.key:
-            total_us += getattr(e, "self_device_time_total", None) or getattr(
-                e, "self_cuda_time_total", 0.0)
-    check(total_us > 0, f"the profiler saw no device time for {kernel or 'the call'}")
-    return total_us / reps / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us, launches = 0.0, 0
+        for e in prof.key_averages():
+            if kernel is None or kernel in e.key:
+                total_us += getattr(e, "self_device_time_total", None) or getattr(
+                    e, "self_cuda_time_total", 0.0)
+                launches += e.count
+        if kernel is not None:
+            print(f"device_ms: {kernel}: {launches} launches read in {reps} calls")
+        if total_us > 0 and (kernel is None or (launches >= reps and launches % reps == 0)):
+            return total_us / reps / 1e3
+        print(f"device_ms: the profiler recorded {launches} launches, {total_us:.1f} us, of "
+              f"{kernel or 'the call'} in {reps} calls; measuring again")
+    raise SmokeFailure(f"the profiler's traces of {kernel or 'the call'} stay short")
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
@@ -126,10 +143,11 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
 
 # the bf16 tensor-core kernels, by library: the profiler and cuobjdump
 # select them by these substrings (the float32 instances are named
-# flash_fwd_f32_kernel, flash_bwd_fused_f32_kernel, flash_bwd_dq_f32_kernel
-# and flash_bwd_dkv_f32_kernel)
+# flash_fwd_f32_kernel, flash_bwd_fused_f32_kernel, flash_bwd_dq_f32_kernel,
+# flash_bwd_dkv_f32_kernel and decode_f32_kernel)
 MMA_KERNELS = (("flash_fwd", "flash_fwd_kernel"), ("flash_bwd", "flash_bwd_fused_kernel"),
-               ("flash_bwd", "flash_bwd_dq_kernel"), ("flash_bwd", "flash_bwd_dkv_kernel"))
+               ("flash_bwd", "flash_bwd_dq_kernel"), ("flash_bwd", "flash_bwd_dkv_kernel"),
+               ("decode_step", "decode_kernel"))
 
 
 def _cuobjdump(_build, flag, lib):
@@ -141,7 +159,7 @@ def _cuobjdump(_build, flag, lib):
 
 
 def sass_phase(_build):
-    """Per instance (D 32, 64, 128) of the bf16 flash kernels: its HMMA
+    """Per instance (D 32, 64, 128) of the bf16 flash and decode kernels: its HMMA
     instructions, from cuobjdump -sass of the built library, and its
     registers and stack frame, from cuobjdump -res-usage.  An instance
     without HMMA (the tensor cores unused) or with a stack frame (registers
@@ -396,7 +414,8 @@ def flash_bwd_timing(torch, fa, q, k, v, do):
 
 
 def decode_phase(torch, model, ds, dec):
-    """B4: kernel vs plain for one step at the main-path shape."""
+    """B4: kernel vs plain for one step at the main-path shape, and two calls
+    bitwise equal."""
     config = model.spec.config
     state = dec.make_fused_state(model.params, config)
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -416,8 +435,9 @@ def decode_phase(torch, model, ds, dec):
         err = (out.float() - ref.float()).abs().max().item()
         err_k = (kc[:, :, pos].float() - kp[:, :, pos].float()).abs().max().item()
         err_v = (vc[:, :, pos].float() - vp[:, :, pos].float()).abs().max().item()
-        untouched = bool(torch.equal(kc[:, :, :pos], cache.k[:, :, :pos])
-                         and torch.equal(vc[:, :, pos + 1:], cache.v[:, :, pos + 1:]))
+        rest = [r for r in range(total) if r != pos]
+        untouched = bool(torch.equal(kc[:, :, rest], cache.k[:, :, rest])
+                         and torch.equal(vc[:, :, rest], cache.v[:, :, rest]))
         # bf16 residual stream through 8 layers: summation order differs, so
         # a rounding point may land one ulp apart and carry forward; 2 % of
         # the largest magnitude (about 2.5 bf16 ulps at it)
@@ -426,12 +446,108 @@ def decode_phase(torch, model, ds, dec):
         check(err <= 2e-2 * scale, f"decode_step pos {pos}: hidden disagrees with plain")
         check(max(err_k, err_v) <= 2e-2 * scale, f"decode_step pos {pos}: new rows disagree")
         check(untouched, f"decode_step pos {pos}: cache rows other than pos changed")
+        check(bool(torch.isfinite(out.float()).all()), f"decode_step pos {pos}: non-finite")
         worst = max(worst, err, err_k, err_v)
+
+    # fixed-order sums, no atomics: two calls agree to the bit
+    kc, vc = cache.k.clone(), cache.v.clone()
+    kc2, vc2 = cache.k.clone(), cache.v.clone()
+    first = ds.fused_decode_step(state.weights, x, kc, vc, total - 1, heads=HEADS)
+    again = ds.fused_decode_step(state.weights, x, kc2, vc2, total - 1, heads=HEADS)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(first, again) and torch.equal(kc, kc2) and torch.equal(vc, vc2))
+    print(f"decode_step bf16, two calls: hidden state and caches bitwise equal {same}")
+    check(same, "decode_step is not bitwise reproducible")
+    for shape in DECODE_SHAPES:
+        worst = max(worst, decode_shape_case(torch, ds, **shape))
     return worst, lambda: decode_timing(torch, ds, state, cache, x)
 
 
+# Shapes beside the serving one (random weights and caches, 2 layers), each
+# held against the plain version.  With 227 KB a block on an H100:
+# - the [16, 6400] up input leaves 18.5 KB for the rings, so the plan is
+#   one weight slot 256 columns wide (1600 = 6.25 chunks: a partial last
+#   chunk) and one K/V slot; every tile is deeper than the ring (the
+#   segmented loop), and the 32-wide heads run decode_kernel<32>;
+# - 2304 / 16 = 144 down tiles are more than the grid's blocks, so every
+#   block takes down tiles and the qkv, proj and up tiles are dealt over
+#   the whole grid; the 128-wide heads run decode_kernel<128>.
+DECODE_SHAPES = (
+    dict(batch=16, dim=1600, heads=50, mlp=6400, cache=2048, pos=2047),
+    dict(batch=4, dim=2304, heads=18, mlp=9216, cache=1024, pos=777),
+)
+
+
+def decode_shape_case(torch, ds, batch, dim, heads, mlp, cache, pos, layers=2):
+    """B4 bf16 against its plain version at one shape: hidden state and the
+    new rows within 2 % of the largest magnitude, other cache rows
+    untouched."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bf = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(bf)
+
+    ln = torch.stack([torch.ones(layers, dim, device="cuda"),
+                      torch.zeros(layers, dim, device="cuda")] * 2, dim=1)
+    ln += 0.1 * torch.randn(ln.shape, generator=gen, device="cuda")
+    w = ds.DecodeWeights(ln, randn(layers, 3 * dim, dim, scale=dim ** -0.5),
+                         randn(layers, dim, dim, scale=dim ** -0.5),
+                         randn(layers, mlp, dim, scale=dim ** -0.5),
+                         randn(layers, dim, mlp, scale=mlp ** -0.5))
+    kc = randn(layers, batch, cache, heads, dim // heads)
+    vc = randn(layers, batch, cache, heads, dim // heads)
+    x = randn(batch, dim)
+    kp, vp = kc.clone(), vc.clone()
+    out = ds.fused_decode_step(w, x, kc, vc, pos, heads=heads)
+    torch.cuda.synchronize()
+    ref = ds.fused_decode_step_plain(w, x, kp, vp, pos, heads=heads)
+    tol = 2e-2 * max(1.0, ref.float().abs().max().item())
+    err = (out.float() - ref.float()).abs().max().item()
+    err_kv = max((kc[:, :, pos].float() - kp[:, :, pos].float()).abs().max().item(),
+                 (vc[:, :, pos].float() - vp[:, :, pos].float()).abs().max().item())
+    kc[:, :, pos] = kp[:, :, pos]
+    vc[:, :, pos] = vp[:, :, pos]
+    untouched = bool(torch.equal(kc, kp) and torch.equal(vc, vp))
+    name = f"decode_step B{batch} E{dim} H{heads} F{mlp} S{cache} pos {pos}"
+    print(f"{name}: max|x-x_plain| {err:.3e}, new rows {err_kv:.3e} (tol {tol:.3e})")
+    check(err <= tol and err_kv <= tol, f"{name}: disagrees with plain")
+    check(untouched, f"{name}: cache rows other than pos changed")
+    check(bool(torch.isfinite(out.float()).all()), f"{name}: non-finite")
+    return max(err, err_kv)
+
+
+def decode_stamps(torch, ds, state, cache, x, pos, reps: int = 20):
+    """B4's time by phase from the stamped probe (%globaltimer after each grid
+    barrier, block 0): per phase summed over the layers, and one empty
+    barrier; medians over ``reps`` calls."""
+    kc, vc = cache.k.clone(), cache.v.clone()
+    empty = ds.STAMP_EMPTY_BARRIERS
+    rows = {k: [] for k in ("barrier",) + ds.STAMP_PHASES + ("layers",)}
+    for i in range(reps + 2):
+        _, st = ds.fused_decode_step_stamped(state.weights, x, kc, vc, pos, heads=HEADS)
+        torch.cuda.synchronize()
+        if i < 2:
+            continue
+        s = st.cpu().tolist()
+        # the first empty barrier also waits for the blocks' set-up: skip it
+        rows["barrier"].append(statistics.mean(s[j + 1] - s[j] for j in range(1, empty))
+                               / 1e3)
+        base = empty
+        for p, name in enumerate(ds.STAMP_PHASES):
+            rows[name].append(sum(s[base + 1 + 5 * l + p] - s[base + 5 * l + p]
+                                  for l in range(LAYERS)) / 1e3)
+        rows["layers"].append((s[-1] - s[base]) / 1e3)
+    med = {k: statistics.median(v) for k, v in rows.items()}
+    print(f"decode_step stamps pos {pos} (us; phases summed over {LAYERS} layers, each "
+          f"ending at its grid barrier; barrier = one barrier with no work): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in med.items()))
+    return med
+
+
 def decode_timing(torch, ds, state, cache, x):
-    """B4 device times at three cache positions; the JSON takes the middle one."""
+    """B4 device times at three cache positions, each with its stamped
+    breakdown by phase; the JSON takes the middle one."""
     total = PROMPT + NEW
     w = state.weights
     weight_bytes = sum(t.numel() * t.element_size() for t in w)
@@ -454,8 +570,17 @@ def decode_timing(torch, ds, state, cache, x):
         bms, by = bound_ms(nbytes, flops, "bfloat16")
         timings[pos] = (ms, plain_ms, bms, by)
         print(f"decode_step pos {pos} (B8, 8 layers, E512, bf16): device time kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}); "
-              f"wrapper call between CUDA events {wrapper_ms:.4f} ms")
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+              f"{100 * bms / ms:.1f} % of the bound; wrapper call between CUDA events "
+              f"{wrapper_ms:.4f} ms")
+        # the profiler's time against the stamps' span of the layers: a trace
+        # that lost launches or misread their times reads far from it
+        layers_us = decode_stamps(torch, ds, state, cache, x, pos)["layers"]
+        gap = abs(ms * 1e3 - layers_us) / layers_us
+        print(f"decode_step pos {pos}: profiler {ms * 1e3:.2f} us against the stamped "
+              f"layers {layers_us:.2f} us, {100 * gap:.1f} % apart (limit 20 %)")
+        check(gap <= 0.2, f"decode_step pos {pos}: the profiler's time is {100 * gap:.1f} % "
+                          f"from the stamped span")
     mid = (PROMPT + total - 2) // 2
     ms, plain_ms, bms, by = timings[mid]
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,

@@ -33,7 +33,9 @@ from distkeras_torch.platform import DeviceLike, resolve_device
 def _linear(y: torch.Tensor, w, dtype) -> torch.Tensor:
     """``y @ w.T`` where ``w`` may be an int8 ``QTensor``.
 
-    The per-output-channel scale commutes out of the contraction, so an int8
+    A block weight's scale is ``[N, 1]``, constant along the contracted
+    axis (per output row, or per head-dim index broadcast to the rows for
+    ``qkv`` / ``q`` / ``kv``), so it commutes out of the contraction: an int8
     weight is consumed as int8 and its scale multiplies the output."""
     if isinstance(w, QTensor):
         out = y @ w.q.to(dtype).T
@@ -42,8 +44,8 @@ def _linear(y: torch.Tensor, w, dtype) -> torch.Tensor:
 
 
 def dequant_embed(params: Dict) -> Dict:
-    """Only the embedding dequantizes up front: the unembed contracts its
-    model dim, across the scale's channels."""
+    """Only the embedding dequantizes up front: its scale is per model-dim
+    column ``[1, E]``, and the unembed contracts that axis."""
     emb = params["embed.weight"]
     if isinstance(emb, QTensor):
         params = dict(params, **{"embed.weight": emb.dequantize(torch.float32)})

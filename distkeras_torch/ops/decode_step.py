@@ -4,7 +4,10 @@ Counterpart of ``distkeras_tpu/ops/decode_step.py``.  ``csrc/decode_step.cu``
 replaces the Pallas kernel ``_decode_kernel``: one decode token through all
 layers (LN -> qkv -> attention over the cache -> proj + residual -> LN ->
 up -> gelu -> down + residual), returning the hidden state before the final
-norm.  See the source for the kernel design.
+norm.  bf16 runs ``decode_kernel<D>`` (tensor-core gemv phases, weights
+streamed into shared memory ahead of the grid barriers, attention split over
+clusters of two blocks); float32 runs ``decode_f32_kernel<D>`` on the CUDA
+cores.  See the source for the design.
 
 Differences from the JAX package, all of them layout: the caches keep the
 prefill layout ``[L, B, S, H, D]`` (no transposed K slab, no cache length
@@ -15,7 +18,9 @@ the same arithmetic as the Pallas kernel's cache term plus its separate
 new-token term.
 
 A CPU tensor takes :func:`fused_decode_step_plain`; a CUDA tensor launches
-the kernel or raises.
+the kernel or raises.  :func:`fused_decode_step_stamped` is a probe of where
+a token's time goes (timestamps after every grid barrier); it is not on the
+serving path and its launches are counted apart.
 """
 
 from __future__ import annotations
@@ -29,8 +34,15 @@ from distkeras_torch import _build
 from distkeras_torch.ops.quantize import QTensor
 
 _c = ctypes
-DECODE_STEP = _build.Kernel(
-    "decode_step", "dk_decode_step", [_c.c_void_p] * 11 + [_c.c_int] * 9 + [_c.c_void_p])
+# x, ln, 4 weight slabs, 2 caches, q/o/h scratch; L, B, E, H, D, F, S, pos,
+# dtype; (stamps, empty barriers,) stream
+_ARGS = [_c.c_void_p] * 11 + [_c.c_int] * 9
+DECODE_STEP = _build.Kernel("decode_step", "dk_decode_step", _ARGS + [_c.c_void_p])
+DECODE_STEP_STAMPED = _build.Kernel("decode_step", "dk_decode_step_stamped",
+                                    _ARGS + [_c.c_void_p, _c.c_int, _c.c_void_p])
+# grid barriers with no work that the stamped probe times before the first layer
+STAMP_EMPTY_BARRIERS = 4
+STAMP_PHASES = ("ln0+qkv", "attention", "proj", "ln1+up", "down")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_BATCH = 16
@@ -75,8 +87,13 @@ def fused_step_supported(config: dict, batch: int, cache_len: int) -> bool:
     MHA only, learned positions, no MoE, batch 1-16.  The kernel's own:
     a bf16 or f32 compute dtype, 16-byte rows (model, head and MLP widths
     multiples of 8), a head dim of 32, 64 or 128 (the attention kernel's
-    instantiations), and the per-block shared memory (the widest gemv input,
-    ``batch * F`` elements, and ``cache_len`` f32 scores) within 200 KB."""
+    instantiations), and a block's shared memory: the widest gemv input,
+    ``batch * F`` elements, the bf16 kernel's LayerNorm input with its f32
+    parameters, ``batch * E`` elements and ``2 * E`` floats, and the
+    attention phase with ``cache_len`` f32 scores, each within 200 KB.  The
+    bf16 kernel fits its rings into what is left of Hopper's 227 KB,
+    shallower where less is left; its shallowest rings fit beside any of
+    these within 200 KB."""
     from distkeras_torch.models.base import resolve_dtype
 
     e = config["model_dim"]
@@ -98,6 +115,7 @@ def fused_step_supported(config: dict, batch: int, cache_len: int) -> bool:
             and dtype in _DTYPE_CODES
             and e % 8 == 0 and f % 8 == 0 and d in (32, 64, 128) and h * d == e
             and batch * max(e, f) * dsize <= _SMEM_BUDGET
+            and (dtype == torch.float32 or batch * e * dsize + 8 * e <= _SMEM_BUDGET)
             and attn_smem <= _SMEM_BUDGET)
 
 
@@ -166,10 +184,8 @@ def fused_decode_step_plain(weights: DecodeWeights, x: torch.Tensor,
     return x
 
 
-def fused_decode_step_cuda(weights: DecodeWeights, x: torch.Tensor,
-                           k_cache: torch.Tensor, v_cache: torch.Tensor,
-                           pos: int, *, heads: int) -> torch.Tensor:
-    """Launch ``csrc/decode_step.cu``; same contract as the plain version."""
+def _checked_shape(weights: DecodeWeights, x: torch.Tensor, k_cache: torch.Tensor,
+                   v_cache: torch.Tensor, pos: int, heads: int):
     dtype = x.dtype
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"decode step kernel takes float32 or bfloat16, got {dtype}")
@@ -196,17 +212,47 @@ def fused_decode_step_cuda(weights: DecodeWeights, x: torch.Tensor,
     if f % e or not fused_step_supported(config, b, s_len):
         raise ValueError(f"decode step kernel does not support this shape "
                          f"(batch {b}, model_dim {e}, heads {h}, cache {s_len})")
+    return num_layers, b, e, h, d, f, s_len
+
+
+def _launch(kernel, weights, x, k_cache, v_cache, pos, heads, *extra):
+    num_layers, b, e, h, d, f, s_len = _checked_shape(weights, x, k_cache, v_cache, pos, heads)
+    dtype = x.dtype
     out = x.contiguous().clone()
     q_buf = torch.empty((b, e), dtype=dtype, device=x.device)
     o_buf = torch.empty((b, e), dtype=dtype, device=x.device)
     h_buf = torch.empty((b, f), dtype=dtype, device=x.device)
     p = _build.ptr
-    DECODE_STEP.launch(
+    kernel.launch(
         p(out), p(weights.ln), p(weights.wqkv), p(weights.wproj), p(weights.wup),
         p(weights.wdown), p(k_cache), p(v_cache), p(q_buf), p(o_buf), p(h_buf),
-        num_layers, b, e, h, d, f, s_len, int(pos), _DTYPE_CODES[dtype],
+        num_layers, b, e, h, d, f, s_len, int(pos), _DTYPE_CODES[dtype], *extra,
         _build.stream_of(x))
     return out
+
+
+def fused_decode_step_cuda(weights: DecodeWeights, x: torch.Tensor,
+                           k_cache: torch.Tensor, v_cache: torch.Tensor,
+                           pos: int, *, heads: int) -> torch.Tensor:
+    """Launch ``csrc/decode_step.cu``; same contract as the plain version."""
+    return _launch(DECODE_STEP, weights, x, k_cache, v_cache, pos, heads)
+
+
+def fused_decode_step_stamped(weights: DecodeWeights, x: torch.Tensor,
+                              k_cache: torch.Tensor, v_cache: torch.Tensor,
+                              pos: int, *, heads: int):
+    """The bf16 step with timestamps, a probe: returns the hidden state and
+    int64 nanoseconds (``%globaltimer``, thread 0 of block 0) at kernel
+    entry, after each of ``STAMP_EMPTY_BARRIERS`` grid barriers with no
+    work, then after the barrier that ends each phase of each layer
+    (``STAMP_PHASES``).  Launches count on ``DECODE_STEP_STAMPED``."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError("the stamped decode step is the bf16 kernel's")
+    stamps = torch.zeros(1 + STAMP_EMPTY_BARRIERS + 5 * k_cache.shape[0], dtype=torch.int64,
+                         device=x.device)
+    out = _launch(DECODE_STEP_STAMPED, weights, x, k_cache, v_cache, pos, heads,
+                  _build.ptr(stamps), STAMP_EMPTY_BARRIERS)
+    return out, stamps
 
 
 def fused_decode_step(weights: DecodeWeights, x: torch.Tensor, k_cache: torch.Tensor,

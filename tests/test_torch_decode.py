@@ -156,7 +156,9 @@ def test_int8_tree_decodes_on_both_impls(f32_pair):
     matmul) and the fused step (dequantized at stacking) gives the same
     tokens, and those of the JAX decoder on the dequantized weights."""
     jm, tm = f32_pair
-    qp = quantize_params(tm.params, min_size=64)
+    cfg = tm.spec.config
+    qp = quantize_params(tm.params, min_size=64,
+                         head_dim=cfg["model_dim"] // cfg["num_heads"])
     assert isinstance(qp["block_0.qkv.weight"], QTensor)
     assert not isinstance(qp["block_0.LayerNorm_0.weight"], QTensor)
     dense = dequantize_params(qp)
@@ -267,5 +269,10 @@ def test_step_impl_resolution():
     assert not tds.fused_step_supported(dict(cfg, num_kv_heads=1), 1, 64)
     assert not tds.fused_step_supported(dict(cfg, positional="rope"), 1, 64)
     assert not tds.fused_step_supported(dict(cfg, model_dim=36, num_heads=2), 1, 64)
+    # bf16: the LayerNorm input [16, 6144] with its f32 parameters passes
+    # 200 KB though the widest gemv input alone does not
+    wide = dict(cfg, model_dim=6144, num_heads=48, mlp_ratio=1, compute_dtype="bfloat16")
+    assert not tds.fused_step_supported(wide, 16, 64)
+    assert tds.fused_step_supported(wide, 8, 64)
     with pytest.raises(ValueError, match="fused"):
         tds.resolve_step_impl(cfg, 0, 64, "fused", "cpu")

@@ -161,7 +161,9 @@ def test_decode_kernel_matches_plain(cuda, dtype, batch):
     from distkeras_torch.models import decode as dec
     from distkeras_torch.ops import decode_step as ds
 
-    spec = small_lm_spec(vocab_size=64, model_dim=256, num_heads=4, num_layers=2,
+    # each batch runs another head dim: 32, 64, 128 (the kernel's instances)
+    heads = {1: 8, 5: 4, 16: 2}[batch]
+    spec = small_lm_spec(vocab_size=64, model_dim=256, num_heads=heads, num_layers=2,
                          max_seq_len=96)
     spec.config["compute_dtype"] = dtype
     model = Model.init(spec, seed=0, device=cuda)
@@ -174,8 +176,8 @@ def test_decode_kernel_matches_plain(cuda, dtype, batch):
     x = torch.randn((batch, 256), generator=gen, device=cuda).to(tdt)
     for pos in (0, 50, 95):
         kc, vc, kp, vp = (t.clone() for t in (cache.k, cache.v, cache.k, cache.v))
-        out = ds.fused_decode_step(state.weights, x, kc, vc, pos, heads=4)
-        ref = ds.fused_decode_step_plain(state.weights, x, kp, vp, pos, heads=4)
+        out = ds.fused_decode_step(state.weights, x, kc, vc, pos, heads=heads)
+        ref = ds.fused_decode_step_plain(state.weights, x, kp, vp, pos, heads=heads)
         scale = max(1.0, ref.float().abs().max().item())
         tol = 2e-2 * scale if dtype == "bfloat16" else 1e-4 * scale
         assert (out.float() - ref.float()).abs().max().item() <= tol
