@@ -33,7 +33,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (B2), one on the split backward (B3a + B3b), one through dense
    attention for comparison, 20 adam steps on a fixed batch (the loss must
    fall), then timed and profiled steps;
-6. report: one JSON line of kernels, the card's name and power limit, and
+6. trainer (main path): the paper's trainer loop on the JAX bench's
+   headline model (mnist_cnn_spec, batch 1024, momentum 0.9, lr 0.01):
+   SingleTrainer on the card against the port's CPU path (float32),
+   ADAG(num_workers=1) against SingleTrainer, ADAG / DynSGD / AEASGD with 4
+   stacked replicas against the CPU path, and ADAG learning a synthetic
+   task in bfloat16; then samples/s of SingleTrainer and 4-replica ADAG
+   (bfloat16, 200 minibatches an epoch) and one profiled epoch of each.
+   No kernel of the port lies on this path (cuDNN and cuBLAS);
+7. report: one JSON line of kernels, the card's name and power limit, and
    the final {"ok": true, ...} line.
 
 Weights are random, drawn from seed 0.  Needs nothing but this checkout,
@@ -828,6 +836,208 @@ def train_profile(torch, step, p, state, tokens, targets):
         print(f"  {us / 1e3:9.3f} ms  {100 * us / total_us:5.1f} %  {key[:110]}")
 
 
+# the trainer phase: the paper's trainer loop on the JAX package's headline
+# model (bench.py:107 _bench_mnist_cnn: mnist_cnn_spec, batch 1024, sgd with
+# momentum 0.9 and lr 0.01, random images and labels)
+CNN_BATCH, CNN_BATCHES = 1024, 200
+GATE_REPLICAS, GATE_WINDOW = 4, 5
+LEARN_BATCHES, LEARN_EPOCHS, LEARN_LATENT = 60, 2, 8
+# Gates 1-3 hold the relative L2 gap of the whole param dict.  A single
+# leaf's gap is printed but not held: the biases start at 0, so their gap is
+# that of their gradient sums, which cancel on random labels; f32 sums in
+# another order (CPU against card, or vmapped convs against plain ones, which
+# run other cuDNN kernels) then part by up to 1.6e-3 of such a leaf (measured
+# on an H100), and a ReLU whose input is within rounding of 0 passes or
+# stops a gradient.  Measured on an H100, whole dicts: gate 1 1.6e-6, gate 2
+# 3.0e-5, gate 3 at most 5.0e-5; gate 2 also runs the plumbing fault it is
+# there to catch, a commit that restarts the optimizer state, and requires it
+# to read above ten times its tolerance.
+TRAINER_TOL = 1e-4    # the card against the port's CPU path, float32 (gates 1 and 3)
+ADAG_ONE_TOL = 1e-4   # ADAG(num_workers=1) against SingleTrainer on the card (gate 2)
+CNN_OPT = dict(worker_optimizer="momentum", momentum=0.9, learning_rate=0.01)
+
+
+def _gaps(got, want):
+    """Relative L2 gap of a whole param dict, ``||got - want|| / ||want||``
+    over all leaves together, and the worst single leaf by the same ratio."""
+    num = den = 0.0
+    worst, worst_name = 0.0, None
+    for k in want:
+        g, w = got[k].double().cpu(), want[k].double().cpu()
+        d, n = (g - w).norm().item(), w.norm().item()
+        num, den = num + d * d, den + n * n
+        if d / max(n, 1e-30) > worst:
+            worst, worst_name = d / max(n, 1e-30), k
+    return (num / den) ** 0.5, worst, worst_name
+
+
+def _gap_text(gaps):
+    return f"{gaps[0]:.3e} (worst leaf {gaps[2]} {gaps[1]:.3e})"
+
+
+def bench_images(np, rows, seed):
+    """bench.py's data: standard-normal [rows, 28, 28, 1] images, one-hot
+    labels drawn at random."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, 28, 28, 1), dtype=np.float32)
+    return x, np.eye(10, dtype=np.float32)[rng.integers(0, 10, rows)]
+
+
+def learnable_images(np, rows):
+    """Images on an 8-dimensional subspace of the 784 pixels, labelled by the
+    argmax of a fixed random projection of the images (seed 0)."""
+    rng = np.random.default_rng(0)
+    z = rng.standard_normal((rows, LEARN_LATENT), dtype=np.float32)
+    basis = rng.standard_normal((LEARN_LATENT, 784), dtype=np.float32) / np.float32(
+        LEARN_LATENT ** 0.5)
+    x = z @ basis
+    proj = rng.standard_normal((784, 10), dtype=np.float32)
+    labels = np.argmax(x @ proj, axis=1)
+    return x.reshape(rows, 28, 28, 1), np.eye(10, dtype=np.float32)[labels]
+
+
+def trainer_phase(torch, np, smi):
+    """The trainer loop's gates, at the headline model's full width
+    (mnist_cnn_spec: convs 32 and 64, dense 256, 10 outputs, [28, 28, 1]):
+    (1) SingleTrainer on the card against the port's CPU path, float32;
+    (2) ADAG(num_workers=1) against SingleTrainer on the card; (3) ADAG,
+    DynSGD and AEASGD with 4 stacked replicas against the CPU path, one
+    chunk of 2 windows; (4) ADAG learns in bfloat16.  cuDNN runs its
+    deterministic algorithms for the float32 gates (TF32 stays off)."""
+    from distkeras_torch import ADAG, AEASGD, DynSGD, Model, SingleTrainer, mnist_cnn_spec
+    from distkeras_torch.data import Dataset
+
+    print(f"trainer phase on {smi}")
+    init = Model.init(mnist_cnn_spec(), seed=0, device="cpu")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        x, y = bench_images(np, 3 * CNN_BATCH, seed=0)
+        ds = Dataset({"features": x, "label": y})
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            tr = SingleTrainer(init, batch_size=CNN_BATCH, device=dev, **CNN_OPT)
+            runs[dev] = tr.train(ds, shuffle=False).params, np.asarray(tr.history)
+        loss_gap = float(np.max(np.abs(runs["cuda"][1] - runs["cpu"][1]) / np.abs(runs["cpu"][1])))
+        gaps = _gaps(runs["cuda"][0], runs["cpu"][0])
+        print(f"trainer gate 1, SingleTrainer f32, 3 minibatches of {CNN_BATCH}, card against "
+              f"CPU: losses card {runs['cuda'][1].tolist()} cpu {runs['cpu'][1].tolist()}, "
+              f"worst relative gap {loss_gap:.3e}; params relative L2 {_gap_text(gaps)} "
+              f"(tol {TRAINER_TOL:g} each)")
+        check(len(runs["cuda"][1]) == 3 and loss_gap <= TRAINER_TOL and gaps[0] <= TRAINER_TOL,
+              "SingleTrainer on the card disagrees with its CPU path")
+
+        per = CNN_BATCH // GATE_REPLICAS
+        x, y = bench_images(np, 2 * GATE_WINDOW * CNN_BATCH, seed=1)
+        xs = x.reshape((2, GATE_WINDOW, CNN_BATCH) + x.shape[1:])
+        ys = y.reshape((2, GATE_WINDOW, CNN_BATCH) + y.shape[1:])
+        ds = Dataset({"features": x, "label": y})
+        single = SingleTrainer(init, batch_size=CNN_BATCH, device="cuda", **CNN_OPT)
+        want = single.train(ds, shuffle=False).params
+        adag1 = ADAG(init, num_workers=1, communication_window=GATE_WINDOW,
+                     batch_size=CNN_BATCH, device="cuda", **CNN_OPT)
+        gaps = _gaps(adag1.train(ds, shuffle=False).params, want)
+        loss_gap = float(np.max(np.abs(np.asarray(adag1.history) - np.reshape(
+            single.history, (-1, GATE_WINDOW)).mean(1)) / np.asarray(adag1.history)))
+        # the plumbing fault this gate is for, made on purpose: the same run
+        # with the optimizer state restarted at the commit must fail it
+        eng = adag1.engine
+        state = eng.init_state(init)
+        for w in range(2):
+            state.opt_state = eng.optimizer.init(state.local)
+            state, _ = eng.run_epoch(state, xs[w:w + 1], ys[w:w + 1])
+        fault = _gaps(state.center, want)
+        print(f"trainer gate 2, ADAG(num_workers=1) against SingleTrainer on the card, "
+              f"{2 * GATE_WINDOW} minibatches, window {GATE_WINDOW}: centers' relative L2 "
+              f"{_gap_text(gaps)} (tol {ADAG_ONE_TOL:g}); window losses {loss_gap:.3e}; with "
+              f"the optimizer state restarted at the commit {_gap_text(fault)} (want above "
+              f"{10 * ADAG_ONE_TOL:g})")
+        check(gaps[0] <= ADAG_ONE_TOL and loss_gap <= ADAG_ONE_TOL,
+              "ADAG with one worker is not SingleTrainer")
+        check(fault[0] > 10 * ADAG_ONE_TOL, "gate 2 does not see a restarted optimizer state")
+
+        for cls in (ADAG, DynSGD, AEASGD):
+            states = {}
+            for dev in ("cpu", "cuda"):
+                eng = cls(init, num_workers=GATE_REPLICAS, batch_size=per,
+                          communication_window=GATE_WINDOW, device=dev, **CNN_OPT).engine
+                states[dev], _ = eng.run_epoch(eng.init_state(init), xs, ys)
+            gaps = _gaps(states["cuda"].center, states["cpu"].center)
+            gap, line = gaps[0], f"center {_gap_text(gaps)}"
+            if cls is AEASGD:
+                for r in range(GATE_REPLICAS):
+                    gaps = _gaps({k: t[r] for k, t in states["cuda"].local.items()},
+                                 {k: t[r] for k, t in states["cpu"].local.items()})
+                    gap = max(gap, gaps[0])
+                    line += f", local {r} {_gap_text(gaps)}"
+            print(f"trainer gate 3, {cls.__name__} f32, {GATE_REPLICAS} replicas of {per} rows, "
+                  f"2 windows of {GATE_WINDOW}, card against CPU: relative L2 {line} "
+                  f"(tol {TRAINER_TOL:g})")
+            check(gap <= TRAINER_TOL, f"{cls.__name__} on the card disagrees with its CPU path")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    x, y = learnable_images(np, LEARN_BATCHES * CNN_BATCH)
+    tr = ADAG(mnist_cnn_spec(compute_dtype="bfloat16"), num_workers=GATE_REPLICAS,
+              batch_size=per, communication_window=GATE_WINDOW, num_epoch=LEARN_EPOCHS,
+              device="cuda", **CNN_OPT)
+    model = tr.train(Dataset({"features": x, "label": y}))
+    logits = model.apply(torch.from_numpy(x[:CNN_BATCH]).cuda())
+    acc = (logits.argmax(-1).cpu().numpy() == y[:CNN_BATCH].argmax(-1)).mean()
+    print(f"trainer gate 4, ADAG bf16, {LEARN_EPOCHS} epochs of {LEARN_BATCHES} minibatches: "
+          f"window loss {tr.history[0]:.4f} -> {tr.history[-1]:.4f} (want below half), "
+          f"{len(tr.history)} windows; training accuracy {acc:.4f}; logits "
+          f"{tuple(logits.shape)} {logits.dtype}")
+    check(tuple(logits.shape) == (CNN_BATCH, 10) and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()), "bad logits from the trained model")
+    check(tr.history[-1] < 0.5 * tr.history[0], "ADAG did not learn the synthetic task")
+
+
+def trainer_timing(torch, np, smi):
+    """The headline configuration on the card: SingleTrainer (bf16, batch
+    1024) and ADAG (4 stacked replicas of 256 rows, window 5), each one
+    warm epoch and one timed epoch of 200 minibatches (no shuffle, as the
+    bench; the feed's "auto" chunks), then one profiled epoch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distkeras_torch import ADAG, SingleTrainer, mnist_cnn_spec
+    from distkeras_torch.data import Dataset
+
+    spec = mnist_cnn_spec(compute_dtype="bfloat16")
+    x, y = bench_images(np, CNN_BATCHES * CNN_BATCH, seed=2)
+    ds = Dataset({"features": x, "label": y})
+    common = dict(num_epoch=2, chunk_windows="auto", device="cuda", **CNN_OPT)
+    for name, tr in (("SingleTrainer", SingleTrainer(spec, batch_size=CNN_BATCH, **common)),
+                     ("ADAG", ADAG(spec, num_workers=GATE_REPLICAS,
+                                   batch_size=CNN_BATCH // GATE_REPLICAS,
+                                   communication_window=GATE_WINDOW, **common))):
+        tr.train(ds, shuffle=False)
+        m = tr.metrics[-1]
+        print(f"trainer timing ({smi}): {name}, mnist_cnn bf16, {CNN_BATCHES} minibatches of "
+              f"{CNN_BATCH}: {m['samples_per_sec_per_chip']} samples/s per chip, epoch "
+              f"{m['seconds']} s (host clock; warm epoch {tr.metrics[0]['seconds']} s)")
+        tr.num_epoch = 1
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr.train(ds, shuffle=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy = {}
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None) or getattr(
+                e, "self_cuda_time_total", 0.0)
+            if us > 0:
+                busy[e.key] = (busy.get(e.key, (0.0, 0))[0] + us,
+                               busy.get(e.key, (0.0, 0))[1] + e.count)
+        total_us = sum(us for us, _ in busy.values())
+        check(total_us > 0, f"the profiler recorded no device time for {name}'s epoch")
+        print(f"trainer profile ({smi}): {name}, one epoch under the profiler: wall "
+              f"{wall * 1e3:.1f} ms, device busy {total_us / 1e3:.1f} ms, device idle share "
+              f"{100 * (1 - total_us / 1e6 / wall):.1f} %")
+        for key, (us, n) in sorted(busy.items(), key=lambda kv: -kv[1][0])[:5]:
+            print(f"  {us / 1e3:9.3f} ms  {100 * us / total_us:5.1f} %  {n:6d} launches  {key[:100]}")
+
+
 def run() -> int:
     try:
         import torch
@@ -878,6 +1088,14 @@ def run() -> int:
     serve_b4, serve_b1, profile_fn = serving_phase(torch, np, model, dec, ds, fa)
     score_b1 = scoring_phase(torch, np, model, fa, base)
     fused_counts, split_counts, train_timing_fn = training_phase(torch, np, base, fa)
+    # the trainer loop launches no kernel of the port (its convs and GEMMs are
+    # cuDNN's and cuBLAS's): its counts start at 0 and stay there
+    _zero_counts(fa)
+    ds.DECODE_STEP.launches = 0
+    trainer_phase(torch, np, smi)
+    trainer_counts = dict(_counts(fa), decode_step=ds.DECODE_STEP.launches)
+    print(f"trainer phase: launches of the port's kernels {trainer_counts}")
+    check(not any(trainer_counts.values()), "the trainer loop launched an attention kernel")
     launches = {"flash_fwd": serve_b1 + score_b1 + fused_counts["flash_fwd"]
                 + split_counts["flash_fwd"],
                 "decode_step": serve_b4,
@@ -892,6 +1110,7 @@ def run() -> int:
     step = dict(max_abs_err=step_err, **step_timing_fn())
     profile_fn()
     train_timing_fn()
+    trainer_timing(torch, np, smi)
 
     kernels = [
         dict(name="flash_fwd", route="cuda", source="distkeras_torch/csrc/flash_fwd.cu",

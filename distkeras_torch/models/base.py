@@ -11,11 +11,12 @@ params, as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from distkeras_torch import utils
 from distkeras_torch.platform import DeviceLike, resolve_device
 
 _MODEL_REGISTRY: Dict[str, Callable[..., Any]] = {}
@@ -34,11 +35,18 @@ def register_model(name: str):
     return wrap
 
 
-def build_module(name: str, config: Dict[str, Any]) -> torch.nn.Module:
+def build_module(name: str, config: Dict[str, Any],
+                 input_shape: Optional[Tuple[int, ...]] = None) -> torch.nn.Module:
+    """Build a registered module.  A torch layer needs its input width when
+    it is built, where a Flax layer infers it from the first input, so a
+    class that sets ``takes_input_shape`` also gets the spec's
+    ``input_shape``."""
     try:
         cls = _MODEL_REGISTRY[name]
     except KeyError:
         raise ValueError(f"unknown architecture {name!r}; known: {sorted(_MODEL_REGISTRY)}") from None
+    if getattr(cls, "takes_input_shape", False):
+        return cls(input_shape=tuple(input_shape), **config)
     return cls(**config)
 
 
@@ -83,7 +91,7 @@ class ModelSpec:
         object.__setattr__(self, "input_shape", tuple(self.input_shape))
 
     def build(self) -> torch.nn.Module:
-        return build_module(self.name, self.config)
+        return build_module(self.name, self.config, self.input_shape)
 
     def init_params(self, seed: int = 0, device: DeviceLike = None) -> Dict[str, torch.Tensor]:
         """Random parameters drawn on the CPU from ``torch.Generator(seed)``
@@ -96,6 +104,54 @@ class ModelSpec:
         module = module.to_empty(device="cpu")
         module.reset_parameters(torch.Generator().manual_seed(seed))
         return {k: v.detach().to(dev) for k, v in module.state_dict().items()}
+
+    def _meta_module(self) -> torch.nn.Module:
+        # functional_call supplies the real tensors, so the module is built
+        # on the meta device and holds no storage of its own
+        with torch.device("meta"):
+            return self.build()
+
+    def apply_fn(self) -> Callable[[Dict[str, torch.Tensor], torch.Tensor], torch.Tensor]:
+        """Pure forward ``(params, x) -> out`` through ``functional_call``."""
+        module = self._meta_module()
+
+        def apply(params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+            return torch.func.functional_call(module, params, (x,))
+
+        return apply
+
+    @property
+    def needs_rng(self) -> bool:
+        """True when training this architecture needs a random key per step
+        (sequential stacks with active dropout layers), as in the JAX
+        package; paths without key plumbing refuse such specs
+        (:meth:`reject_rng_spec`)."""
+        if self.name != "sequential":
+            return False
+        return any(l.get("kind") == "dropout" and float(l.get("rate", 0)) > 0
+                   for l in self.config.get("layers", ()))
+
+    def reject_rng_spec(self, where: str) -> None:
+        if self.needs_rng:
+            raise ValueError(
+                f"{where} has no PRNG plumbing and would silently train "
+                "with dropout disabled; remove the dropout layers or use "
+                "SingleTrainer / the sync distributed trainer family")
+
+    def train_apply_fn(self) -> Callable[[Dict[str, torch.Tensor], torch.Tensor, Any], torch.Tensor]:
+        """Training-mode forward ``(params, x, rng) -> out``.  For specs with
+        :attr:`needs_rng` the module runs with ``train=True`` and the
+        per-batch key ``rng``; otherwise the key is ignored and this is
+        :meth:`apply_fn`."""
+        if not self.needs_rng:
+            plain = self.apply_fn()
+            return lambda params, x, rng: plain(params, x)
+        module = self._meta_module()
+
+        def apply(params, x, rng):
+            return torch.func.functional_call(module, params, (x,), {"train": True, "rng": rng})
+
+        return apply
 
     def reject_silent_aux(self, where: str) -> None:
         """Raise if training this spec through a plain step would drop the
@@ -146,8 +202,7 @@ class Model:
         # tensors, so the module holds no storage of its own
         cached = getattr(self, "_module_cache", None)
         if cached is None:
-            with torch.device("meta"):
-                cached = self.spec.build()
+            cached = self.spec._meta_module()
             object.__setattr__(self, "_module_cache", cached)
         return cached
 
@@ -162,3 +217,53 @@ class Model:
         for i in range(0, len(x), batch_size):
             outs.append(self.apply(np.asarray(x[i:i + batch_size])).float().cpu().numpy())
         return np.concatenate(outs, axis=0) if outs else np.zeros((0,))
+
+    def serialize(self) -> bytes:
+        """The blob the JAX package's ``Model.serialize`` writes for the same
+        weights: its leaf order and layouts (see ``distkeras_torch.utils``)."""
+        weights, _ = utils.flatten_weights(self.params, self.spec)
+        return utils.serialize_model(self.spec.to_dict(), weights)
+
+    @staticmethod
+    def deserialize(blob: bytes, device: DeviceLike = None) -> "Model":
+        """A blob of either package -> a ``Model`` on ``device``."""
+        arch, weights = utils.deserialize_model(blob)
+        spec = ModelSpec.from_dict(arch)
+        template = {k: torch.empty(v.shape, dtype=v.dtype)
+                    for k, v in spec._meta_module().state_dict().items()}
+        _, treedef = utils.flatten_weights(template, spec)
+        params = utils.unflatten_weights(treedef, weights, spec, device=device)
+        return Model(spec=spec, params={k: params[k] for k in template})
+
+    def copy(self) -> "Model":
+        return Model(spec=self.spec, params={k: t.detach().clone() for k, t in self.params.items()})
+
+    def summary(self) -> str:
+        """Keras ``model.summary()``: the JAX package's table, one row per
+        top-level module of the Flax tree, shapes in the Flax layout."""
+        from distkeras_torch.bridge import flax_tensors
+
+        rows = []
+        total = total_bytes = 0
+        # rows in the order the modules were made, as Flax's tree keeps them
+        order = self.spec._meta_module().state_dict()
+        params = {k: self.params[k] for k in order}
+        for name, sub in flax_tensors(params, self.spec).items():
+            leaves = [t for _, t in utils._leaves(sub)] if isinstance(sub, dict) else [sub]
+            n = sum(t.numel() for t in leaves)
+            nbytes = sum(t.numel() * t.element_size() for t in leaves)
+            shape = str(tuple(leaves[0].shape)) if len(leaves) == 1 else f"{len(leaves)} tensors"
+            rows.append((name, shape, n))
+            total += n
+            total_bytes += nbytes
+        name_w = max([5] + [len(r[0]) for r in rows])   # >= len("layer")
+        shape_w = max([5] + [len(r[1]) for r in rows])  # >= len("shape")
+        lines = [f'Model "{self.spec.name}"  (input {self.spec.input_shape}, '
+                 f'{self.spec.input_dtype})',
+                 f"{'layer':<{name_w}}  {'shape':<{shape_w}}  params"]
+        lines.append("-" * len(lines[-1]))
+        for name, shape, n in rows:
+            lines.append(f"{name:<{name_w}}  {shape:<{shape_w}}  {n:,}")
+        lines.append("-" * len(lines[1]))
+        lines.append(f"total: {total:,} params  ({total_bytes / 1e6:.2f} MB)")
+        return "\n".join(lines)

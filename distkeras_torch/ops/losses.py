@@ -1,9 +1,10 @@
-"""The LM training loss: fused unembed + softmax cross-entropy.
+"""Losses: the Keras-style registry and the fused LM loss.
 
-Counterpart of ``unembed_cross_entropy``, ``lm_token_cross_entropy`` and
-``_pick_chunks`` in ``distkeras_tpu/ops/losses.py``, with the same chunking
-policy.  The Keras-style elementwise losses and ``get_loss`` are not ported
-yet (ROADMAP item 3).
+Counterpart of ``distkeras_tpu/ops/losses.py``.  Each Keras loss name maps
+to ``loss(logits_or_preds, labels) -> scalar``, the mean over the batch, in
+optax's arithmetic (:func:`get_loss`, :func:`register_loss`).  The LM loss
+is ``unembed_cross_entropy``, ``lm_token_cross_entropy`` and
+``_pick_chunks``, with the JAX package's chunking policy.
 
 The JAX package computes the unembed from bf16 operands with f32
 accumulation and f32 logits (``preferred_element_type=float32``).  A bf16
@@ -16,9 +17,10 @@ needs TF32 off for float32 matrix products, which is PyTorch's default
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
+from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from distkeras_torch.models.base import resolve_dtype
@@ -109,3 +111,60 @@ def lm_token_cross_entropy(module: torch.nn.Module, params: Dict[str, torch.Tens
                                    (tokens,), {"pos_offset": pos_offset})
     return unembed_cross_entropy(h, params["embed.weight"], targets,
                                  chunk_rows=chunk_rows, compute_dtype=compute_dtype)
+
+
+LossFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def categorical_crossentropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Softmax CE with one-hot (or probability) labels ``[..., classes]``."""
+    return -(labels.to(logits.dtype) * torch.log_softmax(logits, dim=-1)).sum(-1).mean()
+
+
+def sparse_categorical_crossentropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Softmax CE with integer labels ``[...]``; a trailing singleton label
+    axis is squeezed, as in the JAX package."""
+    labels = labels.long()
+    if labels.dim() == logits.dim():
+        labels = labels.squeeze(-1)
+    picked = logits.gather(-1, labels[..., None])[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - picked).mean()
+
+
+def binary_crossentropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Sigmoid CE on logits in optax's stable form (do not pre-sigmoid)."""
+    labels = labels.to(logits.dtype)
+    return (-labels * F.logsigmoid(logits) - (1.0 - labels) * F.logsigmoid(-logits)).mean()
+
+
+def mean_squared_error(preds: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.square(preds - targets.to(preds.dtype)))
+
+
+def mean_absolute_error(preds: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.abs(preds - targets.to(preds.dtype)))
+
+
+_LOSSES: Dict[str, LossFn] = {
+    "categorical_crossentropy": categorical_crossentropy,
+    "sparse_categorical_crossentropy": sparse_categorical_crossentropy,
+    "binary_crossentropy": binary_crossentropy,
+    "mse": mean_squared_error,
+    "mean_squared_error": mean_squared_error,
+    "mae": mean_absolute_error,
+    "mean_absolute_error": mean_absolute_error,
+}
+
+
+def get_loss(name_or_fn) -> LossFn:
+    """Resolve a Keras-style loss name (or pass a callable through)."""
+    if callable(name_or_fn):
+        return name_or_fn
+    try:
+        return _LOSSES[name_or_fn]
+    except KeyError:
+        raise ValueError(f"unknown loss {name_or_fn!r}; known: {sorted(_LOSSES)}") from None
+
+
+def register_loss(name: str, fn: LossFn) -> None:
+    _LOSSES[name] = fn

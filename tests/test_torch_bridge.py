@@ -78,6 +78,6 @@ def test_spec_json_matches_and_rejects_other_architectures():
     model = _jax_model("gqa")
     spec = TorchSpec.from_dict(model.spec.to_dict())
     assert spec.to_dict() == model.spec.to_dict()
-    other = TorchSpec(name="mlp", config={}, input_shape=(4,))
+    other = TorchSpec(name="sequential", config={}, input_shape=(4,))
     with pytest.raises(ValueError, match="transformer_lm"):
         params_from_jax({}, other, device="cpu")

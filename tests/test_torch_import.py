@@ -25,7 +25,10 @@ def test_import_leaves_jax_out_of_sys_modules():
     r = _run("import sys, distkeras_torch, distkeras_torch.bridge\n"
              "import distkeras_torch.ops.decode_step, distkeras_torch.ops.flash_attention\n"
              "import distkeras_torch.ops.losses, distkeras_torch.ops.optimizers\n"
-             "import distkeras_torch.parallel\n"
+             "import distkeras_torch.parallel, distkeras_torch.parallel.engine\n"
+             "import distkeras_torch.parallel.algorithms, distkeras_torch.trainers\n"
+             "import distkeras_torch.data, distkeras_torch.utils\n"
+             "import distkeras_torch.models.mlp, distkeras_torch.models.cnn\n"
              f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
              "print(bad)\n"
              "sys.exit(1 if bad else 0)")
@@ -55,8 +58,9 @@ def test_entry_points_raise_without_cuda():
     CUDA_VISIBLE_DEVICES hides any card this machine may have."""
     code = """
 import torch
-from distkeras_torch import (Model, generate, make_generate_fn, make_lm_train_step,
-                             small_lm_spec)
+from distkeras_torch import (ADAG, Model, SingleTrainer, generate, make_generate_fn,
+                             make_lm_train_step, mnist_cnn_spec, small_lm_spec)
+from distkeras_torch.data import prefetch_to_device
 from distkeras_torch.bridge import params_from_jax
 from distkeras_torch.ops.optimizers import get_optimizer
 from distkeras_torch.models.decode import init_cache
@@ -66,7 +70,9 @@ spec = small_lm_spec(vocab_size=11, model_dim=16, num_heads=2, num_layers=1, max
 calls = [lambda: default_device(), lambda: Model.init(spec),
          lambda: make_generate_fn(spec, 2), lambda: init_cache(spec.config, 1, 4),
          lambda: params_from_jax({}, spec),
-         lambda: make_lm_train_step(spec, get_optimizer("sgd"))]
+         lambda: make_lm_train_step(spec, get_optimizer("sgd")),
+         lambda: Model.init(mnist_cnn_spec()), lambda: SingleTrainer(mnist_cnn_spec()),
+         lambda: ADAG(mnist_cnn_spec()), lambda: prefetch_to_device(iter([]))]
 model = Model.init(spec, device="cpu")
 calls.append(lambda: generate(model, [[1, 2]], 2))
 for i, call in enumerate(calls):
@@ -78,6 +84,19 @@ for i, call in enumerate(calls):
         raise SystemExit(f"call {i} ran without a CUDA device")
 out = generate(model, [[1, 2]], 2, device="cpu")
 assert out.shape == (1, 2) and out.device.type == "cpu"
+cnn = Model.init(mnist_cnn_spec(), device="cpu")
+calls = [lambda: SingleTrainer(cnn), lambda: ADAG(cnn), lambda: Model.deserialize(cnn.serialize())]
+for i, call in enumerate(calls):
+    try:
+        call()
+    except RuntimeError as e:
+        assert "device='cpu'" in str(e), e
+    else:
+        raise SystemExit(f"trainer call {i} ran without a CUDA device")
+assert SingleTrainer(cnn, device="cpu").model.device.type == "cpu"
+assert ADAG(cnn, device="cpu").num_workers == 1
+assert Model.deserialize(cnn.serialize(), device="cpu").params.keys() == cnn.params.keys()
+assert list(prefetch_to_device(iter([(0,)]), device="cpu"))[0][0].device.type == "cpu"
 print("ok")
 """
     r = _run(code, CUDA_VISIBLE_DEVICES="")
