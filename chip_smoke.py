@@ -6,7 +6,8 @@
 Phases, in order; any failure exits non-zero and prints no result line:
 
 1. build: compile every kernel under distkeras_torch/csrc/ with nvcc
-   (sm_90a), one process per source, all started together; then count the
+   (sm_90a), one process per source, all started together, and the C++
+   parameter-server hub with g++ beside them; then count the
    tensor-core instructions (HMMA) of each bf16 flash and decode kernel in
    the built library with cuobjdump -sass (none is a failure), and read its
    registers and stack frame with cuobjdump -res-usage (a stack frame, where
@@ -41,7 +42,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
    task in bfloat16; then samples/s of SingleTrainer and 4-replica ADAG
    (bfloat16, 200 minibatches an epoch) and one profiled epoch of each.
    No kernel of the port lies on this path (cuDNN and cuBLAS);
-7. report: one JSON line of kernels, the card's name and power limit, and
+7. async (main path): the five Async* trainers on the JAX package's async
+   bench (bench.py:1245-1288: mnist_cnn_spec, 2 workers, window 8, batch
+   256, 8 windows a worker an epoch, 3 epochs, sgd 0.01, bf16 compute),
+   their worker threads each on its own CUDA stream with pinned staging,
+   against the port's Python hub and its C++ hub (native/ps_server.cpp,
+   built with g++ into distkeras_torch/_build/ beside the kernels). Gates:
+   one worker, card against CPU (f32); one worker, socket against inproc
+   and the C++ hub against the Python hub, to the bit; every commit of a
+   run applied; AsyncADAG with 4 workers learns the trainer phase's task
+   (scored by ModelPredictor and AccuracyEvaluator); a center snapshot
+   restores bit-equal. Then each leg of bench.py:1405-1417 not waiting
+   on ROADMAP item 8b (python hub, inproc, serial, C++ hub, int8 commits,
+   AsyncAEASGD) timed on the host clock and profiled for an epoch, and
+   AsyncDOWNPOUR, AsyncDynSGD and AsyncEAMSGD one epoch each. No kernel
+   of the port lies on this path either;
+8. report: one JSON line of kernels, the card's name and power limit, and
    the final {"ok": true, ...} line.
 
 Weights are random, drawn from seed 0.  Needs nothing but this checkout,
@@ -56,6 +72,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -1038,6 +1055,209 @@ def trainer_timing(torch, np, smi):
             print(f"  {us / 1e3:9.3f} ms  {100 * us / total_us:5.1f} %  {n:6d} launches  {key[:100]}")
 
 
+# the async phase: the JAX package's own async bench (bench.py:1245-1288,
+# _bench_async): mnist_cnn_spec at full width, 2 workers, window 8, batch
+# 256, 8 windows per worker an epoch, 3 epochs, sgd 0.01, standard-normal
+# images and random one-hot labels from np.random.default_rng(0); bf16
+# compute as the trainer phase.  Legs as bench.py:1405-1417, less those
+# whose features are ROADMAP item 8b (shards, shm, batched receives).
+ASYNC_WORKERS, ASYNC_WINDOW, ASYNC_BATCH, ASYNC_WPE, ASYNC_EPOCHS = 2, 8, 256, 8, 3
+ASYNC_OPT = dict(loss="categorical_crossentropy", learning_rate=0.01, seed=0)
+ASYNC_LEGS = (("async_adag", "AsyncADAG", {}),
+              ("async_adag_inproc", "AsyncADAG", {"transport": "inproc"}),
+              ("async_adag_serial", "AsyncADAG", {"pipeline": False}),
+              ("async_adag_native", "AsyncADAG", {"native_ps": True}),
+              ("async_adag_int8", "AsyncADAG", {"compress_commits": "int8"}),
+              ("async_aeasgd", "AsyncAEASGD", {"rho": 2.0}))
+ASYNC_ONE_EPOCH = (("AsyncDOWNPOUR", {}), ("AsyncDynSGD", {}), ("AsyncEAMSGD", {"rho": 2.0}))
+# gates 1 and 2: one worker, 2 windows of 4 minibatches
+ASYNC_GATE_WINDOW = 4
+# gate 4: 4 workers on the trainer phase's learnable task (its gate 4's
+# data, optimizer and window); the workers' mean window loss must halve
+ASYNC_LEARN_WORKERS = 4
+
+
+def async_images(np, rows, rng):
+    """bench.py's async data: rng.normal images and random one-hot labels."""
+    x = rng.normal(size=(rows, 28, 28, 1)).astype(np.float32)
+    return x, np.eye(10, dtype=np.float32)[rng.integers(0, 10, size=rows)]
+
+
+def _profiled(torch, fn):
+    """Run ``fn`` under the profiler: (host wall s, device busy ms, the
+    profiler's per-kernel device us and launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            busy[e.key] = (busy.get(e.key, (0.0, 0))[0] + us, busy.get(e.key, (0.0, 0))[1] + e.count)
+    return wall, sum(us for us, _ in busy.values()) / 1e3, busy
+
+
+def _window_losses(tr, workers):
+    """Per-worker window losses of an async run (its history holds worker
+    0's windows, then worker 1's, ...)."""
+    per = len(tr.history) // workers
+    return [tr.history[i * per:(i + 1) * per] for i in range(workers)]
+
+
+def async_phase(torch, np, smi):
+    """The asynchronous trainers on the card, with gates: (1) one worker,
+    card against CPU, f32; (2) one worker, socket against inproc and the
+    C++ hub against the Python hub, to the bit; (3) after every
+    multi-worker run the hub applied every commit (here and in
+    :func:`async_timing`); (4) AsyncADAG with 4 workers learns in bf16,
+    scored through ModelPredictor and AccuracyEvaluator; (5) the center
+    snapshot restores bit-equal.  cuDNN runs its deterministic algorithms
+    for gates 1 and 2."""
+    import tempfile
+
+    from distkeras_torch import (AccuracyEvaluator, Checkpointer, Model, ModelPredictor,
+                                 mnist_cnn_spec)
+    from distkeras_torch.data import Dataset
+    from distkeras_torch.runtime import async_trainer as at
+
+    print(f"async phase on {smi}")
+    init = Model.init(mnist_cnn_spec(), seed=0, device="cpu")
+    bf16 = mnist_cnn_spec(compute_dtype="bfloat16")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        rng = np.random.default_rng(1)
+        x, y = async_images(np, 2 * ASYNC_GATE_WINDOW * ASYNC_BATCH, rng)
+        ds = Dataset({"features": x, "label": y})
+        one = dict(num_workers=1, communication_window=ASYNC_GATE_WINDOW,
+                   batch_size=ASYNC_BATCH, num_epoch=1, **ASYNC_OPT)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            tr = at.AsyncADAG(init, transport="inproc", pipeline=False, device=dev, **one)
+            runs[dev] = tr.train(ds, shuffle=False).params, np.asarray(tr.history)
+        gaps = _gaps(runs["cuda"][0], runs["cpu"][0])
+        loss_gap = float(np.max(np.abs(runs["cuda"][1] - runs["cpu"][1]) / np.abs(runs["cpu"][1])))
+        print(f"async gate 1, AsyncADAG one worker f32 inproc serial, 2 windows of "
+              f"{ASYNC_GATE_WINDOW} x {ASYNC_BATCH}, card against CPU: window losses card "
+              f"{runs['cuda'][1].tolist()} cpu {runs['cpu'][1].tolist()} (worst relative gap "
+              f"{loss_gap:.3e}); center relative L2 {_gap_text(gaps)} (tol {TRAINER_TOL:g})")
+        check(gaps[0] <= TRAINER_TOL and loss_gap <= TRAINER_TOL,
+              "the async trainer on the card disagrees with its CPU path")
+
+        parity = {}
+        for name, kw in (("python socket", {}), ("python inproc", {"transport": "inproc"}),
+                         ("native socket", {"native_ps": True})):
+            tr = at.AsyncADAG(bf16, device="cuda", **dict(one, **kw))
+            parity[name] = tr.train(ds, shuffle=False).params, list(tr.history)
+        base = parity["python socket"]
+        line = []
+        for name in ("python inproc", "native socket"):
+            got = parity[name]
+            same = got[1] == base[1] and all(torch.equal(got[0][k], base[0][k]) for k in base[0])
+            line.append(f"{name} {'bit-equal' if same else 'DIFFERS'} "
+                        f"(center {_gap_text(_gaps(got[0], base[0]))})")
+            check(same, f"async gate 2: {name} is not python socket to the bit")
+        print(f"async gate 2, AsyncADAG one worker bf16 pipelined, against python socket: "
+              f"{'; '.join(line)}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    # gates 4 and 5: learning on the trainer phase's task, and the snapshot
+    x, y = learnable_images(np, LEARN_BATCHES * CNN_BATCH)
+    lds = Dataset({"features": x, "label": y})
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "distkeras_torch", "_build")) as td:
+        ck = Checkpointer(os.path.join(td, "async"), keep=2)
+        tr = at.AsyncADAG(bf16, num_workers=ASYNC_LEARN_WORKERS, batch_size=CNN_BATCH // 4,
+                          communication_window=GATE_WINDOW, num_epoch=LEARN_EPOCHS,
+                          checkpoint_interval=3600.0, device="cuda", **CNN_OPT)
+        model = tr.train(lds, checkpointer=ck)
+        per = _window_losses(tr, ASYNC_LEARN_WORKERS)
+        first = float(np.mean([h[0] for h in per]))
+        last = float(np.mean([h[-1] for h in per]))
+        want = ASYNC_LEARN_WORKERS * len(per[0])
+        pred = ModelPredictor(model, batch_size=CNN_BATCH).predict(lds.take(4 * CNN_BATCH))
+        acc = AccuracyEvaluator(prediction_col="prediction", label_col="label").evaluate(pred)
+        print(f"async gate 4, AsyncADAG bf16 {ASYNC_LEARN_WORKERS} workers of {CNN_BATCH // 4} "
+              f"rows, window {GATE_WINDOW}, {LEARN_EPOCHS} epochs: workers' mean window loss "
+              f"{first:.4f} -> {last:.4f} (want below half), {len(tr.history)} windows, hub "
+              f"updates {tr.parameter_server.num_updates} (want {want}); training accuracy of "
+              f"the center through ModelPredictor + AccuracyEvaluator {acc:.4f} on "
+              f"{4 * CNN_BATCH} rows, predictions {pred['prediction'].shape}")
+        check(tr.parameter_server.num_updates == want, "async gate 3: commits were lost")
+        check(pred["prediction"].shape == (4 * CNN_BATCH, 10)
+              and bool(np.isfinite(pred["prediction"]).all()), "bad predictions from the center")
+        check(last < 0.5 * first, "AsyncADAG did not learn the synthetic task")
+        fresh = at.AsyncADAG(bf16, num_workers=ASYNC_LEARN_WORKERS, seed=123, device="cuda")
+        restored = fresh._maybe_restore(ck)
+        same = restored and all(torch.equal(fresh.model.params[k], model.params[k])
+                                for k in model.params)
+        print(f"async gate 5, center snapshot step {ck.latest_step()} restored into a fresh "
+              f"AsyncADAG: {'bit-equal' if same else 'DIFFERS'}")
+        check(same, "the restored center snapshot is not the trained center")
+
+
+def async_timing(torch, np, smi):
+    """The async bench's legs on the card: each trainer runs its 3 epochs
+    timed on the host clock (the hub's update count is gate 3), then one
+    epoch under the profiler for its device time and idle share (the
+    profiler's own cost grows with the kernels it records); then
+    AsyncDOWNPOUR, AsyncDynSGD and AsyncEAMSGD one epoch each."""
+    from distkeras_torch import Model, mnist_cnn_spec
+    from distkeras_torch.data import Dataset
+    from distkeras_torch.runtime import async_trainer as at
+
+    bf16 = mnist_cnn_spec(compute_dtype="bfloat16")
+    rows = ASYNC_WORKERS * ASYNC_BATCH * ASYNC_WINDOW * ASYNC_WPE
+    x, y = async_images(np, rows, np.random.default_rng(0))
+    ds = Dataset({"features": x, "label": y})
+    common = dict(num_workers=ASYNC_WORKERS, communication_window=ASYNC_WINDOW,
+                  batch_size=ASYNC_BATCH, device="cuda", **ASYNC_OPT)
+    want = ASYNC_WORKERS * ASYNC_WPE
+    for name, cls, extra in ASYNC_LEGS:
+        tr = getattr(at, cls)(bf16, num_epoch=ASYNC_EPOCHS, **dict(common, **extra))
+        tr.train(ds, shuffle=False)
+        torch.cuda.synchronize()
+        updates = tr.parameter_server.num_updates
+        check(updates == want * ASYNC_EPOCHS,
+              f"async gate 3: {name} applied {updates} commits, want {want * ASYNC_EPOCHS}")
+        m = tr.metrics[-1]
+        walls = sorted(w for ws in tr.window_seconds for w in ws)
+        final_loss = float(np.mean(tr.history[-8:]))
+        tr.model, tr.num_epoch = Model.init(bf16, seed=0, device="cuda"), 1
+        tr.history, tr.metrics = [], []
+        wall, busy_ms, busy = _profiled(torch, lambda: tr.train(ds, shuffle=False))
+        check(busy_ms > 0, f"the profiler recorded no device time for {name}")
+        print(f"async leg ({smi}): {name} ({cls}, {extra or 'python hub, socket, pipelined'}), "
+              f"{ASYNC_WORKERS} workers, {ASYNC_EPOCHS} epochs: {m['samples_per_sec_per_chip']} "
+              f"samples/s (host clock), wall {m['seconds']} s, per window wall "
+              f"{1e3 * walls[len(walls) // 2]:.2f} ms (median of {len(walls)}), final loss "
+              f"{final_loss:.6f}, hub updates {updates} (want {want * ASYNC_EPOCHS}); one epoch "
+              f"under the profiler: wall {wall * 1e3:.1f} ms, device busy {busy_ms:.1f} ms, per "
+              f"window device {busy_ms / max(len(tr.history), 1):.3f} ms, idle share "
+              f"{100 * (1 - busy_ms / 1e3 / wall):.1f} %")
+        if name == "async_adag":
+            nbytes = sum(w.nbytes for w in tr.parameter_server.get_weights())
+            print(f"  a pull or a float32 commit moves {nbytes} bytes of weights; the profiled "
+                  f"epoch's leading device work:")
+            for key, (us, n) in sorted(busy.items(), key=lambda kv: -kv[1][0])[:6]:
+                print(f"  {us / 1e3:9.3f} ms  {100 * us / 1e3 / busy_ms:5.1f} %  {n:6d} launches  "
+                      f"{key[:100]}")
+    for cls, extra in ASYNC_ONE_EPOCH:
+        tr = getattr(at, cls)(bf16, num_epoch=1, **dict(common, **extra))
+        tr.train(ds, shuffle=False)
+        updates = tr.parameter_server.num_updates
+        print(f"async one epoch ({smi}): {cls}: {tr.metrics[-1]['samples_per_sec_per_chip']} "
+              f"samples/s (host clock), final loss {float(np.mean(tr.history[-8:])):.6f}, hub "
+              f"updates {updates} (want {want})")
+        check(updates == want and all(np.isfinite(tr.history)),
+              f"async gate 3: {cls} applied {updates} commits, want {want}")
+
+
 def run() -> int:
     try:
         import torch
@@ -1067,8 +1287,25 @@ def run() -> int:
     smi = nvidia_smi_line()
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
+    # the C++ parameter-server hub (g++) builds beside the kernels (nvcc)
+    from distkeras_torch.runtime import native
+
+    hub_build = {}
+
+    def build_hub():
+        try:
+            hub_build["lib"] = native.build()
+        except Exception as e:  # reported below, with the compiler's output
+            hub_build["error"] = e
+        hub_build["s"] = time.perf_counter() - t0
+
+    hub_thread = threading.Thread(target=build_hub)
+    hub_thread.start()
     _build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s ({', '.join(_build.sources())})")
+    hub_thread.join()
+    check("error" not in hub_build, f"the native hub did not build: {hub_build.get('error')}")
+    print(f"native hub build: {hub_build['s']:.1f} s ({os.path.relpath(hub_build['lib'], HERE)})")
     sass_phase(_build)
 
     spec = small_lm_spec(vocab_size=VOCAB, model_dim=DIM, num_heads=HEADS,
@@ -1096,6 +1333,15 @@ def run() -> int:
     trainer_counts = dict(_counts(fa), decode_step=ds.DECODE_STEP.launches)
     print(f"trainer phase: launches of the port's kernels {trainer_counts}")
     check(not any(trainer_counts.values()), "the trainer loop launched an attention kernel")
+    # the async trainers launch no kernel of the port either
+    _zero_counts(fa)
+    ds.DECODE_STEP.launches = 0
+    t_async = time.perf_counter()
+    async_phase(torch, np, smi)
+    print(f"async phase: {time.perf_counter() - t_async:.1f} s")
+    async_counts = dict(_counts(fa), decode_step=ds.DECODE_STEP.launches)
+    print(f"async phase: launches of the port's kernels {async_counts}")
+    check(not any(async_counts.values()), "the async trainers launched an attention kernel")
     launches = {"flash_fwd": serve_b1 + score_b1 + fused_counts["flash_fwd"]
                 + split_counts["flash_fwd"],
                 "decode_step": serve_b4,
@@ -1111,6 +1357,14 @@ def run() -> int:
     profile_fn()
     train_timing_fn()
     trainer_timing(torch, np, smi)
+    _zero_counts(fa)
+    ds.DECODE_STEP.launches = 0
+    t_async = time.perf_counter()
+    async_timing(torch, np, smi)
+    print(f"async timing: {time.perf_counter() - t_async:.1f} s")
+    async_counts = dict(_counts(fa), decode_step=ds.DECODE_STEP.launches)
+    print(f"async timing: launches of the port's kernels {async_counts}")
+    check(not any(async_counts.values()), "the async trainers launched an attention kernel")
 
     kernels = [
         dict(name="flash_fwd", route="cuda", source="distkeras_torch/csrc/flash_fwd.cu",

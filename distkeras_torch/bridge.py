@@ -102,14 +102,16 @@ def params_from_flax_tensors(flat: Mapping[str, torch.Tensor], spec: ModelSpec,
     return out
 
 
-def flax_tensors(params: Mapping[str, torch.Tensor], spec: ModelSpec) -> Dict[str, Any]:
-    """The port's param dict -> a nested tree of CPU tensors in the Flax
-    layout, its top-level keys in the order of ``params``."""
+def flax_tensors(params: Mapping[str, torch.Tensor], spec: ModelSpec,
+                 cpu: bool = True) -> Dict[str, Any]:
+    """The port's param dict -> a nested tree of tensors in the Flax layout,
+    its top-level keys in the order of ``params``: CPU tensors, or with
+    ``cpu=False`` on the params' own device."""
     _check_spec(spec)
     kernel_shapes = _kernel_shapes(spec)
     tree: Dict[str, Any] = {}
     for key, t in params.items():
-        t = t.detach().cpu()
+        t = t.detach().cpu() if cpu else t.detach()
         parts = key.split(".")
         if key == "embed.weight":
             path = ["embed", "embedding"]

@@ -8,6 +8,12 @@ the one device (``num_workers``; ``None`` is one per visible CUDA device,
 as the JAX package takes every visible device), and the parameter server is
 the window engine's commit rule (``parallel/engine.py``).  Trainers run on
 the card unless ``device="cpu"``; they never turn TF32 on.
+
+``checkpointer=`` (a :class:`distkeras_torch.checkpoint.Checkpointer`)
+saves the training state at every epoch boundary under the JAX package's
+names and resumes from the latest checkpoint: the shuffle order is a
+function of (seed, epoch), so a resumed run is bit for bit the
+uninterrupted one.
 """
 
 from __future__ import annotations
@@ -19,7 +25,16 @@ from typing import Any, Callable, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from distkeras_torch.checkpoint import (
+    opt_state_from_tree,
+    opt_state_tree,
+    params_from_tree,
+    params_tree,
+    state_from_tree,
+    state_tree,
+)
 from distkeras_torch.data.dataset import Dataset, chunk_windows_for_budget, prefetch_to_device
+from distkeras_torch.evaluators import _to_index
 from distkeras_torch.models.base import Model, ModelSpec
 from distkeras_torch.ops.losses import get_loss
 from distkeras_torch.ops.optimizers import get_optimizer
@@ -35,28 +50,11 @@ from distkeras_torch.parallel.engine import WindowEngine, scan_epoch_fn
 from distkeras_torch.platform import DeviceLike, resolve_device
 
 
-def _reject_checkpointer(checkpointer) -> None:
-    if checkpointer is not None:
-        raise NotImplementedError("checkpointing is not ported to the PyTorch trainers "
-                                  "yet (ROADMAP item 7)")
-
-
 def _host(a: np.ndarray) -> np.ndarray:
     """float64 host columns train as float32, as the JAX package's
     ``jnp.asarray`` (x64 off) makes them."""
     a = np.asarray(a)
     return a.astype(np.float32) if a.dtype == np.float64 else a
-
-
-def _to_index(col: torch.Tensor) -> torch.Tensor:
-    """Class-index or one-hot/probability column -> int32 class indices (a
-    trailing size-1 axis is an index column; integer columns are indices
-    whatever their rank; float columns argmax over the class axis)."""
-    if col.dim() > 1 and col.shape[-1] == 1:
-        col = col[..., 0]
-    if col.dim() > 1 and col.is_floating_point():
-        col = torch.argmax(col, dim=-1)
-    return col.to(torch.int32)
 
 
 class Trainer:
@@ -293,7 +291,6 @@ class SingleTrainer(Trainer):
               early_stopping=None) -> Model:
         """``early_stopping``: None, a ``Trainer._EarlyStopping``, or a dict
         of its kwargs; needs ``validation_data=``."""
-        _reject_checkpointer(checkpointer)
         self.record_training_start()
         stopper = self._early_stopper(early_stopping, validation_data)
         needs_rng = self.model.spec.needs_rng
@@ -305,8 +302,21 @@ class SingleTrainer(Trainer):
                                                       with_rng=needs_rng)
         params = {k: t.detach().clone() for k, t in self.model.params.items()}
         opt_state = self.optimizer.init(params)
+        spec = self.model.spec
+        start_epoch = 0
+        if checkpointer is not None:
+            # one step for restore() and metadata(): a concurrent writer may
+            # land a newer checkpoint between the two reads
+            ckpt_step = checkpointer.latest_step()
+            if ckpt_step is not None:
+                restored = checkpointer.restore(
+                    {"params": params_tree(params, spec),
+                     "opt_state": opt_state_tree(opt_state, spec)}, step=ckpt_step)
+                params = params_from_tree(restored["params"], spec, params)
+                opt_state = opt_state_from_tree(restored["opt_state"], spec, opt_state)
+                start_epoch = int(checkpointer.metadata(step=ckpt_step)["metadata"]["epochs_done"])
         with self._profile_ctx():
-            for epoch in range(self.num_epoch):
+            for epoch in range(start_epoch, self.num_epoch):
                 t_epoch = time.time()
                 samples = 0
                 ds = dataset.shuffle(seed=self.seed + epoch) if shuffle else dataset
@@ -328,6 +338,10 @@ class SingleTrainer(Trainer):
                 val = self._validate(params, validation_data)
                 if val:
                     self.metrics[-1].update(val)
+                if checkpointer is not None:
+                    checkpointer.save(epoch + 1, {"params": params_tree(params, spec),
+                                                  "opt_state": opt_state_tree(opt_state, spec)},
+                                      metadata={"epochs_done": epoch + 1})
                 if stopper is not None and stopper.update(epoch, self.metrics[-1], params):
                     if stopper.restore_best and stopper.best_params is not None:
                         params = stopper.best_params
@@ -384,15 +398,23 @@ class DistributedTrainer(Trainer):
 
     def _run_epochs(self, dataset: Dataset, shuffle: bool, checkpointer=None,
                     validation_data: Optional[Dataset] = None, early_stopping=None) -> Any:
-        _reject_checkpointer(checkpointer)
         stopper = self._early_stopper(early_stopping, validation_data)
         self._es_best_params = None
         engine = self.engine
+        spec = self.model.spec
         state = engine.init_state(self.model, divergent_seeds=self._divergent_seeds())
+        start_epoch = 0
+        if checkpointer is not None:
+            ckpt_step = checkpointer.latest_step()
+            if ckpt_step is not None:
+                restored = checkpointer.restore({"state": state_tree(state, spec)},
+                                                step=ckpt_step)["state"]
+                state = state_from_tree(restored, spec, state)
+                start_epoch = int(checkpointer.metadata(step=ckpt_step)["metadata"]["epochs_done"])
         global_batch = self.batch_size * self.num_workers
         window = self.communication_window
         with self._profile_ctx():
-            for epoch in range(self.num_epoch):
+            for epoch in range(start_epoch, self.num_epoch):
                 t_epoch = time.time()
                 samples = 0
                 ds = dataset.shuffle(seed=self.seed + epoch) if shuffle else dataset
@@ -413,6 +435,9 @@ class DistributedTrainer(Trainer):
                 if validation_data is not None:
                     vparams = self._validation_params(state)
                     self.metrics[-1].update(self._validate(vparams, validation_data))
+                if checkpointer is not None:
+                    checkpointer.save(epoch + 1, {"state": state_tree(state, spec)},
+                                      metadata={"epochs_done": epoch + 1})
                 if stopper is not None and stopper.update(epoch, self.metrics[-1], vparams):
                     if stopper.restore_best and stopper.best_params is not None:
                         self._es_best_params = stopper.best_params

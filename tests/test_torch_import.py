@@ -29,6 +29,11 @@ def test_import_leaves_jax_out_of_sys_modules():
              "import distkeras_torch.parallel.algorithms, distkeras_torch.trainers\n"
              "import distkeras_torch.data, distkeras_torch.utils\n"
              "import distkeras_torch.models.mlp, distkeras_torch.models.cnn\n"
+             "import distkeras_torch.checkpoint, distkeras_torch.evaluators\n"
+             "import distkeras_torch.predictors, distkeras_torch.runtime\n"
+             "import distkeras_torch.runtime.networking, distkeras_torch.runtime.native\n"
+             "import distkeras_torch.runtime.parameter_server\n"
+             "import distkeras_torch.runtime.async_trainer\n"
              f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
              "print(bad)\n"
              "sys.exit(1 if bad else 0)")
@@ -85,7 +90,12 @@ for i, call in enumerate(calls):
 out = generate(model, [[1, 2]], 2, device="cpu")
 assert out.shape == (1, 2) and out.device.type == "cpu"
 cnn = Model.init(mnist_cnn_spec(), device="cpu")
-calls = [lambda: SingleTrainer(cnn), lambda: ADAG(cnn), lambda: Model.deserialize(cnn.serialize())]
+from distkeras_torch import AccuracyEvaluator, AsyncADAG, AsyncAEASGD, ModelPredictor
+from distkeras_torch.evaluators import ConfusionMatrixEvaluator
+calls = [lambda: SingleTrainer(cnn), lambda: ADAG(cnn), lambda: Model.deserialize(cnn.serialize()),
+         lambda: AsyncADAG(cnn), lambda: AsyncAEASGD(mnist_cnn_spec()),
+         lambda: ModelPredictor(cnn), lambda: AccuracyEvaluator(),
+         lambda: ConfusionMatrixEvaluator(10)]
 for i, call in enumerate(calls):
     try:
         call()
@@ -95,6 +105,9 @@ for i, call in enumerate(calls):
         raise SystemExit(f"trainer call {i} ran without a CUDA device")
 assert SingleTrainer(cnn, device="cpu").model.device.type == "cpu"
 assert ADAG(cnn, device="cpu").num_workers == 1
+assert AsyncADAG(cnn, device="cpu").model.device.type == "cpu"
+assert ModelPredictor(cnn, device="cpu").device.type == "cpu"
+assert AccuracyEvaluator(device="cpu").device.type == "cpu"
 assert Model.deserialize(cnn.serialize(), device="cpu").params.keys() == cnn.params.keys()
 assert list(prefetch_to_device(iter([(0,)]), device="cpu"))[0][0].device.type == "cpu"
 print("ok")

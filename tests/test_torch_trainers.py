@@ -24,6 +24,7 @@ from distkeras_torch.data.dataset import Dataset as TDataset
 from distkeras_torch.ops.optimizers import get_optimizer
 from distkeras_torch.parallel import algorithms as ta
 from distkeras_torch.parallel.engine import WindowEngine
+from distkeras_torch.runtime.async_trainer import AsyncADAG
 from distkeras_tpu import trainers as jt
 from distkeras_tpu.data.dataset import Dataset as JDataset
 from distkeras_tpu.models.base import Model as JModel, ModelSpec as JSpec
@@ -253,9 +254,8 @@ def test_metrics_history_and_profile(tmp_path):
 def test_entry_points_refuse_what_is_not_ported():
     _, tm = _models("mlp")
     x, y, _ = _data()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        tt.SingleTrainer(tm, device="cpu").train(TDataset({"features": x, "label": y}),
-                                                 checkpointer=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP item 8b"):
+        AsyncADAG(tm, device="cpu", transport="shm")
     with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
         tt.ADAG(tm, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
