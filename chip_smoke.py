@@ -57,7 +57,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
    AsyncAEASGD) timed on the host clock and profiled for an epoch, and
    AsyncDOWNPOUR, AsyncDynSGD and AsyncEAMSGD one epoch each. No kernel
    of the port lies on this path either;
-8. report: one JSON line of kernels, the card's name and power limit, and
+8. entry points (main path): the user's scripts on the models and data
+   under them, at full width on the loaders' full-size synthetic stand-ins.
+   Gates: ResNet-20 (16/32/64 channels, CIFAR-100 head), one DynSGD window
+   card against CPU (f32), and its bf16 forward against f32; a Sequential
+   stack with dropout, eval forward card against CPU, train forward bitwise
+   reproducible and equal to the CPU's masks, the kept fraction, ADAG with
+   4 stacked replicas learning with dropout on; the BASELINE matrix through
+   examples.baseline.run_config (config 1 to its target, configs 2-5 one
+   epoch each, the loss falling, configs 2-4 above chance); the workflow
+   example with ADAG and AsyncADAG, the streaming example and the Higgs
+   walkthrough (Punchcard round trip included). No kernel of the port
+   lies on this path either;
+9. report: one JSON line of kernels, the card's name and power limit, and
    the final {"ok": true, ...} line.
 
 Weights are random, drawn from seed 0.  Needs nothing but this checkout,
@@ -1258,6 +1270,203 @@ def async_timing(torch, np, smi):
               f"async gate 3: {cls} applied {updates} commits, want {want}")
 
 
+# the entry-points phase: the user's scripts and the models and data under
+# them, at full width on the loaders' full-size synthetic stand-ins
+# ResNet-20 card against CPU, f32, whole param dict (gate 1).  After one
+# step the two agree to 1.2e-6 (measured on an H100) and are held to 1e-4.
+# After a window of 4 steps any two f32 orderings part by ~1e-4: GroupNorm
+# centres every ReLU's input on 0, so inputs within rounding of 0 pass or
+# stop a gradient depending on the summation order, and the steps after
+# amplify it.  Measured on an H100: card against CPU 1.025e-4, and on the CPU
+# alone DynSGD (vmapped replica) against SingleTrainer (the same four steps
+# unvmapped) 4.4e-5; the window is held to 1e-3 and that CPU-only gap is
+# printed beside it as the floor.
+ENTRY_RESNET_STEP_TOL = 1e-4
+ENTRY_RESNET_TOL = 1e-3
+# bf16 against f32 logits of the same ResNet-20 weights: 2.7e-3 on the CPU
+# at seed 0; the card's bf16 convs accumulate in f32 as the CPU's do
+ENTRY_BF16_TOL = 2e-2
+ENTRY_SEQ_TOL = 1e-5      # the Sequential forward, card against CPU, f32 (gate 2)
+ENTRY_KEEP_TOL = 0.01     # dropout's kept fraction against 0.75
+
+
+def _run_main(fn, argv):
+    """An example's ``main(argv)`` with its standard output captured (and
+    echoed); a ``SystemExit`` other than 0 fails the phase."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            fn(argv)
+    except SystemExit as e:
+        check(e.code in (0, None), f"{fn.__module__} {argv} exited {e.code}: {buf.getvalue()}")
+    finally:
+        print(buf.getvalue(), end="")
+    return buf.getvalue()
+
+
+def entry_phase(torch, np, smi):
+    """The user's entry points on the card: (1) ResNet-20 (16/32/64
+    channels, 3 blocks a stage, CIFAR-100 head) card against CPU for one
+    DynSGD step and one window of 4, and its bf16 forward against f32; (2) a Sequential stack
+    with dropout: its eval forward card against CPU, its train forward
+    bitwise reproducible with the CPU's masks, the kept fraction, and ADAG
+    with 4 stacked replicas learning with dropout on; (3) the BASELINE
+    matrix through examples.baseline.run_config (config 1 to its target,
+    configs 2-5 one epoch each); (4) the workflow (ADAG and AsyncADAG),
+    streaming and Higgs examples."""
+    from distkeras_torch import ADAG, DynSGD, Model, SingleTrainer, resnet20_spec
+    from distkeras_torch.data import Dataset, load_cifar100
+    from distkeras_torch.examples import baseline, higgs_workflow, streaming, workflow
+    from distkeras_torch.models import sequential as seq
+
+    print(f"entry-points phase on {smi}")
+    t_phase = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        train, _, info = load_cifar100()
+        init = Model.init(resnet20_spec(), seed=0, device="cpu")
+        runs = {}
+        for window in (1, 4):
+            rows = slice(0, 64 * window)
+            ds = Dataset({"features": train["features"][rows], "label": train["label"][rows]})
+            for dev in ("cpu", "cuda"):
+                tr = DynSGD(init, num_workers=1, communication_window=window, batch_size=64,
+                            learning_rate=0.02, device=dev)
+                runs[dev, window] = tr.train(ds, shuffle=False).params, tr.history
+        floor = _gaps(SingleTrainer(init, batch_size=64, learning_rate=0.02, device="cpu")
+                      .train(ds, shuffle=False).params, runs["cpu", 4][0])
+        step = _gaps(runs["cuda", 1][0], runs["cpu", 1][0])
+        gaps = _gaps(runs["cuda", 4][0], runs["cpu", 4][0])
+        print(f"entry gate 1, ResNet-20 f32, DynSGD (1 worker, batch 64) on "
+              f"{info['train_rows']} synthetic CIFAR-100 rows' first 256, card against CPU: "
+              f"one step {_gap_text(step)} (tol {ENTRY_RESNET_STEP_TOL:g}); one window of 4 "
+              f"(window loss card {runs['cuda', 4][1]} cpu {runs['cpu', 4][1]}) "
+              f"{_gap_text(gaps)} (tol {ENTRY_RESNET_TOL:g}); on the CPU, SingleTrainer against "
+              f"the same window {_gap_text(floor)} (the f32 floor)")
+        check(step[0] <= ENTRY_RESNET_STEP_TOL and gaps[0] <= ENTRY_RESNET_TOL,
+              "ResNet-20 on the card disagrees with its CPU path")
+        x = torch.from_numpy(train["features"][:256]).cuda()
+        f32 = Model(resnet20_spec(), runs["cuda", 4][0]).apply(x)
+        bf16 = Model(resnet20_spec(compute_dtype="bfloat16"), runs["cuda", 4][0]).apply(x)
+        gap = _gaps({"logits": bf16}, {"logits": f32})[0]
+        print(f"entry gate 1, ResNet-20 bf16 forward against f32 on the card, [256, 32, 32, 3]: "
+              f"logits {tuple(bf16.shape)} {bf16.dtype}, relative L2 {gap:.3e} "
+              f"(tol {ENTRY_BF16_TOL:g})")
+        check(tuple(bf16.shape) == (256, 100) and bf16.dtype == torch.float32
+              and bool(torch.isfinite(bf16).all()) and gap <= ENTRY_BF16_TOL,
+              "ResNet-20's bf16 forward is off its f32 forward")
+
+        spec = seq.sequential_spec([seq.conv2d(32, 3, strides=2), seq.max_pool2d(2),
+                                    seq.layer_norm(), seq.dropout(0.25), seq.flatten(),
+                                    seq.dense(10)], input_shape=(28, 28, 1))
+        m = Model.init(spec, seed=0, device="cpu")
+        xs, ys = learnable_images(np, LEARN_BATCHES * CNN_BATCH)
+        xb = torch.from_numpy(xs[:CNN_BATCH])
+        card = {k: t.cuda() for k, t in m.params.items()}
+        gap = _gaps({"out": Model(spec, card).apply(xb.cuda())}, {"out": m.apply(xb)})[0]
+        key = torch.tensor([7, 11])
+        train_fwd = spec.train_apply_fn()
+        t1 = train_fwd(card, xb.cuda(), key.cuda())
+        t2 = train_fwd(card, xb.cuda(), key.cuda())
+        tgap = _gaps({"out": t1}, {"out": train_fwd(m.params, xb, key)})[0]
+        kept = seq.keep_mask(key.cuda(), 3, (4096, 4096), 0.75, torch.device("cuda"))
+        frac = kept.float().mean().item()
+        same_mask = torch.equal(kept.cpu(), seq.keep_mask(key, 3, (4096, 4096), 0.75,
+                                                          torch.device("cpu")))
+        print(f"entry gate 2, Sequential conv2d(32, 3, strides=2)-max_pool2d(2)-layer_norm-"
+              f"dropout(0.25)-flatten-dense(10) f32 on [{CNN_BATCH}, 28, 28, 1]: eval forward "
+              f"card against CPU {gap:.3e} (tol {ENTRY_SEQ_TOL:g}); train forward twice on the "
+              f"card bit-equal {torch.equal(t1, t2)}, against the CPU's (same masks) "
+              f"{tgap:.3e}; kept fraction over 4096 x 4096 {frac:.5f} (want 0.75 +- "
+              f"{ENTRY_KEEP_TOL}), the CPU's mask {same_mask}")
+        check(gap <= ENTRY_SEQ_TOL and tgap <= ENTRY_SEQ_TOL and torch.equal(t1, t2)
+              and same_mask and abs(frac - 0.75) <= ENTRY_KEEP_TOL,
+              "the Sequential model's forward or dropout failed on the card")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    tr = ADAG(spec, num_workers=GATE_REPLICAS, batch_size=CNN_BATCH // GATE_REPLICAS,
+              communication_window=GATE_WINDOW, num_epoch=LEARN_EPOCHS, device="cuda",
+              **CNN_OPT)
+    tr.train(Dataset({"features": xs, "label": ys}))
+    print(f"entry gate 2, ADAG with {GATE_REPLICAS} stacked replicas, dropout on, "
+          f"{LEARN_EPOCHS} epochs of {LEARN_BATCHES} minibatches: window loss "
+          f"{tr.history[0]:.4f} -> {tr.history[-1]:.4f} (want below half)")
+    check(tr.history[-1] < 0.5 * tr.history[0], "ADAG with dropout did not learn")
+
+    for num in (1, 2, 3, 4, 5):
+        t0 = time.perf_counter()
+        cap = 18 if num == 1 else 1
+        rec, tr = baseline.run_config(num, epochs_cap=cap, device="cuda", return_trainer=True)
+        print(f"entry gate 3, BASELINE config {num} ({smi}; epochs cap {cap}, "
+              f"{time.perf_counter() - t0:.1f} s with its data): {json.dumps(rec)}")
+        print(f"  window loss {tr.history[0]:.4f} -> {tr.history[-1]:.4f}; epoch walls "
+              f"{rec['epoch_walls_s']} s, samples/s per chip train "
+              f"{rec['samples_per_sec_per_chip_train']}, steady "
+              f"{rec['samples_per_sec_per_chip_steady']} ({smi})")
+        check(rec["platform"] == "cuda" and all(np.isfinite(tr.history)),
+              f"config {num}: bad record")
+        check(tr.history[-1] < tr.history[0], f"config {num}: the loss did not fall")
+        if num == 1:
+            check(rec["target_reached"], f"config 1 missed its target {rec['target']}")
+        elif num <= 4:
+            check(rec["accuracy"][-1] > 0.2, f"config {num}: accuracy {rec['accuracy']}")
+
+    for trainer in ("adag", "async-adag"):
+        out = _run_main(workflow.main, ["--trainer", trainer])
+        acc = float(out.split("test accuracy: ")[1].split()[0])
+        check(acc >= 0.9, f"workflow {trainer}: accuracy {acc}")
+    out = _run_main(streaming.main, ["--events", "2048", "--micro-batch", "64"])
+    rate = out.split("(")[-1].split(" events/s")[0]
+    print(f"entry gate 4, streaming: {rate} events/s at micro-batch 64 ({smi})")
+    check("streamed 2048 events" in out and float(out.split("accuracy ")[-1]) >= 0.9,
+          "the streaming example fell short")
+    out = _run_main(higgs_workflow.main, [])
+    check("workflow OK" in out and "punchcard round trip" in out,
+          "the Higgs walkthrough fell short")
+    print(f"entry-points phase: {time.perf_counter() - t_phase:.1f} s ({smi})")
+
+
+def entry_profile(torch, np, smi):
+    """Where BASELINE config 5's time goes: 8 windows of DynSGD on
+    ResNet-20 (1 worker, window 4, batch 64, f32) through the window
+    engine on the card, one warm run, then one under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distkeras_torch import DynSGD, Model, resnet20_spec
+
+    rng = np.random.default_rng(0)
+    xs = rng.uniform(size=(8, 4, 64, 32, 32, 3)).astype(np.float32)
+    ys = np.eye(100, dtype=np.float32)[rng.integers(0, 100, (8, 4, 64))]
+    eng = DynSGD(resnet20_spec(), num_workers=1, communication_window=4, batch_size=64,
+                 learning_rate=0.02, device="cuda").engine
+    state = eng.init_state(Model.init(resnet20_spec(), seed=0, device="cuda"))
+    eng.run_epoch(state, xs, ys)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run_epoch(state, xs, ys)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            busy[e.key] = (busy.get(e.key, (0.0, 0))[0] + us, busy.get(e.key, (0.0, 0))[1] + e.count)
+    total_us = sum(us for us, _ in busy.values())
+    launches = sum(n for _, n in busy.values())
+    check(total_us > 0, "the profiler recorded no device time for ResNet-20's windows")
+    print(f"entry profile ({smi}): ResNet-20 DynSGD, 32 steps of batch 64 (f32): wall "
+          f"{wall * 1e3:.1f} ms ({wall * 1e3 / 32:.2f} ms a step), device busy "
+          f"{total_us / 1e3:.1f} ms, idle share {100 * (1 - total_us / 1e6 / wall):.1f} %, "
+          f"{launches} kernel launches ({launches / 32:.0f} a step)")
+    for key, (us, n) in sorted(busy.items(), key=lambda kv: -kv[1][0])[:6]:
+        print(f"  {us / 1e3:9.3f} ms  {100 * us / total_us:5.1f} %  {n:6d} launches  {key[:100]}")
+
+
 def run() -> int:
     try:
         import torch
@@ -1342,6 +1551,13 @@ def run() -> int:
     async_counts = dict(_counts(fa), decode_step=ds.DECODE_STEP.launches)
     print(f"async phase: launches of the port's kernels {async_counts}")
     check(not any(async_counts.values()), "the async trainers launched an attention kernel")
+    # the entry points launch no kernel of the port either
+    _zero_counts(fa)
+    ds.DECODE_STEP.launches = 0
+    entry_phase(torch, np, smi)
+    entry_counts = dict(_counts(fa), decode_step=ds.DECODE_STEP.launches)
+    print(f"entry-points phase: launches of the port's kernels {entry_counts}")
+    check(not any(entry_counts.values()), "the entry points launched a kernel of the port")
     launches = {"flash_fwd": serve_b1 + score_b1 + fused_counts["flash_fwd"]
                 + split_counts["flash_fwd"],
                 "decode_step": serve_b4,
@@ -1365,6 +1581,7 @@ def run() -> int:
     async_counts = dict(_counts(fa), decode_step=ds.DECODE_STEP.launches)
     print(f"async timing: launches of the port's kernels {async_counts}")
     check(not any(async_counts.values()), "the async trainers launched an attention kernel")
+    entry_profile(torch, np, smi)
 
     kernels = [
         dict(name="flash_fwd", route="cuda", source="distkeras_torch/csrc/flash_fwd.cu",

@@ -17,11 +17,21 @@ JAX side) and on CPU torch tensors inside, so bfloat16 leaves pass without
     block_i/down/kernel [F, E]          -> block_i.down.weight  [E, F]
     final_norm/scale, bias              -> final_norm.weight, bias
 
-``mlp`` and ``cnn`` (the port's submodules carry Flax's automatic names):
+``mlp``, ``cnn`` and ``resnet`` (the port's submodules carry Flax's
+automatic names, nested as Flax nests them):
 
     Dense_i/kernel [in, out]            -> Dense_i.weight [out, in]
     Conv_i/kernel  [kh, kw, in, out]    -> Conv_i.weight  [out, in, kh, kw]
     Dense_i/bias, Conv_i/bias           -> Dense_i.bias, Conv_i.bias
+    GroupNorm_j/scale, bias             -> GroupNorm_j.weight, bias
+    ResidualBlock_k/Conv_j/kernel       -> ResidualBlock_k.Conv_j.weight (and so on)
+
+``sequential`` (layers named by their index, in lowercase):
+
+    dense_i/kernel, bias                -> dense_i.weight [out, in], bias
+    conv_i/kernel, bias                 -> conv_i.weight [out, in, kh, kw], bias
+    ln_i/scale, bias                    -> ln_i.weight, bias
+    embed_i/embedding [V, E]            -> embed_i.weight [V, E] as is
 
 Every Flax Dense kernel is ``[in..., out...]`` and every ``nn.Linear``
 weight ``[out, in]``: the move is a reshape to 2-D and a transpose; a conv
@@ -38,7 +48,10 @@ import torch
 from distkeras_torch.models.base import ModelSpec
 from distkeras_torch.platform import DeviceLike, resolve_device
 
-BRIDGED = ("transformer_lm", "mlp", "cnn")
+BRIDGED = ("transformer_lm", "mlp", "cnn", "resnet", "sequential")
+
+_CONV = ("Conv_", "conv_")     # Flax HWIO kernels -> OIHW
+_DENSE = ("Dense_", "dense_")   # [in, out] kernels -> [out, in]
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
@@ -57,11 +70,13 @@ def _n_in_axes(flax_path: str) -> int:
     return 2 if flax_path.endswith("proj/kernel") else 1
 
 
+def _is_embed(module: str) -> bool:
+    return module == "embed" or module.startswith("embed_")
+
+
 def _port_key(flax_path: str) -> str:
     parts = flax_path.split("/")
-    if flax_path == "embed/embedding":
-        return "embed.weight"
-    if parts[-1] in ("kernel", "scale"):
+    if parts[-1] in ("kernel", "scale", "embedding"):
         return ".".join(parts[:-1] + ["weight"])
     return ".".join(parts)
 
@@ -93,7 +108,7 @@ def params_from_flax_tensors(flat: Mapping[str, torch.Tensor], spec: ModelSpec,
     out = {}
     for path, t in flat.items():
         if path.endswith("/kernel"):
-            if path.split("/")[-2].startswith("Conv_"):         # HWIO -> OIHW
+            if path.split("/")[-2].startswith(_CONV):           # HWIO -> OIHW
                 t = t.permute(3, 2, 0, 1)
             else:
                 fan_in = int(np.prod(t.shape[:_n_in_axes(path)]))
@@ -113,15 +128,15 @@ def flax_tensors(params: Mapping[str, torch.Tensor], spec: ModelSpec,
     for key, t in params.items():
         t = t.detach().cpu() if cpu else t.detach()
         parts = key.split(".")
-        if key == "embed.weight":
-            path = ["embed", "embedding"]
+        if parts[-1] == "weight" and _is_embed(parts[-2]):
+            path = parts[:-1] + ["embedding"]
         elif parts[-1] == "weight" and parts[-2] in kernel_shapes:
             path = parts[:-1] + ["kernel"]
             t = t.T.reshape(kernel_shapes[parts[-2]])
-        elif parts[-1] == "weight" and parts[-2].startswith("Conv_"):
+        elif parts[-1] == "weight" and parts[-2].startswith(_CONV):
             path = parts[:-1] + ["kernel"]
             t = t.permute(2, 3, 1, 0)                           # OIHW -> HWIO
-        elif parts[-1] == "weight" and parts[-2].startswith("Dense_"):
+        elif parts[-1] == "weight" and parts[-2].startswith(_DENSE):
             path = parts[:-1] + ["kernel"]
             t = t.T
         elif parts[-1] == "weight":

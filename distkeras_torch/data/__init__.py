@@ -1,5 +1,5 @@
 """Data plane of the PyTorch port: the columnar Dataset, the double-buffered
-device feed, and the feature/label transformers."""
+device feed, the feature/label transformers and the dataset loaders."""
 
 from distkeras_torch.data.dataset import (  # noqa: F401
     Dataset,
@@ -12,4 +12,9 @@ from distkeras_torch.data.transformers import (  # noqa: F401
     MinMaxTransformer,
     OneHotTransformer,
     ReshapeTransformer,
+)
+from distkeras_torch.data.loaders import (  # noqa: F401
+    load_cifar10,
+    load_cifar100,
+    load_mnist,
 )

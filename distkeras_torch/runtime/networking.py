@@ -12,6 +12,9 @@ Wire format (all integers big-endian):
     tensor payload := u8 action, u32 num_tensors,
                       num_tensors * (u64 nbytes, raw bytes)
 
+Control frames (the streaming server's hello, the job daemon's requests)
+are one JSON object as the payload (:func:`send_json` / :func:`recv_json`).
+
 Actions: ``P`` pull request, ``C`` commit, ``Q`` int8-compressed commit,
 ``B`` bye, ``W`` weights reply, ``A`` ack, ``H`` heartbeat ping (the hub
 acks it).  Dtype and shape travel out of band: both ends hold the model's
@@ -31,9 +34,10 @@ keeps the rounding residual and adds it to its next commit.
 
 from __future__ import annotations
 
+import json
 import socket
 import struct
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -143,6 +147,14 @@ def recv_frame_into(sock: socket.socket, buf: bytearray,
 def send_raw_frame(sock: socket.socket, frame: bytes) -> None:
     """Send an already-framed byte string (8-byte header included)."""
     sock.sendall(frame)
+
+
+def send_json(sock: socket.socket, obj: Dict[str, Any]) -> None:
+    send_frame(sock, json.dumps(obj).encode("utf-8"))
+
+
+def recv_json(sock: socket.socket, limit: int = MAX_FRAME) -> Dict[str, Any]:
+    return json.loads(recv_frame(sock, limit=limit).decode("utf-8"))
 
 
 def encode_tensors(action: bytes, arrays: Sequence[np.ndarray]) -> bytes:

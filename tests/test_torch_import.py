@@ -34,6 +34,12 @@ def test_import_leaves_jax_out_of_sys_modules():
              "import distkeras_torch.runtime.networking, distkeras_torch.runtime.native\n"
              "import distkeras_torch.runtime.parameter_server\n"
              "import distkeras_torch.runtime.async_trainer\n"
+             "import distkeras_torch.runtime.streaming, distkeras_torch.runtime.job_deployment\n"
+             "import distkeras_torch.models.resnet, distkeras_torch.models.sequential\n"
+             "import distkeras_torch.models.layers, distkeras_torch.data.loaders\n"
+             "import distkeras_torch.examples, distkeras_torch.examples.workflow\n"
+             "import distkeras_torch.examples.baseline, distkeras_torch.examples.streaming\n"
+             "import distkeras_torch.examples.higgs_workflow\n"
              f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
              "print(bad)\n"
              "sys.exit(1 if bad else 0)")
@@ -110,6 +116,29 @@ assert ModelPredictor(cnn, device="cpu").device.type == "cpu"
 assert AccuracyEvaluator(device="cpu").device.type == "cpu"
 assert Model.deserialize(cnn.serialize(), device="cpu").params.keys() == cnn.params.keys()
 assert list(prefetch_to_device(iter([(0,)]), device="cpu"))[0][0].device.type == "cpu"
+import os, tempfile
+from distkeras_torch import Job, Punchcard, StreamingInferenceServer, resnet20_spec
+from distkeras_torch.examples import baseline, higgs_workflow, streaming, workflow
+from distkeras_torch.runtime import job_deployment
+secret = os.path.join(tempfile.mkdtemp(), "secret")
+with open(secret, "w") as f:
+    f.write("s")
+calls = [lambda: StreamingInferenceServer(cnn), lambda: Punchcard("s"),
+         lambda: Job("127.0.0.1", 1, "s", "j", cnn.spec, data={"x": [0]}),
+         lambda: Model.init(resnet20_spec()),
+         lambda: workflow.main([]), lambda: baseline.main(["--config", "1"]),
+         lambda: higgs_workflow.main([]), lambda: streaming.main([]),
+         lambda: job_deployment.main(["--secret-file", secret, "--port", "0"])]
+for i, call in enumerate(calls):
+    try:
+        call()
+    except RuntimeError as e:
+        assert "device='cpu'" in str(e), e
+    else:
+        raise SystemExit(f"entry point {i} ran without a CUDA device")
+server = StreamingInferenceServer(cnn, max_batch=2, device="cpu")
+assert server.device.type == "cpu" and server.output_shape == (10,)
+assert Punchcard("s", device="cpu").device.type == "cpu"
 print("ok")
 """
     r = _run(code, CUDA_VISIBLE_DEVICES="")
