@@ -18,7 +18,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the split backward (B3a + B3b) and the decode step are bitwise
    reproducible, hold the decode step against its plain version at two
    more shapes (head dims 32 and 128, a shallow shared-memory plan, a tile
-   deal with no blocks kept for the down projection), and time kernel,
+   deal with no blocks kept for the down projection) and at the
+   speculative draft's shapes (batch 1 and 8, bf16 and float32, the f32
+   instance decode_f32_kernel included), and time kernel,
    plain version and (where one exists) the PyTorch library call
    computing the same function; the decode step's stamped probe splits
    its time by phase (LN0 + qkv, attention, proj, LN1 + up, down), times
@@ -64,12 +66,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
    stack with dropout, eval forward card against CPU, train forward bitwise
    reproducible and equal to the CPU's masks, the kept fraction, ADAG with
    4 stacked replicas learning with dropout on; the BASELINE matrix through
-   examples.baseline.run_config (config 1 to its target, configs 2-5 one
-   epoch each, the loss falling, configs 2-4 above chance); the workflow
+   examples.baseline.run_config (config 1 to its target, configs 2-4 one
+   epoch each, config 5 one epoch of its first 4096 rows, the loss
+   falling, configs 2-4 above chance); the workflow
    example with ADAG and AsyncADAG, the streaming example and the Higgs
    walkthrough (Punchcard round trip included). No kernel of the port
    lies on this path either;
-9. report: one JSON line of kernels, the card's name and power limit, and
+9. LM serving family (main path): the JAX package's decode bench
+   (bench.py:471-700). The serving model as the target and a 2-layer,
+   128-wide, 2-head draft, trained as bench.py:410-468 does (300 adam 1e-3
+   steps each on a successor map with 10 % noise, batch 16, seq 256)
+   through make_lm_train_step, so B1 and B2 run. Gates: (a) float32
+   speculative decoding, B4's float32 kernel as the draft step, equals the
+   target's per-op greedy decode at batch 1 and 8, k=8, with the trained
+   draft and with an untrained one (rejections); (b) fused and per-op draft
+   steps commit the same tokens in the same number of rounds, and one
+   fused draft step at a time gives the per-op step's logits and cache
+   rows, through a rewind; (c) B4 launches are rounds x (k+1) on
+   every fused leg and 0 with int8 caches; (d) the bf16 pair agrees with
+   plain greedy on at least 0.9 of the tokens; (e) width-1 beam search is
+   the per-op greedy decode and width 4's scores, at batch 8 and 128 new
+   tokens, are the log-probs of a full forward (float32); (f) the LM workflow example (distkeras-torch-lm)
+   exits 0. Then the legs speculative_b1, fp_b1_trained,
+   speculative_batched, fp_trained, speculative_k12, speculative_b64,
+   speculative_kv_int8_b64 and beam (b8, width 4, 128 new tokens), median
+   of 3 on the host clock, and one profiled speculative_b1 request;
+10. report: one JSON line of kernels, the card's name and power limit, and
    the final {"ok": true, ...} line.
 
 Weights are random, drawn from seed 0.  Needs nothing but this checkout,
@@ -495,7 +517,7 @@ def decode_phase(torch, model, ds, dec):
     same = bool(torch.equal(first, again) and torch.equal(kc, kc2) and torch.equal(vc, vc2))
     print(f"decode_step bf16, two calls: hidden state and caches bitwise equal {same}")
     check(same, "decode_step is not bitwise reproducible")
-    for shape in DECODE_SHAPES:
+    for shape in DECODE_SHAPES + draft_decode_shapes():
         worst = max(worst, decode_shape_case(torch, ds, **shape))
     return worst, lambda: decode_timing(torch, ds, state, cache, x)
 
@@ -515,12 +537,27 @@ DECODE_SHAPES = (
 )
 
 
-def decode_shape_case(torch, ds, batch, dim, heads, mlp, cache, pos, layers=2):
-    """B4 bf16 against its plain version at one shape: hidden state and the
-    new rows within 2 % of the largest magnitude, other cache rows
+def draft_decode_shapes():
+    """B4 at the speculative draft's shapes (the serving family phase):
+    batch 1 and 8, the draft's widths and depth, the first and the last
+    position a draft step writes.  bf16 with the bf16 legs' cache (prompt +
+    new + k + 1 rows), float32 (decode_f32_kernel, the draft step of gates
+    (a) and (b)) with those gates' cache."""
+    caches = {"bfloat16": PROMPT + NEW + SPEC_K + 1, "float32": PROMPT + EXACT_NEW + SPEC_K + 1}
+    return tuple(dict(batch=b, dim=DRAFT_DIM, heads=DRAFT_HEADS, mlp=MLP * DRAFT_DIM,
+                      cache=cache, pos=pos, layers=DRAFT_LAYERS, dtype=dtype)
+                 for dtype, cache in caches.items() for b in (1, BATCH)
+                 for pos in (PROMPT, cache - 1))
+
+
+def decode_shape_case(torch, ds, batch, dim, heads, mlp, cache, pos, layers=2,
+                      dtype="bfloat16"):
+    """B4 against its plain version at one shape: hidden state and the new
+    rows within 2 % of the largest magnitude in bf16, 2e-5 of it in float32
+    (the same arithmetic in another summation order), other cache rows
     untouched."""
     gen = torch.Generator(device="cuda").manual_seed(3)
-    bf = torch.bfloat16
+    bf = getattr(torch, dtype)
 
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device="cuda") * scale).to(bf)
@@ -539,14 +576,14 @@ def decode_shape_case(torch, ds, batch, dim, heads, mlp, cache, pos, layers=2):
     out = ds.fused_decode_step(w, x, kc, vc, pos, heads=heads)
     torch.cuda.synchronize()
     ref = ds.fused_decode_step_plain(w, x, kp, vp, pos, heads=heads)
-    tol = 2e-2 * max(1.0, ref.float().abs().max().item())
+    tol = (2e-2 if dtype == "bfloat16" else 2e-5) * max(1.0, ref.float().abs().max().item())
     err = (out.float() - ref.float()).abs().max().item()
     err_kv = max((kc[:, :, pos].float() - kp[:, :, pos].float()).abs().max().item(),
                  (vc[:, :, pos].float() - vp[:, :, pos].float()).abs().max().item())
     kc[:, :, pos] = kp[:, :, pos]
     vc[:, :, pos] = vp[:, :, pos]
     untouched = bool(torch.equal(kc, kp) and torch.equal(vc, vp))
-    name = f"decode_step B{batch} E{dim} H{heads} F{mlp} S{cache} pos {pos}"
+    name = f"decode_step {dtype} B{batch} E{dim} H{heads} F{mlp} L{layers} S{cache} pos {pos}"
     print(f"{name}: max|x-x_plain| {err:.3e}, new rows {err_kv:.3e} (tol {tol:.3e})")
     check(err <= tol and err_kv <= tol, f"{name}: disagrees with plain")
     check(untouched, f"{name}: cache rows other than pos changed")
@@ -622,6 +659,26 @@ def decode_timing(torch, ds, state, cache, x):
     ms, plain_ms, bms, by = timings[mid]
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": None, "at_pos": mid}
+
+
+def feed_check(torch, np):
+    """The chunked feed on the card: a read-only chunk (as a mapped DKCOL
+    column is), a strided view and an int column each go into pinned memory
+    in one copy and arrive equal."""
+    from distkeras_torch.data import prefetch_to_device
+
+    rng = np.random.default_rng(4)
+    chunks = []
+    for _ in range(3):
+        frozen = rng.standard_normal((64, 28, 28, 1)).astype(np.float32)
+        frozen.setflags(write=False)
+        wide = rng.standard_normal((64, 20)).astype(np.float32)
+        chunks.append((frozen, wide[:, ::2], rng.integers(0, 10, 64)))
+    same = True
+    for host, dev in zip(chunks, prefetch_to_device(iter(chunks), device="cuda")):
+        same &= all(t.is_cuda and np.array_equal(t.cpu().numpy(), a) for a, t in zip(host, dev))
+    print(f"chunked feed on the card (read-only, strided and int64 arrays): equal {same}")
+    check(same, "the chunked feed changed a chunk on its way to the card")
 
 
 def serving_phase(torch, np, model, dec, ds, fa):
@@ -1287,6 +1344,12 @@ ENTRY_RESNET_TOL = 1e-3
 # at seed 0; the card's bf16 convs accumulate in f32 as the CPU's do
 ENTRY_BF16_TOL = 2e-2
 ENTRY_SEQ_TOL = 1e-5      # the Sequential forward, card against CPU, f32 (gate 2)
+# BASELINE config 5 (ResNet-20, host-bound) trains on its first 4096 rows,
+# 16 windows of 4 minibatches of 64 an epoch.  Its record's steady rate
+# runs 4 x 3 passes over a chunk of up to 64 windows: on the whole set that
+# alone took about 170 s of an H100 run, and the script passed half its
+# time limit.
+ENTRY_CONFIG5_ROWS = 4096
 ENTRY_KEEP_TOL = 0.01     # dropout's kept fraction against 0.75
 
 
@@ -1401,8 +1464,11 @@ def entry_phase(torch, np, smi):
     for num in (1, 2, 3, 4, 5):
         t0 = time.perf_counter()
         cap = 18 if num == 1 else 1
-        rec, tr = baseline.run_config(num, epochs_cap=cap, device="cuda", return_trainer=True)
-        print(f"entry gate 3, BASELINE config {num} ({smi}; epochs cap {cap}, "
+        rows = ENTRY_CONFIG5_ROWS if num == 5 else None
+        rec, tr = baseline.run_config(num, epochs_cap=cap, device="cuda", return_trainer=True,
+                                      train_rows=rows)
+        print(f"entry gate 3, BASELINE config {num} ({smi}; epochs cap {cap}, train rows "
+              f"{rows or 'all'}, "
               f"{time.perf_counter() - t0:.1f} s with its data): {json.dumps(rec)}")
         print(f"  window loss {tr.history[0]:.4f} -> {tr.history[-1]:.4f}; epoch walls "
               f"{rec['epoch_walls_s']} s, samples/s per chip train "
@@ -1467,6 +1533,310 @@ def entry_profile(torch, np, smi):
         print(f"  {us / 1e3:9.3f} ms  {100 * us / total_us:5.1f} %  {n:6d} launches  {key[:100]}")
 
 
+# the LM serving family: speculative decoding (B4 as the draft step) and
+# beam search on the JAX package's decode bench (bench.py:471-700): the
+# serving model as the target, a 2-layer 128-wide 2-head draft
+# (bench.py:591-594), the pair trained as bench.py:410-468 does (300 adam
+# 1e-3 steps each, batch 16, seq 256, a successor map with 10 % noise)
+DRAFT_DIM, DRAFT_HEADS, DRAFT_LAYERS = 128, 2, 2
+PAIR_STEPS, PAIR_BATCH, PAIR_SEQ = 300, 16, 256
+SPEC_K, SPEC_K12, BIG = 8, 12, 64
+EXACT_NEW = 64                    # gates (a)-(b): new tokens of the f32 runs
+BEAM_WIDTH, BEAM_NEW = 4, 128
+BEAM_SCORE_TOL = 1e-3             # gate (e): beam scores against Model.apply, relative
+SPEC_AGREE_MIN = 0.9              # gate (d): bf16 speculative against plain greedy
+DRAFT_STEP_TOL = 2e-5             # gate (b): f32 fused draft step against per-op, relative
+
+
+def _lm_specs(small_lm_spec, dtype):
+    cap = PROMPT + NEW + 16
+    target = small_lm_spec(vocab_size=VOCAB, model_dim=DIM, num_heads=HEADS,
+                           num_layers=LAYERS, max_seq_len=cap)
+    draft = small_lm_spec(vocab_size=VOCAB, model_dim=DRAFT_DIM, num_heads=DRAFT_HEADS,
+                          num_layers=DRAFT_LAYERS, max_seq_len=cap)
+    for s in (target, draft):
+        s.config["compute_dtype"] = dtype
+    return target, draft
+
+
+def train_decode_pair(torch, np, target_spec, draft_spec):
+    """bench.py's _train_decode_pair through the port's make_lm_train_step:
+    tokens follow a fixed random successor map with 10 % uniform noise, so
+    target and draft learn the same greedy predictor."""
+    from distkeras_torch import make_lm_train_step, shift_targets
+    from distkeras_torch.ops.optimizers import get_optimizer
+
+    rng = np.random.default_rng(0)
+    succ = rng.permutation(VOCAB)
+    toks = np.empty((PAIR_STEPS, PAIR_BATCH, PAIR_SEQ), np.int64)
+    cur = rng.integers(0, VOCAB, (PAIR_STEPS, PAIR_BATCH))
+    for t in range(PAIR_SEQ):
+        toks[:, :, t] = cur
+        noise = rng.random((PAIR_STEPS, PAIR_BATCH)) < 0.10
+        cur = np.where(noise, rng.integers(0, VOCAB, (PAIR_STEPS, PAIR_BATCH)), succ[cur])
+    tok_d = torch.from_numpy(toks).cuda()
+    tgt_d = torch.from_numpy(shift_targets(toks)).cuda()
+
+    def fit(spec, seed):
+        opt = get_optimizer("adam", 1e-3)
+        step = make_lm_train_step(spec, opt, device="cuda")
+        params = spec.init_params(seed=seed, device="cuda")
+        state, losses = opt.init(params), []
+        for i in range(PAIR_STEPS):
+            params, state, loss = step(params, state, tok_d[i], tgt_d[i])
+            losses.append(loss)
+        losses = torch.stack(losses).cpu().numpy()
+        return params, losses
+
+    t0 = time.perf_counter()
+    t_params, t_losses = fit(target_spec, 0)
+    d_params, d_losses = fit(draft_spec, 1)
+    torch.cuda.synchronize()
+    print(f"serving family: pair trained in {time.perf_counter() - t0:.1f} s; target loss "
+          f"{t_losses[0]:.4f} -> {t_losses[-1]:.4f}, draft {d_losses[0]:.4f} -> "
+          f"{d_losses[-1]:.4f} (ln V = {np.log(VOCAB):.4f}; the noise floor is about 1.25)")
+    check(np.isfinite(t_losses).all() and np.isfinite(d_losses).all(), "pair training non-finite")
+    check(t_losses[-1] < 3.0 and d_losses[-1] < 3.0, "the decode pair did not learn the map")
+    return t_params, d_params
+
+
+def _acceptance(rounds, k, new=NEW):
+    return min(max(((new - 1) / max(rounds, 1) - 1.0) / k, 0.0), 1.0)
+
+
+def _b4_launched(torch, ds, fn):
+    """``fn()``'s result and the B4 launches it made (synchronised)."""
+    before = ds.DECODE_STEP.launches
+    out = fn()
+    torch.cuda.synchronize()
+    return out, ds.DECODE_STEP.launches - before
+
+
+def draft_step_gap(torch, ds, d_spec32, d_params, prompt):
+    """Gate (b)'s direct check: the f32 draft's fused single-token step
+    (B4's decode_f32_kernel) against its per-op step, each on its own copy
+    of one prefilled cache, for SPEC_K steps from the prompt, then a rewind
+    that drafts positions 2.. again with other tokens, as after a
+    rejection.  Returns the worst logit gap relative to max(1, max|logit|)
+    and the caches' gap relative to max|cache|.  Its launches are a
+    comparison, not the main path: the count is put back."""
+    from distkeras_torch.models import decode as dec
+
+    cfg, b = d_spec32.config, prompt.shape[0]
+    fused = dec.init_cache(cfg, b, PROMPT + EXACT_NEW + SPEC_K + 1, device="cuda")
+    dec.forward_with_cache(d_params, cfg, prompt, 0, fused)
+    per_op = dec.KVCache(fused.k.clone(), fused.v.clone())
+    state = dec.make_fused_state(d_params, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    launches, worst = ds.DECODE_STEP.launches, 0.0
+    for pos in [PROMPT + i for i in range(SPEC_K)] + [PROMPT + i for i in range(2, SPEC_K)]:
+        tok = torch.randint(0, VOCAB, (b,), generator=gen, device="cuda")
+        got = dec.fused_token_forward(state, tok, pos, fused)[:, -1]
+        want = dec.forward_with_cache(d_params, cfg, tok[:, None], pos, per_op)[0][:, -1]
+        worst = max(worst, ((got - want).abs().max() / want.abs().max().clamp_min(1.0)).item())
+    torch.cuda.synchronize()
+    ds.DECODE_STEP.launches = launches
+    kv = max(((f - o).abs().max() / o.abs().max()).item()
+             for f, o in ((fused.k, per_op.k), (fused.v, per_op.v)))
+    return worst, kv
+
+
+def serving_family_phase(torch, np, smi, ds):
+    """Gates (a)-(e) of the LM serving family; returns the timing legs, to run
+    last."""
+    from distkeras_torch import small_lm_spec
+    from distkeras_torch.models.base import Model
+    from distkeras_torch.models.beam import make_beam_search_fn
+    from distkeras_torch.models.decode import make_generate_fn
+    from distkeras_torch.models.speculative import make_speculative_generate_fn
+    from distkeras_torch.ops.decode_step import resolve_step_impl
+
+    print(f"serving family phase on {smi}")
+    t_phase = time.perf_counter()
+    spec, d_spec = _lm_specs(small_lm_spec, "bfloat16")
+    t_params, d_params = train_decode_pair(torch, np, spec, d_spec)
+    rng = np.random.default_rng(5)
+    prompt = torch.from_numpy(rng.integers(0, VOCAB, (BATCH, PROMPT))).cuda()
+    prompt_big = torch.from_numpy(rng.integers(0, VOCAB, (BIG, PROMPT))).cuda()
+
+    # (a) f32 exactness, (b) draft paths, (c) launch counts: the f32 copies
+    # of both specs (the params are float32 already), B4's decode_f32_kernel
+    # as the draft step
+    spec32, d_spec32 = _lm_specs(small_lm_spec, "float32")
+    untrained = d_spec32.init_params(seed=2, device="cuda")
+    for b in (1, BATCH):
+        p = prompt[:b]
+        want = make_generate_fn(spec32, EXACT_NEW, step_impl="xla", device="cuda")(t_params, p)
+        total = PROMPT + EXACT_NEW + SPEC_K + 1
+        check(resolve_step_impl(d_spec32.config, b, total, None, "cuda") == "fused",
+              "the f32 draft does not take the fused step")
+        for label, draft in (("trained", d_params), ("untrained", untrained)):
+            toks, rounds_of = {}, {}
+            for impl in ("fused", "xla"):
+                fn = make_speculative_generate_fn(spec32, d_spec32, EXACT_NEW, k=SPEC_K,
+                                                  with_stats=True, draft_step_impl=impl,
+                                                  device="cuda")
+                (toks[impl], rounds), launched = _b4_launched(
+                    torch, ds, lambda: fn(t_params, draft, p))
+                rounds_of[impl] = rounds
+                want_launch = rounds * (SPEC_K + 1) if impl == "fused" else 0
+                same = bool(torch.equal(toks[impl], want))
+                print(f"serving family gate (a) f32, b{b}, {label} draft, {impl} draft step: "
+                      f"tokens equal to per-op greedy {same}; {rounds} rounds (acceptance "
+                      f"{_acceptance(rounds, SPEC_K, EXACT_NEW):.3f}); B4 launches {launched} "
+                      f"(want {want_launch})")
+                if not same:
+                    col = int((toks[impl] != want).any(dim=0).nonzero()[0])
+                    print(f"  first difference at new token {col}: "
+                          f"{toks[impl][:, col].tolist()} against {want[:, col].tolist()}")
+                check(same, f"gate (a): f32 speculative b{b} ({label}, {impl}) differs from "
+                            f"greedy")
+                check(launched == want_launch, f"gate (c): B4 launched {launched}, want "
+                                               f"{want_launch}")
+            check(torch.equal(toks["fused"], toks["xla"]),
+                  "gate (b): fused and per-op draft steps commit different tokens")
+            # the committed tokens are the target's whatever the draft
+            # proposes; the rounds are the draft's own
+            check(rounds_of["fused"] == rounds_of["xla"],
+                  f"gate (b): fused draft took {rounds_of['fused']} rounds, per-op "
+                  f"{rounds_of['xla']}")
+            gap, kv_gap = draft_step_gap(torch, ds, d_spec32, draft, p)
+            print(f"serving family gate (b) f32, b{b}, {label} draft: fused draft step "
+                  f"(decode_f32_kernel) against the per-op step, {2 * SPEC_K - 2} steps "
+                  f"with a rewind: worst logit gap {gap:.3e} of max(1, max|logit|), cache "
+                  f"{kv_gap:.3e} of max|cache| (tol {DRAFT_STEP_TOL:g} each)")
+            check(gap <= DRAFT_STEP_TOL and kv_gap <= DRAFT_STEP_TOL,
+                  "gate (b): the fused draft step's logits or cache part from the per-op step")
+            if label == "untrained":
+                check(rounds > -(-(EXACT_NEW - 1) // (SPEC_K + 1)),
+                      "gate (a): the untrained draft had no proposal rejected")
+
+    # (d) bf16 agreement of the trained pair with plain greedy
+    greedy = make_generate_fn(spec, NEW, device="cuda")
+    spec_fn = make_speculative_generate_fn(spec, d_spec, NEW, k=SPEC_K, with_stats=True,
+                                           device="cuda")
+    want = greedy(t_params, prompt)
+    (toks, rounds), launched = _b4_launched(torch, ds, lambda: spec_fn(t_params, d_params,
+                                                                       prompt))
+    agree = (toks == want).float().mean().item()
+    print(f"serving family gate (d) bf16 b{BATCH}, k={SPEC_K}: agreement with plain greedy "
+          f"{agree:.4f} (min {SPEC_AGREE_MIN}); acceptance {_acceptance(rounds, SPEC_K):.3f} "
+          f"in {rounds} rounds; B4 launches {launched} (want {rounds * (SPEC_K + 1)})")
+    check(agree >= SPEC_AGREE_MIN, "gate (d): speculative parts from greedy")
+    check(launched == rounds * (SPEC_K + 1), "gate (c): B4 launches on the bf16 leg")
+    q_fn = make_speculative_generate_fn(spec, d_spec, NEW, k=SPEC_K, with_stats=True,
+                                        quantize_cache=True, device="cuda")
+    (_, q_rounds), launched = _b4_launched(torch, ds, lambda: q_fn(t_params, d_params, prompt))
+    print(f"serving family gate (c): int8 caches, {q_rounds} rounds, B4 launches {launched} "
+          f"(want 0)")
+    check(launched == 0, "gate (c): the int8-cache leg launched B4")
+
+    # (e) beam search (f32): width 1 is the per-op greedy decode; width 4's
+    # scores, at the beam leg's batch and length, are the log-probs of a
+    # full forward
+    p2 = prompt[:2]
+    greedy32 = make_generate_fn(spec32, 32, step_impl="xla", device="cuda")(t_params, p2)
+    b1_toks, _ = make_beam_search_fn(spec32, 32, beam_width=1, device="cuda")(t_params, p2)
+    check(torch.equal(b1_toks, greedy32), "gate (e): width-1 beam differs from greedy")
+    toks4, scores4 = make_beam_search_fn(spec32, BEAM_NEW, beam_width=BEAM_WIDTH,
+                                         return_all=True, device="cuda")(t_params, prompt)
+    full = Model(spec32, t_params)
+    worst = 0.0
+    for w in range(BEAM_WIDTH):
+        seq = torch.cat([prompt, toks4[:, w]], dim=1)
+        logp = torch.log_softmax(full.apply(seq[:, :-1]).float(), dim=-1)[:, PROMPT - 1:]
+        true = logp.gather(-1, toks4[:, w, :, None])[..., 0].sum(dim=1)
+        worst = max(worst, ((scores4[:, w] - true).abs() / true.abs()).max().item())
+    print(f"serving family gate (e) f32: width 1 equals greedy (b2, 32 new); width "
+          f"{BEAM_WIDTH} at b{BATCH}, {BEAM_NEW} new, row 0 scores {scores4[0].tolist()} "
+          f"against Model.apply, worst relative gap over all rows {worst:.3e} "
+          f"(tol {BEAM_SCORE_TOL})")
+    check(worst <= BEAM_SCORE_TOL, "gate (e): beam scores are not the sequences' log-probs")
+
+    # (f) the LM user's script on the card: it exits 1 unless the loss falls,
+    # the continuation is half right and speculative agrees with greedy
+    from distkeras_torch.examples import lm_workflow
+
+    t0 = time.perf_counter()
+    out = _run_main(lm_workflow.main, [])
+    check("speculative (self-draft) vs greedy agreement" in out, "lm_workflow fell short")
+    print(f"serving family gate (f): lm_workflow exited 0 in {time.perf_counter() - t0:.1f} s")
+    print(f"serving family gates: {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return lambda: serving_family_timing(torch, np, smi, ds, spec, d_spec, t_params, d_params,
+                                         prompt, prompt_big)
+
+
+def _median_wall(torch, fn, reps=3):
+    """Median host wall time of ``fn`` over ``reps`` calls after one warm
+    call, each ending in torch.cuda.synchronize()."""
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls)
+
+
+def serving_family_timing(torch, np, smi, ds, spec, d_spec, t_params, d_params, prompt,
+                          prompt_big):
+    """The legs of bench.py:584-700 (median of 3, host clock), then one
+    profiled speculative_b1 request."""
+    from distkeras_torch.models.beam import make_beam_search_fn
+    from distkeras_torch.models.decode import make_generate_fn
+    from distkeras_torch.models.speculative import make_speculative_generate_fn
+    from distkeras_torch.ops.decode_step import resolve_step_impl
+
+    t0 = time.perf_counter()
+    plain = make_generate_fn(spec, NEW, device="cuda")
+
+    def spec_leg(name, p, k, **kw):
+        fn = make_speculative_generate_fn(spec, d_spec, NEW, k=k, with_stats=True,
+                                          device="cuda", **kw)
+        (_, rounds), launched = _b4_launched(torch, ds, lambda: fn(t_params, d_params, p))
+        wall = _median_wall(torch, lambda: fn(t_params, d_params, p))
+        b = p.shape[0]
+        draft = ("xla" if kw.get("quantize_cache") else
+                 resolve_step_impl(d_spec.config, b, PROMPT + NEW + k + 1, None, "cuda"))
+        want = rounds * (k + 1) if draft == "fused" else 0
+        print(f"serving leg {name} ({smi}): b{b}, k={k}, {b * NEW / wall:.1f} tokens/s, "
+              f"{wall / NEW * 1e3:.4f} ms/token, acceptance {_acceptance(rounds, k):.3f} "
+              f"({rounds} rounds), draft step {draft}, B4 launches {launched} (want {want})")
+        check(launched == want, f"gate (c): {name} launched B4 {launched} times, want {want}")
+        return fn
+
+    def plain_leg(name, p):
+        wall = _median_wall(torch, lambda: plain(t_params, p))
+        b = p.shape[0]
+        print(f"serving leg {name} ({smi}): b{b}, {b * NEW / wall:.1f} tokens/s, "
+              f"{wall / NEW * 1e3:.4f} ms/token, step "
+              f"{resolve_step_impl(spec.config, b, PROMPT + NEW, None, 'cuda')}")
+
+    b1_fn = spec_leg("speculative_b1", prompt[:1], SPEC_K)
+    plain_leg("fp_b1_trained", prompt[:1])
+    spec_leg("speculative_batched", prompt, SPEC_K)
+    plain_leg("fp_trained", prompt)
+    spec_leg("speculative_k12", prompt, SPEC_K12)
+    spec_leg("speculative_b64", prompt_big, SPEC_K)
+    spec_leg("speculative_kv_int8_b64", prompt_big, SPEC_K, quantize_cache=True)
+    beam = make_beam_search_fn(spec, BEAM_NEW, beam_width=BEAM_WIDTH, device="cuda")
+    wall = _median_wall(torch, lambda: beam(t_params, prompt))
+    print(f"serving leg beam ({smi}): b{BATCH}, width {BEAM_WIDTH}, prompt {PROMPT}, "
+          f"{BEAM_NEW} new: {BATCH * BEAM_NEW / wall:.1f} tokens/s, "
+          f"{wall / BEAM_NEW * 1e3:.4f} ms/token")
+
+    wall, busy_ms, busy = _profiled(torch, lambda: b1_fn(t_params, d_params, prompt[:1]))
+    print(f"serving family profile, one speculative_b1 request ({smi}): wall "
+          f"{wall * 1e3:.1f} ms, device busy {busy_ms:.1f} ms, idle share "
+          f"{100 * (1 - busy_ms / 1e3 / wall):.1f} %")
+    for key, (us, n) in sorted(busy.items(), key=lambda kv: -kv[1][0])[:6]:
+        print(f"  {us / 1e3:9.3f} ms  {100 * us / busy_ms / 1e3:5.1f} %  {n:6d} launches  "
+              f"{key[:100]}")
+    print(f"serving family timing: {time.perf_counter() - t0:.1f} s")
+
+
 def run() -> int:
     try:
         import torch
@@ -1522,6 +1892,7 @@ def run() -> int:
     spec.config["compute_dtype"] = "bfloat16"
     model = base.Model.init(spec, seed=0, device="cuda")
 
+    feed_check(torch, np)
     flash_err, flash_timing_fn = flash_phase(torch, fa)
     bwd_err, bwd_timing_fn = flash_bwd_phase(torch, fa)
     step_err, step_timing_fn = decode_phase(torch, model, ds, dec)
@@ -1558,10 +1929,21 @@ def run() -> int:
     entry_counts = dict(_counts(fa), decode_step=ds.DECODE_STEP.launches)
     print(f"entry-points phase: launches of the port's kernels {entry_counts}")
     check(not any(entry_counts.values()), "the entry points launched a kernel of the port")
+    # the LM serving family: B1 and B2 train the decode pair, B4 is the
+    # speculative draft step
+    _zero_counts(fa)
+    ds.DECODE_STEP.launches = 0
+    family_timing_fn = serving_family_phase(torch, np, smi, ds)
+    family_counts = dict(_counts(fa), decode_step=ds.DECODE_STEP.launches)
+    print(f"serving family phase: launches of the port's kernels {family_counts}")
+    check(family_counts["flash_fwd"] > 0 and family_counts["flash_bwd_fused"] > 0
+          and family_counts["decode_step"] > 0,
+          f"the serving family missed a kernel: {family_counts}")
     launches = {"flash_fwd": serve_b1 + score_b1 + fused_counts["flash_fwd"]
-                + split_counts["flash_fwd"],
-                "decode_step": serve_b4,
-                "flash_bwd_fused": fused_counts["flash_bwd_fused"],
+                + split_counts["flash_fwd"] + family_counts["flash_fwd"],
+                "decode_step": serve_b4 + family_counts["decode_step"],
+                "flash_bwd_fused": fused_counts["flash_bwd_fused"]
+                + family_counts["flash_bwd_fused"],
                 "flash_bwd_dq": split_counts["flash_bwd_dq"],
                 "flash_bwd_dkv": split_counts["flash_bwd_dkv"]}
     check(min(launches.values()) > 0, f"a kernel is not on the main path: {launches}")
@@ -1582,6 +1964,7 @@ def run() -> int:
     print(f"async timing: launches of the port's kernels {async_counts}")
     check(not any(async_counts.values()), "the async trainers launched an attention kernel")
     entry_profile(torch, np, smi)
+    family_timing_fn()
 
     kernels = [
         dict(name="flash_fwd", route="cuda", source="distkeras_torch/csrc/flash_fwd.cu",

@@ -10,16 +10,22 @@ over replicas stacked on the card, with checkpoints), its asynchronous
 loop (the five ``Async*`` trainers on the port's parameter-server hub,
 ``ModelPredictor`` and the evaluators), and the user's entry points (the
 ResNet-20 and ``Sequential`` models, the dataset loaders, the streaming
-inference server, the Punchcard job service and the ``examples``).  Entry
-points run on the CUDA card unless a caller passes ``device="cpu"``.
+inference server, the Punchcard job service and the ``examples``), and the
+rest of the serving family (speculative decoding with the fused decode
+step as its draft step, beam search) with the LM workflow, every optimizer
+name of the JAX package and its DKCOL container and text preprocessing.
+Entry points run on the CUDA card unless a caller passes ``device="cpu"``.
 Imports PyTorch, numpy and the standard library only.
 """
 
 from distkeras_torch.checkpoint import Checkpointer
+from distkeras_torch.data.colfile import ColumnFile, write_columns
 from distkeras_torch.data.dataset import Dataset
 from distkeras_torch.data.loaders import load_cifar10, load_cifar100, load_mnist
+from distkeras_torch.data.text import Tokenizer, pad_sequences
 from distkeras_torch.evaluators import AccuracyEvaluator
 from distkeras_torch.models.base import Model, ModelSpec
+from distkeras_torch.models.beam import beam_search, make_beam_search_fn
 from distkeras_torch.models.cnn import cifar_cnn_spec, mnist_cnn_spec
 from distkeras_torch.models.decode import generate, make_generate_fn
 from distkeras_torch.models.mlp import mnist_mlp_spec
@@ -37,6 +43,7 @@ from distkeras_torch.models.sequential import (
     max_pool2d,
     sequential_spec,
 )
+from distkeras_torch.models.speculative import make_speculative_generate_fn
 from distkeras_torch.models.transformer import small_lm_spec
 from distkeras_torch.parallel.lm import make_lm_train_step, shift_targets
 from distkeras_torch.predictors import ModelPredictor
@@ -72,4 +79,6 @@ __all__ = ["Model", "ModelSpec", "small_lm_spec", "mnist_mlp_spec", "mnist_cnn_s
            "AccuracyEvaluator", "resnet20_spec", "sequential_spec", "dense", "conv2d",
            "max_pool2d", "avg_pool2d", "global_avg_pool", "flatten", "activation",
            "layer_norm", "dropout", "embed", "load_mnist", "load_cifar10", "load_cifar100",
-           "StreamingInferenceServer", "stream_predict", "Punchcard", "Job"]
+           "StreamingInferenceServer", "stream_predict", "Punchcard", "Job",
+           "make_speculative_generate_fn", "make_beam_search_fn", "beam_search",
+           "ColumnFile", "write_columns", "Tokenizer", "pad_sequences"]

@@ -16,7 +16,8 @@ under the JAX package's names and layouts (:func:`params_tree`,
 :func:`opt_state_tree`, :func:`state_tree`): a ``params`` checkpoint
 written by either package restores in the other, optimizer state restores
 across packages where it maps onto optax's names (adam's ``count`` /
-``mu`` / ``nu``, the momentum ``trace``), and anything else raises,
+``mu`` / ``nu``, also adamax's, nadam's and lamb's; the momentum
+``trace``), and anything else raises,
 naming the missing and extra paths.  Within the port every tree
 round-trips bit for bit.
 """
@@ -221,39 +222,56 @@ class EmptyState(NamedTuple):
     pass
 
 
-def opt_state_tree(state: Mapping, spec, stacked: bool = False) -> Tuple:
+_ADAM_KEYS = {"count", "mu", "nu"}
+_TRACE_KEYS = {"count", "trace"}
+
+
+def opt_state_tree(state: Mapping, spec, stacked: bool = False):
     """The port optimizer's state -> optax's state tree for the same
-    optimizer: ``adam`` / ``adamw`` -> ``(ScaleByAdamState(count, mu, nu),
-    EmptyState())``; ``momentum`` / ``nesterov`` -> ``(TraceState(trace),
+    optimizer: ``adam`` / ``adamw`` / ``adamax`` / ``nadam`` / ``lamb`` (a
+    ``count``, ``mu`` and ``nu``) -> ``(ScaleByAdamState(count, mu, nu),
+    EmptyState())``, the leaf paths of optax's state for each of them;
+    ``momentum`` / ``nesterov`` -> ``(TraceState(trace),
     ScaleByScheduleState(count))``; ``sgd`` -> ``(EmptyState(),
-    ScaleByScheduleState(count))``.  The port counts steps for every
-    optimizer, where optax keeps a count only for adam or a schedule: that
-    ``count`` restores within the port only."""
+    ScaleByScheduleState(count))``.  ``lars`` has momentum's keys and so
+    momentum's tree, but optax's ``lars`` keeps its trace at ``[3]`` (after
+    the weight decay, trust ratio and learning-rate transforms): its state
+    restores within the port only.  The other optimizers' states keep the
+    port's keys (``{"count": ..., "nu": {...}}``) and restore within the
+    port only.  The port counts steps for every optimizer, where optax keeps
+    a count only for adam-like transforms or a schedule: that ``count``
+    restores within the port only."""
     def tree(d):
         return params_tree(d, spec, stacked=stacked)
 
-    if "mu" in state:
+    keys = set(state)
+    if keys == _ADAM_KEYS:
         return (ScaleByAdamState(state["count"], tree(state["mu"]), tree(state["nu"])),
                 EmptyState())
-    if "trace" in state:
+    if keys == _TRACE_KEYS:
         return (TraceState(tree(state["trace"])), ScaleByScheduleState(state["count"]))
-    return (EmptyState(), ScaleByScheduleState(state["count"]))
+    if keys == {"count"}:
+        return (EmptyState(), ScaleByScheduleState(state["count"]))
+    return {k: tree(v) if isinstance(v, Mapping) else v for k, v in state.items()}
 
 
-def opt_state_from_tree(tree: Tuple, spec, like: Mapping, stacked: bool = False) -> Dict:
+def opt_state_from_tree(tree, spec, like: Mapping, stacked: bool = False) -> Dict:
     """Inverse of :func:`opt_state_tree`; ``like`` is the port state whose
     structure, keys and device the result takes."""
-    params_like = like.get("mu", like.get("trace"))
-
-    def back(t):
+    def back(t, params_like):
         return params_from_tree(t, spec, params_like, stacked=stacked)
 
-    first, second = tree
-    if "mu" in like:
-        return {"count": first.count, "mu": back(first.mu), "nu": back(first.nu)}
-    if "trace" in like:
-        return {"count": second.count, "trace": back(first.trace)}
-    return {"count": second.count}
+    keys = set(like)
+    if keys == _ADAM_KEYS:
+        first, _ = tree
+        return {"count": first.count, "mu": back(first.mu, like["mu"]),
+                "nu": back(first.nu, like["nu"])}
+    if keys == _TRACE_KEYS:
+        first, second = tree
+        return {"count": second.count, "trace": back(first.trace, like["trace"])}
+    if keys == {"count"}:
+        return {"count": tree[1].count}
+    return {k: back(tree[k], v) if isinstance(v, Mapping) else tree[k] for k, v in like.items()}
 
 
 class ReplicaStateTree(NamedTuple):

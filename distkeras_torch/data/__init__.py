@@ -1,5 +1,6 @@
 """Data plane of the PyTorch port: the columnar Dataset, the double-buffered
-device feed, the feature/label transformers and the dataset loaders."""
+device feed, the feature/label transformers, the dataset loaders, the
+out-of-core DKCOL container and the Keras text preprocessing."""
 
 from distkeras_torch.data.dataset import (  # noqa: F401
     Dataset,
@@ -18,3 +19,9 @@ from distkeras_torch.data.loaders import (  # noqa: F401
     load_cifar100,
     load_mnist,
 )
+from distkeras_torch.data.colfile import (  # noqa: F401
+    ColumnFile,
+    native_loader_available,
+    write_columns,
+)
+from distkeras_torch.data.text import Tokenizer, pad_sequences  # noqa: F401

@@ -127,9 +127,21 @@ def _feed(chunks: Iterator, place: Optional[Callable], dev: torch.device,
     cuda = dev.type == "cuda"
     place = place or (lambda c: c)
 
+    def host_tensor(a):
+        a = np.asarray(a)
+        if cuda:
+            # one copy, straight into pinned memory, whatever the array's
+            # layout or flags (a mapped DKCOL column is read-only)
+            t = torch.empty(a.shape, dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype,
+                            pin_memory=True)
+            t.numpy()[...] = a
+            return t
+        a = np.ascontiguousarray(a)
+        # a read-only array is copied: torch tensors are writable
+        return torch.from_numpy(a if a.flags.writeable else a.copy())
+
     def stage(chunk):
-        host = _map(lambda a: torch.from_numpy(np.ascontiguousarray(a)), place(chunk))
-        return _map(lambda t: t.pin_memory(), host) if cuda else host
+        return _map(host_tensor, place(chunk))
 
     staged = _produced(iter(chunks), stage) if produce_ahead else map(stage, chunks)
     if not cuda:

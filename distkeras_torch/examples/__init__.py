@@ -1,7 +1,8 @@
 """Runnable example workflows of the PyTorch port: the JAX package's
 ``examples/`` (``workflow``, ``baseline``, ``higgs_workflow``,
-``streaming``) with the same flags, printed lines, accuracy gates and exit
-codes, installed as the ``distkeras-torch-*`` console scripts.
+``streaming``, ``lm_workflow``) with the same flags, printed lines,
+accuracy gates and exit codes, installed as the ``distkeras-torch-*``
+console scripts.
 
 They run on the CUDA card.  ``--cpu N`` runs them on the CPU instead, with
 ``N`` workers stacked on it wherever the JAX example would have had ``N``

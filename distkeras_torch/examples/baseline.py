@@ -92,13 +92,15 @@ def _steady_rate(trainer, train_ds, reps: int = 3, max_windows: int = 64) -> flo
 
 def run_config(num: int, epochs_cap: int, batch_size: Optional[int] = None,
                synthetic_target: Optional[float] = None, device=None,
-               num_workers: Optional[int] = None, return_trainer: bool = False):
+               num_workers: Optional[int] = None, return_trainer: bool = False,
+               train_rows: Optional[int] = None):
     """Train one BASELINE config to its accuracy target (or the epoch cap)
     on ``device`` (the card unless ``device="cpu"``); returns the metric
     record, or ``(record, trainer)`` with ``return_trainer`` (its
     ``history`` holds every window's loss).  ``num_workers`` sets the
     distributed configs' stacked replicas (``None``: one per visible
-    card)."""
+    card).  ``train_rows`` keeps only the first rows of the training set
+    (a shorter run at the same widths; the test set stays whole)."""
     from distkeras_torch import ADAG, AEASGD, DOWNPOUR, DynSGD, SingleTrainer
     from distkeras_torch.data.loaders import load_cifar10, load_cifar100, load_mnist
     from distkeras_torch.models.cnn import cifar_cnn_spec, mnist_cnn_spec
@@ -127,6 +129,8 @@ def run_config(num: int, epochs_cap: int, batch_size: Optional[int] = None,
     if cls is not SingleTrainer:
         kwargs = dict(kwargs, num_workers=num_workers)
     train_ds, test_ds, info = loader()
+    if train_rows is not None:
+        train_ds = train_ds.take(train_rows)
     if synthetic_target is not None:
         synth_target = synthetic_target
     target = synth_target if info["synthetic"] else real_target

@@ -120,10 +120,12 @@ def fused_step_supported(config: dict, batch: int, cache_len: int) -> bool:
 
 
 def resolve_step_impl(config: dict, batch: int, cache_len: int, requested,
-                      device) -> str:
+                      device, *, what: str = "step_impl") -> str:
     """``None`` -> ``"fused"`` on a CUDA device whenever
     :func:`fused_step_supported`, else ``"xla"`` (the plain per-op step; the
-    name is the JAX package's).  Explicit ``"fused"`` is validated."""
+    name is the JAX package's).  Explicit ``"fused"`` is validated; ``what``
+    names the argument in the errors (``draft_step_impl`` for the
+    speculative draft)."""
     if requested is None:
         return ("fused" if (torch.device(device).type == "cuda"
                             and fused_step_supported(config, batch, cache_len))
@@ -131,12 +133,12 @@ def resolve_step_impl(config: dict, batch: int, cache_len: int, requested,
     if requested == "fused":
         if not fused_step_supported(config, batch, cache_len):
             raise ValueError(
-                f"step_impl='fused' does not support this config/shape "
+                f"{what}='fused' does not support this config/shape "
                 f"(model_dim {config['model_dim']}, batch {batch}, cache "
                 f"{cache_len}); see ops.decode_step.fused_step_supported")
         return "fused"
     if requested != "xla":
-        raise ValueError(f"unknown step_impl {requested!r}; use None, 'fused' or 'xla'")
+        raise ValueError(f"unknown {what} {requested!r}; use None, 'fused' or 'xla'")
     return "xla"
 
 

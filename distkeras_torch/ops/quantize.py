@@ -31,6 +31,7 @@ from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 # projections whose Flax kernel ends in the head-dim axis
@@ -116,3 +117,28 @@ def dequantize_params(qparams: Dict, dtype=torch.float32) -> Dict[str, torch.Ten
     """Rebuild a dense param dict."""
     return {k: v.dequantize(dtype) if isinstance(v, QTensor) else v
             for k, v in qparams.items()}
+
+
+def quantization_error(params: Dict[str, torch.Tensor], qparams: Dict) -> float:
+    """Max relative per-tensor L2 error over the quantized leaves (a sanity
+    metric: int8 per-channel is typically under 1 %), in float64 as the JAX
+    package computes it."""
+    errs = []
+    for k, q in qparams.items():
+        if isinstance(q, QTensor):
+            w = params[k].detach().cpu().double().numpy()
+            d = q.dequantize(torch.float32).detach().cpu().double().numpy()
+            errs.append(np.linalg.norm(w - d) / (np.linalg.norm(w) or 1.0))
+    return float(max(errs)) if errs else 0.0
+
+
+def param_nbytes(params: Dict) -> int:
+    """Total stored bytes of a (possibly quantized) param dict: int8 values
+    plus float32 scales for a ``QTensor``, the element size otherwise."""
+    total = 0
+    for leaf in params.values():
+        if isinstance(leaf, QTensor):
+            total += leaf.q.numel() + leaf.scale.numel() * 4
+        else:
+            total += leaf.numel() * leaf.element_size()
+    return total

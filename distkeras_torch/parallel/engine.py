@@ -13,9 +13,11 @@ the optimizer's update over the stacked tensors.  The scans become Python
 loops that queue work on the device and read nothing back until the chunk
 ends.
 
-The stacked update is exact for the optimizers the port has (sgd,
-momentum, nesterov, adam, adamw): each is elementwise per leaf, and the
-replicas share the step count.  Meshes (more than one device, through
+The stacked update is exact for every optimizer of the port: the
+elementwise ones run over the stacked tensors as they are, and ``lamb`` /
+``lars`` take their per-leaf norms per replica
+(:func:`~distkeras_torch.ops.optimizers.over_replicas`); the replicas
+share the step count.  Meshes (more than one device, through
 ``torch.distributed``) are ROADMAP item 11 and raise.
 """
 
@@ -31,7 +33,7 @@ import torch
 from torch.func import grad_and_value, vmap
 
 from distkeras_torch.models.base import Model, ModelSpec
-from distkeras_torch.ops.optimizers import Optimizer, apply_updates
+from distkeras_torch.ops.optimizers import Optimizer, apply_updates, over_replicas
 from distkeras_torch.parallel.algorithms import Algorithm
 from distkeras_torch.platform import DeviceLike, resolve_device
 
@@ -108,7 +110,7 @@ class WindowEngine:
         spec.reject_silent_aux("WindowEngine")
         self.spec = spec
         self.loss = loss
-        self.optimizer = optimizer
+        self.optimizer = over_replicas(optimizer)
         self.algorithm = algorithm
         self.window = int(window)
         self.num_replicas = int(num_replicas)

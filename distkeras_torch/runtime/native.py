@@ -44,19 +44,20 @@ _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 
 
-def library_path() -> Path:
-    """Where the hub's library is (or will be) built: named by the digest of
-    the source and of the flags."""
-    h = hashlib.sha256(SOURCE.read_bytes() + " ".join(BUILD_FLAGS).encode())
-    return BUILD_DIR / f"libps_server_{h.hexdigest()[:16]}.so"
+def shared_library_path(source: Path, stem: str, flags=BUILD_FLAGS) -> Path:
+    """Where ``g++`` puts the library of ``source``: ``_build/lib<stem>_<h>.so``,
+    ``h`` the digest of the source and of the flags."""
+    h = hashlib.sha256(source.read_bytes() + " ".join(flags).encode())
+    return BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the hub if its library is missing; raise with the
-    compiler's output (also printed) when ``g++`` fails."""
-    if not SOURCE.exists():
-        raise RuntimeError(f"native hub source not found: {SOURCE}")
-    out = library_path()
+def build_shared_library(source: Path, stem: str, flags=BUILD_FLAGS) -> Path:
+    """Compile a C++ source of ``native/`` with ``g++`` if its library is
+    missing; raise with the compiler's output (also printed) when it
+    fails."""
+    if not source.exists():
+        raise RuntimeError(f"native source not found: {source}")
+    out = shared_library_path(source, stem, flags)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -64,19 +65,30 @@ def build() -> Path:
     # half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = ["g++", *BUILD_FLAGS, str(SOURCE), "-o", tmp]
+    cmd = ["g++", *flags, str(source), "-o", tmp]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     except (OSError, subprocess.TimeoutExpired) as e:
         os.unlink(tmp)
-        raise RuntimeError(f"g++ could not build the native hub: {e}") from e
+        raise RuntimeError(f"g++ could not build {source.name}: {e}") from e
     if proc.returncode != 0:
         os.unlink(tmp)
         print(proc.stderr, file=sys.stderr)
-        raise RuntimeError(f"g++ failed to build the native hub (exit {proc.returncode}):\n"
+        raise RuntimeError(f"g++ failed to build {source.name} (exit {proc.returncode}):\n"
                            f"{proc.stderr}")
     os.replace(tmp, out)
     return out
+
+
+def library_path() -> Path:
+    """Where the hub's library is (or will be) built."""
+    return shared_library_path(SOURCE, "ps_server")
+
+
+def build() -> Path:
+    """Compile the hub if its library is missing (see
+    :func:`build_shared_library`)."""
+    return build_shared_library(SOURCE, "ps_server")
 
 
 def _bind(lib: ctypes.CDLL) -> None:

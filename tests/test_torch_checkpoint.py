@@ -226,7 +226,8 @@ def test_adam_state_crosses_and_momentum_count_raises(tmp_path):
                                                   step=1)
 
 
-@pytest.mark.parametrize("name", ["sgd", "nesterov", "adamw"])
+@pytest.mark.parametrize("name", ["sgd", "nesterov", "adamw", "adamax", "nadam", "adagrad",
+                                  "rmsprop", "adadelta", "lamb", "lars", "lion"])
 def test_opt_state_round_trips_bit_for_bit(name, tmp_path):
     _, tm = _models("mlp")
     opt = get_optimizer(name, 0.05)
@@ -288,3 +289,20 @@ def test_distributed_trainer_resume_bit_exact(name, tmp_path, toy_dataset):
     manifest = open(os.path.join(str(tmp_path), "step_0000000002", "state.json")).read()
     assert ".center['Dense_0']['kernel']" in manifest and ".local['Dense_1']['bias']" in manifest
     assert ".opt_state[0].trace['Dense_0']['kernel']" in manifest
+
+
+@pytest.mark.parametrize("name", ["adagrad", "lion", "lars"])
+def test_unmapped_opt_state_raises_naming_paths(name, tmp_path):
+    """An optax state the port does not map (adagrad's ``sum_of_squares``,
+    lion's ``ScaleByLionState``, lars's trace at ``[3]`` of its chain) does
+    not restore into the port's state tree: the restore raises, naming the
+    paths on each side."""
+    jm, tm = _models("mlp")
+    jck.Checkpointer(str(tmp_path)).save(
+        1, {"opt_state": getattr(optax, name)(0.1).init(jm.params)})
+    state = get_optimizer(name, 0.1).init(tm.params)
+    pattern = (r"mismatch: missing=\[.\[0\]\.trace.*'\[1\]\.count'.*extra=\[.\[3\]\.trace"
+               if name == "lars" else r"mismatch: missing=\[.\['count'\].*extra=\[.\[0\]")
+    with pytest.raises(ValueError, match=pattern):
+        Checkpointer(str(tmp_path)).restore({"opt_state": opt_state_tree(state, tm.spec)},
+                                            step=1)

@@ -144,6 +144,21 @@ def test_prefetch_on_cpu_keeps_order_and_structure(produce_ahead):
     assert list(td.prefetch_to_device(iter([]), device="cpu")) == []
 
 
+@pytest.mark.gpu
+def test_prefetch_on_card_copies_read_only_and_strided_chunks():
+    """On the card each array goes into pinned memory in one copy, whatever
+    its flags or layout (a mapped DKCOL column is read-only)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the pinned feed has no CPU mode")
+    frozen = np.arange(12, dtype=np.float32).reshape(4, 3)
+    frozen.setflags(write=False)
+    wide = np.arange(24, dtype=np.float32).reshape(4, 6)
+    host = (frozen, wide[:, ::2], np.arange(4))
+    (got,) = list(td.prefetch_to_device(iter([host]), device="cuda"))
+    for a, t in zip(host, got):
+        assert t.is_cuda and np.array_equal(t.cpu().numpy(), a)
+
+
 def test_prefetch_producer_error_reaches_the_consumer():
     def bad():
         yield _chunks(1)[0]

@@ -14,7 +14,7 @@ import torch
 
 from distkeras_torch.data import loaders as tl
 from distkeras_torch.examples import baseline as tbaseline, run_device
-from distkeras_torch.examples import higgs_workflow, streaming, workflow
+from distkeras_torch.examples import higgs_workflow, lm_workflow, streaming, workflow
 from distkeras_tpu.data import loaders as jl
 
 
@@ -47,6 +47,21 @@ def test_workflow_main(trainer, capsys):
     assert acc >= 0.9
 
 
+def test_lm_workflow_main(capsys):
+    """Train, then greedy, beam-4 and self-draft speculative decoding, on
+    the CPU at the JAX example's defaults; it exits 1 when the loss does
+    not fall, the continuation is under half right or the speculative
+    decode parts from the greedy one."""
+    lm_workflow.main(["--cpu", "1"])
+    out = capsys.readouterr().out
+    assert out.startswith("devices: 1 x cpu (global batch 1 x 64)")
+    first, last = map(float, out.split("\nloss ")[1].split()[::2][:2])
+    assert last < first
+    assert float(out.split("continuation accuracy: ")[1].split()[0]) >= 0.5
+    assert "beam-4 best scores: [" in out
+    assert float(out.split("vs greedy agreement: ")[1].split()[0]) >= 0.9
+
+
 def test_streaming_main(capsys):
     streaming.main(["--cpu", "1", "--events", "640", "--micro-batch", "64"])
     out = capsys.readouterr().out
@@ -70,6 +85,15 @@ def test_baseline_record_has_the_jax_keys(small_data):
     assert rec["data"] == want["data"] == "synthetic" and rec["target"] == want["target"]
     assert rec["samples_per_sec_per_chip_steady"] > 0
     assert 0.0 <= rec["accuracy"][0] <= 1.0 and np.isfinite(rec["final_loss"])
+
+
+def test_baseline_train_rows_cut_the_training_set(small_data):
+    """``train_rows`` trains on the first rows only: every epoch (the
+    capped one and the record's steady-rate one) has their minibatches."""
+    rec, tr = tbaseline.run_config(1, epochs_cap=1, device="cpu", train_rows=512,
+                                   return_trainer=True)
+    assert rec["epochs_run"] == 1 and len(tr.history) == 2 * 512 // rec["batch_size"]
+    assert rec["samples_per_sec_per_chip_steady"] > 0
 
 
 def test_baseline_main_writes_only_out(small_data):

@@ -40,6 +40,9 @@ def test_import_leaves_jax_out_of_sys_modules():
              "import distkeras_torch.examples, distkeras_torch.examples.workflow\n"
              "import distkeras_torch.examples.baseline, distkeras_torch.examples.streaming\n"
              "import distkeras_torch.examples.higgs_workflow\n"
+             "import distkeras_torch.examples.lm_workflow, distkeras_torch.models.beam\n"
+             "import distkeras_torch.models.speculative, distkeras_torch.data.colfile\n"
+             "import distkeras_torch.data.text\n"
              f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
              "print(bad)\n"
              "sys.exit(1 if bad else 0)")
@@ -118,8 +121,9 @@ assert Model.deserialize(cnn.serialize(), device="cpu").params.keys() == cnn.par
 assert list(prefetch_to_device(iter([(0,)]), device="cpu"))[0][0].device.type == "cpu"
 import os, tempfile
 from distkeras_torch import Job, Punchcard, StreamingInferenceServer, resnet20_spec
-from distkeras_torch.examples import baseline, higgs_workflow, streaming, workflow
+from distkeras_torch.examples import baseline, higgs_workflow, lm_workflow, streaming, workflow
 from distkeras_torch.runtime import job_deployment
+from distkeras_torch import make_beam_search_fn, make_speculative_generate_fn
 secret = os.path.join(tempfile.mkdtemp(), "secret")
 with open(secret, "w") as f:
     f.write("s")
@@ -128,7 +132,9 @@ calls = [lambda: StreamingInferenceServer(cnn), lambda: Punchcard("s"),
          lambda: Model.init(resnet20_spec()),
          lambda: workflow.main([]), lambda: baseline.main(["--config", "1"]),
          lambda: higgs_workflow.main([]), lambda: streaming.main([]),
-         lambda: job_deployment.main(["--secret-file", secret, "--port", "0"])]
+         lambda: job_deployment.main(["--secret-file", secret, "--port", "0"]),
+         lambda: make_beam_search_fn(spec, 2), lambda: make_speculative_generate_fn(spec, spec, 2),
+         lambda: lm_workflow.main([])]
 for i, call in enumerate(calls):
     try:
         call()

@@ -122,3 +122,22 @@ def test_head_grouped_leaf_needs_head_dim():
     # without a qkv leaf above min_size no head dim is needed
     small = {k: v for k, v in tm.params.items() if ".qkv." not in k}
     assert isinstance(quantize_params(small, min_size=MIN_SIZE)["embed.weight"], QTensor)
+
+
+def test_quantization_error_and_param_nbytes_match_jax(quantized):
+    """``quantization_error`` equals the JAX package's (the same float64
+    norms of the same dequantized weights); ``param_nbytes`` equals it but
+    for the head-grouped scales, which the port stores broadcast to every
+    row (``[n * head_dim, 1]``) where the JAX package keeps ``head_dim``."""
+    from distkeras_torch.ops.quantize import param_nbytes, quantization_error
+
+    jm, tm, jq_tree, tq = quantized
+    err = quantization_error(tm.params, tq)
+    assert 0 < err < 0.01
+    np.testing.assert_allclose(err, jq.quantization_error(jm.params, jq_tree), rtol=1e-12)
+    head_dim = _head_dim(tm.spec)
+    extra = sum((v.scale.numel() - head_dim) * 4 for k, v in tq.items()
+                if isinstance(v, QTensor) and k.split(".")[-2] in ("qkv", "q", "kv"))
+    assert extra > 0
+    assert param_nbytes(tq) == jq.param_nbytes(jq_tree) + extra
+    assert param_nbytes(tm.params) == jq.param_nbytes(jm.params)
