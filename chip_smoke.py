@@ -54,11 +54,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
    and the C++ hub against the Python hub, to the bit; every commit of a
    run applied; AsyncADAG with 4 workers learns the trainer phase's task
    (scored by ModelPredictor and AccuracyEvaluator); a center snapshot
-   restores bit-equal. Then each leg of bench.py:1405-1417 not waiting
-   on ROADMAP item 8b (python hub, inproc, serial, C++ hub, int8 commits,
-   AsyncAEASGD) timed on the host clock and profiled for an epoch, and
-   AsyncDOWNPOUR, AsyncDynSGD and AsyncEAMSGD one epoch each. No kernel
-   of the port lies on this path either;
+   restores bit-equal. The scale-out hub's gates: (a) one worker, f32,
+   AsyncADAG with num_shards=3 is the unsharded run to the bit, on the
+   Python hub and on the C++ hub; (b) transport="shm" (Python and C++
+   hub) and recv_batch_depth=8 are the socket run to the bit, every
+   client on the rings for shm; (c) two distkeras-torch-ps daemons, one
+   per shard (--num-shards 2 --shard-index i), serve a worker-only
+   AsyncADAG of 2 workers on the card: every commit applied on both, and
+   their --save-final blobs reassemble to the trainer's center. Then
+   every leg of bench.py:1405-1417 (python hub, inproc, serial, C++ hub,
+   int8 commits, 4 shards, shm rings, batched receives, AsyncAEASGD)
+   timed on the host clock and profiled for an epoch, the striped
+   commit throughput of 8 worker processes at 1 and 4 hub processes
+   (bench.py:1543, no gate on the ratio), and AsyncDOWNPOUR, AsyncDynSGD
+   and AsyncEAMSGD one epoch each. No kernel of the port lies on this
+   path either;
 8. entry points (main path): the user's scripts on the models and data
    under them, at full width on the loaders' full-size synthetic stand-ins.
    Gates: ResNet-20 (16/32/64 channels, CIFAR-100 head), one DynSGD window
@@ -1128,8 +1138,7 @@ def trainer_timing(torch, np, smi):
 # _bench_async): mnist_cnn_spec at full width, 2 workers, window 8, batch
 # 256, 8 windows per worker an epoch, 3 epochs, sgd 0.01, standard-normal
 # images and random one-hot labels from np.random.default_rng(0); bf16
-# compute as the trainer phase.  Legs as bench.py:1405-1417, less those
-# whose features are ROADMAP item 8b (shards, shm, batched receives).
+# compute as the trainer phase.  Legs as bench.py:1405-1417.
 ASYNC_WORKERS, ASYNC_WINDOW, ASYNC_BATCH, ASYNC_WPE, ASYNC_EPOCHS = 2, 8, 256, 8, 3
 ASYNC_OPT = dict(loss="categorical_crossentropy", learning_rate=0.01, seed=0)
 ASYNC_LEGS = (("async_adag", "AsyncADAG", {}),
@@ -1137,6 +1146,9 @@ ASYNC_LEGS = (("async_adag", "AsyncADAG", {}),
               ("async_adag_serial", "AsyncADAG", {"pipeline": False}),
               ("async_adag_native", "AsyncADAG", {"native_ps": True}),
               ("async_adag_int8", "AsyncADAG", {"compress_commits": "int8"}),
+              ("async_adag_shards4", "AsyncADAG", {"num_shards": 4}),
+              ("shm_ring", "AsyncADAG", {"transport": "shm"}),
+              ("recv_batch", "AsyncADAG", {"recv_batch_depth": 8}),
               ("async_aeasgd", "AsyncAEASGD", {"rho": 2.0}))
 ASYNC_ONE_EPOCH = (("AsyncDOWNPOUR", {}), ("AsyncDynSGD", {}), ("AsyncEAMSGD", {"rho": 2.0}))
 # gates 1 and 2: one worker, 2 windows of 4 minibatches
@@ -1270,6 +1282,271 @@ def async_phase(torch, np, smi):
         check(same, "the restored center snapshot is not the trained center")
 
 
+def _same_run(torch, a, b):
+    """Two (params, window losses) runs agree to the bit."""
+    return a[1] == b[1] and all(torch.equal(a[0][k], b[0][k]) for k in b[0])
+
+
+def scale_out_phase(torch, np, smi):
+    """The scale-out hub on the card: gates (a) num_shards=3 against the
+    unsharded run, f32, Python and C++ hub; (b) transport="shm" and
+    recv_batch_depth=8 against the socket run, bf16, every client on the
+    rings for shm; (c) one distkeras-torch-ps daemon per shard serving a
+    worker-only AsyncADAG of 2 workers, every commit applied and the
+    daemons' --save-final blobs reassembling to the trainer's center."""
+    import signal
+    import tempfile
+
+    from distkeras_torch import Model, mnist_cnn_spec
+    from distkeras_torch.data import Dataset
+    from distkeras_torch.runtime import async_trainer as at
+    from distkeras_torch.runtime.parameter_server import shard_plan
+    from distkeras_torch.utils import flatten_weights
+
+    t0 = time.perf_counter()
+    f32, bf16 = mnist_cnn_spec(), mnist_cnn_spec(compute_dtype="bfloat16")
+    init = Model.init(f32, seed=0, device="cpu")
+    rng = np.random.default_rng(1)
+    x, y = async_images(np, 2 * ASYNC_GATE_WINDOW * ASYNC_BATCH, rng)
+    ds = Dataset({"features": x, "label": y})
+    one = dict(num_workers=1, communication_window=ASYNC_GATE_WINDOW, batch_size=ASYNC_BATCH,
+               num_epoch=1, device="cuda", **ASYNC_OPT)
+
+    def run(model, **kw):
+        tr = at.AsyncADAG(model, **dict(one, **kw))
+        return tr.train(ds, shuffle=False).params, list(tr.history), tr
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        line = []
+        for hub, native in (("python", False), ("C++", True)):
+            ref = run(init, native_ps=native)
+            got = run(init, native_ps=native, num_shards=3)
+            same = _same_run(torch, got, ref)
+            shards = [len(i) for i in got[2].parameter_server.plan.assignments]
+            line.append(f"{hub} hub {'bit-equal' if same else 'DIFFERS'} (leaves per shard "
+                        f"{shards}, center {_gap_text(_gaps(got[0], ref[0]))}, updates "
+                        f"{got[2].parameter_server.num_updates})")
+            check(same, f"scale-out gate (a): 3 shards on the {hub} hub are not the unsharded run")
+        print(f"scale-out gate (a), AsyncADAG one worker f32, 2 windows of {ASYNC_GATE_WINDOW} x "
+              f"{ASYNC_BATCH}, num_shards=3 against unsharded: {'; '.join(line)}")
+
+        base = run(bf16)
+        line = []
+        for name, kw in (("shm python", {"transport": "shm"}),
+                         ("shm C++", {"transport": "shm", "native_ps": True}),
+                         ("recv_batch_depth=8", {"recv_batch_depth": 8})):
+            got = run(bf16, **kw)
+            rode = got[2].worker_transports
+            same = _same_run(torch, got, base)
+            line.append(f"{name} {'bit-equal' if same else 'DIFFERS'} on {rode}")
+            check(same, f"scale-out gate (b): {name} is not the socket run to the bit")
+            check(rode == (["shm"] if "transport" in kw else ["tcp"]),
+                  f"scale-out gate (b): {name} rode {rode}")
+        print(f"scale-out gate (b), AsyncADAG one worker bf16 pipelined, against python socket: "
+              f"{'; '.join(line)}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    # gate (c): one daemon per shard in its own process, a worker-only run
+    rows = ASYNC_WORKERS * ASYNC_BATCH * ASYNC_WINDOW * ASYNC_WPE
+    x, y = async_images(np, rows, np.random.default_rng(0))
+    ds = Dataset({"features": x, "label": y})
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "distkeras_torch", "_build")) as td:
+        blob = os.path.join(td, "model.bin")
+        with open(blob, "wb") as f:
+            f.write(Model.init(bf16, seed=0, device="cpu").serialize())
+        daemons, ports = [], []
+        try:
+            for i in range(2):
+                with open(os.path.join(td, f"ps{i}.err"), "w") as err:
+                    daemons.append(subprocess.Popen(
+                        [sys.executable, "-m", "distkeras_torch.runtime.launcher", "--model",
+                         blob, "--mode", "adag", "--num-workers", str(ASYNC_WORKERS), "--host",
+                         "127.0.0.1", "--port", "0", "--num-shards", "2", "--shard-index",
+                         str(i), "--save-final", os.path.join(td, f"final{i}.bin")],
+                        cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=err, text=True))
+            for i, proc in enumerate(daemons):
+                said = proc.stdout.readline()
+                if "listening on" not in said:
+                    with open(os.path.join(td, f"ps{i}.err")) as err:
+                        raise SmokeFailure(f"shard daemon {i} did not start: {said!r} "
+                                           f"{err.read()[-2000:]}")
+                ports.append(int(said.rsplit(":", 1)[1]))
+            tr = at.AsyncADAG(Model.init(bf16, seed=0, device="cuda"), num_workers=ASYNC_WORKERS,
+                              communication_window=ASYNC_WINDOW, batch_size=ASYNC_BATCH,
+                              num_epoch=1, device="cuda",
+                              ps_address=[("127.0.0.1", p) for p in ports], **ASYNC_OPT)
+            trained = tr.train(ds, shuffle=False)
+        finally:
+            outs = []
+            for proc in daemons:
+                proc.send_signal(signal.SIGTERM)
+            for proc in daemons:
+                try:
+                    outs.append(proc.communicate(timeout=60)[0])
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    outs.append(proc.communicate(timeout=10)[0])
+        want = ASYNC_WORKERS * ASYNC_WPE
+        check(all(p.returncode == 0 for p in daemons), f"a shard daemon failed: {outs}")
+        applied = [int(re.search(r"\((\d+) updates\)", o).group(1)) for o in outs]
+        center, _ = flatten_weights(trained.params, trained.spec)
+        plan = shard_plan([c.numpy() for c in center], 2)
+        parts = []
+        for i in range(2):
+            with open(os.path.join(td, f"final{i}.bin"), "rb") as f:
+                saved = Model.deserialize(f.read(), device="cpu")
+            flat, _ = flatten_weights(saved.params, saved.spec)
+            parts.append(plan.split([w.numpy() for w in flat])[i])
+        same = all(np.array_equal(a, b.numpy()) for a, b in zip(plan.assemble(parts), center))
+    print(f"scale-out gate (c), two distkeras-torch-ps shard daemons (leaves per shard "
+          f"{[len(a) for a in plan.assignments]}), worker-only AsyncADAG {ASYNC_WORKERS} workers "
+          f"bf16 on the card, one epoch: {len(tr.history)} windows, updates applied per shard "
+          f"{applied} (want {want}); --save-final blobs reassembled "
+          f"{'bit-equal to' if same else 'DIFFER from'} the trainer's center")
+    check(applied == [want, want] and len(tr.history) == want,
+          "scale-out gate (c): the shard daemons did not apply every commit")
+    check(same, "scale-out gate (c): the shard daemons' blobs are not the trainer's center")
+    print(f"scale-out phase: {time.perf_counter() - t0:.1f} s")
+
+
+# the commit-throughput leg of bench.py:1543 (_bench_async_shards): 8
+# worker processes blast striped commits of a 16 x 8 KiB center at 1, then
+# 4, hub processes (one Python hub a shard, the one-daemon-a-shard
+# deployment); processes on both sides, so one GIL measures neither
+SHARD_LEG_WORKERS, SHARD_LEG_LEAVES, SHARD_LEG_ELEMS, SHARD_LEG_COMMITS = 8, 16, 2048, 300
+
+# one process of the leg: ``hub`` serves one shard, ``worker`` is a striped
+# commit blaster that reads the hubs' addresses from stdin, so it imports
+# while the hubs start. Each answers one line on stdout and then waits for a
+# line on stdin (EOF too, so a child never outlives this script's pipes).
+_SHARD_LEG_CHILD = r"""
+import json, sys
+import numpy as np
+from distkeras_torch.runtime.parameter_server import (DeltaParameterServer, ShardedPSClient,
+                                                      shard_plan)
+
+role, args = sys.argv[1], json.loads(sys.argv[2])
+templates = [np.zeros(s, np.float32) for s in args["shapes"]]
+
+
+def say(word):
+    sys.stdout.write(f"{word}\n")
+    sys.stdout.flush()
+
+
+if role == "hub":
+    hub = DeltaParameterServer(templates, host="127.0.0.1", idle_timeout=None)
+    hub.start()
+    say(hub.port)
+    sys.stdin.readline()  # stop
+    say(int(hub.num_updates))
+    hub.stop()
+else:
+    delta = [np.full_like(t, 1e-3) for t in templates]
+    addrs = json.loads(sys.stdin.readline())
+    client = ShardedPSClient([tuple(a) for a in addrs], templates,
+                             shard_plan(templates, args["num_shards"]), max_inflight=8,
+                             timeout=120.0)
+    client.pull()
+    say("ready")
+    sys.stdin.readline()  # go
+    for _ in range(args["commits"]):
+        client.commit_nowait(delta)
+    client.drain()
+    say("done")
+    client.close()
+"""
+
+
+def _leg_child(role: str, args: dict):
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    return subprocess.Popen([sys.executable, "-c", _SHARD_LEG_CHILD, role, json.dumps(args)],
+                            cwd=HERE, env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            bufsize=0)
+
+
+def _leg_read(proc, timeout: float, what: str) -> str:
+    """The next line a leg process writes, within ``timeout`` seconds."""
+    import select
+
+    fd, buf = proc.stdout.fileno(), b""
+    deadline = time.monotonic() + timeout
+    while not buf.endswith(b"\n"):
+        left = deadline - time.monotonic()
+        check(left > 0 and bool(select.select([fd], [], [], left)[0]),
+              f"{what} did not answer within {timeout:.0f} s")
+        chunk = os.read(fd, 4096)
+        if not chunk:
+            raise SmokeFailure(f"{what} exited with {proc.wait(timeout=10)} before answering")
+        buf += chunk
+    return buf.decode().strip()
+
+
+def shard_throughput(np, smi):
+    """Commits/s of the striped hub at 1 and at 4 shard processes (no gate
+    on the ratio; every commit must be applied on every shard). Every
+    process of the leg is this script's child and is waited for."""
+    from distkeras_torch.runtime.parameter_server import shard_plan
+
+    t_leg = time.perf_counter()
+    shapes = [(SHARD_LEG_ELEMS,)] * SHARD_LEG_LEAVES
+    logical = SHARD_LEG_WORKERS * SHARD_LEG_COMMITS
+    rates = {}
+    for num_shards in (1, 4):
+        plan = shard_plan([np.zeros(s, np.float32) for s in shapes], num_shards)
+        hubs, workers = [], []
+        try:
+            for idxs in plan.assignments:
+                hubs.append(_leg_child("hub", {"shapes": [shapes[i] for i in idxs]}))
+            for _ in range(SHARD_LEG_WORKERS):
+                workers.append(_leg_child("worker", {
+                    "shapes": shapes, "num_shards": num_shards, "commits": SHARD_LEG_COMMITS}))
+            addrs = [("127.0.0.1", int(_leg_read(h, 120, "a shard hub process"))) for h in hubs]
+            for w in workers:
+                w.stdin.write(json.dumps(addrs).encode() + b"\n")
+            for w in workers:
+                check(_leg_read(w, 120, "a commit worker process") == "ready",
+                      "a commit worker process did not warm up")
+            t0 = time.perf_counter()
+            for w in workers:
+                w.stdin.write(b"go\n")
+            for w in workers:
+                check(_leg_read(w, 300, "a commit worker process") == "done",
+                      "a commit worker process did not finish")
+            wall = time.perf_counter() - t0
+            applied = []
+            for h in hubs:
+                h.stdin.write(b"stop\n")
+                applied.append(int(_leg_read(h, 60, "a shard hub process")))
+        finally:
+            for proc in workers + hubs:
+                proc.stdin.close()
+            for proc in workers + hubs:
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait(timeout=30)
+                proc.stdout.close()
+        check(all(p.returncode == 0 for p in workers + hubs),
+              f"shard commit leg: a process exited with {[p.returncode for p in workers + hubs]}")
+        check(applied == [logical] * num_shards,
+              f"shard commit leg: hubs applied {applied}, want {logical} each")
+        rates[num_shards] = logical / wall
+        print(f"shard commit leg ({smi}, {os.cpu_count()} CPUs): {SHARD_LEG_WORKERS} worker "
+              f"processes, {logical} striped commits of {SHARD_LEG_LEAVES} x "
+              f"{SHARD_LEG_ELEMS * 4 // 1024} KiB to {num_shards} hub process(es) (shard bytes "
+              f"{list(plan.shard_bytes)}): {logical / wall:.1f} commits/s, wall {wall:.4f} s, "
+              f"applied {applied}")
+    print(f"shard commit leg: 4 shards at {rates[4] / rates[1]:.3f}x of 1 (no gate; the JAX "
+          f"bench's target is 3x on its hardware); the leg took "
+          f"{time.perf_counter() - t_leg:.1f} s")
+
+
 def async_timing(torch, np, smi):
     """The async bench's legs on the card: each trainer runs its 3 epochs
     timed on the host clock (the hub's update count is gate 3), then one
@@ -1288,12 +1565,16 @@ def async_timing(torch, np, smi):
                   batch_size=ASYNC_BATCH, device="cuda", **ASYNC_OPT)
     want = ASYNC_WORKERS * ASYNC_WPE
     for name, cls, extra in ASYNC_LEGS:
+        t_leg = time.perf_counter()
         tr = getattr(at, cls)(bf16, num_epoch=ASYNC_EPOCHS, **dict(common, **extra))
         tr.train(ds, shuffle=False)
         torch.cuda.synchronize()
         updates = tr.parameter_server.num_updates
         check(updates == want * ASYNC_EPOCHS,
               f"async gate 3: {name} applied {updates} commits, want {want * ASYNC_EPOCHS}")
+        rode = tr.worker_transports
+        check(extra.get("transport") != "shm" or rode == ["shm"] * ASYNC_WORKERS,
+              f"{name}: the workers rode {rode}, not the shared-memory rings")
         m = tr.metrics[-1]
         walls = sorted(w for ws in tr.window_seconds for w in ws)
         final_loss = float(np.mean(tr.history[-8:]))
@@ -1302,13 +1583,15 @@ def async_timing(torch, np, smi):
         wall, busy_ms, busy = _profiled(torch, lambda: tr.train(ds, shuffle=False))
         check(busy_ms > 0, f"the profiler recorded no device time for {name}")
         print(f"async leg ({smi}): {name} ({cls}, {extra or 'python hub, socket, pipelined'}), "
-              f"{ASYNC_WORKERS} workers, {ASYNC_EPOCHS} epochs: {m['samples_per_sec_per_chip']} "
+              f"{ASYNC_WORKERS} workers on {rode}, {ASYNC_EPOCHS} epochs: "
+              f"{m['samples_per_sec_per_chip']} "
               f"samples/s (host clock), wall {m['seconds']} s, per window wall "
               f"{1e3 * walls[len(walls) // 2]:.2f} ms (median of {len(walls)}), final loss "
               f"{final_loss:.6f}, hub updates {updates} (want {want * ASYNC_EPOCHS}); one epoch "
               f"under the profiler: wall {wall * 1e3:.1f} ms, device busy {busy_ms:.1f} ms, per "
               f"window device {busy_ms / max(len(tr.history), 1):.3f} ms, idle share "
-              f"{100 * (1 - busy_ms / 1e3 / wall):.1f} %")
+              f"{100 * (1 - busy_ms / 1e3 / wall):.1f} %; the leg took "
+              f"{time.perf_counter() - t_leg:.1f} s")
         if name == "async_adag":
             nbytes = sum(w.nbytes for w in tr.parameter_server.get_weights())
             print(f"  a pull or a float32 commit moves {nbytes} bytes of weights; the profiled "
@@ -1316,6 +1599,7 @@ def async_timing(torch, np, smi):
             for key, (us, n) in sorted(busy.items(), key=lambda kv: -kv[1][0])[:6]:
                 print(f"  {us / 1e3:9.3f} ms  {100 * us / 1e3 / busy_ms:5.1f} %  {n:6d} launches  "
                       f"{key[:100]}")
+    shard_throughput(np, smi)
     for cls, extra in ASYNC_ONE_EPOCH:
         tr = getattr(at, cls)(bf16, num_epoch=1, **dict(common, **extra))
         tr.train(ds, shuffle=False)
@@ -1918,6 +2202,7 @@ def run() -> int:
     ds.DECODE_STEP.launches = 0
     t_async = time.perf_counter()
     async_phase(torch, np, smi)
+    scale_out_phase(torch, np, smi)
     print(f"async phase: {time.perf_counter() - t_async:.1f} s")
     async_counts = dict(_counts(fa), decode_step=ds.DECODE_STEP.launches)
     print(f"async phase: launches of the port's kernels {async_counts}")

@@ -13,7 +13,9 @@ ResNet-20 and ``Sequential`` models, the dataset loaders, the streaming
 inference server, the Punchcard job service and the ``examples``), and the
 rest of the serving family (speculative decoding with the fused decode
 step as its draft step, beam search) with the LM workflow, every optimizer
-name of the JAX package and its DKCOL container and text preprocessing.
+name of the JAX package and its DKCOL container and text preprocessing,
+and the scale-out hub (a center sharded over several hubs, shared-memory
+frame rings, batched receives) with its launcher (``distkeras-torch-ps``).
 Entry points run on the CUDA card unless a caller passes ``device="cpu"``.
 Imports PyTorch, numpy and the standard library only.
 """
@@ -45,6 +47,9 @@ from distkeras_torch.models.sequential import (
 )
 from distkeras_torch.models.speculative import make_speculative_generate_fn
 from distkeras_torch.models.transformer import small_lm_spec
+from distkeras_torch.ops.losses import get_loss, register_loss
+from distkeras_torch.ops.optimizers import get_optimizer, get_schedule
+from distkeras_torch.ops.quantize import dequantize_params, quantize_params
 from distkeras_torch.parallel.lm import make_lm_train_step, shift_targets
 from distkeras_torch.predictors import ModelPredictor
 from distkeras_torch.runtime.async_trainer import (
@@ -56,7 +61,11 @@ from distkeras_torch.runtime.async_trainer import (
     AsyncEAMSGD,
 )
 from distkeras_torch.runtime.job_deployment import Job, Punchcard
-from distkeras_torch.runtime.streaming import StreamingInferenceServer, stream_predict
+from distkeras_torch.runtime.streaming import (
+    StreamingClient,
+    StreamingInferenceServer,
+    stream_predict,
+)
 from distkeras_torch.trainers import (
     ADAG,
     AEASGD,
@@ -81,4 +90,19 @@ __all__ = ["Model", "ModelSpec", "small_lm_spec", "mnist_mlp_spec", "mnist_cnn_s
            "layer_norm", "dropout", "embed", "load_mnist", "load_cifar10", "load_cifar100",
            "StreamingInferenceServer", "stream_predict", "Punchcard", "Job",
            "make_speculative_generate_fn", "make_beam_search_fn", "beam_search",
-           "ColumnFile", "write_columns", "Tokenizer", "pad_sequences"]
+           "ColumnFile", "write_columns", "Tokenizer", "pad_sequences", "get_optimizer",
+           "get_schedule", "get_loss", "register_loss", "quantize_params", "dequantize_params",
+           "StreamingClient", "initialize_multihost", "process_shard", "start_parameter_server"]
+
+
+# the launcher's names load on first use, so that ``python -m
+# distkeras_torch.runtime.launcher`` (the daemon) imports that module once
+_LAUNCHER = ("initialize_multihost", "process_shard", "start_parameter_server")
+
+
+def __getattr__(name):
+    if name in _LAUNCHER:
+        from distkeras_torch.runtime import launcher
+
+        return getattr(launcher, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

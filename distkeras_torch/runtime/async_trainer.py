@@ -35,16 +35,26 @@ one function of ``(params, opt_state, pulled, wx, wy)`` with the
 algorithm's hooks ``device_window_start`` / ``device_commit`` computed on
 the device; params and optimizer state stay on the device across windows.
 
-Not ported (``NotImplementedError``, ROADMAP item 8b): ``transport="shm"``,
-a sharded hub, failover and ``replica_of``, batched receives, reconnects
-and heartbeats, elastic membership, trace contexts, health reports,
-sparse tables, adaptive aggregation, autoscaling,
-``on_worker_failure="restart"`` and jobs.
+The scale-out options are the JAX package's: ``transport="shm"`` moves
+every connection's frames over a pair of shared-memory rings (the hub gets
+a ring directory made for the run under the temp dir and removed at its
+end); ``num_shards > 1`` stripes the center over that many hubs
+(``runtime/parameter_server.py``'s sharded plane), owned by the trainer
+or, in worker-only mode, one ``ps_address`` per shard; and
+``recv_batch_depth`` batches each owned hub's receives.
+
+Not ported (``NotImplementedError`` naming the ROADMAP item): failover and
+``replica_of``, reconnects and heartbeats, elastic membership, trace
+contexts, health reports, adaptive aggregation, autoscaling,
+``on_worker_failure="restart"`` and jobs (item 8b), and sparse tables
+(item 13).
 """
 
 from __future__ import annotations
 
 import contextlib
+import shutil
+import tempfile
 import threading
 import time
 import warnings
@@ -64,7 +74,10 @@ from distkeras_torch.runtime.parameter_server import (
     DynSGDParameterServer,
     InprocPSClient,
     PSClient,
+    ShardedParameterServer,
+    ShardedPSClient,
     not_ported,
+    shard_plan,
 )
 from distkeras_torch.trainers import Trainer, _host
 from distkeras_torch.utils import _leaves, flatten_weights, unflatten_weights
@@ -164,34 +177,44 @@ class AsyncDistributedTrainer(Trainer):
                 "controller subscribes to the owned run's HealthMonitor); "
                 "worker-only mode scales at the launcher instead "
                 "(distkeras-ps --autoscale)")
+        self.num_shards = int(num_shards)
+        self.recv_batch_depth = int(recv_batch_depth)
+        # worker-only mode: one (host, port), or one per shard in plan
+        # order (num_shards then defaults to the list's length)
+        self._ps_addresses: Optional[List[Tuple[str, int]]] = None
         if ps_address is not None:
             addr = list(ps_address)
-            if addr and not isinstance(addr[0], (str, bytes)):
-                if len(addr) > 1:
-                    num_shards = len(addr)
-                addr = list(addr[0])
-            ps_address = (str(addr[0]), int(addr[1]))
+            if addr and isinstance(addr[0], (str, bytes)):
+                addrs = [(str(addr[0]), int(addr[1]))]
+            else:
+                addrs = [(str(h), int(p)) for h, p in addr]
+            if len(addrs) > 1 and self.num_shards == 1:
+                self.num_shards = len(addrs)
+            if len(addrs) != self.num_shards:
+                raise ValueError(
+                    f"ps_address has {len(addrs)} shard addresses but "
+                    f"num_shards={self.num_shards}; worker-only sharded mode "
+                    f"needs one (host, port) per shard")
+            self._ps_addresses = addrs
+            ps_address = addrs[0] if len(addrs) == 1 else tuple(addrs)
         unported = {
-            "transport='shm'": transport == "shm",
-            f"num_shards={num_shards}": int(num_shards) > 1,
-            "ps_failover": ps_failover is not None,
-            "replica_of": replica_of is not None,
-            "recv_batch_depth": int(recv_batch_depth) > 0,
-            "max_reconnects": max_reconnects not in (None, 0),
-            "heartbeat_interval": heartbeat_interval is not None,
-            "elastic=True": bool(elastic),
-            "trace_context": trace_context is not None,
-            "health_interval_s": health_interval_s is not None,
-            "sparse_tables": sparse_tables is not None,
-            "sparse_cache_rows": sparse_cache_rows is not None,
-            "adaptive=True": bool(adaptive),
-            "autoscale=True": bool(autoscale),
-            "on_worker_failure='restart'": on_worker_failure == "restart",
-            "job": job is not None,
+            "ps_failover": (ps_failover is not None, "8b"),
+            "replica_of": (replica_of is not None, "8b"),
+            "max_reconnects": (max_reconnects not in (None, 0), "8b"),
+            "heartbeat_interval": (heartbeat_interval is not None, "8b"),
+            "elastic=True": (bool(elastic), "8b"),
+            "trace_context": (trace_context is not None, "8b"),
+            "health_interval_s": (health_interval_s is not None, "8b"),
+            "sparse_tables": (sparse_tables is not None, "13"),
+            "sparse_cache_rows": (sparse_cache_rows is not None, "13"),
+            "adaptive=True": (bool(adaptive), "8b"),
+            "autoscale=True": (bool(autoscale), "8b"),
+            "on_worker_failure='restart'": (on_worker_failure == "restart", "8b"),
+            "job": (job is not None, "8b"),
         }
-        for what, given in unported.items():
+        for what, (given, item) in unported.items():
             if given:
-                raise not_ported(f"the asynchronous trainers' {what}")
+                raise not_ported(f"the asynchronous trainers' {what}", item)
         self.transport = transport
         self.pipeline = bool(pipeline)
         self.max_inflight_commits = int(max_inflight_commits)
@@ -204,18 +227,51 @@ class AsyncDistributedTrainer(Trainer):
         self.fault_hook = fault_hook
         self.worker_errors: List[BaseException] = []
         self.parameter_server: Optional[Any] = None
+        self._shard_plan = None  # the last train()'s plan, None unsharded
+        self._shm_dir: Optional[str] = None  # the run's ring directory
         # host seconds of every window of the last train(), by worker
         self.window_seconds: List[List[float]] = []
+        # what each worker's client rode in the last train(): "tcp", "shm",
+        # "mixed" (a striped client whose shards negotiated apart) or "inproc"
+        self.worker_transports: List[str] = []
         # one window function per worker (see the module docstring), kept
         # across train() calls on this instance
         self._window_fns: Dict[int, Callable] = {}
 
     # -- factories -------------------------------------------------------------
-    def allocate_parameter_server(self, weights: List[np.ndarray]) -> Any:
+    def allocate_parameter_server(self, weights: List[np.ndarray],
+                                  shard_id: Optional[int] = None) -> Any:
         raise NotImplementedError  # pragma: no cover - interface
 
-    def _hub_kwargs(self) -> dict:
-        return {"idle_timeout": self.ps_idle_timeout}
+    def _hub_kwargs(self, shard_id: Optional[int] = None) -> dict:
+        """The keywords of every hub the trainer owns (Python or C++)."""
+        kw = {"idle_timeout": self.ps_idle_timeout, "shard_id": shard_id}
+        if self.transport == "shm":
+            kw["shm_dir"] = self._ensure_shm_dir()
+        if self.recv_batch_depth > 0:
+            kw["recv_batch_depth"] = self.recv_batch_depth
+        return kw
+
+    def _ensure_shm_dir(self) -> str:
+        """The run's ring-file directory, made on first use under the temp
+        dir.  The hub unlinks each ring file once its client has mapped it
+        (the mappings keep the memory), so the directory is normally empty."""
+        if self._shm_dir is None:
+            self._shm_dir = tempfile.mkdtemp(prefix="dkshm-")
+        return self._shm_dir
+
+    def _cleanup_shm_dir(self) -> None:
+        if self._shm_dir is not None:
+            shutil.rmtree(self._shm_dir, ignore_errors=True)
+            self._shm_dir = None
+
+    def _allocate_hub(self, weights: List[np.ndarray], plan) -> Any:
+        """One hub, or the sharded facade over one hub per shard, each
+        built by the subclass's allocator over its slice."""
+        if plan is None:
+            return self.allocate_parameter_server(weights)
+        return ShardedParameterServer(
+            weights, plan, lambda w, sid: self.allocate_parameter_server(w, shard_id=sid))
 
     # -- the algorithm's window-boundary math, on the device ---------------------
     def device_window_start(self, pulled: Dict[str, torch.Tensor],
@@ -310,6 +366,7 @@ class AsyncDistributedTrainer(Trainer):
         cols = [self.features_col, self.label_col]
         with (torch.cuda.stream(stream) if on_card else contextlib.nullcontext()):
             client = make_client(pin_memory=on_card, landing_guard=landing_guard)
+            self.worker_transports[idx] = getattr(client, "transport", "inproc")
             try:
                 shard = dataset.shard(self.num_workers, idx)
                 # np.array: the pulled arrays are the client's landing buffer
@@ -395,25 +452,45 @@ class AsyncDistributedTrainer(Trainer):
                 f"float32); found dtypes {sorted(bad)} — cast the model's "
                 f"params or use the sync trainers in distkeras_torch.trainers")
         templates = [t.numpy() for t in flat0]
+        # the leaf-to-shard plan: both ends of a sharded deployment derive
+        # it from the model, so worker-only mode agrees with standalone
+        # distkeras-torch-ps --shard-index hubs
+        plan = shard_plan(templates, self.num_shards) if self.num_shards > 1 else None
+        self._shard_plan = plan
         if self.ps_address is not None:
             ps = None
-            host, port = self.ps_address
+            addresses = list(self._ps_addresses)
         else:
-            ps = self.allocate_parameter_server(templates)
-            ps.start()
-            host, port = "127.0.0.1", ps.port
+            try:
+                ps = self._allocate_hub(templates, plan)
+                ps.start()
+            except BaseException:
+                self._cleanup_shm_dir()
+                raise
+            addresses = [("127.0.0.1", p) for p in (ps.ports if plan is not None else [ps.port])]
         self.parameter_server = ps
+        shm = self.transport == "shm"
 
         def make_client(pin_memory: bool = False, landing_guard=None):
             if self.transport == "inproc":
                 return InprocPSClient(ps, templates, compress=self.compress_commits,
                                       pin_memory=pin_memory)
-            return PSClient(host, port, templates, compress=self.compress_commits,
-                            max_inflight=self.max_inflight_commits, pin_memory=pin_memory,
-                            landing_guard=landing_guard)
+            kw = dict(compress=self.compress_commits, max_inflight=self.max_inflight_commits,
+                      shm=shm, pin_memory=pin_memory, landing_guard=landing_guard)
+            if plan is not None:
+                return ShardedPSClient(addresses, templates, plan, **kw)
+            return PSClient(addresses[0][0], addresses[0][1], templates, **kw)
+
+        def control_client():
+            """A blocking client for the center reads of worker-only mode
+            (snapshots, the final pull): striped when sharded."""
+            if plan is not None:
+                return ShardedPSClient(addresses, templates, plan)
+            return PSClient(addresses[0][0], addresses[0][1], templates)
 
         histories: List[List[torch.Tensor]] = [[] for _ in range(self.num_workers)]
         self.window_seconds = [[] for _ in range(self.num_workers)]
+        self.worker_transports = [""] * self.num_workers
         errors: List[BaseException] = []
 
         def run_worker(idx: int) -> None:
@@ -428,8 +505,8 @@ class AsyncDistributedTrainer(Trainer):
             def get_center():
                 if ps is not None:
                     return ps.get_weights()
-                with PSClient(host, port, templates) as c:
-                    return c.pull()
+                with control_client() as c:
+                    return [np.array(w) for w in c.pull()]
 
             next_step = [(checkpointer.latest_step() or 0) + 1]
             snap_stop = threading.Event()
@@ -459,12 +536,13 @@ class AsyncDistributedTrainer(Trainer):
         finally:
             if ps is not None:
                 ps.stop()
+            self._cleanup_shm_dir()
         self.worker_errors = list(errors)
         if errors and self.on_worker_failure == "raise":
             raise errors[0]
         if ps is None:
             # worker-only mode: the external hub outlives the run
-            with PSClient(host, port, templates) as final_client:
+            with control_client() as final_client:
                 final = [np.array(w) for w in final_client.pull()]
         else:
             final = ps.get_weights()
@@ -487,12 +565,12 @@ class AsyncDOWNPOUR(AsyncDistributedTrainer):
     """DOWNPOUR with real asynchrony: train from the fresh center, commit
     the raw accumulated delta."""
 
-    def allocate_parameter_server(self, weights):
+    def allocate_parameter_server(self, weights, shard_id=None):
         if self.native_ps:
             from distkeras_torch.runtime.native import MODE_DELTA, NativeParameterServer
 
-            return NativeParameterServer(weights, mode=MODE_DELTA, **self._hub_kwargs())
-        return DeltaParameterServer(weights, **self._hub_kwargs())
+            return NativeParameterServer(weights, mode=MODE_DELTA, **self._hub_kwargs(shard_id))
+        return DeltaParameterServer(weights, **self._hub_kwargs(shard_id))
 
     def device_commit(self, pulled, local_after):
         delta = {k: local_after[k] - pulled[k] for k in local_after}
@@ -502,25 +580,25 @@ class AsyncDOWNPOUR(AsyncDistributedTrainer):
 class AsyncADAG(AsyncDOWNPOUR):
     """ADAG: a DOWNPOUR worker; the hub divides each delta by num_workers."""
 
-    def allocate_parameter_server(self, weights):
+    def allocate_parameter_server(self, weights, shard_id=None):
         if self.native_ps:
             from distkeras_torch.runtime.native import MODE_ADAG, NativeParameterServer
 
             return NativeParameterServer(weights, mode=MODE_ADAG, num_workers=self.num_workers,
-                                         **self._hub_kwargs())
-        return ADAGParameterServer(weights, num_workers=self.num_workers, **self._hub_kwargs())
+                                         **self._hub_kwargs(shard_id))
+        return ADAGParameterServer(weights, num_workers=self.num_workers, **self._hub_kwargs(shard_id))
 
 
 class AsyncDynSGD(AsyncDOWNPOUR):
     """DynSGD: a DOWNPOUR worker; the hub scales each delta by
     1/(staleness+1) from its commit clock."""
 
-    def allocate_parameter_server(self, weights):
+    def allocate_parameter_server(self, weights, shard_id=None):
         if self.native_ps:
             from distkeras_torch.runtime.native import MODE_DYNSGD, NativeParameterServer
 
-            return NativeParameterServer(weights, mode=MODE_DYNSGD, **self._hub_kwargs())
-        return DynSGDParameterServer(weights, **self._hub_kwargs())
+            return NativeParameterServer(weights, mode=MODE_DYNSGD, **self._hub_kwargs(shard_id))
+        return DynSGDParameterServer(weights, **self._hub_kwargs(shard_id))
 
 
 class AsyncAEASGD(AsyncDistributedTrainer):
@@ -538,12 +616,12 @@ class AsyncAEASGD(AsyncDistributedTrainer):
         self.rho = float(rho)
         self.alpha = self.rho * self.learning_rate
 
-    def allocate_parameter_server(self, weights):
+    def allocate_parameter_server(self, weights, shard_id=None):
         if self.native_ps:
             from distkeras_torch.runtime.native import MODE_DELTA, NativeParameterServer
 
-            return NativeParameterServer(weights, mode=MODE_DELTA, **self._hub_kwargs())
-        return DeltaParameterServer(weights, **self._hub_kwargs())
+            return NativeParameterServer(weights, mode=MODE_DELTA, **self._hub_kwargs(shard_id))
+        return DeltaParameterServer(weights, **self._hub_kwargs(shard_id))
 
     def device_window_start(self, pulled, local):
         return local

@@ -1,0 +1,333 @@
+"""Multi-process launch helpers and the standalone hub daemon.
+
+Counterpart of ``distkeras_tpu/runtime/launcher.py``:
+
+1. :func:`initialize_multihost` joins this process into a
+   ``torch.distributed`` process group, reading ``DKT_COORDINATOR``,
+   ``DKT_NUM_PROCESSES`` and ``DKT_PROCESS_ID`` as the JAX function does.
+   The backend is NCCL on the card, and Gloo only when the caller asks for
+   the CPU (``cpu_devices_per_process``).  :func:`process_shard` gives a
+   process its rows of a dataset, the rows of the JAX package's
+   ``Dataset.shard(n, i)``.
+2. :func:`start_parameter_server` runs a hub standalone, for worker-only
+   ``Async*`` trainers on other processes or hosts (``ps_address=``);
+   ``num_shards`` / ``shard_index`` give one daemon per shard of the
+   sharded plane.  :func:`main` is its console script,
+   ``distkeras-torch-ps``, which serves the no-pickle model blob that both
+   packages write.
+
+The hub is host code: it holds the center as float32 numpy arrays and runs
+no device work, so the daemon reads the blob onto the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import signal
+import threading
+from typing import Any, List, Optional
+
+import numpy as np
+import torch
+
+from distkeras_torch.runtime.parameter_server import not_ported
+
+
+def initialize_multihost(coordinator_address: Optional[str] = None,
+                         num_processes: Optional[int] = None,
+                         process_id: Optional[int] = None,
+                         cpu_devices_per_process: Optional[int] = None) -> torch.device:
+    """Join this process into a ``torch.distributed`` process group and
+    return the device it computes on.
+
+    The arguments fall back to ``DKT_COORDINATOR`` (``host:port`` of rank
+    0's rendezvous), ``DKT_NUM_PROCESSES`` and ``DKT_PROCESS_ID``.  On the
+    card the group is NCCL and the device is ``cuda:(rank % cards)``.
+    ``cpu_devices_per_process=N`` asks for the CPU: the group is Gloo, the
+    device is the CPU, and the process computes on ``N`` intra-op threads
+    (``torch.set_num_threads``).  The JAX package gives such a process
+    ``N`` virtual devices; the port has none, and stacks a trainer's
+    replicas on its one device instead (ROADMAP Queue C).  Without a card
+    and without that argument it raises: there is no silent CPU fallback.
+    """
+    import torch.distributed as dist
+
+    coordinator_address = coordinator_address or os.environ.get("DKT_COORDINATOR")
+    if num_processes is None and "DKT_NUM_PROCESSES" in os.environ:
+        num_processes = int(os.environ["DKT_NUM_PROCESSES"])
+    if process_id is None and "DKT_PROCESS_ID" in os.environ:
+        process_id = int(os.environ["DKT_PROCESS_ID"])
+    if coordinator_address is None or num_processes is None or process_id is None:
+        raise ValueError("initialize_multihost needs the coordinator address, the number of "
+                         "processes and this process's id (arguments or DKT_COORDINATOR, "
+                         "DKT_NUM_PROCESSES, DKT_PROCESS_ID)")
+    if cpu_devices_per_process is not None:
+        if int(cpu_devices_per_process) < 1:
+            raise ValueError(f"cpu_devices_per_process must be >= 1, "
+                             f"got {cpu_devices_per_process}")
+        torch.set_num_threads(int(cpu_devices_per_process))
+        backend, device = "gloo", torch.device("cpu")
+    else:
+        if not torch.cuda.is_available():
+            raise RuntimeError("initialize_multihost joins an NCCL group on the CUDA card and "
+                               "none is available; pass cpu_devices_per_process (device='cpu') "
+                               "for a Gloo group on the CPU")
+        device = torch.device("cuda", int(process_id) % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+        backend = "nccl"
+    dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
+                            world_size=int(num_processes), rank=int(process_id))
+    return device
+
+
+def process_shard(dataset: Any, rank: Optional[int] = None,
+                  world_size: Optional[int] = None) -> Any:
+    """This process's contiguous rows of ``dataset``: ``dataset.shard(n,
+    i)``, the JAX package's rows for the same ``n`` and ``i``.  ``rank`` and
+    ``world_size`` default to the process group's (the identity without
+    one, as a single JAX process)."""
+    import torch.distributed as dist
+
+    if rank is None and world_size is None and dist.is_available() and dist.is_initialized():
+        rank, world_size = dist.get_rank(), dist.get_world_size()
+    n = 1 if world_size is None else int(world_size)
+    i = 0 if rank is None else int(rank)
+    return dataset if n == 1 else dataset.shard(n, i)
+
+
+def start_parameter_server(model: Any, mode: str = "delta", num_workers: int = 1,
+                           host: str = "0.0.0.0", port: int = 0,
+                           native: bool = False,
+                           elastic: bool = False,
+                           idle_timeout: Optional[float] = 300.0,
+                           snapshot_dir: Optional[str] = None,
+                           snapshot_interval: float = 30.0,
+                           restore: bool = False,
+                           num_shards: int = 1,
+                           shard_index: Optional[int] = None,
+                           replica_of: Optional[Any] = None,
+                           health_jsonl: Optional[str] = None,
+                           sparse_tables: Optional[Any] = None,
+                           adaptive: bool = False,
+                           shm_dir: Optional[str] = None,
+                           recv_batch_depth: int = 0) -> Any:
+    """Start a standalone hub serving ``model``'s weights and return it
+    started (``.port``, ``.stop()``, ``.get_weights()``).
+
+    ``mode``: ``delta`` (DOWNPOUR, elastic) | ``adag`` | ``dynsgd``;
+    ``native=True`` serves with the C++ hub.  ``num_shards > 1`` partitions
+    the center by :func:`~distkeras_torch.runtime.parameter_server.
+    shard_plan`, the plan the trainers (of either package) derive from the
+    same model: ``shard_index=i`` serves only shard ``i`` (one daemon per
+    shard), ``None`` serves every shard from this process behind a
+    :class:`~distkeras_torch.runtime.parameter_server.
+    ShardedParameterServer` (consecutive ports from ``port``, or all
+    ephemeral at 0; read ``.ports``).  ``shm_dir`` lets same-host clients
+    that ask (``shm=True``) attach shared-memory rings; ``recv_batch_depth``
+    batches each connection's receives.
+
+    ``elastic``, ``snapshot_dir``, ``restore``, ``replica_of``,
+    ``health_jsonl`` and ``adaptive`` raise ``NotImplementedError`` (ROADMAP
+    item 8b), as does ``sparse_tables`` (item 13)."""
+    from distkeras_torch.runtime.parameter_server import ShardedParameterServer, shard_plan
+    from distkeras_torch.utils import flatten_weights
+
+    num_shards = int(num_shards)
+    if shard_index is not None and not (0 <= int(shard_index) < num_shards):
+        raise ValueError(f"shard_index={shard_index} out of range for num_shards={num_shards}")
+    if replica_of is not None and num_shards > 1 and shard_index is None:
+        raise ValueError("replica_of with num_shards > 1 requires shard_index: run one "
+                         "standby daemon per shard, each pointed at its own primary")
+    unported = {"elastic=True": (bool(elastic), "8b"),
+                "snapshot_dir": (snapshot_dir is not None, "8b"),
+                "restore=True": (bool(restore), "8b"),
+                "replica_of": (replica_of is not None, "8b"),
+                "health_jsonl": (health_jsonl is not None, "8b"),
+                "sparse_tables": (sparse_tables is not None, "13"),
+                "adaptive=True": (bool(adaptive), "8b")}
+    for what, (given, item) in unported.items():
+        if given:
+            raise not_ported(f"start_parameter_server's {what}", item)
+    if mode not in ("delta", "adag", "dynsgd"):
+        raise ValueError(f"mode must be 'delta', 'adag' or 'dynsgd', got {mode!r}")
+    flat, _ = flatten_weights(model.params, model.spec)
+    weights = [np.asarray(w.float().numpy(), dtype=np.float32) for w in flat]
+
+    def make_hub(hub_weights, shard_id, hub_port):
+        common = dict(idle_timeout=idle_timeout, shard_id=shard_id, shm_dir=shm_dir,
+                      recv_batch_depth=recv_batch_depth)
+        if native:
+            from distkeras_torch.runtime.native import (MODE_ADAG, MODE_DELTA, MODE_DYNSGD,
+                                                        NativeParameterServer)
+
+            native_mode = {"delta": MODE_DELTA, "adag": MODE_ADAG, "dynsgd": MODE_DYNSGD}[mode]
+            # the C++ hub binds every interface; host selection is the
+            # Python hub's
+            return NativeParameterServer(hub_weights, mode=native_mode, num_workers=num_workers,
+                                         port=hub_port, **common)
+        from distkeras_torch.runtime.parameter_server import (ADAGParameterServer,
+                                                              DeltaParameterServer,
+                                                              DynSGDParameterServer)
+
+        cls = {"delta": DeltaParameterServer, "adag": ADAGParameterServer,
+               "dynsgd": DynSGDParameterServer}[mode]
+        kwargs = {"num_workers": num_workers} if mode == "adag" else {}
+        return cls(hub_weights, host=host, port=hub_port, **kwargs, **common)
+
+    if num_shards == 1:
+        ps = make_hub(weights, None, port)
+    else:
+        plan = shard_plan(weights, num_shards)
+        if shard_index is not None:
+            sid = int(shard_index)
+            ps = make_hub(plan.split(weights)[sid], sid, port)
+        else:
+            ps = ShardedParameterServer(
+                weights, plan, lambda w, sid: make_hub(w, sid, port + sid if port else 0))
+    ps.start()
+    return ps
+
+
+def _final_model(model: Any, center: List[np.ndarray], num_shards: int = 1,
+                shard_index: Optional[int] = None) -> Any:
+    """The model blob's ``Model`` with ``center`` as its weights.  A
+    one-shard daemon holds only its slice: its leaves come from ``center``
+    and the other shards' leaves stay ``model``'s, so each shard's file
+    gives its slice back through ``shard_plan(...).split(...)[shard_index]``."""
+    from distkeras_torch.models.base import Model
+    from distkeras_torch.runtime.parameter_server import shard_plan
+    from distkeras_torch.utils import flatten_weights, unflatten_weights
+
+    flat, treedef = flatten_weights(model.params, model.spec)
+    full = [np.asarray(w.float().numpy(), dtype=np.float32) for w in flat]
+    if shard_index is None:
+        full = list(center)
+    else:
+        plan = shard_plan(full, num_shards)
+        for i, w in zip(plan.assignments[int(shard_index)], center):
+            full[i] = w
+    params = unflatten_weights(treedef, [torch.from_numpy(np.asarray(w)) for w in full],
+                               model.spec, device="cpu")
+    return Model(spec=model.spec, params={k: params[k] for k in model.params})
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    """``distkeras-torch-ps``: serve a standalone hub for worker-only
+    asynchronous runs.
+
+    ``--model`` is the no-pickle blob of ``Model.serialize()`` (of either
+    package).  Runs until SIGTERM or Ctrl-C, then stops the hub and, with
+    ``--save-final``, writes the center back as a blob."""
+    parser = argparse.ArgumentParser(description="distkeras_torch parameter-server daemon")
+    parser.add_argument("--model", required=True, help="serialized Model file")
+    parser.add_argument("--mode", default="delta", choices=["delta", "adag", "dynsgd"])
+    parser.add_argument("--num-workers", type=int, default=1,
+                        help="expected worker count (adag normalization)")
+    parser.add_argument("--host", default="0.0.0.0")
+    parser.add_argument("--port", type=int, default=5000)
+    parser.add_argument("--native", action="store_true", help="use the C++ hub")
+    parser.add_argument("--save-final", default=None,
+                        help="on shutdown, write the final center model here; with "
+                             "--shard-index the shard's leaves are its center's and the "
+                             "other leaves stay --model's")
+    parser.add_argument("--snapshot-dir", default=None,
+                        help="hub snapshots (not ported: ROADMAP item 8b)")
+    parser.add_argument("--snapshot-interval", type=float, default=30.0,
+                        help="seconds between hub snapshots")
+    parser.add_argument("--restore", action="store_true",
+                        help="resume from the newest snapshot (not ported: ROADMAP item 8b)")
+    parser.add_argument("--idle-timeout", type=float, default=300.0,
+                        help="evict connections silent for this many seconds; <= 0 disables")
+    parser.add_argument("--elastic", action="store_true",
+                        help="adag over the live worker count (not ported: ROADMAP item 8b)")
+    parser.add_argument("--num-shards", type=int, default=1,
+                        help="partition the center over this many hub shards (shard_plan; "
+                             "trainers pass the same num_shards)")
+    parser.add_argument("--shard-index", type=int, default=None,
+                        help="serve only this shard from this process (one daemon per "
+                             "shard); omit to serve every shard from one process")
+    parser.add_argument("--health-jsonl", default=None, metavar="PATH",
+                        help="fleet health events (not ported: ROADMAP item 8b)")
+    parser.add_argument("--sparse-tables", default=None, metavar="SPEC",
+                        help="row-sparse tables (not ported: ROADMAP item 13)")
+    parser.add_argument("--shm-dir", default=None, metavar="DIR",
+                        help="serve shared-memory ring attaches (wire action Z) to same-host "
+                             "clients dialed with shm=True, ring files under DIR; omit to "
+                             "decline every attach")
+    parser.add_argument("--recv-batch-depth", type=int, default=0,
+                        help="parse up to N queued frames per receive wake-up; 0 = one "
+                             "receive per frame")
+    parser.add_argument("--adaptive", action="store_true",
+                        help="adaptive aggregation (not ported: ROADMAP item 8b)")
+    parser.add_argument("--replica-of", default=None, metavar="HOST:PORT",
+                        help="hot standby of a primary (not ported: ROADMAP item 8b)")
+    parser.add_argument("--autoscale", action="store_true",
+                        help="advisory fleet controller (not ported: ROADMAP item 8b)")
+    args = parser.parse_args(argv)
+    if args.restore and not args.snapshot_dir:
+        parser.error("--restore requires --snapshot-dir")
+    if args.shard_index is not None and args.num_shards <= 1:
+        parser.error("--shard-index requires --num-shards > 1")
+    replica_of = None
+    if args.replica_of:
+        if args.num_shards > 1 and args.shard_index is None:
+            parser.error("--replica-of with --num-shards > 1 requires --shard-index (one "
+                         "standby daemon per shard)")
+        host_part, _, port_part = args.replica_of.rpartition(":")
+        if not host_part or not port_part.isdigit():
+            parser.error(f"--replica-of expects HOST:PORT, got {args.replica_of!r}")
+        replica_of = (host_part, int(port_part))
+    if args.autoscale:
+        raise not_ported("distkeras-torch-ps --autoscale")
+
+    from distkeras_torch.models.base import Model
+
+    with open(args.model, "rb") as f:
+        model = Model.deserialize(f.read(), device="cpu")
+    # SIGTERM (a scheduler's notice before the kill) ends the wait below
+    # and runs the Ctrl-C shutdown; installed before the hub starts, so a
+    # supervisor that signals at the "listening" line gets the drain
+    stop_event = threading.Event()
+    prev_handler = signal.signal(signal.SIGTERM, lambda _signum, _frame: stop_event.set())
+    try:
+        ps = start_parameter_server(
+            model, mode=args.mode, num_workers=args.num_workers, host=args.host, port=args.port,
+            native=args.native, elastic=args.elastic,
+            idle_timeout=args.idle_timeout if args.idle_timeout > 0 else None,
+            snapshot_dir=args.snapshot_dir, snapshot_interval=args.snapshot_interval,
+            restore=args.restore, num_shards=args.num_shards, shard_index=args.shard_index,
+            replica_of=replica_of, health_jsonl=args.health_jsonl,
+            sparse_tables=args.sparse_tables, adaptive=args.adaptive, shm_dir=args.shm_dir,
+            recv_batch_depth=args.recv_batch_depth)
+    except BaseException:
+        signal.signal(signal.SIGTERM, prev_handler)
+        raise
+    if args.num_shards > 1 and args.shard_index is None:
+        for sid, p in enumerate(ps.ports):
+            print(f"ps shard {sid}/{args.num_shards} listening on {args.host}:{p}", flush=True)
+    elif args.shard_index is not None:
+        print(f"ps shard {args.shard_index}/{args.num_shards} listening on "
+              f"{args.host}:{ps.port}", flush=True)
+    else:
+        print(f"ps listening on {args.host}:{ps.port}", flush=True)
+    try:
+        while not stop_event.wait(1.0):
+            pass
+    except KeyboardInterrupt:
+        pass
+    finally:
+        signal.signal(signal.SIGTERM, prev_handler)
+        if stop_event.is_set():
+            print("SIGTERM: stopping the hub", flush=True)
+        ps.stop()
+        if args.save_final:
+            final = _final_model(model, ps.get_weights(), args.num_shards, args.shard_index)
+            with open(args.save_final, "wb") as f:
+                f.write(final.serialize())
+            print(f"final model written to {args.save_final} ({ps.num_updates} updates)",
+                  flush=True)
+
+
+if __name__ == "__main__":
+    main()

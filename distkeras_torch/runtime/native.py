@@ -10,9 +10,12 @@ compiler's output.
 
 :class:`NativeParameterServer` has the core surface of the Python hub
 (``runtime/parameter_server.py``): ``start`` / ``stop`` / ``port`` /
-``get_weights`` / ``num_updates`` and the in-process pair ``pull_direct`` /
-``commit_direct``.  Its socket side speaks the same wire protocol, and its
-ctypes calls release the GIL while the hub copies and applies.
+``get_weights`` / ``num_updates`` / ``live_workers`` and the in-process
+pair ``pull_direct`` / ``commit_direct``.  Its socket side speaks the same
+wire protocol, the shared-memory attach (action ``Z``) included, and its
+ctypes calls release the GIL while the hub copies and applies.  The
+standalone ring handles (``dk_shm_ring_*``) drive the C++ hub's own ring
+code, which shares one file layout with ``networking.ShmFrameRing``.
 """
 
 from __future__ import annotations
@@ -112,7 +115,23 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.dk_ps_pull.argtypes = [ctypes.c_void_p, P(ctypes.c_float)]
     lib.dk_ps_commit.restype = ctypes.c_int
     lib.dk_ps_commit.argtypes = [ctypes.c_void_p, P(ctypes.c_float), ctypes.c_int64]
+    lib.dk_ps_stats.argtypes = [ctypes.c_void_p, P(ctypes.c_int64)]
     lib.dk_ps_destroy.argtypes = [ctypes.c_void_p]
+    # the shared-memory transport: the hub's attach switch, and the ring
+    # code it serves with, as standalone handles
+    lib.dk_ps_shm_attach.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+    lib.dk_shm_ring_create.restype = ctypes.c_void_p
+    lib.dk_shm_ring_create.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_uint64]
+    lib.dk_shm_ring_open.restype = ctypes.c_void_p
+    lib.dk_shm_ring_open.argtypes = [ctypes.c_char_p, ctypes.c_int]
+    lib.dk_shm_ring_write.restype = ctypes.c_longlong
+    lib.dk_shm_ring_write.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                                      ctypes.c_int]
+    lib.dk_shm_ring_read.restype = ctypes.c_longlong
+    lib.dk_shm_ring_read.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                                     ctypes.c_int]
+    lib.dk_shm_ring_close.argtypes = [ctypes.c_void_p]
+    lib.dk_shm_ring_destroy.argtypes = [ctypes.c_void_p]
 
 
 def load() -> ctypes.CDLL:
@@ -130,9 +149,21 @@ def _f32p(arr: np.ndarray):
     return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
 
 
+# the slots of dk_ps_stats (native/ps_server.cpp StatSlot), of which the
+# binding reads live_workers
+_STAT_SLOTS = 28
+_STAT_LIVE_WORKERS = 5
+
+
 class NativeParameterServer:
     """The C++ hub with the Python hub's core interface.  ``mode`` is the
-    commit rule (``MODE_DELTA`` / ``MODE_ADAG`` / ``MODE_DYNSGD``)."""
+    commit rule (``MODE_DELTA`` / ``MODE_ADAG`` / ``MODE_DYNSGD``).
+
+    ``shm_dir`` arms the hub's ``Z`` attach (ring files under it);
+    ``shard_id`` names the shard of a sharded deployment.
+    ``recv_batch_depth`` is taken as the Python hub takes it, and turns
+    nothing here: the C++ receive loop already drains a connection's
+    queued frames with one ``recv`` a wake-up into its growing buffer."""
 
     def __init__(self, weights: Sequence[np.ndarray], mode: int = MODE_DELTA,
                  num_workers: int = 1, port: int = 0, elastic: bool = False,
@@ -143,10 +174,8 @@ class NativeParameterServer:
                  sparse_leaves: Sequence[int] = (), adaptive: bool = False,
                  shm_dir: Optional[str] = None, recv_batch_depth: int = 0):
         _reject(elastic=(elastic, False), snapshot_dir=(snapshot_dir, None),
-                restore=(restore, False), shard_id=(shard_id, None),
-                replica_of=(replica_of, None), sparse_leaves=(tuple(sparse_leaves), ()),
-                adaptive=(adaptive, False), shm_dir=(shm_dir, None),
-                recv_batch_depth=(recv_batch_depth, 0))
+                restore=(restore, False), replica_of=(replica_of, None),
+                sparse_leaves=(tuple(sparse_leaves), ()), adaptive=(adaptive, False))
         lib = load()
         self._lib = lib
         self._templates = [np.array(w, dtype=np.float32) for w in weights]
@@ -164,6 +193,12 @@ class NativeParameterServer:
                 if self._templates else np.zeros(0, np.float32))
         self._total = int(flat.size)
         lib.dk_ps_set_weights(self._handle, _f32p(flat))
+        self.shard_id = None if shard_id is None else int(shard_id)
+        self.shm_dir = None if shm_dir is None else str(shm_dir)
+        if self.shm_dir is not None:
+            os.makedirs(self.shm_dir, exist_ok=True)
+            lib.dk_ps_shm_attach(self._handle, self.shm_dir.encode("utf-8"))
+        self.recv_batch_depth = max(0, int(recv_batch_depth))
         self.port = -1
         self._started = False
 
@@ -216,6 +251,13 @@ class NativeParameterServer:
     @property
     def num_updates(self) -> int:
         return int(self._lib.dk_ps_num_updates(self._handle))
+
+    def live_workers(self) -> int:
+        """Connections that committed and are still open (the C++ hub's
+        count, with its idle eviction)."""
+        out = (ctypes.c_int64 * _STAT_SLOTS)()
+        self._lib.dk_ps_stats(self._handle, out)
+        return int(out[_STAT_LIVE_WORKERS])
 
     def __del__(self):
         try:

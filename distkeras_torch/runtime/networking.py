@@ -2,9 +2,11 @@
 
 Counterpart of ``distkeras_tpu/runtime/networking.py``, byte for byte on
 the wire: a worker of either package talks to a hub of either package.
-Only the dense pull/commit plane is here; the JAX module's shared-memory
-rings, replication, sparse, reconnect, admission and health frames are
-ROADMAP item 8b.
+Here are the dense pull/commit plane, the shared-memory rings of the
+action-``Z`` attach (:class:`ShmFrameRing`, :class:`ShmEndpoint`, one file
+layout with the JAX module and the C++ hub) and the hub's batched receive
+(:class:`BatchedReceiver`); the JAX module's replication, sparse,
+reconnect, admission and health frames are ROADMAP items 8b and 13.
 
 Wire format (all integers big-endian):
 
@@ -17,7 +19,8 @@ are one JSON object as the payload (:func:`send_json` / :func:`recv_json`).
 
 Actions: ``P`` pull request, ``C`` commit, ``Q`` int8-compressed commit,
 ``B`` bye, ``W`` weights reply, ``A`` ack, ``H`` heartbeat ping (the hub
-acks it).  Dtype and shape travel out of band: both ends hold the model's
+acks it), ``Z`` the shared-memory attach handshake (request, offer or
+decline, confirm; see :func:`encode_shm_request`).  Dtype and shape travel out of band: both ends hold the model's
 weight list as templates.
 
 Two implementations move tensor frames with the same bytes: the generic
@@ -34,9 +37,13 @@ keeps the rounding residual and adds it to its next commit.
 
 from __future__ import annotations
 
+import ctypes
 import json
+import mmap
+import os
 import socket
 import struct
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -50,6 +57,13 @@ ACTION_BYE = b"B"
 ACTION_WEIGHTS = b"W"
 ACTION_ACK = b"A"
 ACTION_PING = b"H"
+# the shared-memory attach: a client built with shm=True sends one Z
+# request (u8 version, u64 big-endian ring-capacity hint); the hub answers
+# with a Z offer of two ring-file paths or a Z decline of zero blobs; on an
+# offer the client maps both rings and confirms with a third Z frame over
+# TCP, after which both ends move the very next frame onto the rings
+ACTION_SHM = b"Z"
+SHM_VERSION = 1  # bumped only if the ring layout changes incompatibly
 # receive-bound allowance of the control frames a hub of the JAX package
 # accepts: kept so both packages' hubs bound a request by the same number
 CONTROL_PAYLOAD_MAX = 64 * 1024
@@ -62,6 +76,20 @@ class ProtocolError(ValueError):
     """A frame broke the wire contract (oversized or garbage length
     prefix, truncated payload, a layout that does not match the schema).
     The stream is desynchronized after one: drop the connection."""
+
+
+def determine_host_address() -> str:
+    """The address other hosts reach this one at: the interface of the
+    default route, else the loopback address."""
+    probe = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    try:
+        # a UDP connect sends nothing; it only picks the outgoing interface
+        probe.connect(("10.255.255.255", 1))
+        return probe.getsockname()[0]
+    except OSError:
+        return "127.0.0.1"
+    finally:
+        probe.close()
 
 
 def configure_socket(sock: socket.socket, payload_hint: Optional[int] = None,
@@ -372,3 +400,473 @@ def recv_tensors(sock: socket.socket, templates: Optional[Sequence[np.ndarray]] 
         out = [np.empty(np.asarray(t).shape, np.asarray(t).dtype) for t in templates]
     action = _scatter_recv_into(sock, out, memoryview(bytearray(13)), limit=limit)
     return action, list(out)
+
+
+# -- the shared-memory transport (action Z) ------------------------------------
+#
+# Same-host peers may move the framed byte stream of a connection through
+# two mmap'd single-producer single-consumer byte rings, one per direction,
+# instead of the kernel's socket stack.  The only shared mutable state is
+# two byte counters (head: bytes written, tail: bytes read), each written by
+# one side only with one aligned 8-byte store, and two closed flags.  The
+# file layout is the JAX package's and the C++ hub's (native-endian; both
+# ends share the host):
+#
+#     offset    0  u64  magic (SHM_RING_MAGIC, layout version 1)
+#     offset    8  u64  capacity (a power of two, bytes of the data region)
+#     offset   64  u64  head, the producer's: total bytes written
+#     offset  128  u64  tail, the consumer's: total bytes read
+#     offset  192  u32  producer_closed
+#     offset  196  u32  consumer_closed
+#     offset 4096  data region (capacity bytes, indexed mod capacity)
+
+SHM_RING_MAGIC = 0x646B2D72696E6731  # "dk-ring1"
+SHM_RING_HEADER = 4096
+SHM_RING_DEFAULT_CAPACITY = 1 << 20
+# u64 indices into the header page
+_SHM_Q_MAGIC = 0
+_SHM_Q_CAPACITY = 1
+_SHM_Q_HEAD = 8      # byte 64
+_SHM_Q_TAIL = 16     # byte 128
+# u32 indices
+_SHM_I_PRODUCER_CLOSED = 48  # byte 192
+_SHM_I_CONSUMER_CLOSED = 49  # byte 196
+
+
+class ShmFrameRing:
+    """One direction of the shared-memory transport: an mmap'd SPSC byte
+    ring that carries the bytes the socket would carry.  This object takes
+    one of the two roles, ``"producer"`` or ``"consumer"``.
+
+    :meth:`write` has ``sendall`` semantics (every byte, or an error) and
+    :meth:`read_into` has ``recv_into`` semantics (whatever contiguous run
+    is there; 0 only when the producer closed and the ring is drained), so
+    the socket helpers of this module run over a ring unchanged.  A full or
+    empty ring parks its waiter: a short spin, then sleeps growing to 1 ms.
+    Past ``timeout`` a wait raises ``socket.timeout``."""
+
+    _SPIN = 200          # busy iterations before the first sleep
+    _PARK_MIN = 10e-6    # first sleep
+    _PARK_MAX = 1e-3     # sleep ceiling while parked
+
+    def __init__(self, path: str, mm: mmap.mmap, role: str):
+        if role not in ("producer", "consumer"):
+            raise ValueError(f"role must be 'producer' or 'consumer', got {role!r}")
+        self.path = path
+        self.role = role
+        self._mm = mm
+        self._q = memoryview(mm).cast("Q")
+        self._i = memoryview(mm).cast("I")
+        if self._q[_SHM_Q_MAGIC] != SHM_RING_MAGIC:
+            self._release()
+            raise ProtocolError(f"{path}: bad shm ring magic")
+        self.capacity = int(self._q[_SHM_Q_CAPACITY])
+        if self.capacity <= 0 or self.capacity & (self.capacity - 1):
+            self._release()
+            raise ProtocolError(f"{path}: ring capacity {self.capacity} is not a power of two")
+        self._mask = self.capacity - 1
+        self._data = memoryview(mm)[SHM_RING_HEADER:SHM_RING_HEADER + self.capacity]
+
+    @classmethod
+    def create(cls, path: str, role: str,
+               capacity: int = SHM_RING_DEFAULT_CAPACITY) -> "ShmFrameRing":
+        """Create and map a fresh ring file (the hub's side of the
+        handshake); ``capacity`` is rounded up to a power of two of at
+        least a page."""
+        if role not in ("producer", "consumer"):
+            raise ValueError(f"role must be 'producer' or 'consumer', got {role!r}")
+        cap = 1
+        while cap < max(int(capacity), mmap.PAGESIZE):
+            cap <<= 1
+        fd = os.open(path, os.O_RDWR | os.O_CREAT | os.O_EXCL, 0o600)
+        try:
+            os.ftruncate(fd, SHM_RING_HEADER + cap)
+            mm = mmap.mmap(fd, SHM_RING_HEADER + cap)
+        finally:
+            os.close(fd)
+        q = memoryview(mm).cast("Q")
+        q[_SHM_Q_CAPACITY] = cap
+        # the magic goes in last: an opener that sees it sees a whole header
+        q[_SHM_Q_MAGIC] = SHM_RING_MAGIC
+        q.release()
+        return cls(path, mm, role)
+
+    @classmethod
+    def open(cls, path: str, role: str) -> "ShmFrameRing":
+        """Map an existing ring file (the client's side of the handshake)."""
+        fd = os.open(path, os.O_RDWR)
+        try:
+            size = os.fstat(fd).st_size
+            if size < SHM_RING_HEADER + mmap.PAGESIZE:
+                raise ProtocolError(f"{path}: ring file too small ({size} B)")
+            mm = mmap.mmap(fd, size)
+        finally:
+            os.close(fd)
+        return cls(path, mm, role)
+
+    def _park(self, spins: int, started: float, timeout: Optional[float]) -> int:
+        """One wait step on a full or empty ring; the next spin count."""
+        if timeout is not None and time.monotonic() - started >= timeout:
+            raise socket.timeout("timed out waiting on shm ring")
+        if spins >= self._SPIN:
+            time.sleep(min(self._PARK_MIN * (1 << min(spins - self._SPIN, 7)), self._PARK_MAX))
+        return spins + 1
+
+    def write(self, data, timeout: Optional[float] = None) -> None:
+        """Move all of ``data`` into the ring (``sendall`` semantics)."""
+        src = memoryview(data).cast("B")
+        off, n = 0, len(src)
+        head = int(self._q[_SHM_Q_HEAD])
+        spins, started = 0, time.monotonic()
+        while off < n:
+            if self._i[_SHM_I_CONSUMER_CLOSED]:
+                raise ConnectionError("shm ring consumer closed")
+            free = self.capacity - (head - int(self._q[_SHM_Q_TAIL]))
+            if free == 0:
+                spins = self._park(spins, started, timeout)
+                continue
+            pos = head & self._mask
+            k = min(n - off, free, self.capacity - pos)
+            self._data[pos:pos + k] = src[off:off + k]
+            off += k
+            head += k
+            # published after the bytes: the consumer never reads past head
+            self._q[_SHM_Q_HEAD] = head
+            spins = 0
+
+    def read_into(self, view, timeout: Optional[float] = None) -> int:
+        """Fill ``view`` with the contiguous bytes there are (``recv_into``
+        semantics: possibly fewer than asked; 0 only when the producer
+        closed and the ring is drained)."""
+        dst = memoryview(view).cast("B")
+        if dst.nbytes == 0:
+            return 0
+        tail = int(self._q[_SHM_Q_TAIL])
+        spins, started = 0, time.monotonic()
+        while True:
+            avail = int(self._q[_SHM_Q_HEAD]) - tail
+            if avail:
+                break
+            if self._i[_SHM_I_PRODUCER_CLOSED]:
+                # the flag may land after the last bytes: look once more
+                if int(self._q[_SHM_Q_HEAD]) - tail == 0:
+                    return 0
+                continue
+            spins = self._park(spins, started, timeout)
+        pos = tail & self._mask
+        k = min(dst.nbytes, avail, self.capacity - pos)
+        dst[:k] = self._data[pos:pos + k]
+        self._q[_SHM_Q_TAIL] = tail + k
+        return k
+
+    @property
+    def pending(self) -> int:
+        """Bytes written and not yet read."""
+        return int(self._q[_SHM_Q_HEAD]) - int(self._q[_SHM_Q_TAIL])
+
+    def mark_closed(self) -> None:
+        """Raise both closed flags without unmapping, so parked peers (in
+        this process or across the ring) wake with EOF or
+        ``ConnectionError``.  A ring already released is left as it is:
+        the JAX ring raises ``TypeError`` there (ROADMAP Queue C)."""
+        i = self._i
+        if i is None:
+            return
+        try:
+            i[_SHM_I_PRODUCER_CLOSED] = 1
+            i[_SHM_I_CONSUMER_CLOSED] = 1
+        except ValueError:
+            pass  # unmapped under us
+
+    def _release(self) -> None:
+        self._q = self._i = self._data = None
+        try:
+            self._mm.close()
+        except (BufferError, ValueError):
+            pass  # a view in flight pins the map; the OS reclaims it at exit
+
+    def close(self) -> None:
+        """Raise this role's closed flag and unmap.  Idempotent."""
+        i = self._i
+        if i is not None:
+            try:
+                i[_SHM_I_PRODUCER_CLOSED if self.role == "producer"
+                  else _SHM_I_CONSUMER_CLOSED] = 1
+            except ValueError:
+                pass
+        self._release()
+
+    def unlink(self) -> None:
+        """Remove the ring file (the creator's cleanup); the map stays."""
+        try:
+            os.unlink(self.path)
+        except OSError:
+            pass
+
+
+class ShmEndpoint:
+    """A socket-shaped duplex endpoint over two :class:`ShmFrameRing`\\ s,
+    which replaces a connection's socket after a successful ``Z`` attach.
+    The framing helpers of this module use only ``sendall`` /
+    ``recv_into`` / ``settimeout`` / ``shutdown`` / ``close``, so the bytes
+    that move are the socket's bytes.  The TCP socket stays open, unused,
+    as the liveness anchor, and closes with the endpoint."""
+
+    def __init__(self, sock: socket.socket, tx_ring: ShmFrameRing, rx_ring: ShmFrameRing):
+        self.sock = sock
+        self.tx_ring = tx_ring
+        self.rx_ring = rx_ring
+        self._timeout = sock.gettimeout()
+
+    def sendall(self, data) -> None:
+        self.tx_ring.write(data, timeout=self._timeout)
+
+    def recv_into(self, view, nbytes: int = 0) -> int:
+        mv = memoryview(view).cast("B")
+        if nbytes:
+            mv = mv[:nbytes]
+        return self.rx_ring.read_into(mv, timeout=self._timeout)
+
+    def settimeout(self, timeout: Optional[float]) -> None:
+        self._timeout = timeout
+        try:
+            self.sock.settimeout(timeout)
+        except OSError:
+            pass
+
+    def shutdown(self, how: int = socket.SHUT_RDWR) -> None:
+        """Wake every parked reader and writer on both rings (both
+        processes) and shut the anchor socket down."""
+        self.tx_ring.mark_closed()
+        self.rx_ring.mark_closed()
+        try:
+            self.sock.shutdown(how)
+        except OSError:
+            pass
+
+    def close(self) -> None:
+        self.tx_ring.close()
+        self.rx_ring.close()
+        try:
+            self.sock.close()
+        except OSError:
+            pass
+
+
+def encode_shm_request(capacity_hint: int = SHM_RING_DEFAULT_CAPACITY) -> bytes:
+    """Step 1, client to hub: one blob of u8 layout version and u64
+    big-endian ring-capacity hint."""
+    blob = struct.pack(">BQ", SHM_VERSION, int(capacity_hint))
+    return encode_tensors(ACTION_SHM, [np.frombuffer(blob, np.uint8)])
+
+
+def decode_shm_request(blobs: Sequence) -> Tuple[int, int]:
+    """Inverse of :func:`encode_shm_request`: ``(version, capacity_hint)``."""
+    if not blobs:
+        raise ProtocolError("Z request carries no header blob")
+    raw = bytes(memoryview(blobs[0]))[:9]
+    if len(raw) != 9:
+        raise ProtocolError(f"Z request blob has {len(raw)} bytes, want 9")
+    version, hint = struct.unpack(">BQ", raw)
+    return int(version), int(hint)
+
+
+def encode_shm_offer(c2h_path: str, h2c_path: str) -> bytes:
+    """Step 2, hub to client (accept): two utf-8 path blobs, the
+    client-to-hub ring file then the hub-to-client one, both initialised."""
+    return encode_tensors(ACTION_SHM, [np.frombuffer(c2h_path.encode("utf-8"), np.uint8),
+                                       np.frombuffer(h2c_path.encode("utf-8"), np.uint8)])
+
+
+def encode_shm_decline() -> bytes:
+    """Step 2, hub to client (decline): zero blobs; the connection stays TCP."""
+    return encode_tensors(ACTION_SHM, [])
+
+
+def decode_shm_offer(blobs: Sequence) -> Optional[Tuple[str, str]]:
+    """Inverse of step 2: ``(c2h_path, h2c_path)``, or ``None`` on a decline."""
+    if not blobs:
+        return None
+    if len(blobs) != 2:
+        raise ProtocolError(f"Z offer carries {len(blobs)} blobs, want 2")
+    return (bytes(memoryview(blobs[0])).decode("utf-8"),
+            bytes(memoryview(blobs[1])).decode("utf-8"))
+
+
+def encode_shm_confirm(attached: bool) -> bytes:
+    """Step 3, client to hub over TCP: one status byte, 1 when the client
+    mapped both rings and its next frame rides them, 0 when it stays on
+    TCP.  TCP is FIFO, so the hub knows the frame the switch happens at."""
+    return encode_tensors(ACTION_SHM, [np.frombuffer(b"\x01" if attached else b"\x00", np.uint8)])
+
+
+def decode_shm_confirm(blobs: Sequence) -> bool:
+    """Inverse of :func:`encode_shm_confirm`."""
+    if not blobs or len(bytes(memoryview(blobs[0]))) != 1:
+        raise ProtocolError("Z confirm carries no status byte")
+    return bytes(memoryview(blobs[0]))[0] == 1
+
+
+# -- the hub's batched receive (recv_batch_depth) ---------------------------------
+
+_LIBC = None
+_MMSG_TYPES = None
+
+
+def _libc():
+    global _LIBC
+    if _LIBC is None:
+        _LIBC = ctypes.CDLL(None, use_errno=True)
+    return _LIBC
+
+
+def batched_io_available() -> bool:
+    """True when libc resolves ``recvmmsg``, so :class:`BatchedReceiver`
+    tops its buffer up with one syscall per batch; otherwise it drains
+    with nonblocking ``recv_into`` calls (the same frames, more syscalls)."""
+    try:
+        return hasattr(_libc(), "recvmmsg")
+    except OSError:
+        return False
+
+
+def _mmsg_types():
+    """The ctypes mirror of ``struct mmsghdr`` (built once):
+    ``(ctypes, IoVec, MMsgHdr)``."""
+    global _MMSG_TYPES
+    if _MMSG_TYPES is None:
+        class IoVec(ctypes.Structure):
+            _fields_ = [("iov_base", ctypes.c_void_p), ("iov_len", ctypes.c_size_t)]
+
+        class MsgHdr(ctypes.Structure):
+            _fields_ = [("msg_name", ctypes.c_void_p), ("msg_namelen", ctypes.c_uint),
+                        ("msg_iov", ctypes.POINTER(IoVec)), ("msg_iovlen", ctypes.c_size_t),
+                        ("msg_control", ctypes.c_void_p), ("msg_controllen", ctypes.c_size_t),
+                        ("msg_flags", ctypes.c_int)]
+
+        class MMsgHdr(ctypes.Structure):
+            _fields_ = [("msg_hdr", MsgHdr), ("msg_len", ctypes.c_uint)]
+
+        _MMSG_TYPES = (ctypes, IoVec, MMsgHdr)
+    return _MMSG_TYPES
+
+
+class BatchedReceiver:
+    """Frame-by-frame receive for one hub connection out of one large
+    buffer: a blocking ``recv_into`` takes what the kernel holds (often
+    many pipelined frames), nonblocking drains top it up, and the frames
+    after the first are parsed out of the buffer with no syscall.
+    ``frames_served`` and ``fills`` count frames and blocking fills, the
+    batching the ``recv_batch_depth`` option buys.
+
+    :meth:`recv_frame_into` keeps :func:`recv_frame_into`'s contract: the
+    view it returns aliases the buffer and holds until the next call.  One
+    reader only (the connection's handler thread)."""
+
+    def __init__(self, sock: socket.socket, frame_hint: int, depth: int = 8):
+        self.sock = sock
+        self.depth = max(1, int(depth))
+        self._buf = bytearray(max(int(frame_hint) + 8, 4096) * self.depth)
+        self._head = 0   # parse offset
+        self._tail = 0   # fill offset
+        self.frames_served = 0
+        self.fills = 0
+
+    def pending(self) -> int:
+        """Bytes buffered and not yet parsed: 0 at any hand-over of the
+        connection (the shm switch), else frames meant for the next owner
+        were taken here."""
+        return self._tail - self._head
+
+    def _compact(self) -> None:
+        if self._head:
+            rem = self._tail - self._head
+            self._buf[:rem] = self._buf[self._head:self._tail]
+            self._head, self._tail = 0, rem
+
+    def _drain_nonblocking(self) -> None:
+        """Top the buffer up without blocking: one ``recvmmsg`` where libc
+        has it, else ``MSG_DONTWAIT`` receives until the kernel is empty."""
+        if self.depth > 1 and batched_io_available():
+            try:
+                self._recvmmsg_drain()
+                return
+            except OSError:
+                pass
+        while self._tail < len(self._buf):
+            try:
+                n = self.sock.recv_into(memoryview(self._buf)[self._tail:], 0,
+                                        socket.MSG_DONTWAIT)
+            except (BlockingIOError, InterruptedError):
+                return
+            except OSError:
+                return  # the next blocking read raises the real error
+            if n == 0:
+                return  # EOF shows on the next blocking read
+            self._tail += n
+
+    def _recvmmsg_drain(self) -> None:
+        """One nonblocking ``recvmmsg`` over the free space, cut into
+        ``depth`` segments; on a stream socket a segment may come back
+        short while a later one fills, so the runs are moved back into one
+        contiguous stream."""
+        ct, IoVec, MMsgHdr = _mmsg_types()
+        room = len(self._buf) - self._tail
+        if room <= 0:
+            return
+        seg = max(room // self.depth, 1)
+        k = min(self.depth, room // seg)
+        base = ct.addressof(ct.c_char.from_buffer(self._buf, self._tail))
+        iovs = (IoVec * k)()
+        msgs = (MMsgHdr * k)()
+        for i in range(k):
+            iovs[i].iov_base = base + i * seg
+            iovs[i].iov_len = seg if i < k - 1 else room - (k - 1) * seg
+            msgs[i].msg_hdr.msg_iov = ct.pointer(iovs[i])
+            msgs[i].msg_hdr.msg_iovlen = 1
+        r = _libc().recvmmsg(self.sock.fileno(), msgs, k, socket.MSG_DONTWAIT, None)
+        if r <= 0:
+            return  # EAGAIN, EOF or an error: the next blocking read decides
+        pos = self._tail
+        for i in range(r):
+            ln = int(msgs[i].msg_len)
+            start = self._tail + i * seg
+            if start != pos and ln:
+                self._buf[pos:pos + ln] = self._buf[start:start + ln]
+            pos += ln
+        self._tail = pos
+
+    def _fill_blocking(self) -> None:
+        """One blocking read (under the socket's timeout), then a drain."""
+        self._compact()
+        self.fills += 1
+        n = self.sock.recv_into(memoryview(self._buf)[self._tail:])
+        if n == 0:
+            raise ConnectionError("peer closed between frames")
+        self._tail += n
+        self._drain_nonblocking()
+
+    def _ensure(self, need: int) -> None:
+        while self._tail - self._head < need:
+            if self._head + need > len(self._buf):
+                self._compact()
+            if self._head + need > len(self._buf):
+                # one frame larger than the whole buffer: grow it (a fresh
+                # buffer, since a view handed out earlier may pin this one)
+                grown = bytearray(self._head + need)
+                grown[:self._tail] = self._buf[:self._tail]
+                self._buf = grown
+            self._fill_blocking()
+
+    def recv_frame_into(self, limit: int = MAX_FRAME) -> memoryview:
+        """The next frame's payload, parsed out of the buffer (refilled as
+        needed): a drop-in for the handler's :func:`recv_frame_into`."""
+        self._ensure(8)
+        (n,) = struct.unpack_from(">Q", self._buf, self._head)
+        if n > limit:
+            raise ProtocolError(f"frame of {n} bytes exceeds limit={limit}")
+        self._ensure(8 + n)
+        start = self._head + 8
+        self._head += 8 + n
+        self.frames_served += 1
+        return memoryview(self._buf)[start:start + n]

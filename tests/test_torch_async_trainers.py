@@ -10,8 +10,8 @@ worker's schedule is deterministic, so the hub sees one commit sequence.
 Then: a port worker against a JAX hub and a JAX worker against a port hub;
 int8 commits; the C++ hub; two workers that learn; worker threads that
 run at once committing what they commit one after the other; center
-snapshots; and every option that is not ported raising, naming ROADMAP
-item 8b.
+snapshots; and every option that is not ported raising, naming its
+ROADMAP item (8b, or 13 for sparse tables).
 """
 
 import sys
@@ -331,8 +331,7 @@ def test_native_build_failure_raises_with_compiler_output(tmp_path, monkeypatch,
 
 
 UNPORTED = {
-    "transport": "shm", "num_shards": 2, "ps_failover": ("127.0.0.1", 1),
-    "replica_of": ("127.0.0.1", 1), "recv_batch_depth": 8, "max_reconnects": 3,
+    "ps_failover": ("127.0.0.1", 1), "replica_of": ("127.0.0.1", 1), "max_reconnects": 3,
     "heartbeat_interval": 1.0, "elastic": True, "trace_context": "job",
     "health_interval_s": 1.0, "sparse_tables": "auto", "sparse_cache_rows": 8,
     "adaptive": True, "autoscale": True, "on_worker_failure": "restart", "job": "a",
@@ -345,7 +344,8 @@ def test_unported_options_raise(option):
     kw = {option: UNPORTED[option]}
     if option == "sparse_cache_rows":
         kw["sparse_tables"] = "auto"
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8b"):
+    item = "13" if option.startswith("sparse") else "8b"
+    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         ta.AsyncADAG(tm, device="cpu", **kw)
 
 

@@ -197,16 +197,18 @@ def test_params_checkpoint_from_port_restores_in_jax(arch, tmp_path):
     assert all(torch.equal(back[k], trained.params[k]) for k in back)
 
 
-def test_adam_state_crosses_and_momentum_count_raises(tmp_path):
-    """An adam SingleTrainer checkpoint of the JAX package resumes in the
-    port (optax's count / mu / nu map onto the port's state) and its second
-    epoch lands where the JAX package's uninterrupted run does; a momentum
-    checkpoint lacks the port's step count and raises naming it."""
+@pytest.mark.parametrize("name", ["adam", "adamw", "adamax", "nadam", "lamb"])
+def test_adam_state_crosses_and_momentum_count_raises(tmp_path, name):
+    """A SingleTrainer checkpoint of the JAX package with an adam-family
+    optimizer resumes in the port (optax's count / mu / nu map onto the
+    port's state) and its second epoch lands where the JAX package's
+    uninterrupted run does; a momentum checkpoint lacks the port's step
+    count and raises naming it."""
     jm, tm = _models("cnn")
     rng = np.random.default_rng(0)
     cols = {"features": rng.normal(size=(64, 8, 8, 1)).astype(np.float32),
             "label": np.eye(10, dtype=np.float32)[rng.integers(0, 10, 64)]}
-    kw = dict(batch_size=16, learning_rate=0.01, worker_optimizer="adam", seed=3)
+    kw = dict(batch_size=16, learning_rate=0.01, worker_optimizer=name, seed=3)
     straight = JSingleTrainer(jm, num_epoch=2, **kw).train(JDataset(cols))
     JSingleTrainer(jm, num_epoch=1, **kw).train(JDataset(cols),
                                                  checkpointer=jck.Checkpointer(str(tmp_path)))

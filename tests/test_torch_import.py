@@ -33,7 +33,7 @@ def test_import_leaves_jax_out_of_sys_modules():
              "import distkeras_torch.predictors, distkeras_torch.runtime\n"
              "import distkeras_torch.runtime.networking, distkeras_torch.runtime.native\n"
              "import distkeras_torch.runtime.parameter_server\n"
-             "import distkeras_torch.runtime.async_trainer\n"
+             "import distkeras_torch.runtime.async_trainer, distkeras_torch.runtime.launcher\n"
              "import distkeras_torch.runtime.streaming, distkeras_torch.runtime.job_deployment\n"
              "import distkeras_torch.models.resnet, distkeras_torch.models.sequential\n"
              "import distkeras_torch.models.layers, distkeras_torch.data.loaders\n"
@@ -65,6 +65,55 @@ def test_source_imports_nothing_of_jax(relpath):
             continue
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, f"{relpath}:{node.lineno} imports {name}"
+
+
+# the JAX package's public names that have no counterpart in the port yet,
+# with the ROADMAP item that ports each
+UNPORTED_NAMES = {
+    "create_mesh": "11",
+    "synthetic_ctr_dataset": "13",
+    "ChaosProxy": "8b", "Fault": "8b", "FaultPlan": "8b", "HubKillPlan": "8b",
+    "InjectedWorkerFault": "8b", "ShardedChaosProxy": "8b", "WorkerKillPlan": "8b",
+    "HubSnapshotter": "8b", "ReplicationFeed": "8b", "SnapshotSetCoordinator": "8b",
+}
+# names the port leaves out by design (ROADMAP Queue C says why)
+BY_DESIGN = {"pin_cpu_devices"}
+
+
+def _jax_exports(relpath):
+    """The public names a JAX package ``__init__`` exports, read from its
+    source (no jax import): an ``_EXPORTS`` dict's keys, ``__all__``, or
+    its ``from ... import`` names."""
+    tree = ast.parse((ROOT / relpath).read_text())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict):
+            if any(getattr(t, "id", None) == "_EXPORTS" for t in node.targets):
+                names |= {k.value for k in node.value.keys}
+        elif (isinstance(node, ast.Assign) and isinstance(node.value, (ast.List, ast.Tuple))
+              and any(getattr(t, "id", None) == "__all__" for t in node.targets)):
+            names |= set(ast.literal_eval(node.value))
+        elif isinstance(node, ast.ImportFrom) and (node.module or "").startswith("distkeras_tpu"):
+            names |= {a.asname or a.name for a in node.names}
+    return names
+
+
+def test_public_names_of_the_jax_package_resolve_on_the_port():
+    import importlib
+
+    checked = 0
+    for pkg in ("", ".parallel", ".runtime", ".ops", ".data", ".models"):
+        relpath = "distkeras_tpu" + pkg.replace(".", "/") + "/__init__.py"
+        port = importlib.import_module("distkeras_torch" + pkg)
+        names = _jax_exports(relpath)
+        assert names, relpath
+        missing = sorted(n for n in names - set(UNPORTED_NAMES) - BY_DESIGN
+                         if not hasattr(port, n))
+        assert missing == [], f"distkeras_torch{pkg} lacks {missing}"
+        checked += len(names)
+        # an unported name that the port gained is taken off the list
+        assert not [n for n in names & set(UNPORTED_NAMES) if hasattr(port, n)]
+    assert checked > 60
 
 
 def test_entry_points_raise_without_cuda():

@@ -425,21 +425,20 @@ def test_native_initial_weights_and_int8_socket_path():
 
 
 @pytest.mark.parametrize("option", ["snapshot_dir", "replica_of", "sparse_leaves", "adaptive",
-                                    "shm_dir", "elastic"])
+                                    "elastic"])
 def test_hub_options_not_ported_raise(option):
     value = {"snapshot_dir": "/nonexistent", "replica_of": ("127.0.0.1", 1),
-             "sparse_leaves": (0,), "adaptive": True, "shm_dir": "/nonexistent",
-             "elastic": True}[option]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8b"):
+             "sparse_leaves": (0,), "adaptive": True, "elastic": True}[option]
+    item = "13" if option == "sparse_leaves" else "8b"
+    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         tps.ADAGParameterServer(_weights(), num_workers=2, **{option: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8b"):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         NativeParameterServer(_weights(), mode=MODE_ADAG, **{option: value})
 
 
-@pytest.mark.parametrize("option", ["max_reconnects", "heartbeat_interval", "failover", "shm",
-                                    "job"])
+@pytest.mark.parametrize("option", ["max_reconnects", "heartbeat_interval", "failover", "job"])
 def test_client_options_not_ported_raise(option):
     value = {"max_reconnects": 3, "heartbeat_interval": 1.0, "failover": [("127.0.0.1", 1)],
-             "shm": True, "job": "a"}[option]
+             "job": "a"}[option]
     with pytest.raises(NotImplementedError, match="ROADMAP item 8b"):
         tps.PSClient("127.0.0.1", 1, _weights(), **{option: value})
