@@ -68,7 +68,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
    commit throughput of 8 worker processes at 1 and 4 hub processes
    (bench.py:1543, no gate on the ratio), and AsyncDOWNPOUR, AsyncDynSGD
    and AsyncEAMSGD one epoch each. No kernel of the port lies on this
-   path either;
+   path either. Then the recovery legs (bench.py:1840-2060) on the same
+   AsyncADAG: fault_free; sever (a ChaosProxy cuts each worker's
+   connection once, the workers reconnect); worker_restart (a worker
+   killed mid-epoch and restarted from the center); failover with a
+   Python and with a C++ replica_of standby (the primary killed at half
+   the run's commits, the workers on ps_failover); hub_restore (the hub
+   killed and restarted from its snapshots); snapshot_barrier (commits/s
+   of a 4-shard facade with its coordinator ticking and without). Gates:
+   every planned fault fired, every leg finished, each faulted leg's
+   final loss within max(0.05, 0.15 |fault_free|) of fault_free, the
+   promoted standby holding every acknowledged commit, the restored
+   clock at least the last snapshot's; each leg prints samples/s and its
+   time to recover, and one leg is profiled;
 8. entry points (main path): the user's scripts on the models and data
    under them, at full width on the loaders' full-size synthetic stand-ins.
    Gates: ResNet-20 (16/32/64 channels, CIFAR-100 head), one DynSGD window
@@ -1611,6 +1623,349 @@ def async_timing(torch, np, smi):
               f"async gate 3: {cls} applied {updates} commits, want {want}")
 
 
+# the recovery phase: the asynchronous path through faults, on the async
+# bench's configuration (bench.py:1840-2060 and its tripwires at :2330-2345)
+RECOVERY_KILL_AFTER = ASYNC_WORKERS * ASYNC_WPE * ASYNC_EPOCHS // 2  # half the run's commits
+RECOVERY_SNAPSHOT_S = 0.1      # hub_restore: seconds between the hub's snapshots
+BARRIER_SHARDS, BARRIER_WALL_S, BARRIER_INTERVAL_S, BARRIER_REPS = 4, 0.5, 0.05, 3
+
+
+def _timed_client_class(ps_mod, net):
+    """A PSClient that records, on the host clock, when it enters a
+    reconnect and when each commit of its is acknowledged, and which worker
+    thread made it: the recovery legs read their time to recover off it."""
+
+    class TimedClient(ps_mod.PSClient):
+        made = []
+
+        def __init__(self, *args, **kwargs):
+            self.worker = threading.current_thread().name
+            self.acks, self.reconnect_at = [], []
+            super().__init__(*args, **kwargs)
+            TimedClient.made.append(self)
+
+        def _reconnect(self, cause):
+            self.reconnect_at.append(time.perf_counter())
+            super()._reconnect(cause)
+
+        def _consume_one_inner(self):
+            kind = self._pending[0] if self._pending else None
+            super()._consume_one_inner()
+            if kind == net.ACTION_ACK:
+                self.acks.append(time.perf_counter())
+
+    return TimedClient
+
+
+def _recovered_ms(clients, t_fault, worker=None):
+    """Host ms from ``t_fault`` to the first acknowledged commit after it,
+    of ``worker``'s clients (any worker's when None)."""
+    after = [t for c in clients if worker is None or c.worker == worker
+             for t in c.acks if t > t_fault]
+    return 1e3 * (min(after) - t_fault) if after else None
+
+
+def _snapshot_barrier(np):
+    """Commits/s through a 4-shard in-process facade with its coordinator
+    ticking (a snapshot set every BARRIER_INTERVAL_S) against none, median
+    of BARRIER_REPS legs of BARRIER_WALL_S each (bench.py:2063's leg)."""
+    import tempfile
+
+    from distkeras_torch.runtime import parameter_server as tps
+
+    t = [np.zeros((128, 128), np.float32) for _ in range(2 * BARRIER_SHARDS)]
+    plan = tps.shard_plan(t, BARRIER_SHARDS)
+    delta = [np.ones(a.shape, np.float32) for a in t]
+
+    def one_leg(ticking):
+        with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "distkeras_torch",
+                                                          "_build")) as d:
+            ps = tps.ShardedParameterServer(
+                t, plan, lambda w, sid: tps.DeltaParameterServer(w, idle_timeout=None,
+                                                                 shard_id=sid),
+                snapshot_dir=d if ticking else None, snapshot_interval=BARRIER_INTERVAL_S)
+            ps.start()
+            try:
+                n, t0 = 0, time.perf_counter()
+                while time.perf_counter() - t0 < BARRIER_WALL_S:
+                    ps.commit_direct(delta, 0)
+                    n += 1
+                rate = n / (time.perf_counter() - t0)
+                sets = len(ps.coordinator.checkpointers[0].all_steps()) if ticking else 0
+            finally:
+                ps.kill()
+        return rate, sets
+
+    still = statistics.median(one_leg(False)[0] for _ in range(BARRIER_REPS))
+    ticks = [one_leg(True) for _ in range(BARRIER_REPS)]
+    return still, statistics.median(r for r, _ in ticks), min(s for _, s in ticks)
+
+
+def recovery_phase(torch, np, smi):
+    """The asynchronous path surviving failure on the card, on the async
+    bench's AsyncADAG (mnist_cnn_spec bf16, 2 workers, window 8, batch 256,
+    3 epochs of 8 windows a worker, sgd 0.01; not cut).  Legs: fault_free;
+    sever (an external hub behind a ChaosProxy that severs each worker's
+    connection once, max_reconnects=5); worker_restart (a WorkerKillPlan
+    kills worker 1 mid-epoch under on_worker_failure="restart");
+    failover_python and failover_native (an external primary and a
+    replica_of standby, Python or C++, the primary killed at half the run's
+    commits, the workers on ps_failover); hub_restore (the hub killed and
+    restarted from its snapshot_dir with restore=True, the workers
+    reconnecting); snapshot_barrier (commits/s of a 4-shard facade, its
+    coordinator ticking against none).  Gates: every planned fault fired,
+    every leg finished with all its commits, each faulted leg's final loss
+    within max(0.05, 0.15 |fault_free|) of fault_free (bench.py:2345), the
+    promoted standby holds every acknowledged commit (its clock at the
+    promotion at least the kill clock less workers x max_inflight), the
+    restored hub's clock at least its last snapshot's.  Each leg prints
+    samples/s and the host ms from the fault (the proxy's cut, the hook's
+    raise, the return of the hub's ``kill()``) to the worker's next
+    acknowledged commit; the worker_restart leg is run once more under the
+    profiler."""
+    import socket
+    import tempfile
+
+    from distkeras_torch import Model, mnist_cnn_spec
+    from distkeras_torch.data import Dataset
+    from distkeras_torch.runtime import async_trainer as at
+    from distkeras_torch.runtime import faults
+    from distkeras_torch.runtime import networking as net
+    from distkeras_torch.runtime import parameter_server as tps
+    from distkeras_torch.runtime.launcher import start_parameter_server
+
+    t_phase = time.perf_counter()
+    print(f"recovery phase on {smi}")
+    bf16 = mnist_cnn_spec(compute_dtype="bfloat16")
+    model0 = Model.init(bf16, seed=0, device="cpu")
+    rows = ASYNC_WORKERS * ASYNC_BATCH * ASYNC_WINDOW * ASYNC_WPE
+    x, y = async_images(np, rows, np.random.default_rng(0))
+    ds = Dataset({"features": x, "label": y})
+    common = dict(num_workers=ASYNC_WORKERS, communication_window=ASYNC_WINDOW,
+                  batch_size=ASYNC_BATCH, num_epoch=ASYNC_EPOCHS, device="cuda", **ASYNC_OPT)
+    commits = ASYNC_WORKERS * ASYNC_WPE * ASYNC_EPOCHS
+    TimedClient = _timed_client_class(tps, net)
+    plain_client = at.PSClient
+    at.PSClient = TimedClient
+    legs = {}
+
+    def run_leg(name, **kw):
+        TimedClient.made = []
+        tr = at.AsyncADAG(bf16, **dict(common, **kw))
+        t0 = time.perf_counter()
+        tr.train(ds, shuffle=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(tr.worker_errors == [], f"recovery leg {name}: worker errors {tr.worker_errors}")
+        check(len(tr.history) == commits and bool(np.isfinite(tr.history).all()),
+              f"recovery leg {name}: {len(tr.history)} windows recorded, want {commits}")
+        legs[name] = dict(tr=tr, wall=wall, loss=float(np.mean(tr.history[-8:])),
+                          sps=tr.metrics[-1]["samples_per_sec_per_chip"],
+                          clients=list(TimedClient.made))
+        return legs[name]
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    try:
+        # one warm epoch first, so that fault_free is a warm reference run
+        at.AsyncADAG(bf16, **dict(common, num_epoch=1)).train(ds, shuffle=False)
+        ff = run_leg("fault_free")
+        check(ff["tr"].parameter_server.num_updates == commits, "fault_free lost commits")
+
+        # sever: each worker's first connection cut once at a planned frame
+        hub = start_parameter_server(model0, mode="adag", num_workers=ASYNC_WORKERS,
+                                     idle_timeout=120.0)
+        fault_at = {}
+
+        class TimedPlan(faults.FaultPlan):
+            def lookup(self, conn, direction, frame):
+                f = super().lookup(conn, direction, frame)
+                if f is not None:
+                    fault_at[conn] = time.perf_counter()
+                return f
+
+        plan = TimedPlan([faults.Fault(conn=i, direction="s2c", frame=4 + 3 * i, kind="sever")
+                          for i in range(ASYNC_WORKERS)])
+        try:
+            with faults.ChaosProxy("127.0.0.1", hub.port, plan) as proxy:
+                leg = run_leg("sever", ps_address=("127.0.0.1", proxy.port), max_reconnects=5,
+                              reconnect_backoff=0.05)
+                fired = len(proxy.faults_fired)
+            hub_updates = hub.num_updates
+        finally:
+            hub.stop()
+        check(fired == ASYNC_WORKERS, f"sever: {fired} of {ASYNC_WORKERS} planned faults fired")
+        recov = []
+        for c in leg["clients"]:
+            for t_enter in c.reconnect_at:
+                t_f = max((t for t in fault_at.values() if t <= t_enter), default=t_enter)
+                recov.append(_recovered_ms([c], t_f))
+        check(len(recov) >= ASYNC_WORKERS and None not in recov,
+              f"sever: the workers did not all reconnect and commit again ({recov})")
+        leg.update(fired=fired, recover_ms=recov, note=f"hub applied {hub_updates}/{commits} "
+                   f"(an unacknowledged commit may drop at a sever), reconnects "
+                   f"{sum(c.reconnects_used for c in leg['clients'])}")
+
+        # worker_restart: worker 1 killed mid-epoch, restarted from the center
+        kill_at = {}
+        kills = faults.WorkerKillPlan([(ASYNC_WORKERS - 1, ASYNC_WPE // 2)], seed=4)
+
+        def hook(worker, window):
+            try:
+                kills.hook(worker, window)
+            except faults.InjectedWorkerFault:
+                kill_at[worker] = time.perf_counter()
+                raise
+
+        leg = run_leg("worker_restart", on_worker_failure="restart", max_worker_restarts=2,
+                      fault_hook=hook)
+        check(kills.fired == [(ASYNC_WORKERS - 1, ASYNC_WPE // 2)] and leg["tr"].worker_restarts
+              == 1, f"worker_restart: kills {kills.fired}, restarts {leg['tr'].worker_restarts}")
+        w = ASYNC_WORKERS - 1
+        leg.update(fired=len(kills.fired), recover_ms=[_recovered_ms(
+            leg["clients"], kill_at[w], worker=f"async-worker-{w}")],
+            note=f"hub applied {leg['tr'].parameter_server.num_updates} (the replayed "
+                 f"epoch's windows once more)")
+
+        # failover: the primary killed at half the run's commits
+        for kind in ("python", "native"):
+            primary = start_parameter_server(model0, mode="adag", num_workers=ASYNC_WORKERS,
+                                             idle_timeout=None)
+            standby = start_parameter_server(model0, mode="adag", num_workers=ASYNC_WORKERS,
+                                             idle_timeout=None, native=kind == "native",
+                                             replica_of=("127.0.0.1", primary.port))
+            killed = {}
+
+            class TimedKill:  # the primary, the time its kill returned recorded
+                num_updates = property(lambda self: primary.num_updates)
+
+                def kill(self):
+                    primary.kill()
+                    killed["t"] = time.perf_counter()
+
+            hub_kill = faults.HubKillPlan(after_commits=RECOVERY_KILL_AFTER)
+            try:
+                check(standby.wait_synced(timeout=30.0), f"failover_{kind}: no sync")
+                hub_kill.start(TimedKill())
+                leg = run_leg(f"failover_{kind}", ps_address=("127.0.0.1", primary.port),
+                              ps_failover=("127.0.0.1", standby.port), max_reconnects=8,
+                              reconnect_backoff=0.05)
+                hub_kill.join()
+                promoted, at_clock = standby.promoted, standby.promoted_at_clock
+                final_updates = standby.num_updates
+            finally:
+                hub_kill.cancel()
+                standby.stop()
+                try:
+                    primary.stop()
+                except Exception:  # killed already
+                    pass
+            slack = ASYNC_WORKERS * leg["tr"].max_inflight_commits
+            check(hub_kill.fired.is_set() and promoted,
+                  f"failover_{kind}: kill fired {hub_kill.fired.is_set()}, promoted {promoted}")
+            check(at_clock is not None and at_clock >= hub_kill.fired_at_clock - slack,
+                  f"failover_{kind}: the standby promoted at clock {at_clock}, the primary "
+                  f"was killed at {hub_kill.fired_at_clock} (slack {slack}): acknowledged "
+                  f"commits were lost")
+            leg.update(fired=1, recover_ms=[_recovered_ms(leg["clients"], killed["t"],
+                                                          worker=f"async-worker-{i}")
+                                            for i in range(ASYNC_WORKERS)],
+                       note=f"killed at clock {hub_kill.fired_at_clock}, the {kind} standby "
+                            f"promoted at {at_clock} (bound {hub_kill.fired_at_clock - slack}), "
+                            f"{final_updates} updates at the end, failovers "
+                            f"{sum(c.failovers_used for c in leg['clients'])}")
+
+        # hub_restore: the hub killed, restarted from its last snapshot
+        with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "distkeras_torch",
+                                                          "_build")) as snap:
+            port = free_port()
+            hub_kw = dict(mode="adag", num_workers=ASYNC_WORKERS, port=port, snapshot_dir=snap,
+                          snapshot_interval=RECOVERY_SNAPSHOT_S, idle_timeout=120.0)
+            first = start_parameter_server(model0, **hub_kw)
+            state = {}
+
+            def killer():
+                deadline = time.monotonic() + 120.0
+                while time.monotonic() < deadline and not (
+                        first.num_updates >= RECOVERY_KILL_AFTER
+                        and first.snapshotter.checkpointer.latest_step() is not None):
+                    time.sleep(0.002)
+                state["clock"] = first.num_updates
+                first.kill()
+                # the fault is the hub gone: a commit acknowledged while
+                # kill() tears it down is not a recovery
+                state["t"] = time.perf_counter()
+                state["snap_clock"] = first.snapshotter.checkpointer.metadata()[
+                    "metadata"]["clock"]
+                second = start_parameter_server(model0, restore=True, **hub_kw)
+                state["restored_clock"] = second._clock
+                state["hub"] = second
+
+            kthread = threading.Thread(target=killer)
+            kthread.start()
+            try:
+                leg = run_leg("hub_restore", ps_address=("127.0.0.1", port), max_reconnects=20,
+                              reconnect_backoff=0.05)
+            finally:
+                kthread.join(timeout=150.0)
+                if "hub" in state:
+                    end_updates = state["hub"].num_updates
+                    state["hub"].stop()
+        check("hub" in state, "hub_restore: the hub was never killed and restarted")
+        check(state["restored_clock"] >= state["snap_clock"],
+              f"hub_restore: restored clock {state['restored_clock']} is behind the last "
+              f"snapshot's {state['snap_clock']}")
+        leg.update(fired=1, recover_ms=[_recovered_ms(leg["clients"], state["t"],
+                                                      worker=f"async-worker-{i}")
+                                        for i in range(ASYNC_WORKERS)],
+                   note=f"killed at clock {state['clock']}, last snapshot at "
+                        f"{state['snap_clock']}, restored at {state['restored_clock']}, "
+                        f"{end_updates} updates at the end")
+    finally:
+        at.PSClient = plain_client
+
+    tol = max(0.05, 0.15 * abs(ff["loss"]))
+    for name, leg in legs.items():
+        gap = abs(leg["loss"] - ff["loss"])
+        rec = leg.get("recover_ms")
+        rec_text = ("" if rec is None else ", time to recover (host ms, fault to the next "
+                    "acknowledged commit) " + ", ".join("none" if r is None else f"{r:.1f}"
+                                                        for r in rec))
+        print(f"recovery leg ({smi}): {name}: {leg['sps']} samples/s (host clock), wall "
+              f"{leg['wall']:.3f} s, final loss {leg['loss']:.6f} (fault_free "
+              f"{ff['loss']:.6f}, gap {gap:.6f}, tol {tol:.6f}){rec_text}"
+              + (f"; {leg['note']}" if "note" in leg else ""))
+        if name != "fault_free":
+            check(gap <= tol, f"recovery leg {name}: final loss {leg['loss']:.6f} is more "
+                              f"than {tol:.6f} from fault_free's {ff['loss']:.6f}")
+            check(rec is not None and None not in rec,
+                  f"recovery leg {name}: a worker never committed again after the fault")
+
+    # one leg under the profiler: worker_restart again, one epoch
+    again = faults.WorkerKillPlan([(ASYNC_WORKERS - 1, ASYNC_WPE // 2)], seed=4)
+    tr = at.AsyncADAG(bf16, **dict(common, num_epoch=1, on_worker_failure="restart",
+                                   fault_hook=again.hook))
+    wall, busy_ms, _ = _profiled(torch, lambda: tr.train(ds, shuffle=False))
+    windows = len(tr.history) + ASYNC_WPE // 2  # the killed worker's replayed windows
+    check(busy_ms > 0 and again.fired, "the profiled recovery leg recorded no device time")
+    print(f"recovery leg ({smi}): worker_restart, one epoch under the profiler: wall "
+          f"{wall * 1e3:.1f} ms, device busy {busy_ms:.1f} ms, per window device "
+          f"{busy_ms / windows:.3f} ms ({windows} windows trained), idle share "
+          f"{100 * (1 - busy_ms / 1e3 / wall):.1f} %")
+
+    still, ticking, sets = _snapshot_barrier(np)
+    check(sets >= 1, "snapshot_barrier: the coordinator wrote no set")
+    print(f"recovery leg ({smi}): snapshot_barrier, {BARRIER_SHARDS}-shard in-process facade, "
+          f"commits of {2 * BARRIER_SHARDS} x 64 KiB leaves: {still:.1f} commits/s with no "
+          f"snapshots, {ticking:.1f} with the coordinator ticking every "
+          f"{BARRIER_INTERVAL_S} s ({100 * (still - ticking) / still:.2f} % fewer; median of "
+          f"{BARRIER_REPS} legs of {BARRIER_WALL_S} s, at least {sets} sets a leg)")
+    print(f"recovery phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 # the entry-points phase: the user's scripts and the models and data under
 # them, at full width on the loaders' full-size synthetic stand-ins
 # ResNet-20 card against CPU, f32, whole param dict (gate 1).  After one
@@ -2248,6 +2603,13 @@ def run() -> int:
     async_counts = dict(_counts(fa), decode_step=ds.DECODE_STEP.launches)
     print(f"async timing: launches of the port's kernels {async_counts}")
     check(not any(async_counts.values()), "the async trainers launched an attention kernel")
+    # the recovery legs launch no kernel of the port either
+    _zero_counts(fa)
+    ds.DECODE_STEP.launches = 0
+    recovery_phase(torch, np, smi)
+    recovery_counts = dict(_counts(fa), decode_step=ds.DECODE_STEP.launches)
+    print(f"recovery phase: launches of the port's kernels {recovery_counts}")
+    check(not any(recovery_counts.values()), "the recovery legs launched an attention kernel")
     entry_profile(torch, np, smi)
     family_timing_fn()
 

@@ -43,11 +43,21 @@ end); ``num_shards > 1`` stripes the center over that many hubs
 or, in worker-only mode, one ``ps_address`` per shard; and
 ``recv_batch_depth`` batches each owned hub's receives.
 
-Not ported (``NotImplementedError`` naming the ROADMAP item): failover and
-``replica_of``, reconnects and heartbeats, elastic membership, trace
-contexts, health reports, adaptive aggregation, autoscaling,
-``on_worker_failure="restart"`` and jobs (item 8b), and sparse tables
-(item 13).
+A run survives the faults the JAX package's does: ``max_reconnects``
+(5 by default in worker-only mode, 0 with an owned hub) and
+``reconnect_backoff`` let each worker's client reconnect across a dropped
+connection or a restarted hub, ``ps_failover`` lists hot standbys to fail
+over to (one entry per shard when sharded), ``heartbeat_interval`` keeps
+an idle worker alive under the hub's ``idle_timeout``, ``replica_of``
+starts the owned hub as a standby that takes a primary's job over,
+``elastic=True`` has ADAG divide by the live workers, and
+``on_worker_failure="restart"`` restarts a crashed worker (at most
+``max_worker_restarts`` times) from the hub's current center at the epoch
+it died in.
+
+Not ported (``NotImplementedError`` naming the ROADMAP item): trace
+contexts, health reports, adaptive aggregation, autoscaling and jobs
+(item 8b, part 2), and sparse tables (item 13).
 """
 
 from __future__ import annotations
@@ -76,6 +86,7 @@ from distkeras_torch.runtime.parameter_server import (
     PSClient,
     ShardedParameterServer,
     ShardedPSClient,
+    _normalize_failover,
     not_ported,
     shard_plan,
 )
@@ -105,10 +116,9 @@ def _make_window_fn(trainer: "AsyncDistributedTrainer", apply_fn: Callable,
 
 class AsyncDistributedTrainer(Trainer):
     """Starts the hub, runs one worker thread per shard, joins them and
-    returns the hub's center as the model.  The JAX package's keywords are
-    accepted; ``max_worker_restarts``, ``reconnect_backoff`` and
-    ``replica_sync_timeout`` act only with options that are ROADMAP item
-    8b, and are ignored."""
+    returns the hub's center as the model, with the JAX package's
+    keywords.  ``worker_restarts`` counts the supervisor's restarts of the
+    last ``train()``."""
 
     def __init__(self, model, num_workers: int = 2, communication_window: int = 5,
                  native_ps: bool = False,
@@ -197,20 +207,61 @@ class AsyncDistributedTrainer(Trainer):
                     f"needs one (host, port) per shard")
             self._ps_addresses = addrs
             ps_address = addrs[0] if len(addrs) == 1 else tuple(addrs)
+        # hot standbys every worker's client fails over to: one entry
+        # unsharded (a pair or a list of pairs), one per shard when sharded
+        if ps_failover is None:
+            self._ps_failover: Optional[List[List[Tuple[str, int]]]] = None
+        elif self.num_shards == 1:
+            self._ps_failover = [_normalize_failover(ps_failover)]
+        else:
+            fo = list(ps_failover)
+            if fo and isinstance(fo[0], (str, bytes)):
+                # a bare pair's length can equal num_shards (2 shards)
+                raise ValueError(
+                    f"ps_failover got a single (host, port) pair but "
+                    f"num_shards={self.num_shards}; sharded failover needs "
+                    f"one entry per shard (None for shards without a "
+                    f"standby)")
+            if len(fo) != self.num_shards:
+                raise ValueError(
+                    f"ps_failover has {len(fo)} entries but "
+                    f"num_shards={self.num_shards}; sharded failover needs "
+                    f"one entry per shard (None for shards without a "
+                    f"standby)")
+            self._ps_failover = [_normalize_failover(e) for e in fo]
+        # the owned hub as a standby of a primary (one shard only: a
+        # sharded deployment runs one standby daemon per shard primary)
+        self.replica_of = (None if replica_of is None
+                           else (str(replica_of[0]), int(replica_of[1])))
+        self.replica_sync_timeout = float(replica_sync_timeout)
+        if self.replica_of is not None:
+            if ps_address is not None:
+                raise ValueError("replica_of configures the trainer-owned "
+                                 "hub; worker-only mode (ps_address) starts "
+                                 "no hub — point ps_failover at the standby "
+                                 "instead")
+            if self.num_shards > 1:
+                raise ValueError("replica_of requires num_shards=1 (a "
+                                 "sharded deployment runs one standby "
+                                 "daemon per shard primary)")
+        # worker-only mode faces real networks and a hub that may restart:
+        # a small reconnect budget by default; an owned hub dies with the
+        # trainer's process, so its workers fail fast
+        if max_reconnects is None:
+            max_reconnects = 5 if ps_address is not None else 0
+        self.max_reconnects = int(max_reconnects)
+        self.reconnect_backoff = float(reconnect_backoff)
+        self.heartbeat_interval = heartbeat_interval
+        self.elastic = bool(elastic)
+        self.max_worker_restarts = int(max_worker_restarts)
         unported = {
-            "ps_failover": (ps_failover is not None, "8b"),
-            "replica_of": (replica_of is not None, "8b"),
-            "max_reconnects": (max_reconnects not in (None, 0), "8b"),
-            "heartbeat_interval": (heartbeat_interval is not None, "8b"),
-            "elastic=True": (bool(elastic), "8b"),
-            "trace_context": (trace_context is not None, "8b"),
-            "health_interval_s": (health_interval_s is not None, "8b"),
+            "trace_context": (trace_context is not None, "8b part 2"),
+            "health_interval_s": (health_interval_s is not None, "8b part 2"),
             "sparse_tables": (sparse_tables is not None, "13"),
             "sparse_cache_rows": (sparse_cache_rows is not None, "13"),
-            "adaptive=True": (bool(adaptive), "8b"),
-            "autoscale=True": (bool(autoscale), "8b"),
-            "on_worker_failure='restart'": (on_worker_failure == "restart", "8b"),
-            "job": (job is not None, "8b"),
+            "adaptive=True": (bool(adaptive), "8b part 2"),
+            "autoscale=True": (bool(autoscale), "8b part 2"),
+            "job": (job is not None, "8b part 2"),
         }
         for what, (given, item) in unported.items():
             if given:
@@ -226,6 +277,7 @@ class AsyncDistributedTrainer(Trainer):
         # test/chaos hook: fault_hook(worker, window) at every window start
         self.fault_hook = fault_hook
         self.worker_errors: List[BaseException] = []
+        self.worker_restarts = 0  # the supervisor's restarts, last train()
         self.parameter_server: Optional[Any] = None
         self._shard_plan = None  # the last train()'s plan, None unsharded
         self._shm_dir: Optional[str] = None  # the run's ring directory
@@ -245,7 +297,8 @@ class AsyncDistributedTrainer(Trainer):
 
     def _hub_kwargs(self, shard_id: Optional[int] = None) -> dict:
         """The keywords of every hub the trainer owns (Python or C++)."""
-        kw = {"idle_timeout": self.ps_idle_timeout, "shard_id": shard_id}
+        kw = {"idle_timeout": self.ps_idle_timeout, "shard_id": shard_id,
+              "replica_of": self.replica_of}
         if self.transport == "shm":
             kw["shm_dir"] = self._ensure_shm_dir()
         if self.recv_batch_depth > 0:
@@ -347,8 +400,13 @@ class AsyncDistributedTrainer(Trainer):
             return t.clone()
         return t.to(self.device, non_blocking=True)
 
-    def _run_worker(self, idx: int, dataset: Dataset, shuffle: bool, make_client: Callable,
-                    treedef, losses: List[torch.Tensor], walls: List[float]) -> None:
+    def _run_worker(self, idx: int, start_epoch: int, progress: List[int], dataset: Dataset,
+                    shuffle: bool, make_client: Callable, treedef,
+                    losses: List[torch.Tensor], walls: List[float]) -> None:
+        """One attempt at worker ``idx``'s epochs from ``start_epoch``.
+        ``progress`` records the epoch being trained and the length of
+        ``losses`` (and ``walls``) at its start, so the supervisor restarts
+        a crashed worker at that epoch and drops its partial windows."""
         device = self.device
         on_card = device.type == "cuda"
         # the worker's own stream: every copy and step of its windows
@@ -369,14 +427,17 @@ class AsyncDistributedTrainer(Trainer):
             self.worker_transports[idx] = getattr(client, "transport", "inproc")
             try:
                 shard = dataset.shard(self.num_workers, idx)
-                # np.array: the pulled arrays are the client's landing buffer
+                # np.array: the pulled arrays are the client's landing
+                # buffer.  After a restart this pull is the recovery point:
+                # the worker resumes from the hub's current center
                 first = [np.array(w) for w in client.pull()]
                 params = self._to_params([self._h2d(w) for w in first], treedef)
                 opt_state = self.optimizer.init(params)
                 staging = client.commit_staging()
                 staging_t = [torch.from_numpy(s) for s in staging]
                 pull_pending = False
-                for epoch in range(self.num_epoch):
+                for epoch in range(start_epoch, self.num_epoch):
+                    progress[0], progress[1] = epoch, len(losses)
                     ds = shard.shuffle(seed=self.seed + 1000 * idx + epoch) if shuffle else shard
                     stacked = ds.stacked_epoch(self.batch_size, cols, window=window)
                     xs, ys = _host(stacked[self.features_col]), _host(stacked[self.label_col])
@@ -467,38 +528,85 @@ class AsyncDistributedTrainer(Trainer):
             except BaseException:
                 self._cleanup_shm_dir()
                 raise
+            if self.replica_of is not None:
+                # the owned hub takes a primary's job over: no worker may
+                # commit before the full sync (its first commit would
+                # promote the hub over seed weights), and an unreachable
+                # primary fails the run rather than train from seed
+                if not ps.wait_synced(timeout=self.replica_sync_timeout):
+                    ps.stop()
+                    self._cleanup_shm_dir()
+                    raise RuntimeError(
+                        f"replica_of={self.replica_of}: no full sync arrived from the "
+                        f"primary within {self.replica_sync_timeout}s "
+                        f"(replica_sync_timeout) — it is unreachable or not a hub.  "
+                        f"Refusing to train from fresh weights; drop replica_of to do that "
+                        f"deliberately")
+                # the deliberate takeover: fence at the sync clock, feed cut
+                ps.promote(reason="trainer replica_of takeover (synced)")
             addresses = [("127.0.0.1", p) for p in (ps.ports if plan is not None else [ps.port])]
         self.parameter_server = ps
         shm = self.transport == "shm"
+        resilience = dict(max_reconnects=self.max_reconnects,
+                          reconnect_backoff=self.reconnect_backoff,
+                          heartbeat_interval=self.heartbeat_interval)
+
+        def failover(kw):
+            """The run's standbys, as the striped or the plain client takes them."""
+            if self._ps_failover is not None:
+                kw["failover"] = self._ps_failover if plan is not None else self._ps_failover[0]
+            return kw
 
         def make_client(pin_memory: bool = False, landing_guard=None):
             if self.transport == "inproc":
                 return InprocPSClient(ps, templates, compress=self.compress_commits,
                                       pin_memory=pin_memory)
-            kw = dict(compress=self.compress_commits, max_inflight=self.max_inflight_commits,
-                      shm=shm, pin_memory=pin_memory, landing_guard=landing_guard)
+            kw = failover(dict(compress=self.compress_commits,
+                               max_inflight=self.max_inflight_commits, shm=shm,
+                               pin_memory=pin_memory, landing_guard=landing_guard,
+                               **resilience))
             if plan is not None:
                 return ShardedPSClient(addresses, templates, plan, **kw)
             return PSClient(addresses[0][0], addresses[0][1], templates, **kw)
 
-        def control_client():
+        def control_client(**kw):
             """A blocking client for the center reads of worker-only mode
-            (snapshots, the final pull): striped when sharded."""
+            (snapshots, the final pull): striped when sharded, with the
+            run's standbys."""
+            kw = failover(kw)
             if plan is not None:
-                return ShardedPSClient(addresses, templates, plan)
-            return PSClient(addresses[0][0], addresses[0][1], templates)
+                return ShardedPSClient(addresses, templates, plan, **kw)
+            return PSClient(addresses[0][0], addresses[0][1], templates, **kw)
 
         histories: List[List[torch.Tensor]] = [[] for _ in range(self.num_workers)]
         self.window_seconds = [[] for _ in range(self.num_workers)]
         self.worker_transports = [""] * self.num_workers
         errors: List[BaseException] = []
+        restart_counts = [0] * self.num_workers
 
         def run_worker(idx: int) -> None:
-            try:
-                self._run_worker(idx, dataset, shuffle, make_client, treedef,
-                                 histories[idx], self.window_seconds[idx])
-            except Exception as e:  # reported by train() after the join
-                errors.append(e)
+            losses, walls = histories[idx], self.window_seconds[idx]
+            progress = [0, 0]  # [epoch to resume at, len(losses) at its start]
+            while True:
+                try:
+                    self._run_worker(idx, progress[0], progress, dataset, shuffle,
+                                     make_client, treedef, losses, walls)
+                    return
+                except Exception as e:  # reported by train() after the join
+                    # "restart" runs the worker again from the hub's current
+                    # center at the epoch it died in, within its budget;
+                    # otherwise the error is recorded
+                    if (self.on_worker_failure != "restart"
+                            or restart_counts[idx] >= self.max_worker_restarts):
+                        errors.append(e)
+                        return
+                    restart_counts[idx] += 1
+                    # the replay trains the aborted epoch again: its partial
+                    # windows leave the history
+                    del losses[progress[1]:]
+                    del walls[progress[1]:]
+                    warnings.warn(f"worker {idx} restarting ({restart_counts[idx]}/"
+                                  f"{self.max_worker_restarts}) after {type(e).__name__}: {e}")
 
         snap_stop = snap_thread = None
         if checkpointer is not None:
@@ -537,12 +645,16 @@ class AsyncDistributedTrainer(Trainer):
             if ps is not None:
                 ps.stop()
             self._cleanup_shm_dir()
+        self.worker_restarts = sum(restart_counts)
         self.worker_errors = list(errors)
         if errors and self.on_worker_failure == "raise":
             raise errors[0]
         if ps is None:
-            # worker-only mode: the external hub outlives the run
-            with control_client() as final_client:
+            # worker-only mode: the external hub outlives the run; the read
+            # has the run's reconnect budget (a hub restart at the end of
+            # the run must not lose a finished result)
+            with control_client(max_reconnects=self.max_reconnects,
+                                reconnect_backoff=self.reconnect_backoff) as final_client:
                 final = [np.array(w) for w in final_client.pull()]
         else:
             final = ps.get_weights()
@@ -585,8 +697,9 @@ class AsyncADAG(AsyncDOWNPOUR):
             from distkeras_torch.runtime.native import MODE_ADAG, NativeParameterServer
 
             return NativeParameterServer(weights, mode=MODE_ADAG, num_workers=self.num_workers,
-                                         **self._hub_kwargs(shard_id))
-        return ADAGParameterServer(weights, num_workers=self.num_workers, **self._hub_kwargs(shard_id))
+                                         elastic=self.elastic, **self._hub_kwargs(shard_id))
+        return ADAGParameterServer(weights, num_workers=self.num_workers, elastic=self.elastic,
+                                   **self._hub_kwargs(shard_id))
 
 
 class AsyncDynSGD(AsyncDOWNPOUR):

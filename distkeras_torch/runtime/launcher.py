@@ -127,25 +127,32 @@ def start_parameter_server(model: Any, mode: str = "delta", num_workers: int = 1
     that ask (``shm=True``) attach shared-memory rings; ``recv_batch_depth``
     batches each connection's receives.
 
-    ``elastic``, ``snapshot_dir``, ``restore``, ``replica_of``,
+    Survival, as the JAX function's: ``snapshot_dir`` snapshots the center
+    and clock every ``snapshot_interval`` seconds (``shard-NN``
+    subdirectories when sharded; one coordinated set a tick when every
+    shard runs in this process), ``restore=True`` resumes from the newest
+    readable snapshot (or complete set) behind the clock fence before
+    serving, ``replica_of=(host, port)`` starts a hot standby of that
+    primary (with ``num_shards > 1`` one daemon a shard, so it needs
+    ``shard_index``), and ``elastic`` has an ``adag`` hub divide by the
+    live workers.
+
     ``health_jsonl`` and ``adaptive`` raise ``NotImplementedError`` (ROADMAP
-    item 8b), as does ``sparse_tables`` (item 13)."""
+    item 8b, part 2), as does ``sparse_tables`` (item 13)."""
     from distkeras_torch.runtime.parameter_server import ShardedParameterServer, shard_plan
     from distkeras_torch.utils import flatten_weights
 
     num_shards = int(num_shards)
     if shard_index is not None and not (0 <= int(shard_index) < num_shards):
         raise ValueError(f"shard_index={shard_index} out of range for num_shards={num_shards}")
-    if replica_of is not None and num_shards > 1 and shard_index is None:
-        raise ValueError("replica_of with num_shards > 1 requires shard_index: run one "
-                         "standby daemon per shard, each pointed at its own primary")
-    unported = {"elastic=True": (bool(elastic), "8b"),
-                "snapshot_dir": (snapshot_dir is not None, "8b"),
-                "restore=True": (bool(restore), "8b"),
-                "replica_of": (replica_of is not None, "8b"),
-                "health_jsonl": (health_jsonl is not None, "8b"),
+    if replica_of is not None:
+        replica_of = (str(replica_of[0]), int(replica_of[1]))
+        if num_shards > 1 and shard_index is None:
+            raise ValueError("replica_of with num_shards > 1 requires shard_index: run one "
+                             "standby daemon per shard, each pointed at its own primary")
+    unported = {"health_jsonl": (health_jsonl is not None, "8b part 2"),
                 "sparse_tables": (sparse_tables is not None, "13"),
-                "adaptive=True": (bool(adaptive), "8b")}
+                "adaptive=True": (bool(adaptive), "8b part 2")}
     for what, (given, item) in unported.items():
         if given:
             raise not_ported(f"start_parameter_server's {what}", item)
@@ -154,9 +161,16 @@ def start_parameter_server(model: Any, mode: str = "delta", num_workers: int = 1
     flat, _ = flatten_weights(model.params, model.spec)
     weights = [np.asarray(w.float().numpy(), dtype=np.float32) for w in flat]
 
-    def make_hub(hub_weights, shard_id, hub_port):
-        common = dict(idle_timeout=idle_timeout, shard_id=shard_id, shm_dir=shm_dir,
-                      recv_batch_depth=recv_batch_depth)
+    def make_hub(hub_weights, shard_id, hub_port, own_snapshots=True):
+        # the facade's coordinated sets own durability when every shard is
+        # here: its hubs then keep no snapshotter of their own
+        shard_snap = snapshot_dir if own_snapshots else None
+        if shard_snap is not None and shard_id is not None:
+            shard_snap = os.path.join(shard_snap, f"shard-{shard_id:02d}")
+        common = dict(idle_timeout=idle_timeout, snapshot_dir=shard_snap,
+                      snapshot_interval=snapshot_interval,
+                      restore=restore if own_snapshots else False, shard_id=shard_id,
+                      replica_of=replica_of, shm_dir=shm_dir, recv_batch_depth=recv_batch_depth)
         if native:
             from distkeras_torch.runtime.native import (MODE_ADAG, MODE_DELTA, MODE_DYNSGD,
                                                         NativeParameterServer)
@@ -165,14 +179,14 @@ def start_parameter_server(model: Any, mode: str = "delta", num_workers: int = 1
             # the C++ hub binds every interface; host selection is the
             # Python hub's
             return NativeParameterServer(hub_weights, mode=native_mode, num_workers=num_workers,
-                                         port=hub_port, **common)
+                                         port=hub_port, elastic=elastic, **common)
         from distkeras_torch.runtime.parameter_server import (ADAGParameterServer,
                                                               DeltaParameterServer,
                                                               DynSGDParameterServer)
 
         cls = {"delta": DeltaParameterServer, "adag": ADAGParameterServer,
                "dynsgd": DynSGDParameterServer}[mode]
-        kwargs = {"num_workers": num_workers} if mode == "adag" else {}
+        kwargs = {"num_workers": num_workers, "elastic": elastic} if mode == "adag" else {}
         return cls(hub_weights, host=host, port=hub_port, **kwargs, **common)
 
     if num_shards == 1:
@@ -184,7 +198,10 @@ def start_parameter_server(model: Any, mode: str = "delta", num_workers: int = 1
             ps = make_hub(plan.split(weights)[sid], sid, port)
         else:
             ps = ShardedParameterServer(
-                weights, plan, lambda w, sid: make_hub(w, sid, port + sid if port else 0))
+                weights, plan,
+                lambda w, sid: make_hub(w, sid, port + sid if port else 0, own_snapshots=False),
+                snapshot_dir=snapshot_dir, snapshot_interval=snapshot_interval,
+                restore=restore)
     ps.start()
     return ps
 
@@ -232,15 +249,17 @@ def main(argv: Optional[List[str]] = None) -> None:
                              "--shard-index the shard's leaves are its center's and the "
                              "other leaves stay --model's")
     parser.add_argument("--snapshot-dir", default=None,
-                        help="hub snapshots (not ported: ROADMAP item 8b)")
+                        help="snapshot the center and clock here periodically (atomic; "
+                             "shard-NN subdirectories when sharded)")
     parser.add_argument("--snapshot-interval", type=float, default=30.0,
                         help="seconds between hub snapshots")
     parser.add_argument("--restore", action="store_true",
-                        help="resume from the newest snapshot (not ported: ROADMAP item 8b)")
+                        help="resume from the newest readable snapshot in --snapshot-dir "
+                             "before serving (clock-fenced)")
     parser.add_argument("--idle-timeout", type=float, default=300.0,
                         help="evict connections silent for this many seconds; <= 0 disables")
     parser.add_argument("--elastic", action="store_true",
-                        help="adag over the live worker count (not ported: ROADMAP item 8b)")
+                        help="adag: divide commits by the live worker count, not --num-workers")
     parser.add_argument("--num-shards", type=int, default=1,
                         help="partition the center over this many hub shards (shard_plan; "
                              "trainers pass the same num_shards)")
@@ -248,7 +267,7 @@ def main(argv: Optional[List[str]] = None) -> None:
                         help="serve only this shard from this process (one daemon per "
                              "shard); omit to serve every shard from one process")
     parser.add_argument("--health-jsonl", default=None, metavar="PATH",
-                        help="fleet health events (not ported: ROADMAP item 8b)")
+                        help="fleet health events (not ported: ROADMAP item 8b, part 2)")
     parser.add_argument("--sparse-tables", default=None, metavar="SPEC",
                         help="row-sparse tables (not ported: ROADMAP item 13)")
     parser.add_argument("--shm-dir", default=None, metavar="DIR",
@@ -259,11 +278,12 @@ def main(argv: Optional[List[str]] = None) -> None:
                         help="parse up to N queued frames per receive wake-up; 0 = one "
                              "receive per frame")
     parser.add_argument("--adaptive", action="store_true",
-                        help="adaptive aggregation (not ported: ROADMAP item 8b)")
+                        help="adaptive aggregation (not ported: ROADMAP item 8b, part 2)")
     parser.add_argument("--replica-of", default=None, metavar="HOST:PORT",
-                        help="hot standby of a primary (not ported: ROADMAP item 8b)")
+                        help="start as a hot standby of the primary hub at HOST:PORT: track its "
+                             "center over the replication feed, promote when it dies")
     parser.add_argument("--autoscale", action="store_true",
-                        help="advisory fleet controller (not ported: ROADMAP item 8b)")
+                        help="advisory fleet controller (not ported: ROADMAP item 8b, part 2)")
     args = parser.parse_args(argv)
     if args.restore and not args.snapshot_dir:
         parser.error("--restore requires --snapshot-dir")
@@ -279,7 +299,7 @@ def main(argv: Optional[List[str]] = None) -> None:
             parser.error(f"--replica-of expects HOST:PORT, got {args.replica_of!r}")
         replica_of = (host_part, int(port_part))
     if args.autoscale:
-        raise not_ported("distkeras-torch-ps --autoscale")
+        raise not_ported("distkeras-torch-ps --autoscale", "8b part 2")
 
     from distkeras_torch.models.base import Model
 
@@ -303,6 +323,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     except BaseException:
         signal.signal(signal.SIGTERM, prev_handler)
         raise
+    if replica_of is not None:
+        print(f"ps standby (replica of {replica_of[0]}:{replica_of[1]}) listening on "
+              f"{args.host}:{ps.port}", flush=True)
     if args.num_shards > 1 and args.shard_index is None:
         for sid, p in enumerate(ps.ports):
             print(f"ps shard {sid}/{args.num_shards} listening on {args.host}:{p}", flush=True)

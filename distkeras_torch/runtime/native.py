@@ -8,12 +8,17 @@ this hub and the Python hub move the center to the same bits) into
 with ``ctypes``.  There is no fallback: a failed build raises with the
 compiler's output.
 
-:class:`NativeParameterServer` has the core surface of the Python hub
-(``runtime/parameter_server.py``): ``start`` / ``stop`` / ``port`` /
-``get_weights`` / ``num_updates`` / ``live_workers`` and the in-process
-pair ``pull_direct`` / ``commit_direct``.  Its socket side speaks the same
-wire protocol, the shared-memory attach (action ``Z``) included, and its
-ctypes calls release the GIL while the hub copies and applies.  The
+:class:`NativeParameterServer` has the surface of the Python hub
+(``runtime/parameter_server.py``): ``start`` / ``stop`` / ``kill`` /
+``port`` / ``get_weights`` / ``num_updates`` / ``live_workers``, the
+in-process pair ``pull_direct`` / ``commit_direct``, snapshots
+(``snapshot_dir``, ``restore``, ``snapshot_state`` / ``restore_state``, the
+C++ hub's clock fence), elastic ADAG and the hot standby (``replica_of``,
+``is_standby``, ``promoted``, ``wait_synced``, ``promote``; the C++ hub
+runs the feed thread and the promotion).  Its socket side speaks the same
+wire protocol, the shared-memory attach (action ``Z``) and the replication
+feed (action ``R``) included, and its ctypes calls release the GIL while
+the hub copies and applies.  The
 standalone ring handles (``dk_shm_ring_*``) drive the C++ hub's own ring
 code, which shares one file layout with ``networking.ShmFrameRing``.
 """
@@ -23,12 +28,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import socket
 import subprocess
 import sys
 import tempfile
 import threading
+import warnings
 from pathlib import Path
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -102,6 +109,22 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, P(ctypes.c_int32), P(ctypes.c_int64), ctypes.c_int,
         ctypes.c_int64]
+    lib.dk_ps_set_replica_of.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int,
+                                         ctypes.c_int, ctypes.c_int]
+    lib.dk_ps_restore.argtypes = [ctypes.c_void_p, P(ctypes.c_float), ctypes.c_int64,
+                                  ctypes.c_int64]
+    lib.dk_ps_snapshot.restype = ctypes.c_int64
+    lib.dk_ps_snapshot.argtypes = [ctypes.c_void_p, P(ctypes.c_float)]
+    lib.dk_ps_is_standby.restype = ctypes.c_int
+    lib.dk_ps_is_standby.argtypes = [ctypes.c_void_p]
+    lib.dk_ps_promoted.restype = ctypes.c_int
+    lib.dk_ps_promoted.argtypes = [ctypes.c_void_p]
+    lib.dk_ps_promoted_at_clock.restype = ctypes.c_int64
+    lib.dk_ps_promoted_at_clock.argtypes = [ctypes.c_void_p]
+    lib.dk_ps_promote.restype = ctypes.c_int
+    lib.dk_ps_promote.argtypes = [ctypes.c_void_p]
+    lib.dk_ps_wait_synced.restype = ctypes.c_int
+    lib.dk_ps_wait_synced.argtypes = [ctypes.c_void_p, ctypes.c_int64]
     lib.dk_ps_start.restype = ctypes.c_int
     lib.dk_ps_start.argtypes = [ctypes.c_void_p]
     lib.dk_ps_stop.argtypes = [ctypes.c_void_p]
@@ -156,26 +179,36 @@ _STAT_LIVE_WORKERS = 5
 
 
 class NativeParameterServer:
-    """The C++ hub with the Python hub's core interface.  ``mode`` is the
+    """The C++ hub with the Python hub's interface.  ``mode`` is the
     commit rule (``MODE_DELTA`` / ``MODE_ADAG`` / ``MODE_DYNSGD``).
 
     ``shm_dir`` arms the hub's ``Z`` attach (ring files under it);
     ``shard_id`` names the shard of a sharded deployment.
     ``recv_batch_depth`` is taken as the Python hub takes it, and turns
     nothing here: the C++ receive loop already drains a connection's
-    queued frames with one ``recv`` a wake-up into its growing buffer."""
+    queued frames with one ``recv`` a wake-up into its growing buffer.
+    ``elastic=True`` divides ADAG commits by the live committers.
+    ``snapshot_dir`` attaches a
+    :class:`~distkeras_torch.runtime.parameter_server.HubSnapshotter` and
+    ``restore=True`` loads the newest snapshot before serving, the fence
+    armed in C++.  ``replica_of`` starts the hub as a standby of that
+    primary (the C++ feed thread, promotion on feed loss or a first
+    commit); an ``R`` hello from a peer attaches it to this hub's own feed
+    as a primary."""
 
     def __init__(self, weights: Sequence[np.ndarray], mode: int = MODE_DELTA,
                  num_workers: int = 1, port: int = 0, elastic: bool = False,
                  idle_timeout: Optional[float] = 300.0,
-                 snapshot_dir: Optional[str] = None, restore: bool = False,
+                 snapshot_dir: Optional[str] = None, snapshot_interval: float = 30.0,
+                 snapshot_keep: int = 3, restore: bool = False,
                  shard_id: Optional[int] = None,
                  replica_of: Optional[Tuple[str, int]] = None,
+                 replica_feed_retries: int = 3, replica_feed_backoff: float = 0.2,
                  sparse_leaves: Sequence[int] = (), adaptive: bool = False,
                  shm_dir: Optional[str] = None, recv_batch_depth: int = 0):
-        _reject(elastic=(elastic, False), snapshot_dir=(snapshot_dir, None),
-                restore=(restore, False), replica_of=(replica_of, None),
-                sparse_leaves=(tuple(sparse_leaves), ()), adaptive=(adaptive, False))
+        _reject(sparse_leaves=(tuple(sparse_leaves), ()), adaptive=(adaptive, False))
+        if restore and snapshot_dir is None:
+            raise ValueError("restore=True requires snapshot_dir")
         lib = load()
         self._lib = lib
         self._templates = [np.array(w, dtype=np.float32) for w in weights]
@@ -184,11 +217,28 @@ class NativeParameterServer:
         no_sparse_dim = (ctypes.c_int64 * 1)(0)
         idle_ms = 0 if idle_timeout is None else max(1, int(idle_timeout * 1000))
         self._handle = lib.dk_ps_create(int(port), len(self._templates), sizes, int(mode),
-                                        int(num_workers), 0, idle_ms, 0, no_sparse_idx,
-                                        no_sparse_dim, 0,
+                                        int(num_workers), 1 if elastic else 0, idle_ms, 0,
+                                        no_sparse_idx, no_sparse_dim, 0,
                                         int(net.max_request_payload(self._templates)))
         if not self._handle:
             raise RuntimeError("dk_ps_create failed")
+        self.elastic = bool(elastic)
+        self.replica_of = (None if replica_of is None
+                           else (str(replica_of[0]), int(replica_of[1])))
+        if self.replica_of is not None:
+            host = self.replica_of[0]
+            if host in ("", "0.0.0.0"):
+                host = "127.0.0.1"
+            # the C++ dialer takes numeric addresses: resolve a name here,
+            # loudly, rather than run a standby that never syncs
+            try:
+                host = socket.gethostbyname(host)
+            except OSError as e:
+                raise ValueError(f"replica_of host {self.replica_of[0]!r} does not "
+                                 f"resolve: {e}") from e
+            lib.dk_ps_set_replica_of(self._handle, host.encode("utf-8"),
+                                     int(self.replica_of[1]), int(replica_feed_retries),
+                                     max(1, int(float(replica_feed_backoff) * 1000)))
         flat = (np.concatenate([t.reshape(-1) for t in self._templates])
                 if self._templates else np.zeros(0, np.float32))
         self._total = int(flat.size)
@@ -201,18 +251,97 @@ class NativeParameterServer:
         self.recv_batch_depth = max(0, int(recv_batch_depth))
         self.port = -1
         self._started = False
+        self._restore = bool(restore)
+        self.snapshotter = None
+        if snapshot_dir is not None:
+            from distkeras_torch.runtime.parameter_server import HubSnapshotter
+
+            self.snapshotter = HubSnapshotter(self, snapshot_dir, interval=snapshot_interval,
+                                              keep=snapshot_keep)
 
     def start(self) -> None:
+        if self._restore and self.snapshotter is not None:
+            # the Python hub's rule: snapshots present but unreadable stop
+            # the hub; an empty directory is a first boot
+            if not self.snapshotter.restore_latest():
+                if self.snapshotter.checkpointer.all_steps():
+                    raise RuntimeError(
+                        f"restore requested: snapshots exist in "
+                        f"{self.snapshotter.checkpointer.directory} but none is readable "
+                        f"(see warnings)")
+                warnings.warn("restore requested but no snapshot exists yet; "
+                              "serving initial weights")
         port = self._lib.dk_ps_start(self._handle)
         if port < 0:
             raise RuntimeError("native hub failed to bind")
         self.port = port
         self._started = True
+        if self.snapshotter is not None:
+            self.snapshotter.start()
 
     def stop(self) -> None:
+        """Stop serving, with a final snapshot when ``snapshot_dir`` is set."""
+        self._shutdown(final_snapshot=True)
+
+    def kill(self) -> None:
+        """Tear down as a crash would: no final snapshot."""
+        self._shutdown(final_snapshot=False)
+
+    def _shutdown(self, final_snapshot: bool) -> None:
         if self._started:
+            if self.snapshotter is not None:
+                self.snapshotter.stop(final_snapshot=final_snapshot)
             self._lib.dk_ps_stop(self._handle)
             self._started = False
+
+    # -- hot standby ---------------------------------------------------------------
+    def is_standby(self) -> bool:
+        """True while the hub tracks its primary and has not been promoted."""
+        return bool(self._lib.dk_ps_is_standby(self._handle))
+
+    @property
+    def promoted(self) -> bool:
+        return bool(self._lib.dk_ps_promoted(self._handle))
+
+    @property
+    def promoted_at_clock(self) -> Optional[int]:
+        v = int(self._lib.dk_ps_promoted_at_clock(self._handle))
+        return None if v < 0 else v
+
+    def wait_synced(self, timeout: Optional[float] = None) -> bool:
+        """Block until the standby applied its first full sync (True) or
+        ``timeout`` passed (False)."""
+        ms = -1 if timeout is None else max(0, int(timeout * 1000))
+        return bool(self._lib.dk_ps_wait_synced(self._handle, ms))
+
+    def promote(self, reason: str = "manual") -> bool:
+        """Make the standby the primary (fence at its clock); idempotent,
+        True if this call promoted."""
+        performed = bool(self._lib.dk_ps_promote(self._handle))
+        if performed:
+            warnings.warn(f"native replica hub promoting to primary at clock "
+                          f"{self.promoted_at_clock}: {reason}")
+        return performed
+
+    # -- durability -----------------------------------------------------------------
+    def snapshot_state(self) -> Tuple[List[np.ndarray], Dict[str, Any]]:
+        """``(center copy, state)`` in one view taken under the C++ hub's gate."""
+        flat = np.empty(self._total, np.float32)
+        clock = int(self._lib.dk_ps_snapshot(self._handle, _f32p(flat)))
+        return self._split(flat, copy=True), {"clock": clock,
+                                              "num_updates": int(self.num_updates)}
+
+    def restore_state(self, center: Sequence[np.ndarray], state: Dict[str, Any]) -> None:
+        """Load a snapshot; the C++ hub resumes its clock and arms the fence."""
+        if len(center) != len(self._templates):
+            raise ValueError(f"snapshot has {len(center)} tensors, center has "
+                             f"{len(self._templates)}")
+        parts = [np.ascontiguousarray(c, np.float32).reshape(-1) for c in center]
+        flat = np.concatenate(parts) if parts else np.zeros(0, np.float32)
+        if flat.size != self._total:
+            raise ValueError(f"snapshot has {flat.size} values, center has {self._total}")
+        self._lib.dk_ps_restore(self._handle, _f32p(flat), int(state.get("clock", 0)),
+                                int(state.get("num_updates", 0)))
 
     def _split(self, flat: np.ndarray, copy: bool) -> List[np.ndarray]:
         out, off = [], 0
@@ -229,6 +358,9 @@ class NativeParameterServer:
 
     def pull_direct(self) -> Tuple[List[np.ndarray], int]:
         """(center copy, clock at the copy), as the Python hub's."""
+        if self.is_standby() and not self._lib.dk_ps_wait_synced(self._handle, 0):
+            raise RuntimeError("pull_direct from a never-synced standby refused (it holds "
+                               "no job state yet); wait_synced() first")
         flat = np.empty(self._total, np.float32)
         clock = int(self._lib.dk_ps_pull(self._handle, _f32p(flat)))
         return self._split(flat, copy=False), clock
@@ -245,6 +377,12 @@ class NativeParameterServer:
             parts.append(a)
         flat = np.concatenate(parts) if parts else np.zeros(0, np.float32)
         rc = int(self._lib.dk_ps_commit(self._handle, _f32p(flat), int(last_pull_clock)))
+        if rc == 1:
+            raise RuntimeError("commit_direct into a never-synced standby refused (it has no "
+                               "state to take over); wait_synced() first")
+        if rc == 2:
+            raise net.ProtocolError("commit into a standby refused (not promoted yet; "
+                                    "verifying the primary — retry)")
         if rc != 0:
             raise RuntimeError(f"the native hub refused a commit (code {rc})")
 

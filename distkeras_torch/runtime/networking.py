@@ -5,8 +5,10 @@ the wire: a worker of either package talks to a hub of either package.
 Here are the dense pull/commit plane, the shared-memory rings of the
 action-``Z`` attach (:class:`ShmFrameRing`, :class:`ShmEndpoint`, one file
 layout with the JAX module and the C++ hub) and the hub's batched receive
-(:class:`BatchedReceiver`); the JAX module's replication, sparse,
-reconnect, admission and health frames are ROADMAP items 8b and 13.
+(:class:`BatchedReceiver`) and the hub-to-hub replication feed (action
+``R``, :func:`encode_repl_hello`); the JAX module's sparse frames are
+ROADMAP item 13, its reconnect, admission, trace and health frames item
+8b's part 2.
 
 Wire format (all integers big-endian):
 
@@ -20,8 +22,10 @@ are one JSON object as the payload (:func:`send_json` / :func:`recv_json`).
 Actions: ``P`` pull request, ``C`` commit, ``Q`` int8-compressed commit,
 ``B`` bye, ``W`` weights reply, ``A`` ack, ``H`` heartbeat ping (the hub
 acks it), ``Z`` the shared-memory attach handshake (request, offer or
-decline, confirm; see :func:`encode_shm_request`).  Dtype and shape travel out of band: both ends hold the model's
-weight list as templates.
+decline, confirm; see :func:`encode_shm_request`), ``R`` the
+replication feed (a standby's hello, then the primary's full sync and one
+delta a commit).  Dtype and shape travel out of band: both ends hold the
+model's weight list as templates.
 
 Two implementations move tensor frames with the same bytes: the generic
 path (:func:`encode_tensors` / :func:`decode_tensors`) and the flat path
@@ -64,6 +68,21 @@ ACTION_PING = b"H"
 # TCP, after which both ends move the very next frame onto the rings
 ACTION_SHM = b"Z"
 SHM_VERSION = 1  # bumped only if the ring layout changes incompatibly
+# the hub-to-hub replication feed: a standby announces itself to its
+# primary with an R hello (one header blob); the primary answers on the
+# same connection with one R full sync (header + the whole center at one
+# clock), then streams one R delta (header + the scaled applied delta) per
+# commit, each sent before the committing worker's ack leaves
+ACTION_REPL = b"R"
+# R header kinds (blob 0: 9 bytes big-endian, u64 clock and u8 kind)
+REPL_DELTA = 0   # primary -> standby: blobs[1:] are the scaled applied delta
+REPL_SYNC = 1    # primary -> standby: blobs[1:] are the whole center at clock
+REPL_HELLO = 2   # standby -> primary: no tensor blobs; clock is the standby's
+# the row-sparse delta kind and the hello capability bit that asks for it:
+# a standby of the port announces capability 0, so a primary of either
+# package streams it dense deltas only (sparse tables are ROADMAP item 13)
+REPL_SPARSE = 3
+REPL_CAP_SPARSE = 1
 # receive-bound allowance of the control frames a hub of the JAX package
 # accepts: kept so both packages' hubs bound a request by the same number
 CONTROL_PAYLOAD_MAX = 64 * 1024
@@ -289,6 +308,43 @@ def max_request_payload(templates: Sequence[np.ndarray]) -> int:
     arrays = [np.asarray(t) for t in templates]
     dense = 5 + sum(8 + max(w.nbytes, 4 + w.size) for w in arrays)
     return max(dense, CONTROL_PAYLOAD_MAX)
+
+
+def encode_repl_header(clock: int, kind: int) -> np.ndarray:
+    """The 9-byte ``R`` header blob (u64 clock, u8 kind) as uint8."""
+    return np.frombuffer(struct.pack(">QB", int(clock), int(kind)), np.uint8)
+
+
+def decode_repl_header(blob) -> Tuple[int, int]:
+    """``(clock, kind)`` of an ``R`` header blob."""
+    raw = bytes(memoryview(blob))[:9]
+    if len(raw) != 9:
+        raise ProtocolError(f"R header blob has {len(raw)} bytes, want 9")
+    clock, kind = struct.unpack(">QB", raw)
+    return int(clock), int(kind)
+
+
+def encode_repl_hello(clock: int, capabilities: int = 0) -> bytes:
+    """A standby's hello payload: an ``R`` frame of one header blob, its
+    clock riding along; nonzero ``capabilities`` adds a tenth byte."""
+    hdr = encode_repl_header(clock, REPL_HELLO)
+    if capabilities:
+        hdr = np.concatenate([hdr, np.frombuffer(struct.pack(">B", int(capabilities)),
+                                                 np.uint8)])
+    return encode_tensors(ACTION_REPL, [hdr])
+
+
+def decode_repl_caps(blob) -> int:
+    """Capability bits of a hello header blob (0 for a 9-byte hello)."""
+    raw = bytes(memoryview(blob))
+    return raw[9] if len(raw) >= 10 else 0
+
+
+def repl_frame_templates(center: Sequence[np.ndarray]) -> List[np.ndarray]:
+    """The schema of an ``R`` sync or delta frame over ``center`` (the
+    header blob, then one float32 tensor a leaf), for the
+    :class:`FlatFrameCodec` at both ends of a feed."""
+    return [np.zeros(9, np.uint8)] + [np.zeros(c.shape, np.float32) for c in center]
 
 
 def tensor_frame_len(templates: Sequence[np.ndarray]) -> int:

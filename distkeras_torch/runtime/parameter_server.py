@@ -2,53 +2,69 @@
 
 Counterpart of the core of ``distkeras_tpu/runtime/parameter_server.py``,
 speaking its wire protocol (``runtime/networking.py``) byte for byte, so a
-worker of either package trains against a hub of either package.  The
-center is a flat list of float32 numpy arrays in the JAX package's weight
-order and Flax layouts (``distkeras_torch.utils.flatten_weights``); its
-apply arithmetic is the JAX hub's numpy arithmetic, so both hubs move the
-center to the same bits.
+worker of either package trains against a hub of either package, and a
+standby of either package tracks a primary of either package.  The center
+is a flat list of float32 numpy arrays in the JAX package's weight order
+and Flax layouts (``distkeras_torch.utils.flatten_weights``); its apply
+arithmetic is the JAX hub's numpy arithmetic, so both hubs move the center
+to the same bits.
 
 - :class:`SocketParameterServer`: one handler thread per connection, one
   lock around the center; actions ``P`` / ``C`` / ``Q`` / ``H`` / ``B`` /
-  ``Z``.  Each connection keeps the clock of its last pull, the staleness
-  DynSGD scales by.  ``pull_direct`` / ``commit_direct`` run the same
-  center logic without a socket (``transport="inproc"``).  With
+  ``Z`` / ``R``.  Each connection keeps the clock of its last pull, the
+  staleness DynSGD scales by.  ``pull_direct`` / ``commit_direct`` run the
+  same center logic without a socket (``transport="inproc"``).  With
   ``shm_dir`` the hub offers a client that asks (action ``Z``) a pair of
   shared-memory rings that carry the connection's frames from then on;
   with ``recv_batch_depth`` a connection's frames are parsed out of one
   buffer that a blocking receive and nonblocking drains fill.
+- Survival: ``snapshot_dir`` snapshots the center and clock every
+  ``snapshot_interval`` seconds (:class:`HubSnapshotter`, the JAX
+  package's checkpoint format) and ``restore=True`` resumes from the
+  newest readable one behind a clock fence; ``replica_of`` starts the hub
+  as a hot standby that tracks a primary over the ``R`` feed
+  (:class:`ReplicationFeed` on the primary) and promotes itself when the
+  primary dies; ``kill()`` tears the hub down as a crash would.
 - :class:`DeltaParameterServer` (``center += d``), :class:`ADAGParameterServer`
-  (``d / num_workers``), :class:`DynSGDParameterServer` (``d / (staleness + 1)``).
+  (``d / num_workers``, or over the live workers with ``elastic=True``),
+  :class:`DynSGDParameterServer` (``d / (staleness + 1)``).
 - :class:`PSClient`: the pipelined worker connection (prefetched pulls
   into two landing buffers, commit acks coalesced into later receives, at
   most ``max_inflight`` unacknowledged commits, int8 ``Q`` commits with
-  error feedback).  With ``pin_memory=True`` its landing buffers and its
-  commit staging are numpy views of pinned host memory, so a pull lands
-  by ``recv_into`` where the card's copy engine reads it.  With
-  ``shm=True`` it asks the hub for the ring pair; ``transport`` says what
-  it rides, ``"tcp"`` or ``"shm"``.
+  error feedback).  With ``max_reconnects`` it reconnects across a fault
+  (backoff with jitter, an ordered ``failover`` list of standbys), with
+  ``heartbeat_interval`` it pings an idle connection.  With
+  ``pin_memory=True`` its landing buffers and its commit staging are
+  numpy views of pinned host memory, so a pull lands by ``recv_into``
+  where the card's copy engine reads it.  With ``shm=True`` it asks the
+  hub for the ring pair; ``transport`` says what it rides, ``"tcp"`` or
+  ``"shm"``.
 - :class:`InprocPSClient`: the same surface over a co-located hub.
 - The sharded plane: :func:`shard_plan` partitions the center's leaves over
   N hubs (LPT over a canonical leaf order, the JAX package's plan),
   :class:`ShardedParameterServer` runs one hub per shard behind one
-  facade, and :class:`ShardedPSClient` stripes every pull and commit over
-  one :class:`PSClient` per shard.  A stripe that dies raises
-  :class:`StripeLostError`, naming the shard.
+  facade (with coordinated snapshot sets, :class:`SnapshotSetCoordinator`),
+  and :class:`ShardedPSClient` stripes every pull and commit over one
+  :class:`PSClient` per shard, each reconnecting and failing over on its
+  own.  A stripe whose budget is spent raises :class:`StripeLostError`,
+  naming the shard.
 
 Not ported, each raising ``NotImplementedError`` that names its ROADMAP
-item: failover and replication, reconnects and heartbeats, elastic
-membership, adaptive aggregation, jobs, hub snapshots and snapshot sets
-(item 8b), sparse tables (item 13), and the hubs' telemetry (item 15).
+item: adaptive aggregation, jobs and trace contexts (item 8b, part 2),
+sparse tables (item 13), and the hubs' telemetry (item 15).
 """
 
 from __future__ import annotations
 
+import contextlib
 import heapq
 import os
 import queue
+import random
 import socket
 import threading
 import time
+import warnings
 from collections import deque
 from typing import Any, Callable, Deque, Dict, List, Optional, Sequence, Tuple
 
@@ -56,12 +72,11 @@ import numpy as np
 
 from distkeras_torch.runtime import networking as net
 
-# the ROADMAP item of every option that is not ported, by keyword; the
-# rest are item 8b (the asynchronous path's HA, elastic and restart half)
+# the ROADMAP item of every option that is not ported, by keyword
 _ITEMS = {"sparse_leaves": "13", "sparse_cache_rows": "13", "sparse_tables": "13"}
 
 
-def not_ported(what: str, item: str = "8b") -> NotImplementedError:
+def not_ported(what: str, item: str = "8b part 2") -> NotImplementedError:
     """The error every unported option of the asynchronous path raises."""
     return NotImplementedError(f"{what} is not ported to distkeras_torch yet "
                                f"(ROADMAP item {item})")
@@ -72,7 +87,7 @@ def _reject(**options) -> None:
     (the options are passed as ``name=(value, default)``)."""
     for name, (value, default) in options.items():
         if value != default:
-            raise not_ported(f"{name}={value!r}", _ITEMS.get(name, "8b"))
+            raise not_ported(f"{name}={value!r}", _ITEMS.get(name, "8b part 2"))
 
 
 def host_buffer(shape, dtype=np.float32, pin_memory: bool = False) -> np.ndarray:
@@ -86,6 +101,172 @@ def host_buffer(shape, dtype=np.float32, pin_memory: bool = False) -> np.ndarray
     return torch.empty(tuple(shape), dtype=tdtype, pin_memory=True).numpy()
 
 
+class HubSnapshotter:
+    """Periodic durability for a hub: every ``interval`` seconds (and once
+    at ``stop``) the hub's state (center, commit clock, update count, the
+    algorithm's extras) is written through
+    :class:`distkeras_torch.checkpoint.Checkpointer`, the JAX package's
+    on-disk format, so a snapshot of either package's hub restores in the
+    other's.  A save is atomic (a temporary directory renamed when
+    complete), so a hub killed mid-save leaves the previous snapshot.  A
+    restarted hub calls :meth:`restore_latest` before serving.  Works with
+    any hub that has ``snapshot_state()`` / ``restore_state()``: the Python
+    hubs and the C++ hub's binding."""
+
+    def __init__(self, hub: Any, directory: str, interval: float = 30.0, keep: int = 3):
+        from distkeras_torch.checkpoint import Checkpointer
+
+        self.hub = hub
+        self.interval = float(interval)
+        self.checkpointer = Checkpointer(directory, keep=keep)
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        # serializes the periodic loop, the final save and a restore's
+        # step advance
+        self._save_lock = threading.Lock()
+        self._next_step = (self.checkpointer.latest_step() or 0) + 1
+
+    def restore_latest(self) -> bool:
+        """Load the newest readable snapshot into the hub; True if one was
+        restored.  An unreadable one is skipped with a warning, falling
+        back to the next older."""
+        templates = self.hub.get_weights()
+        for step in reversed(self.checkpointer.all_steps()):
+            try:
+                trees = self.checkpointer.restore({"center": templates}, step=step)
+                meta = self.checkpointer.metadata(step=step).get("metadata", {})
+            except Exception as e:
+                warnings.warn(f"skipping unreadable PS snapshot step {step}: "
+                              f"{type(e).__name__}: {e}")
+                continue
+            self.hub.restore_state(trees["center"], meta)
+            with self._save_lock:
+                self._next_step = max(self._next_step, step + 1)
+            return True
+        return False
+
+    def save_now(self) -> None:
+        with self._save_lock:
+            center, state = self.hub.snapshot_state()
+            self.checkpointer.save(self._next_step, {"center": center},
+                                   metadata={"kind": "ps-hub-snapshot", **state})
+            self._next_step += 1
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.interval):
+            try:
+                self.save_now()
+            except Exception as e:  # a full disk must not kill the hub
+                warnings.warn(f"PS snapshot failed: {type(e).__name__}: {e}")
+
+    def start(self) -> None:
+        self._stop.clear()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def stop(self, final_snapshot: bool = True) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+            self._thread = None
+        if final_snapshot:
+            try:
+                self.save_now()
+            except Exception as e:
+                warnings.warn(f"final PS snapshot failed: {type(e).__name__}: {e}")
+
+
+class ReplicationFeed:
+    """The primary's side of a hot standby: every applied commit (the
+    scaled delta and its commit clock) goes out as an ``R`` delta frame to
+    each attached standby before the committing worker's ack leaves.  A
+    commit a worker saw acknowledged is therefore already in the kernel's
+    send queue toward the standby, which the kernel flushes even when the
+    primary process is killed right after: no acknowledged commit is lost
+    when a standby takes over.
+
+    Made on the first standby's hello, so a hub that nobody replicates
+    pays one attribute read a commit.  :meth:`attach` registers the
+    standby, then full-syncs it (center and clock in one ``R`` frame,
+    packed under the hub lock), all under the feed lock: deltas at or
+    below the sync clock are skipped for that standby, later ones all
+    flow.  The sync clock never moves after the attach (concurrent
+    handlers publish out of clock order, and adds commute).  A standby
+    that stops reading stalls commits at most ``REPLICA_SEND_TIMEOUT``
+    seconds, then is dropped with a warning.  Every standby gets the dense
+    stream (the port's hubs hold no sparse tables)."""
+
+    REPLICA_SEND_TIMEOUT = 30.0
+
+    def __init__(self, hub: "SocketParameterServer"):
+        self.hub = hub
+        self._lock = threading.Lock()  # serializes attach and publish
+        self._conns: List[List[Any]] = []  # [socket, ordinal, sync clock]
+        self._codec = net.FlatFrameCodec(net.repl_frame_templates(hub.center))
+
+    def active(self) -> bool:
+        # read without the lock on purpose: publish checks again under it
+        return bool(self._conns)
+
+    def attach(self, conn: socket.socket, conn_idx: int) -> None:
+        """Register a standby's connection, then full-sync it.  A commit
+        applied after the registration publishes (and waits on the feed
+        lock until the sync is out); one applied before it is in the
+        sync: nothing falls between."""
+        conn.settimeout(self.REPLICA_SEND_TIMEOUT)
+        with self._lock:
+            entry: List[Any] = [conn, conn_idx, -1]
+            self._conns.append(entry)
+            try:
+                with self.hub._lock:
+                    clock = self.hub._clock
+                    self._codec.pack(net.ACTION_REPL,
+                                     [net.encode_repl_header(clock, net.REPL_SYNC)]
+                                     + list(self.hub.center))
+                self._codec.send_packed(conn)
+            except BaseException:
+                self._conns.remove(entry)
+                raise
+            entry[2] = clock
+
+    def publish(self, clock: int, scaled: Sequence[np.ndarray]) -> None:
+        """Stream one applied commit to every attached standby; returns once
+        the frame is written everywhere (the caller acks after)."""
+        with self._lock:
+            if not self._conns:
+                return
+            packed = False
+            dead = []
+            for entry in self._conns:
+                conn, _, sync_clock = entry
+                if sync_clock >= clock:
+                    continue  # the standby's full sync already holds it
+                try:
+                    if not packed:
+                        self._codec.pack(net.ACTION_REPL,
+                                         [net.encode_repl_header(clock, net.REPL_DELTA)]
+                                         + list(scaled))
+                        packed = True
+                    self._codec.send_packed(conn)
+                except (OSError, ValueError) as e:
+                    dead.append((entry, e))
+            for entry, e in dead:
+                self._detach_locked(entry, e)
+
+    def _detach_locked(self, entry: List[Any], cause: BaseException) -> None:
+        conn, conn_idx = entry[0], entry[1]
+        self._conns.remove(entry)
+        warnings.warn(f"replica connection {conn_idx} dropped from the replication feed: "
+                      f"{type(cause).__name__}: {cause}")
+        try:
+            conn.close()
+        except OSError:
+            pass
+        with self.hub._conn_lock:
+            if conn in self.hub._conns:
+                self.hub._conns.remove(conn)
+
+
 class SocketParameterServer:
     """Hub and spokes: a listener, one handler thread per worker
     connection, one lock around the center variable.
@@ -96,23 +277,41 @@ class SocketParameterServer:
     once it has mapped them (``None`` declines every request).
     ``recv_batch_depth > 0`` receives through a
     :class:`~distkeras_torch.runtime.networking.BatchedReceiver` of that
-    many frames."""
+    many frames.
+
+    Durability: ``snapshot_dir`` writes a snapshot every
+    ``snapshot_interval`` seconds (``snapshot_keep`` kept) and once at
+    ``stop()``, none at ``kill()``; ``restore=True`` loads the newest
+    readable one before the hub binds, and arms the clock fence there: a
+    pull clock of an earlier incarnation is raised to the restore point
+    before it counts as staleness.
+
+    Hot standby: ``replica_of=(host, port)`` starts the hub tracking that
+    primary over the ``R`` feed.  It serves pulls once synced, refuses
+    everything before; it promotes itself (fence armed at its clock) when
+    the feed stays lost past ``replica_feed_retries`` reconnects
+    (exponential backoff from ``replica_feed_backoff``), or on the first
+    commit that arrives while the feed is down.  A commit that arrives
+    while the feed is up is refused, and the feed is cut once as a probe
+    of the primary, so one stray worker cannot split the brain."""
 
     def __init__(self, weights: Sequence[np.ndarray], host: str = "0.0.0.0", port: int = 0,
                  idle_timeout: Optional[float] = 300.0,
-                 snapshot_dir: Optional[str] = None, restore: bool = False,
+                 snapshot_dir: Optional[str] = None, snapshot_interval: float = 30.0,
+                 snapshot_keep: int = 3, restore: bool = False,
                  shard_id: Optional[int] = None,
                  replica_of: Optional[Tuple[str, int]] = None,
+                 replica_feed_retries: int = 3, replica_feed_backoff: float = 0.2,
                  sparse_leaves: Sequence[int] = (), adaptive: bool = False,
                  shm_dir: Optional[str] = None, recv_batch_depth: int = 0):
-        _reject(snapshot_dir=(snapshot_dir, None), restore=(restore, False),
-                replica_of=(replica_of, None), sparse_leaves=(tuple(sparse_leaves), ()),
-                adaptive=(adaptive, False))
+        _reject(sparse_leaves=(tuple(sparse_leaves), ()), adaptive=(adaptive, False))
         self.center: List[np.ndarray] = [np.array(w, dtype=np.float32) for w in weights]
         self.host = host
         self.port = int(port)
         self.num_updates = 0
         self._clock = 0  # commits applied: DynSGD's global clock
+        # the restore/promotion fence: pull clocks below it are raised to it
+        self._clock_fence = 0
         self._lock = threading.Lock()
         self._listener: Optional[socket.socket] = None
         self._accept_thread: Optional[threading.Thread] = None
@@ -135,9 +334,43 @@ class SocketParameterServer:
         self._members: Dict[int, float] = {}
         self._member_lock = threading.Lock()
         self._member_seq = 0
+        # primary side of the hot standby: made on the first R hello
+        self._feed: Optional[ReplicationFeed] = None
+        self._feed_lock = threading.Lock()
+        # standby side
+        self.replica_of = (None if replica_of is None
+                           else (str(replica_of[0]), int(replica_of[1])))
+        self.replica_feed_retries = int(replica_feed_retries)
+        self.replica_feed_backoff = float(replica_feed_backoff)
+        self._standby = self.replica_of is not None
+        self.promoted = False
+        # the clock at promotion: what the no-acknowledged-loss bound is
+        # checked against (later commits inflate num_updates)
+        self.promoted_at_clock: Optional[int] = None
+        self._synced = threading.Event()  # set by the first applied sync
+        self._replica_stop = threading.Event()
+        self._replica_thread: Optional[threading.Thread] = None
+        self._replica_sock: Optional[socket.socket] = None
+        self.snapshotter: Optional[HubSnapshotter] = None
+        self._restore = bool(restore)
+        if restore and snapshot_dir is None:
+            raise ValueError("restore=True requires snapshot_dir")
+        if snapshot_dir is not None:
+            self.snapshotter = HubSnapshotter(self, snapshot_dir, interval=snapshot_interval,
+                                              keep=snapshot_keep)
 
     # -- lifecycle -----------------------------------------------------------
     def start(self) -> None:
+        if self._restore and self.snapshotter is not None:
+            # before binding: the first pull must see the restored center
+            if not self.snapshotter.restore_latest():
+                if self.snapshotter.checkpointer.all_steps():
+                    raise RuntimeError(
+                        f"restore requested: snapshots exist in "
+                        f"{self.snapshotter.checkpointer.directory} but none is readable "
+                        f"(see warnings)")
+                warnings.warn("restore requested but no snapshot exists yet; "
+                              "serving initial weights")
         if self.shm_dir is not None:
             os.makedirs(self.shm_dir, exist_ok=True)
         listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
@@ -153,9 +386,35 @@ class SocketParameterServer:
         self._running = True
         self._accept_thread = threading.Thread(target=self._accept_loop, daemon=True)
         self._accept_thread.start()
+        if self.replica_of is not None:
+            self._replica_stop.clear()
+            self._replica_thread = threading.Thread(target=self._replica_loop, daemon=True)
+            self._replica_thread.start()
+        if self.snapshotter is not None:
+            self.snapshotter.start()
 
     def stop(self) -> None:
+        """Stop serving, with a final snapshot when ``snapshot_dir`` is set."""
+        self._shutdown(final_snapshot=True)
+
+    def kill(self) -> None:
+        """Tear down as a crash would: every connection severed, no final
+        snapshot (recovery comes from the last periodic one)."""
+        self._shutdown(final_snapshot=False)
+
+    def _shutdown(self, final_snapshot: bool) -> None:
         self._running = False
+        # stop tracking the primary before severing anything: a teardown
+        # must never race the feed thread into a promotion
+        self._replica_stop.set()
+        sock = self._replica_sock
+        if sock is not None:
+            try:
+                sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+        if self.snapshotter is not None:
+            self.snapshotter.stop(final_snapshot=final_snapshot)
         if self._listener is not None:
             try:
                 # shutdown wakes a thread blocked in accept(); close alone does not
@@ -176,6 +435,9 @@ class SocketParameterServer:
                     pass
         if self._accept_thread is not None:
             self._accept_thread.join(timeout=5)
+        if self._replica_thread is not None:
+            self._replica_thread.join(timeout=5)
+            self._replica_thread = None
         for t in self._handlers:
             t.join(timeout=5)
 
@@ -208,6 +470,177 @@ class SocketParameterServer:
             self._handlers = [h for h in self._handlers if h.is_alive()]
             self._handlers.append(t)
 
+    # -- durability: snapshots and the clock fence -----------------------------
+    def snapshot_state(self) -> Tuple[List[np.ndarray], Dict[str, Any]]:
+        """``(center copy, state)`` in one view; the state is JSON-typed
+        (it rides the snapshot's metadata)."""
+        with self._lock:
+            return self._snapshot_state_locked()
+
+    def _snapshot_state_locked(self) -> Tuple[List[np.ndarray], Dict[str, Any]]:
+        """:meth:`snapshot_state` with the center lock held by the caller
+        (the coordinated snapshot holds every shard's lock at once)."""
+        state = {"clock": int(self._clock), "num_updates": int(self.num_updates)}
+        state.update(self._algo_state())
+        return [w.copy() for w in self.center], state
+
+    def _algo_state(self) -> Dict[str, Any]:
+        """The algorithm's state kept beside the center (under the lock)."""
+        return {}
+
+    def restore_state(self, center: Sequence[np.ndarray], state: Dict[str, Any]) -> None:
+        """Load a snapshot in place, resume its clock and arm the fence there."""
+        if len(center) != len(self.center):
+            raise ValueError(f"snapshot has {len(center)} tensors, center has "
+                             f"{len(self.center)}")
+        with self._lock:
+            for c, w in zip(self.center, center):
+                c[...] = np.asarray(w, np.float32).reshape(c.shape)
+            self._clock = int(state.get("clock", 0))
+            self._clock_fence = self._clock
+            self.num_updates = int(state.get("num_updates", 0))
+
+    # -- hot standby ---------------------------------------------------------------
+    def is_standby(self) -> bool:
+        """True while the hub tracks a primary and has not been promoted."""
+        return self._standby
+
+    def _standby_commit_gate(self) -> None:
+        """The split-brain guard.  With the feed connected, a commit is
+        refused and the feed cut as a probe: a live primary resyncs and the
+        hub stays standby, a silently dead one fails the feed's reconnects
+        and the hub promotes within its budget.  With the feed already down
+        the primary is presumed dead and the caller promotes at once."""
+        sock = self._replica_sock
+        if sock is None:
+            return
+        try:
+            sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        raise net.ProtocolError("commit into a standby refused (not promoted yet; verifying "
+                                "the primary — retry)")
+
+    def wait_synced(self, timeout: Optional[float] = None) -> bool:
+        """Block until the standby applied its first full sync (True) or
+        ``timeout`` passed (False).  A commit into an unsynced standby
+        would promote it over its seed weights."""
+        return self._synced.wait(timeout)
+
+    def promote(self, reason: str = "manual") -> bool:
+        """Make the standby the primary: arm the clock fence at its current
+        clock and stop applying feed frames.  Idempotent; True if this call
+        promoted."""
+        with self._lock:
+            if not self._standby or self.promoted:
+                return False
+            self.promoted = True
+            self._standby = False
+            self._clock_fence = self._clock
+            clock = self._clock
+            self.promoted_at_clock = clock
+        warnings.warn(f"replica hub promoting to primary at clock {clock}: {reason}")
+        self._replica_stop.set()
+        sock = self._replica_sock
+        if sock is not None:
+            try:
+                sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+        return True
+
+    def _apply_repl_frame(self, clock: int, kind: int, blobs) -> None:
+        """Apply one ``R`` sync or delta frame under the center lock (a
+        late frame after the promotion never lands)."""
+        with self._lock:
+            if self.promoted:
+                return
+            if kind not in (net.REPL_SYNC, net.REPL_DELTA):
+                raise net.ProtocolError(f"unknown replication kind {kind}")
+            if len(blobs) != len(self.center):
+                raise net.ProtocolError(f"replication frame has {len(blobs)} blobs, center "
+                                        f"has {len(self.center)}")
+            for c, b in zip(self.center, blobs):
+                arr = np.frombuffer(b, np.float32)
+                if arr.size != c.size:
+                    raise net.ProtocolError(f"replication blob of {arr.size} values does not "
+                                            f"match its leaf ({c.size})")
+                if kind == net.REPL_SYNC:
+                    c[...] = arr.reshape(c.shape)
+                else:
+                    c += arr.reshape(c.shape)
+            if kind == net.REPL_SYNC:
+                self._clock = clock
+                self.num_updates = clock
+                self._synced.set()
+            else:
+                self._clock = max(self._clock, clock)
+                self.num_updates += 1
+
+    def _replica_loop(self) -> None:
+        """Track the primary: connect, send the hello, apply the full sync
+        and every delta.  On feed loss retry ``replica_feed_retries`` times
+        with exponential backoff, then promote.  A standby that never
+        synced has nothing to take over: it keeps retrying and warns once."""
+        host, port = self.replica_of
+        codec = net.FlatFrameCodec(net.repl_frame_templates(self.center))
+        hdr = np.empty(9, np.uint8)
+        bufs = [np.empty(c.shape, np.float32) for c in self.center]
+        failures = 0
+        warned_unsynced = False
+        while not self._replica_stop.is_set():
+            try:
+                # a short connect timeout bounds how long a stopping
+                # standby's thread can sit inside connect()
+                sock = net.connect(host, port, timeout=5.0, payload_hint=codec.frame_len)
+                # no receive timeout: the feed is silent between commits,
+                # and a dead primary still shows as EOF or a reset
+                sock.settimeout(None)
+            except OSError:
+                sock = None
+            if sock is not None and self._replica_stop.is_set():
+                try:
+                    sock.close()  # teardown during connect: no hello
+                except OSError:
+                    pass
+                return
+            if sock is not None:
+                self._replica_sock = sock
+                try:
+                    net.send_frame(sock, net.encode_repl_hello(self._clock))
+                    while not self._replica_stop.is_set():
+                        action = codec.recv_into(sock, [hdr] + bufs)
+                        if action != net.ACTION_REPL:
+                            raise net.ProtocolError(f"replica feed expected R, got {action!r}")
+                        clock, kind = net.decode_repl_header(hdr)
+                        self._apply_repl_frame(clock, kind, bufs)
+                        if self.promoted:
+                            return
+                        failures = 0  # a live stream resets the loss budget
+                except (OSError, ValueError, ConnectionError):
+                    pass  # feed lost, or the teardown cut it
+                finally:
+                    self._replica_sock = None
+                    try:
+                        sock.close()
+                    except OSError:
+                        pass
+            if self._replica_stop.is_set() or self.promoted:
+                return
+            failures += 1
+            if failures > self.replica_feed_retries:
+                if self._synced.is_set():
+                    self.promote(reason=f"primary {host}:{port} lost ({failures - 1} "
+                                        f"reconnect attempts exhausted)")
+                    return
+                if not warned_unsynced:
+                    warnings.warn(f"replica feed to {host}:{port} failing before any sync "
+                                  f"arrived; retrying until the primary appears (a "
+                                  f"never-synced standby does not promote)")
+                    warned_unsynced = True
+                failures = self.replica_feed_retries  # cap the backoff
+            self._replica_stop.wait(self.replica_feed_backoff * (2.0 ** (failures - 1)))
+
     # -- commits -------------------------------------------------------------
     def _decode_delta(self, blobs) -> List[np.ndarray]:
         """f32 commit: views into the connection's receive buffer, applied
@@ -229,18 +662,47 @@ class SocketParameterServer:
         return [net.dequantize_q_blob(blob, c.size).reshape(c.shape)
                 for blob, c in zip(blobs, self.center)]
 
-    def _commit_one(self, delta: Sequence[np.ndarray], last_pull_clock: int) -> int:
-        """Apply one commit under the center lock; returns its staleness
-        (commits applied since the committer's last pull)."""
+    def _commit_one(self, delta: Sequence[np.ndarray], last_pull_clock: int) -> Tuple[int, int]:
+        """Apply one commit: the fence raises the pull clock, the center
+        moves under the lock, and the scaled delta goes to the standbys
+        before the caller acks.  Returns ``(staleness, pull clock)``, the
+        clock as the fence left it."""
         with self._lock:
+            if last_pull_clock < self._clock_fence:
+                last_pull_clock = self._clock_fence
             staleness = self._clock - last_pull_clock
-            self.apply_commit(list(delta), staleness)
+            scaled = self._apply_commit_locked(list(delta), staleness)
             self.num_updates += 1
             self._clock += 1
-        return staleness
+            commit_clock = self._clock
+        if scaled is not None:
+            self._feed.publish(commit_clock, scaled)
+        return staleness, last_pull_clock
+
+    def _apply_commit_locked(self, delta: List[np.ndarray],
+                             staleness: int) -> Optional[List[np.ndarray]]:
+        """Apply one commit (the caller holds the lock) and return the
+        scaled arrays for the feed, or None with no standby attached.
+        ``x * float32(1.0)`` is exact, so a replicated primary's center
+        moves as an unreplicated one's does."""
+        feed = self._feed
+        if feed is None or not feed.active():
+            self.apply_commit(delta, staleness)
+            return None
+        scale = np.float32(self.commit_scale(staleness))
+        # owned copies: socket deltas are views of the receive buffer
+        scaled = [np.asarray(d, np.float32) * scale for d in delta]
+        for c, s in zip(self.center, scaled):
+            c += s
+        return scaled
 
     def apply_commit(self, delta: List[np.ndarray], staleness: int) -> None:  # pragma: no cover
         """Add one commit to the center (the caller holds the center lock)."""
+        raise NotImplementedError
+
+    def commit_scale(self, staleness: int) -> float:  # pragma: no cover
+        """The factor a commit is multiplied by before it is added; the
+        replication path uses it, and it agrees with :meth:`apply_commit`."""
         raise NotImplementedError
 
     # -- live workers ------------------------------------------------------------
@@ -268,7 +730,9 @@ class SocketParameterServer:
 
     # -- the socket path -----------------------------------------------------
     def _handle_connection(self, conn: socket.socket) -> None:
-        last_pull_clock = 0  # this connection's clock at its last pull
+        # a connection born after a restore or a promotion starts at the fence
+        with self._lock:
+            last_pull_clock = self._clock_fence
         rx = bytearray(self._frame_bytes)
         reply = net.FlatFrameCodec(self.center)
         ack = net.empty_tensor_frame(net.ACTION_ACK)
@@ -278,6 +742,8 @@ class SocketParameterServer:
             token = self._member_seq
             self._member_seq += 1
         joined = False
+        # set when the peer is a standby: the feed owns the socket from then on
+        handoff = False
         if self.idle_timeout is not None:
             conn.settimeout(self.idle_timeout)
 
@@ -295,6 +761,10 @@ class SocketParameterServer:
                 self._member_touch(token)
                 action, blobs = net.decode_tensor_views(payload)
                 if action == net.ACTION_PULL:
+                    if self._standby and not self._synced.is_set():
+                        # seed weights are never served as the job's state
+                        raise net.ProtocolError("pull from a never-synced standby refused "
+                                                "(it holds no job state yet)")
                     with self._lock:
                         # pack under the lock, send after it: a slow peer
                         # cannot hold the center
@@ -304,11 +774,38 @@ class SocketParameterServer:
                 elif action in (net.ACTION_COMMIT, net.ACTION_QCOMMIT):
                     delta = (self._decode_delta(blobs) if action == net.ACTION_COMMIT
                              else self._decode_qdelta(blobs))
-                    self._commit_one(delta, last_pull_clock)
+                    if self._standby:
+                        if not self._synced.is_set():
+                            raise net.ProtocolError("commit into a never-synced standby "
+                                                    "refused (it has no state to take over)")
+                        self._standby_commit_gate()
+                        # the feed is down too: promote before this
+                        # commit's staleness is computed
+                        self.promote(reason="commit received while standby (worker "
+                                            "failed over)")
                     if not joined:
+                        # the first commit makes the peer a worker: the
+                        # elastic denominator counts it from this commit on
                         self._member_join(token)
                         joined = True
+                    _, last_pull_clock = self._commit_one(delta, last_pull_clock)
                     net.send_raw_frame(conn, ack)
+                elif action == net.ACTION_REPL:
+                    # a standby's hello: attach it to the feed (full sync,
+                    # then the delta stream) and hand the socket over
+                    _, kind = net.decode_repl_header(blobs[0])
+                    if kind != net.REPL_HELLO:
+                        raise net.ProtocolError(f"unexpected replication kind {kind} from a "
+                                                f"peer (only hello initiates a feed)")
+                    if receiver is not None and receiver.pending():
+                        raise net.ProtocolError("frames batched past a replication hello")
+                    with self._feed_lock:
+                        if self._feed is None:
+                            self._feed = ReplicationFeed(self)
+                        feed = self._feed
+                    feed.attach(conn, token)
+                    handoff = True
+                    return
                 elif action == net.ACTION_SHM:
                     # next_frame reads conn and receiver from this scope
                     conn, attached = self._shm_attach(conn, blobs, next_frame, receiver)
@@ -324,14 +821,14 @@ class SocketParameterServer:
             pass  # the worker vanished mid-exchange: drop it
         finally:
             self._member_leave(token)
-            try:
-                conn.close()
-            except OSError:
-                pass
-            with self._conn_lock:
-                if conn in self._conns:
-                    self._conns.remove(conn)
-
+            if not handoff:
+                try:
+                    conn.close()
+                except OSError:
+                    pass
+                with self._conn_lock:
+                    if conn in self._conns:
+                        self._conns.remove(conn)
     def _shm_attach(self, conn, blobs, next_frame, receiver) -> Tuple[Any, bool]:
         """The hub's side of the ``Z`` handshake, all within one dispatch
         so the switch point is exact: offer two fresh ring files (or
@@ -388,10 +885,14 @@ class SocketParameterServer:
             endpoint.settimeout(self.idle_timeout)
         return endpoint, True
 
+
     # -- the in-process path (transport="inproc") ----------------------------
     def pull_direct(self) -> Tuple[List[np.ndarray], int]:
         """(center copy, clock at the copy); the clock comes back with the
         matching commit, as a connection's state does on the wire."""
+        if self._standby and not self._synced.is_set():
+            raise RuntimeError("pull_direct from a never-synced standby refused (it holds "
+                               "no job state yet); wait_synced() first")
         with self._lock:
             return [w.copy() for w in self.center], self._clock
 
@@ -402,6 +903,12 @@ class SocketParameterServer:
             if np.asarray(d).size != c.size:
                 raise ValueError(f"commit tensor size {np.asarray(d).size} != "
                                  f"center size {c.size}")
+        if self._standby:
+            if not self._synced.is_set():
+                raise RuntimeError("commit_direct into a never-synced standby refused (it "
+                                   "has no state to take over); wait_synced() first")
+            self._standby_commit_gate()
+            self.promote(reason="commit_direct while standby")
         arrays = [np.asarray(d, np.float32).reshape(c.shape) for d, c in zip(delta, self.center)]
         self._commit_one(arrays, last_pull_clock)
 
@@ -414,20 +921,32 @@ class DeltaParameterServer(SocketParameterServer):
         for c, d in zip(self.center, delta):
             c += d
 
+    def commit_scale(self, staleness: int) -> float:
+        return 1.0
+
 
 class ADAGParameterServer(SocketParameterServer):
-    """``center += delta / num_workers`` over the configured worker count
-    (live membership, ``elastic=True``, is ROADMAP item 8b)."""
+    """``center += delta / num_workers``.  With ``elastic=True`` the
+    denominator is the live worker count (joined at a first commit, gone at
+    a disconnect or an idle lapse), at most ``num_workers``: a dead worker
+    stops diluting the survivors.  With no live member (commits through
+    ``commit_direct``, which has no connection) it is ``num_workers``."""
 
     def __init__(self, weights: Sequence[np.ndarray], num_workers: int,
                  elastic: bool = False, **kwargs):
-        _reject(elastic=(elastic, False))
         super().__init__(weights, **kwargs)
         self.num_workers = int(num_workers)
-        self.elastic = False
+        self.elastic = bool(elastic)
+
+    def _algo_state(self) -> Dict[str, Any]:
+        return {"num_workers": self.num_workers, "elastic": self.elastic}
 
     def commit_scale(self, staleness: int) -> float:
-        return 1.0 / self.num_workers
+        n = self.num_workers
+        if self.elastic:
+            live = self.live_workers()
+            n = min(live, self.num_workers) if live >= 1 else self.num_workers
+        return 1.0 / n
 
     def apply_commit(self, delta: List[np.ndarray], staleness: int) -> None:
         inv = self.commit_scale(staleness)
@@ -445,6 +964,20 @@ class DynSGDParameterServer(SocketParameterServer):
         inv = self.commit_scale(staleness)
         for c, d in zip(self.center, delta):
             c += d * inv
+
+
+def _normalize_failover(entry) -> List[Tuple[str, int]]:
+    """One shard's failover entry (None, a ``(host, port)`` pair or a list
+    of pairs) as a list of pairs; a bare string is a caller's mistake."""
+    if entry is None:
+        return []
+    if isinstance(entry, (str, bytes)):
+        raise ValueError(f"failover entry {entry!r} is a bare string; "
+                         f"pass a (host, port) pair or a list of them")
+    entry = list(entry)
+    if entry and isinstance(entry[0], (str, bytes)):
+        return [(str(entry[0]), int(entry[1]))]
+    return [(str(h), int(p)) for h, p in entry]
 
 
 def _quantize_commit(delta: Sequence[np.ndarray], residual: List[np.ndarray],
@@ -489,17 +1022,41 @@ class PSClient:
     ``commit_nowait``: for float32 commits the slots of the prebuilt frame
     itself (no copy before the send), for int8 the quantizer's input.
 
+    Resilience, the JAX client's (``timeout`` is the socket timeout, so a
+    hub that stops answering shows as ``socket.timeout``): with
+    ``max_reconnects > 0`` a connection fault (reset, EOF, timeout, a
+    stream out of step) tears the connection down, waits (exponential
+    backoff from ``reconnect_backoff``, capped at
+    ``reconnect_backoff_max``, each wait drawn in ``[0.5, 1.0]`` of the
+    nominal), dials again and retries the operation.  Unacknowledged
+    commits are dropped, never replayed (async SGD tolerates a lost update
+    better than a doubled one); pulls in flight are sent again, so the
+    next ``wait_weights`` sees the (possibly restarted) hub's center.
+    ``max_reconnects`` is a budget for the client's lifetime.
+    ``failover`` lists standby addresses after the primary: a reconnect
+    retries the current address once, then walks the list, all within the
+    same budget (``reconnects_used``; ``failovers_used`` counts those that
+    landed on another address).  The constructor also walks the list, so a
+    worker started after a failover finds the promoted standby.
+    ``heartbeat_interval`` starts a thread that pings (action ``H``) a
+    connection idle that long with nothing in flight, so a slow worker
+    keeps its place under the hub's ``idle_timeout``.
+
     ``shm=True`` asks the hub for a pair of shared-memory rings right after
-    connecting (action ``Z``).  On an offer every later frame rides the
-    rings, the same bytes the socket would carry; on a decline the
-    connection stays TCP, and a hub that closes on the request is redialed
-    once over plain TCP.  ``transport`` is ``"shm"`` or ``"tcp"``.
-    ``shard_id`` names the shard of a striped client's connection.
+    connecting (action ``Z``), again after each reconnect.  On an offer
+    every later frame rides the rings, the same bytes the socket would
+    carry; on a decline the connection stays TCP, and a hub that closes on
+    the request is redialed once over plain TCP.  ``transport`` is
+    ``"shm"`` or ``"tcp"``.  ``shard_id`` names the shard of a striped
+    client's connection.
     """
+
+    _RETRYABLE = (ConnectionError, OSError, net.ProtocolError)
 
     def __init__(self, host: str, port: int, templates: Sequence[np.ndarray],
                  timeout: Optional[float] = 60.0, compress: Optional[str] = None,
                  max_inflight: int = 2, max_reconnects: int = 0,
+                 reconnect_backoff: float = 0.1, reconnect_backoff_max: float = 5.0,
                  heartbeat_interval: Optional[float] = None,
                  trace_context: Optional[Any] = None, shard_id: Optional[int] = None,
                  failover: Sequence[Tuple[str, int]] = (), sparse_leaves: Sequence[int] = (),
@@ -509,10 +1066,7 @@ class PSClient:
                  landing_guard: Optional[Callable[[int], None]] = None):
         if compress not in (None, "int8"):
             raise ValueError(f"unknown compress {compress!r}; use None or 'int8'")
-        _reject(max_reconnects=(max_reconnects, 0),
-                heartbeat_interval=(heartbeat_interval, None),
-                trace_context=(trace_context, None),
-                failover=(tuple(failover or ()), ()),
+        _reject(trace_context=(trace_context, None),
                 sparse_leaves=(tuple(sparse_leaves), ()), adaptive=(adaptive, False),
                 sparse_cache_rows=(sparse_cache_rows, None), job=(job, None))
         self.templates = [np.asarray(t, dtype=np.float32) for t in templates]
@@ -542,20 +1096,61 @@ class PSClient:
         self._pending: Deque[bytes] = deque()   # expected replies, wire order
         self._ready: Deque[Tuple[List[np.ndarray], int]] = deque()
         self._pull_frame = net.empty_tensor_frame(net.ACTION_PULL)
+        self._ping_frame = net.empty_tensor_frame(net.ACTION_PING)
         self.host, self.port, self.timeout = host, int(port), timeout
         self.shard_id = None if shard_id is None else int(shard_id)
+        # the primary first, then each standby
+        self._addresses: List[Tuple[str, int]] = (
+            [(str(host), int(port))] + [(str(h), int(p)) for h, p in (failover or ())])
+        self._addr_idx = 0
+        self.max_reconnects = int(max_reconnects)
+        self.reconnect_backoff = float(reconnect_backoff)
+        self.reconnect_backoff_max = float(reconnect_backoff_max)
+        self.reconnects_used = 0
+        self.failovers_used = 0
+        # seeded from entropy on purpose: workers cut by one hub restart
+        # must not retry in step
+        self._jitter = random.Random()
+        self._closed = False
+        self._consuming = False  # the caller is inside a reply receive
+        # serializes sends and their _pending entries between the caller
+        # and the heartbeat thread; without a heartbeat a no-op
+        self._io_lock = (threading.Lock() if heartbeat_interval is not None
+                         else contextlib.nullcontext())
+        self._last_io = time.monotonic()
         self.shm = bool(shm)
         self.transport = "tcp"
-        self.sock = self._connect()
+        self.sock = self._connect_any()
         try:
             self._maybe_attach_shm()
         except BaseException:
             self.sock.close()
             raise
+        self.heartbeat_interval = None if heartbeat_interval is None else float(heartbeat_interval)
+        self._hb_stop = threading.Event()
+        self._hb_thread: Optional[threading.Thread] = None
+        if self.heartbeat_interval is not None:
+            self._hb_thread = threading.Thread(target=self._heartbeat_loop, daemon=True)
+            self._hb_thread.start()
 
-    def _connect(self) -> socket.socket:
-        return net.connect(self.host, self.port, timeout=self.timeout,
-                           payload_hint=self._codec.frame_len)
+    def _dial(self, host: str, port: int) -> socket.socket:
+        return net.connect(host, port, timeout=self.timeout, payload_hint=self._codec.frame_len)
+
+    def _connect_any(self) -> socket.socket:
+        """Dial the primary, then each failover address in order; raise the
+        primary's error when every one refuses."""
+        first_err: Optional[BaseException] = None
+        for i, (host, port) in enumerate(self._addresses):
+            try:
+                sock = self._dial(host, port)
+            except OSError as e:
+                if first_err is None:
+                    first_err = e
+                continue
+            self._addr_idx = i
+            self.host, self.port = host, port
+            return sock
+        raise first_err
 
     def _maybe_attach_shm(self) -> None:
         """The client's side of the ``Z`` handshake (``shm=True`` only):
@@ -564,6 +1159,7 @@ class PSClient:
         ShmEndpoint`.  A decline or a failed mapping (confirmed as an
         abort) leaves the connection on TCP; a hub that closes on the
         request is redialed once, no frame past the request having moved."""
+        self.transport = "tcp"
         if not self.shm:
             return
         try:
@@ -574,8 +1170,11 @@ class PSClient:
                 raise net.ProtocolError(f"expected Z reply to shm request, got {action!r}")
             offer = net.decode_shm_offer(blobs)
         except (ConnectionError, OSError, net.ProtocolError):
-            self.sock.close()
-            self.sock = self._connect()
+            try:
+                self.sock.close()
+            except OSError:
+                pass
+            self.sock = self._connect_any()
             return
         if offer is None:
             return  # declined: stay on TCP
@@ -597,6 +1196,99 @@ class PSClient:
         self.sock.settimeout(self.timeout)
         self.transport = "shm"
 
+    # -- resilience ------------------------------------------------------------
+    def _heartbeat_loop(self) -> None:
+        interval = self.heartbeat_interval
+        while not self._hb_stop.wait(interval / 4.0):
+            with self._io_lock:
+                if self._closed:
+                    return
+                # ping only an idle connection: a ping between a request
+                # and its reply would break the reply order
+                if (self._pending or self._consuming
+                        or time.monotonic() - self._last_io < interval):
+                    continue
+                try:
+                    # the whole round trip under the io lock, on its own
+                    # short timeout, so close() or a reconnect never waits
+                    # a data-plane timeout behind a ping
+                    ping_timeout = max(1.0, interval)
+                    if self.timeout is not None:
+                        ping_timeout = min(ping_timeout, self.timeout)
+                    self.sock.settimeout(ping_timeout)
+                    try:
+                        self.sock.sendall(self._ping_frame)
+                        net.recv_action(self.sock)
+                    finally:
+                        self.sock.settimeout(self.timeout)
+                    self._last_io = time.monotonic()
+                except (OSError, ValueError):
+                    # a late ack would be read as the caller's reply: close
+                    # the connection, so the caller's next operation fails
+                    # cleanly (and reconnects when it has a budget)
+                    try:
+                        self.sock.close()
+                    except OSError:
+                        pass
+
+    def _resilient(self, op):
+        """Run ``op``, reconnecting across a connection fault within the
+        budget; with ``max_reconnects=0`` the fault propagates untouched."""
+        while True:
+            try:
+                return op()
+            except self._RETRYABLE as e:
+                if self._closed or self.max_reconnects <= 0:
+                    raise
+                self._reconnect(e)
+
+    def _reconnect(self, cause: BaseException) -> None:
+        """Drop the connection, back off, dial again (rotating through the
+        addresses), attach the rings again when asked to, and send the
+        pulls that were in flight once more.  Raises ``ConnectionError``
+        from ``cause`` when the budget is spent."""
+        addr_at_fault = (self.host, self.port)
+        # the heartbeat must neither ping the socket being replaced nor
+        # close the new one: the whole swap holds the io lock
+        with self._io_lock:
+            lost_pulls = sum(1 for kind in self._pending if kind == net.ACTION_WEIGHTS)
+            self._pending.clear()
+            try:
+                self.sock.close()
+            except OSError:
+                pass
+            while True:
+                if self.reconnects_used >= self.max_reconnects:
+                    raise ConnectionError(
+                        f"PS connection to {self.host}:{self.port} lost and the reconnect "
+                        f"budget ({self.max_reconnects}) is exhausted"
+                        + (f" across {len(self._addresses)} failover addresses"
+                           if len(self._addresses) > 1 else "")) from cause
+                self.reconnects_used += 1
+                nominal = min(self.reconnect_backoff * (2.0 ** (self.reconnects_used - 1)),
+                              self.reconnect_backoff_max)
+                time.sleep(nominal * (0.5 + 0.5 * self._jitter.random()))
+                # the current address gets one retry, then the list is walked
+                host, port = self._addresses[self._addr_idx]
+                try:
+                    self.sock = self._dial(host, port)
+                    self.host, self.port = host, port
+                    self._maybe_attach_shm()
+                    # the pulls in flight go out again inside the attempt:
+                    # a hub dying here costs another attempt, not the caller
+                    for _ in range(lost_pulls):
+                        self.sock.sendall(self._pull_frame)
+                        self._pending.append(net.ACTION_WEIGHTS)
+                    self._last_io = time.monotonic()
+                    break
+                except (OSError, net.ProtocolError):
+                    self._pending.clear()
+                    self._addr_idx = (self._addr_idx + 1) % len(self._addresses)
+        if (self.host, self.port) != addr_at_fault:
+            self.failovers_used += 1
+            warnings.warn(f"PS client failed over from {addr_at_fault[0]}:{addr_at_fault[1]} "
+                          f"to {self.host}:{self.port}")
+
     def commit_staging(self) -> List[np.ndarray]:
         """Template-shaped float32 arrays to write the next commit into."""
         return self._staging
@@ -604,57 +1296,93 @@ class PSClient:
     # -- pipelined API ---------------------------------------------------------
     def pull_nowait(self) -> None:
         """Send a pull request; :meth:`wait_weights` consumes its reply."""
-        outstanding = sum(1 for kind in self._pending if kind == net.ACTION_WEIGHTS) \
-            + len(self._ready)
+        with self._io_lock:
+            outstanding = (sum(1 for kind in self._pending if kind == net.ACTION_WEIGHTS)
+                           + len(self._ready))
         if outstanding >= 2:
             raise RuntimeError("at most 2 pulls may be outstanding (two landing "
                                "buffers); claim one with wait_weights() first")
-        net.send_raw_frame(self.sock, self._pull_frame)
-        self._pending.append(net.ACTION_WEIGHTS)
+        self._resilient(self._pull_nowait_once)
+
+    def _pull_nowait_once(self) -> None:
+        with self._io_lock:
+            net.send_raw_frame(self.sock, self._pull_frame)
+            self._pending.append(net.ACTION_WEIGHTS)
+            self._last_io = time.monotonic()
 
     def commit_nowait(self, delta: Sequence[np.ndarray]) -> None:
         """Send a commit without waiting for its ack.  Blocks only while
         ``max_inflight`` commits are unacknowledged."""
+        self._resilient(lambda: self._commit_nowait_once(delta))
+
+    def _commit_nowait_once(self, delta: Sequence[np.ndarray]) -> None:
         # claim any weights reply in flight first: two large sendall's in
         # opposite directions can fill both kernel buffers and stall
-        while net.ACTION_WEIGHTS in self._pending:
+        while self._has_pending(net.ACTION_WEIGHTS):
             self._consume_one()
         while self._unacked() >= self.max_inflight:
             self._consume_one()
         if self.compress == "int8":
+            # a retry after a fault quantizes the same delta again: the
+            # residual carries only rounding error, so the delta lands once
             codec, action = self._q_codec, net.ACTION_QCOMMIT
             arrays = _quantize_commit(delta, self._residual, out=self._q_codec.slots)
         else:
             codec, action = self._codec, net.ACTION_COMMIT
             arrays = [np.asarray(d, np.float32) for d in delta]
         codec.pack(action, arrays)
-        codec.send_packed(self.sock)
-        self._pending.append(net.ACTION_ACK)
+        with self._io_lock:
+            codec.send_packed(self.sock)
+            self._pending.append(net.ACTION_ACK)
+            self._last_io = time.monotonic()
 
     def wait_weights(self) -> List[np.ndarray]:
         """Hand out the oldest pull in flight, consuming the replies ahead
         of it."""
-        while not self._ready:
-            if not self._pending:
-                raise RuntimeError("wait_weights() with no pull in flight")
-            self._consume_one()
+        self._resilient(self._fill_ready_once)
         out, self.last_landing = self._ready.popleft()
         return out
+
+    def _fill_ready_once(self) -> None:
+        while not self._ready:
+            if not self._pending:
+                # a caller's mistake, not a connection fault: no retry
+                raise RuntimeError("wait_weights() with no pull in flight")
+            self._consume_one()
 
     def drain(self) -> None:
         """Consume every outstanding reply: trailing acks, and a prefetched
         pull that will go unused."""
-        while self._pending:
-            self._consume_one()
+        self._resilient(self._drain_once)
         self._ready.clear()
 
+    def _drain_once(self) -> None:
+        while self._pending:
+            self._consume_one()
+
+    def _has_pending(self, kind: bytes) -> bool:
+        with self._io_lock:
+            return kind in self._pending
+
     def _unacked(self) -> int:
-        return sum(1 for kind in self._pending if kind == net.ACTION_ACK)
+        with self._io_lock:
+            return sum(1 for kind in self._pending if kind == net.ACTION_ACK)
 
     def _consume_one(self) -> None:
+        # marked busy under the io lock: a ping in flight finishes first,
+        # and none starts until the receive is done
+        with self._io_lock:
+            self._consuming = True
+        try:
+            self._consume_one_inner()
+        finally:
+            self._consuming = False
+
+    def _consume_one_inner(self) -> None:
         kind = self._pending.popleft()
         if kind == net.ACTION_ACK:
             reply = net.recv_action(self.sock)
+            self._last_io = time.monotonic()
             if reply != net.ACTION_ACK:
                 raise ConnectionError(f"expected ack, got {reply!r}")
             return
@@ -668,9 +1396,12 @@ class PSClient:
             if reply != net.ACTION_WEIGHTS:
                 raise ConnectionError(f"expected weights reply, got {reply!r}")
         except Exception:
+            # the receive died mid-weights: the entry goes back, so a
+            # reconnect counts this pull as lost and sends it again
             self._flip ^= 1
             self._pending.appendleft(kind)
             raise
+        self._last_io = time.monotonic()
         self._ready.append((out, k))
 
     # -- blocking API ----------------------------------------------------------
@@ -683,23 +1414,29 @@ class PSClient:
         self.drain()
 
     def close(self) -> None:
-        try:
-            net.send_raw_frame(self.sock, net.empty_tensor_frame(net.ACTION_BYE))
-        except OSError:
-            pass
-        finally:
+        self._hb_stop.set()
+        # BYE and close under the io lock: a ping owns the socket for its
+        # bounded round trip
+        with self._io_lock:
+            self._closed = True
             try:
-                self.sock.close()
+                net.send_raw_frame(self.sock, net.empty_tensor_frame(net.ACTION_BYE))
             except OSError:
                 pass
+            finally:
+                try:
+                    self.sock.close()
+                except OSError:
+                    pass
+        if self._hb_thread is not None:
+            self._hb_thread.join(timeout=5)
+            self._hb_thread = None
 
     def __enter__(self) -> "PSClient":
         return self
 
     def __exit__(self, *exc) -> None:
         self.close()
-
-
 class InprocPSClient:
     """:class:`PSClient`'s surface over a co-located hub
     (``transport="inproc"``): ``pull_direct`` / ``commit_direct`` under the
@@ -771,13 +1508,15 @@ class InprocPSClient:
         self.close()
 
 
+
+
 # -- the sharded hub: the center striped over N hubs ------------------------------
 
 
 class StripeLostError(ConnectionError):
     """One stripe of a sharded deployment is gone: the connection to the
-    shard named here failed mid fan-out (the port's clients never
-    reconnect, ROADMAP item 8b).  A ``ConnectionError``, so every handler
+    shard named here failed mid fan-out and spent its reconnect and
+    failover budget (or had none).  A ``ConnectionError``, so every handler
     of one still catches it."""
 
     def __init__(self, shard_index: int, host: str, port: int, cause: BaseException):
@@ -935,6 +1674,140 @@ def shard_plan(templates: Sequence[np.ndarray], num_shards: int,
     return ShardPlan(num_shards, assignments, shard_bytes, sparse_ranges=sparse_ranges)
 
 
+class SnapshotSetCoordinator:
+    """Consistent snapshot sets for a sharded hub in one process.  Each
+    tick holds every shard's center lock at once (no commit path holds two,
+    so there is no ordering cycle) and reads every shard's state inside
+    that barrier: the N snapshots are one causal cut.  C++ shard hubs lock
+    inside C++, so their cut is only as tight as the read loop; the
+    recorded clock vector still shows a torn set.
+
+    Every shard's snapshot, under ``directory/shard-NN``, carries the same
+    step, one ``snapshot_set`` id and the whole ``set_clocks`` vector.
+    :meth:`restore_latest_set` restores only a step that is present,
+    readable, of one set and clock-consistent on every shard, falls back
+    to the newest complete set when the newest is torn, and raises when
+    sets exist but none passes.  Retention is by set: a doomed step goes
+    from every shard's directory, oldest first."""
+
+    def __init__(self, hubs: Sequence[Any], directory: str, interval: float = 30.0,
+                 keep: int = 3):
+        from distkeras_torch.checkpoint import Checkpointer
+
+        self.hubs = list(hubs)
+        self.directory = directory
+        self.interval = float(interval)
+        self.keep = int(keep)
+        self.checkpointers = [Checkpointer(os.path.join(directory, f"shard-{sid:02d}"), keep=keep)
+                              for sid in range(len(self.hubs))]
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._save_lock = threading.Lock()
+        self._next_step = 1 + max((cp.latest_step() or 0) for cp in self.checkpointers)
+
+    def _cut(self) -> List[Tuple[List[np.ndarray], Dict[str, Any]]]:
+        locks = [getattr(hub, "_lock", None) for hub in self.hubs]
+        if all(lk is not None for lk in locks):
+            with contextlib.ExitStack() as stack:
+                for lk in locks:
+                    stack.enter_context(lk)
+                return [hub._snapshot_state_locked() for hub in self.hubs]
+        return [hub.snapshot_state() for hub in self.hubs]
+
+    def save_set(self) -> None:
+        """Write one set (every shard, one step, one cut), then prune."""
+        with self._save_lock:
+            step = self._next_step
+            set_id = f"set-{step:010d}-{random.getrandbits(32):08x}"
+            states = self._cut()
+            clocks = [int(state["clock"]) for _, state in states]
+            for sid, (cp, (center, state)) in enumerate(zip(self.checkpointers, states)):
+                cp.save(step, {"center": center},
+                        metadata={"kind": "ps-hub-snapshot", **state, "snapshot_set": set_id,
+                                  "set_clocks": clocks, "shard_id": sid,
+                                  "num_shards": len(self.hubs)},
+                        apply_retention=False)
+            self._next_step = step + 1
+            self._prune(step)
+
+    def _prune(self, latest_step: int) -> None:
+        doomed = sorted({s for cp in self.checkpointers for s in cp.all_steps()
+                         if s <= latest_step - self.keep})
+        for step in doomed:
+            for cp in self.checkpointers:
+                cp.delete_step(step)
+
+    def restore_latest_set(self) -> bool:
+        """Restore the newest complete, clock-consistent set (each shard arms
+        its fence through ``restore_state``).  False on an empty directory;
+        raises when sets exist but none is whole."""
+        per_shard = [set(cp.all_steps()) for cp in self.checkpointers]
+        if not any(per_shard):
+            return False
+        for step in sorted(set().union(*per_shard), reverse=True):
+            if not all(step in steps for steps in per_shard):
+                missing = [sid for sid, steps in enumerate(per_shard) if step not in steps]
+                warnings.warn(f"snapshot step {step} missing on shard(s) {missing}: torn set, "
+                              f"falling back older")
+                continue
+            try:
+                metas = [cp.metadata(step=step)["metadata"] for cp in self.checkpointers]
+                set_ids = {m.get("snapshot_set") for m in metas}
+                if set_ids == {None}:
+                    # per-shard snapshots written without a coordinator:
+                    # restorable (each shard's fence keeps clocks safe), but
+                    # the cut is not one
+                    warnings.warn(f"snapshot step {step} predates coordinated sets (no "
+                                  f"snapshot_set id): restoring per-shard snapshots whose "
+                                  f"center may be torn by up to one snapshot interval across "
+                                  f"shards")
+                elif len(set_ids) != 1 or None in set_ids:
+                    raise ValueError(f"mismatched snapshot_set ids {sorted(map(str, set_ids))}")
+                else:
+                    for sid, m in enumerate(metas):
+                        vec = m.get("set_clocks")
+                        if vec is None or int(m.get("clock", -1)) != int(vec[sid]):
+                            raise ValueError(f"shard {sid} clock {m.get('clock')} does not "
+                                             f"match the set's recorded vector {vec}")
+                trees = [cp.restore({"center": hub.get_weights()}, step=step)
+                         for cp, hub in zip(self.checkpointers, self.hubs)]
+            except Exception as e:
+                warnings.warn(f"skipping torn/unreadable snapshot set at step {step}: "
+                              f"{type(e).__name__}: {e}")
+                continue
+            for hub, tree, m in zip(self.hubs, trees, metas):
+                hub.restore_state(tree["center"], m)
+            with self._save_lock:
+                self._next_step = max(self._next_step, step + 1)
+            return True
+        raise RuntimeError(f"restore requested: snapshot sets exist under {self.directory} "
+                           f"but none is complete and clock-consistent across all "
+                           f"{len(self.hubs)} shards (see warnings)")
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.interval):
+            try:
+                self.save_set()
+            except Exception as e:  # a full disk must not kill the hubs
+                warnings.warn(f"coordinated PS snapshot failed: {type(e).__name__}: {e}")
+
+    def start(self) -> None:
+        self._stop.clear()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def stop(self, final_snapshot: bool = True) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+            self._thread = None
+        if final_snapshot:
+            try:
+                self.save_set()
+            except Exception as e:
+                warnings.warn(f"final coordinated PS snapshot failed: {type(e).__name__}: {e}")
+
+
 class _ShardWorkerPool:
     """One long-lived thread per shard hub: a striped in-process pull or
     commit runs one closure per shard on its shard's thread and joins, so
@@ -1015,15 +1888,19 @@ class ShardedParameterServer:
     is broadcast to every shard), so :class:`InprocPSClient` works against
     the facade unchanged; with ``parallel_direct`` the stripes run on one
     thread per shard.  :meth:`live_workers` is the minimum over the shards.
-    Coordinated snapshot sets (``snapshot_dir``, ``restore``) are ROADMAP
-    item 8b."""
+
+    ``snapshot_dir`` makes the facade own durability: a
+    :class:`SnapshotSetCoordinator` writes one set a ``snapshot_interval``
+    (one causal cut over every shard) and ``restore=True`` loads the newest
+    complete set before any shard binds.  (A hub factory that gives each
+    shard its own ``snapshot_dir`` gets independent per-shard snapshots
+    instead; do not configure both.)  :meth:`kill` is the crash teardown."""
 
     def __init__(self, weights: Sequence[np.ndarray], plan: ShardPlan,
                  hub_factory: Callable[[List[np.ndarray], int], Any],
                  snapshot_dir: Optional[str] = None, snapshot_interval: float = 30.0,
                  snapshot_keep: int = 3, restore: bool = False,
                  parallel_direct: bool = True):
-        _reject(snapshot_dir=(snapshot_dir, None), restore=(restore, False))
         if plan.num_leaves != len(weights):
             raise ValueError(f"plan covers {plan.num_leaves} leaves, model has {len(weights)}")
         self.plan = plan
@@ -1031,8 +1908,21 @@ class ShardedParameterServer:
                                   for sid, shard_weights in enumerate(plan.split(list(weights)))]
         self._pool = (_ShardWorkerPool(plan.num_shards)
                       if parallel_direct and plan.num_shards > 1 else None)
+        self.coordinator: Optional[SnapshotSetCoordinator] = None
+        self._restore = bool(restore)
+        if restore and snapshot_dir is None:
+            raise ValueError("restore=True requires snapshot_dir")
+        if snapshot_dir is not None:
+            self.coordinator = SnapshotSetCoordinator(self.shards, snapshot_dir,
+                                                      interval=snapshot_interval,
+                                                      keep=snapshot_keep)
 
     def start(self) -> None:
+        if self.coordinator is not None and self._restore:
+            # before any shard binds: the first striped pull sees the set
+            if not self.coordinator.restore_latest_set():
+                warnings.warn("restore requested but no snapshot set exists yet; serving "
+                              "initial weights")
         started = []
         try:
             for hub in self.shards:
@@ -1045,14 +1935,27 @@ class ShardedParameterServer:
                 except Exception:  # the bind failure is the error to raise
                     pass
             raise
+        if self.coordinator is not None:
+            self.coordinator.start()
         if self._pool is not None:
             self._pool.start()
 
     def stop(self) -> None:
         if self._pool is not None:
             self._pool.stop()
+        if self.coordinator is not None:
+            self.coordinator.stop(final_snapshot=True)
         for hub in self.shards:
             hub.stop()
+
+    def kill(self) -> None:
+        """Crash teardown of every shard: no final snapshot set."""
+        if self._pool is not None:
+            self._pool.stop()
+        if self.coordinator is not None:
+            self.coordinator.stop(final_snapshot=False)
+        for hub in self.shards:
+            hub.kill()
 
     @property
     def ports(self) -> List[int]:
@@ -1134,23 +2037,33 @@ class ShardedPSClient:
     flips its two landing buffers in step, so ``landing_guard(k)`` and
     ``last_landing`` mean what they mean on :class:`PSClient`.
 
-    A fault on a stripe raises :class:`StripeLostError` naming the shard;
-    the client is then out of step and single-use.  ``addresses`` holds one
-    ``(host, port)`` per shard, aligned with ``plan.assignments``."""
+    Reconnects, heartbeats and failover act per stripe: each shard's
+    client has its own budget and backoff, and ``failover`` holds one
+    entry per shard (None, a standby's ``(host, port)`` or a list of
+    them).  A stripe whose budget runs out (or that has none) raises
+    :class:`StripeLostError` naming the shard; the client is then out of
+    step and single-use.  ``addresses`` holds one ``(host, port)`` per
+    shard, aligned with ``plan.assignments``."""
 
     def __init__(self, addresses: Sequence[Tuple[str, int]], templates: Sequence[np.ndarray],
                  plan: ShardPlan, timeout: Optional[float] = 60.0,
                  compress: Optional[str] = None, max_inflight: int = 2,
-                 max_reconnects: int = 0, heartbeat_interval: Optional[float] = None,
+                 max_reconnects: int = 0, reconnect_backoff: float = 0.1,
+                 reconnect_backoff_max: float = 5.0,
+                 heartbeat_interval: Optional[float] = None,
                  trace_context: Optional[Any] = None,
                  failover: Optional[Sequence[Any]] = None, sparse_leaves: Sequence[int] = (),
                  adaptive: bool = False, sparse_cache_rows: Optional[int] = None,
                  shm: bool = False, pin_memory: bool = False,
                  landing_guard: Optional[Callable[[int], None]] = None):
-        _reject(failover=(failover, None), sparse_cache_rows=(sparse_cache_rows, None))
+        _reject(sparse_cache_rows=(sparse_cache_rows, None))
         if len(addresses) != plan.num_shards:
             raise ValueError(f"got {len(addresses)} shard addresses, plan has "
                              f"{plan.num_shards} shards")
+        if failover is not None and len(failover) != plan.num_shards:
+            raise ValueError(f"got {len(failover)} failover entries, plan has "
+                             f"{plan.num_shards} shards (pass None for shards without a "
+                             f"standby)")
         self.templates = [np.asarray(t, dtype=np.float32) for t in templates]
         if plan.num_leaves != len(self.templates):
             raise ValueError(f"plan covers {plan.num_leaves} leaves, model has "
@@ -1164,8 +2077,13 @@ class ShardedPSClient:
                 self.shards.append(PSClient(
                     host, port, local, timeout=timeout, compress=compress,
                     max_inflight=max_inflight, max_reconnects=max_reconnects,
+                    reconnect_backoff=reconnect_backoff,
+                    reconnect_backoff_max=reconnect_backoff_max,
                     heartbeat_interval=heartbeat_interval, trace_context=trace_context,
-                    shard_id=sid, sparse_leaves=sparse_leaves, adaptive=adaptive, shm=shm,
+                    shard_id=sid,
+                    failover=_normalize_failover(
+                        failover[sid] if failover is not None else None),
+                    sparse_leaves=sparse_leaves, adaptive=adaptive, shm=shm,
                     pin_memory=pin_memory, landing_guard=landing_guard))
         except BaseException:
             self.close()
@@ -1189,13 +2107,14 @@ class ShardedPSClient:
         return self._staging
 
     def _stripe(self, sid: int, op: Callable[[], Any]) -> Any:
-        """One shard client's op; a connection fault (a reset, a timeout, a
-        stream out of step) becomes :class:`StripeLostError`."""
+        """One shard client's op; a connection fault its client did not
+        recover from (a reset, a timeout, a stream out of step) becomes
+        :class:`StripeLostError`."""
         try:
             return op()
         except StripeLostError:
             raise
-        except (ConnectionError, OSError, net.ProtocolError) as e:
+        except PSClient._RETRYABLE as e:
             client = self.shards[sid]
             raise StripeLostError(sid, client.host, client.port, e) from e
 
@@ -1217,6 +2136,14 @@ class ShardedPSClient:
         for sid, client in enumerate(self.shards):
             self._stripe(sid, client.drain)
 
+    @property
+    def reconnects_used(self) -> int:
+        return sum(c.reconnects_used for c in self.shards)
+
+    @property
+    def failovers_used(self) -> int:
+        return sum(c.failovers_used for c in self.shards)
+
     def pull(self) -> List[np.ndarray]:
         self.pull_nowait()
         return self.wait_weights()
@@ -1227,7 +2154,10 @@ class ShardedPSClient:
 
     def close(self) -> None:
         for client in self.shards:
-            client.close()
+            try:
+                client.close()
+            except OSError:
+                pass
 
     def __enter__(self) -> "ShardedPSClient":
         return self

@@ -10,8 +10,9 @@ worker's schedule is deterministic, so the hub sees one commit sequence.
 Then: a port worker against a JAX hub and a JAX worker against a port hub;
 int8 commits; the C++ hub; two workers that learn; worker threads that
 run at once committing what they commit one after the other; center
-snapshots; and every option that is not ported raising, naming its
-ROADMAP item (8b, or 13 for sparse tables).
+snapshots; the survival options (failover, a standby hub, reconnects,
+heartbeats, elastic ADAG, restarts) working; and every option that is not
+ported raising, naming its ROADMAP item (8b, or 13 for sparse tables).
 """
 
 import sys
@@ -331,10 +332,8 @@ def test_native_build_failure_raises_with_compiler_output(tmp_path, monkeypatch,
 
 
 UNPORTED = {
-    "ps_failover": ("127.0.0.1", 1), "replica_of": ("127.0.0.1", 1), "max_reconnects": 3,
-    "heartbeat_interval": 1.0, "elastic": True, "trace_context": "job",
-    "health_interval_s": 1.0, "sparse_tables": "auto", "sparse_cache_rows": 8,
-    "adaptive": True, "autoscale": True, "on_worker_failure": "restart", "job": "a",
+    "trace_context": "job", "health_interval_s": 1.0, "sparse_tables": "auto",
+    "sparse_cache_rows": 8, "adaptive": True, "autoscale": True, "job": "a",
 }
 
 
@@ -347,6 +346,55 @@ def test_unported_options_raise(option):
     item = "13" if option.startswith("sparse") else "8b"
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         ta.AsyncADAG(tm, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("option", ["ps_failover", "replica_of", "max_reconnects",
+                                    "heartbeat_interval", "elastic", "on_worker_failure"])
+def test_survival_options_work(option):
+    """The trainer options that once raised, each on a run of 2 workers:
+    the run ends with every commit applied and the option in force."""
+    cols = _data()
+    _, tm = _models("mlp")
+    kw = dict(device="cpu", num_workers=2, communication_window=2, batch_size=8)
+    hubs = []
+    if option in ("ps_failover", "replica_of", "max_reconnects"):
+        flat = [np.asarray(w) for w in jax.tree.leaves(_models("mlp")[0].params)]
+        primary = jps.ADAGParameterServer(flat, num_workers=2, idle_timeout=30.0)
+        primary.start()
+        hubs.append(primary)
+    try:
+        if option == "ps_failover":
+            import socket
+
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                dead = s.getsockname()[1]
+            kw.update(ps_address=("127.0.0.1", dead), ps_failover=("127.0.0.1", primary.port))
+        elif option == "replica_of":
+            kw.update(replica_of=("127.0.0.1", primary.port))
+        elif option == "max_reconnects":
+            kw.update(ps_address=("127.0.0.1", primary.port), max_reconnects=2)
+        elif option == "heartbeat_interval":
+            kw.update(heartbeat_interval=0.05)
+        elif option == "elastic":
+            kw.update(elastic=True)
+        else:
+            from distkeras_torch.runtime.faults import WorkerKillPlan
+
+            kw.update(on_worker_failure="restart", fault_hook=WorkerKillPlan([(1, 1)]).hook)
+        tr = ta.AsyncADAG(tm, **kw)
+        tr.train(TDataset(cols))
+        hub = tr.parameter_server if tr.parameter_server is not None else primary
+        restarts = 1 if option == "on_worker_failure" else 0
+        assert tr.worker_errors == [] and tr.worker_restarts == restarts
+        assert hub.num_updates == 2 * 3 + restarts
+        if option == "replica_of":
+            assert hub.promoted and hub.promoted_at_clock == 0
+        if option == "elastic":
+            assert hub.elastic
+    finally:
+        for hub in hubs:
+            hub.stop()
 
 
 @pytest.mark.parametrize("kw,match", [

@@ -72,9 +72,6 @@ def test_source_imports_nothing_of_jax(relpath):
 UNPORTED_NAMES = {
     "create_mesh": "11",
     "synthetic_ctr_dataset": "13",
-    "ChaosProxy": "8b", "Fault": "8b", "FaultPlan": "8b", "HubKillPlan": "8b",
-    "InjectedWorkerFault": "8b", "ShardedChaosProxy": "8b", "WorkerKillPlan": "8b",
-    "HubSnapshotter": "8b", "ReplicationFeed": "8b", "SnapshotSetCoordinator": "8b",
 }
 # names the port leaves out by design (ROADMAP Queue C says why)
 BY_DESIGN = {"pin_cpu_devices"}

@@ -3,8 +3,9 @@ against the JAX package's.
 
 ``process_shard`` gives the rows of the JAX ``Dataset.shard(n, i)``;
 ``initialize_multihost`` joins two Gloo processes on the CPU;
-``start_parameter_server`` raises the JAX function's validation errors and
-names the ROADMAP item of every option that is not ported; and the daemon,
+``start_parameter_server`` raises the JAX function's validation errors,
+serves its survival options (elastic, snapshots and restore, a standby)
+and names the ROADMAP item of every option that is not ported; and the daemon,
 in a subprocess, serves a model blob to a JAX worker, one shard per daemon
 to a port worker, and writes the center back with ``--save-final``.  Every
 subprocess and thread has a timeout.
@@ -147,13 +148,64 @@ def test_start_parameter_server_validation_equals_jax(case):
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("elastic", True, "8b"), ("snapshot_dir", "/nonexistent", "8b"), ("restore", True, "8b"),
-    ("replica_of", ("127.0.0.1", 1), "8b"), ("health_jsonl", "/nonexistent", "8b"),
-    ("sparse_tables", "auto", "13"), ("adaptive", True, "8b")])
+    ("health_jsonl", "/nonexistent", "8b"), ("sparse_tables", "auto", "13"),
+    ("adaptive", True, "8b")])
 def test_start_parameter_server_unported_options_name_their_items(option, value, item):
     _, tm = _models()
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         tl.start_parameter_server(tm, port=0, **{option: value})
+
+
+@pytest.mark.parametrize("option", ["elastic", "snapshot_dir", "restore", "replica_of"])
+def test_start_parameter_server_survival_options(option, tmp_path):
+    """The options that once raised, on the port's hub as on the JAX
+    function's: the same hub flavour with the same state."""
+    jm, tm = _models()
+    snap = str(tmp_path / "snaps")
+    delta = [np.full(w.shape, 0.5, np.float32) for w in jax.tree.leaves(jm.params)]
+    kw = {"elastic": dict(mode="adag", num_workers=4, elastic=True),
+          "snapshot_dir": dict(snapshot_dir=snap, snapshot_interval=3600.0),
+          "restore": dict(snapshot_dir=snap, snapshot_interval=3600.0, restore=True),
+          "replica_of": {}}[option]
+    if option == "restore":
+        # a snapshot written by the JAX daemon's hub, one commit in
+        first = jl.start_parameter_server(jm, port=0, idle_timeout=None, snapshot_dir=snap,
+                                          snapshot_interval=3600.0)
+        first.commit_direct(delta, 0)
+        first.stop()
+    primary = None
+    if option == "replica_of":
+        primary = jl.start_parameter_server(jm, port=0, idle_timeout=None)
+        primary.commit_direct(delta, 0)
+        kw = dict(replica_of=("127.0.0.1", primary.port))
+    ps = tl.start_parameter_server(tm, port=0, idle_timeout=None, **kw)
+    try:
+        if option == "elastic":
+            assert isinstance(ps, tps.ADAGParameterServer) and ps.elastic
+            assert ps.commit_scale(0) == 1.0 / 4  # no live worker: num_workers
+        elif option == "snapshot_dir":
+            assert ps.snapshotter is not None
+            ps.commit_direct(delta, 0)
+        elif option == "restore":
+            assert ps.num_updates == 1 and ps._clock_fence == 1
+            for a, b in zip(ps.get_weights(), jax.tree.leaves(jm.params)):
+                np.testing.assert_array_equal(a, np.asarray(b) + 0.5)
+        else:
+            assert ps.wait_synced(timeout=10.0) and ps.is_standby()
+            for a, b in zip(ps.get_weights(), primary.get_weights()):
+                np.testing.assert_array_equal(a, b)
+    finally:
+        ps.stop()
+        if primary is not None:
+            primary.stop()
+    if option == "snapshot_dir":
+        # stop() wrote a final snapshot the JAX daemon resumes from
+        back = jl.start_parameter_server(jm, port=0, idle_timeout=None, snapshot_dir=snap,
+                                         snapshot_interval=3600.0, restore=True)
+        try:
+            assert back.num_updates == 1
+        finally:
+            back.stop()
 
 
 @pytest.mark.parametrize("native", [False, True])

@@ -424,11 +424,9 @@ def test_native_initial_weights_and_int8_socket_path():
         np.testing.assert_array_equal(n, p)
 
 
-@pytest.mark.parametrize("option", ["snapshot_dir", "replica_of", "sparse_leaves", "adaptive",
-                                    "elastic"])
+@pytest.mark.parametrize("option", ["sparse_leaves", "adaptive"])
 def test_hub_options_not_ported_raise(option):
-    value = {"snapshot_dir": "/nonexistent", "replica_of": ("127.0.0.1", 1),
-             "sparse_leaves": (0,), "adaptive": True, "elastic": True}[option]
+    value = {"sparse_leaves": (0,), "adaptive": True}[option]
     item = "13" if option == "sparse_leaves" else "8b"
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         tps.ADAGParameterServer(_weights(), num_workers=2, **{option: value})
@@ -436,9 +434,95 @@ def test_hub_options_not_ported_raise(option):
         NativeParameterServer(_weights(), mode=MODE_ADAG, **{option: value})
 
 
-@pytest.mark.parametrize("option", ["max_reconnects", "heartbeat_interval", "failover", "job"])
+@pytest.mark.parametrize("option", ["job", "trace_context", "adaptive"])
 def test_client_options_not_ported_raise(option):
-    value = {"max_reconnects": 3, "heartbeat_interval": 1.0, "failover": [("127.0.0.1", 1)],
-             "job": "a"}[option]
+    value = {"job": "a", "trace_context": object(), "adaptive": True}[option]
     with pytest.raises(NotImplementedError, match="ROADMAP item 8b"):
         tps.PSClient("127.0.0.1", 1, _weights(), **{option: value})
+
+
+@pytest.mark.parametrize("option", ["snapshot_dir", "replica_of", "elastic"])
+def test_hub_survival_options_work(option, tmp_path):
+    """The hub options that once raised: a snapshot taken by either hub is
+    the center; a standby of either hub tracks a JAX primary; an elastic
+    ADAG hub divides by its one live worker."""
+    rng = np.random.default_rng(2)
+    delta = [rng.normal(size=(2, 2)).astype(np.float32), rng.normal(size=(3,)).astype(np.float32)]
+    primary = None
+    if option == "replica_of":
+        primary = jps.ADAGParameterServer(_weights(), num_workers=2, idle_timeout=30.0)
+        primary.start()
+    try:
+        for kind in ("python", "native"):
+            kw = {"snapshot_dir": {"snapshot_dir": str(tmp_path / kind)},
+                  "replica_of": {"replica_of": ("127.0.0.1", primary.port) if primary else None},
+                  "elastic": {"elastic": True}}[option]
+            if kind == "python":
+                ps = tps.ADAGParameterServer(_weights(), num_workers=2, idle_timeout=30.0, **kw)
+            else:
+                ps = NativeParameterServer(_weights(), mode=MODE_ADAG, num_workers=2,
+                                           idle_timeout=30.0, **kw)
+            ps.start()
+            try:
+                if option == "replica_of":
+                    assert ps.wait_synced(timeout=TIMEOUT) and ps.is_standby()
+                    with _client("jax", primary.port, _weights()) as c:
+                        c.commit(delta)
+                    deadline = time.monotonic() + TIMEOUT
+                    while ps.num_updates < primary.num_updates and time.monotonic() < deadline:
+                        time.sleep(0.005)
+                    want = primary.get_weights()
+                else:
+                    with _client("port", ps.port, _weights()) as c:
+                        c.commit(delta)
+                    want = [d / (1 if option == "elastic" else 2) for d in delta]
+                if option == "snapshot_dir":
+                    ps.snapshotter.save_now()
+                    center, state = ps.snapshot_state()
+                    assert state["clock"] == state["num_updates"] == 1
+                    for a, b in zip(center, ps.get_weights()):
+                        np.testing.assert_array_equal(a, b)
+                for a, b in zip(ps.get_weights(), want):
+                    np.testing.assert_allclose(a, b, rtol=1e-6)
+            finally:
+                ps.stop()
+    finally:
+        if primary is not None:
+            primary.stop()
+
+
+@pytest.mark.parametrize("option", ["max_reconnects", "heartbeat_interval", "failover"])
+def test_client_survival_options_work(option):
+    """The client options that once raised, on a JAX hub: a reconnect
+    across a hub that drops the connection, a heartbeat on an idle
+    connection, a failover address walked when the primary is dead."""
+    hub = _hub("jax", "delta", _weights())
+    try:
+        if option == "failover":
+            import socket
+
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                dead = s.getsockname()[1]
+            with _client("port", dead, _weights(), failover=[("127.0.0.1", hub.port)]) as c:
+                c.commit([np.ones((2, 2), np.float32), np.ones((3,), np.float32)])
+                assert (c.port, c.failovers_used) == (hub.port, 0)
+        elif option == "max_reconnects":
+            with _client("port", hub.port, _weights(), max_reconnects=2,
+                         reconnect_backoff=0.01) as c:
+                c.pull()
+                c.sock.close()  # the connection drops under the client
+                c.commit([np.ones((2, 2), np.float32), np.ones((3,), np.float32)])
+                assert c.reconnects_used == 1
+        else:
+            with _client("port", hub.port, _weights(), heartbeat_interval=0.01) as c:
+                c.pull()
+                last = c._last_io
+                deadline = time.monotonic() + TIMEOUT
+                while c._last_io == last and time.monotonic() < deadline:
+                    time.sleep(0.005)
+                assert c._last_io != last  # a ping round trip finished
+                c.commit([np.ones((2, 2), np.float32), np.ones((3,), np.float32)])
+        np.testing.assert_array_equal(hub.get_weights()[0], np.ones((2, 2), np.float32))
+    finally:
+        hub.stop()

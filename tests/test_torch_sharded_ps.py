@@ -10,6 +10,7 @@ shard hubs from ``start_parameter_server(shard_index=i)``.  Every socket
 has a timeout.
 """
 
+import socket
 import threading
 import time
 
@@ -328,12 +329,56 @@ def test_start_is_all_or_nothing():
 def test_unported_facade_and_striped_options_name_their_items():
     t = _templates()
     plan = tps.shard_plan(t, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8b"):
-        tps.ShardedParameterServer(t, plan, lambda w, sid: None, snapshot_dir="/nonexistent")
-    for kw, item in (({"max_reconnects": 3}, "8b"), ({"failover": [None, None]}, "8b"),
-                     ({"sparse_cache_rows": 4}, "13"), ({"heartbeat_interval": 1.0}, "8b")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-            tps.ShardedPSClient([("127.0.0.1", 1), ("127.0.0.1", 2)], t, plan, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+        tps.ShardedPSClient([("127.0.0.1", 1), ("127.0.0.1", 2)], t, plan, sparse_cache_rows=4)
+
+
+@pytest.mark.parametrize("option", ["snapshot_dir", "max_reconnects", "failover",
+                                    "heartbeat_interval"])
+def test_facade_and_striped_survival_options_work(option, tmp_path):
+    """The facade and striped-client options that once raised: a
+    coordinated snapshot set of the facade; a stripe that reconnects, one
+    that walks its failover address, a heartbeat on each stripe."""
+    t = _templates()
+    plan = tps.shard_plan(t, 2)
+    ps = tps.ShardedParameterServer(
+        t, plan, lambda w, sid: tps.DeltaParameterServer(w, host="127.0.0.1", shard_id=sid,
+                                                         idle_timeout=30.0),
+        snapshot_dir=str(tmp_path) if option == "snapshot_dir" else None,
+        snapshot_interval=3600.0)
+    ps.start()
+    ones = [np.ones(a.shape, np.float32) for a in t]
+    try:
+        addrs = [("127.0.0.1", p) for p in ps.ports]
+        kw = {"snapshot_dir": {}, "max_reconnects": dict(max_reconnects=2, reconnect_backoff=0.01),
+              "heartbeat_interval": dict(heartbeat_interval=0.01)}.get(option, {})
+        if option == "failover":
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                dead = s.getsockname()[1]
+            kw = dict(failover=[None, addrs[1]])
+            addrs = [addrs[0], ("127.0.0.1", dead)]
+        with tps.ShardedPSClient(addrs, t, plan, timeout=TIMEOUT, **kw) as client:
+            client.commit(ones)
+            if option == "max_reconnects":
+                client.shards[1].sock.close()  # one stripe drops
+                client.commit(ones)
+                assert client.reconnects_used == 1 and client.shards[0].reconnects_used == 0
+            if option == "heartbeat_interval":
+                last = [c._last_io for c in client.shards]
+                deadline = time.monotonic() + TIMEOUT
+                while (any(c._last_io == v for c, v in zip(client.shards, last))
+                       and time.monotonic() < deadline):
+                    time.sleep(0.005)
+                assert all(c._last_io != v for c, v in zip(client.shards, last))
+        want = 2 if option == "max_reconnects" else 1
+        assert [h.num_updates for h in ps.shards] == [want, want]
+        if option == "snapshot_dir":
+            ps.coordinator.save_set()
+            metas = [cp.metadata()["metadata"] for cp in ps.coordinator.checkpointers]
+            assert [m["set_clocks"] for m in metas] == [[1, 1], [1, 1]]
+    finally:
+        ps.stop()
 
 
 # -- the trainers -------------------------------------------------------------------------

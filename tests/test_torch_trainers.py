@@ -255,7 +255,7 @@ def test_entry_points_refuse_what_is_not_ported():
     _, tm = _models("mlp")
     x, y, _ = _data()
     with pytest.raises(NotImplementedError, match="ROADMAP item 8b"):
-        AsyncADAG(tm, device="cpu", elastic=True)
+        AsyncADAG(tm, device="cpu", adaptive=True)
     with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
         tt.ADAG(tm, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
