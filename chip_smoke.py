@@ -113,7 +113,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
    speculative_batched, fp_trained, speculative_k12, speculative_b64,
    speculative_kv_int8_b64 and beam (b8, width 4, 128 new tokens), median
    of 3 on the host clock, and one profiled speculative_b1 request;
-10. report: one JSON line of kernels, the card's name and power limit, and
+10. telemetry (main path, after the recovery legs): the port's telemetry
+   plane (distkeras_torch.observability) switched on.  SingleTrainer and
+   4-replica ADAG one epoch each on the trainer cell: trainer_epochs_total,
+   trainer_samples_total and engine_steps_total equal the epoch's counts
+   (40 minibatches of 1024),
+   one trainer.epoch span an epoch and ADAG's engine.run_epoch span inside
+   it.  AsyncADAG on the async cell, once on the Python hub and once on the
+   C++ hub, with health_interval_s=0.25 and DKT_TRACE_DIR set: every
+   window committed (ps_commits_total == async_windows_total == the
+   windows), every hub commit span carrying its worker's trace context,
+   both workers in health_snapshot(), merge_traces joining the hub's and
+   the workers' spans and the trace directory's fleet_report "ok".  A
+   Punchcard job on the card, then its daemon's telemetry pull: the
+   Prometheus text parses and distkeras-torch-top renders the pull.
+   Then samples/s of SingleTrainer (the trainer leg's warm 200-minibatch
+   epoch) and of the Python-hub AsyncADAG leg with telemetry off and on
+   (which runs first alternates from pair to pair, median of 3 each),
+   beside the trainer and async legs of the same run, and one
+   window's async_window_device_seconds beside the profiler's device time.
+   No kernel of the port lies on this path;
+11. report: one JSON line of kernels, the card's name and power limit, and
    the final {"ok": true, ...} line.
 
 Weights are random, drawn from seed 0.  Needs nothing but this checkout,
@@ -183,18 +203,28 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, kernel=None, reps: int = 20, warmup: int = 3) -> float:
-    """Device time per call of ``fn``: the profiler's sum of the kernels whose
-    name contains ``kernel`` (all kernels when None), over ``reps`` calls.
-    The trace must hold device time and, with a kernel named, the same
-    number of its launches for every call: on an H100 the profiler has
-    returned traces that lost launches (a B4 time far below its per-phase
-    stamps) or held none, so such a trace is taken again, and the run
-    fails if three in a row are short."""
+def device_ms(torch, fn, kernel=None, reps: int = 20, warmup: int = 3,
+              warm_s: float = 0.1) -> float:
+    """Device time per call of ``fn`` from the profiler: with ``kernel``
+    named, the median over ``reps`` calls of each call's summed time of the
+    kernels whose name contains it; with none, the mean over the calls of
+    every kernel's time.  ``fn`` first runs back to back for ``warm_s``
+    seconds (and at least ``warmup`` calls), so the card is at its working
+    clocks when the trace starts; the median keeps a slow or misread launch
+    from moving the time.  The trace must hold device time and, with a
+    kernel named, the same number of its launches for every call: on an
+    H100 the profiler has returned traces that lost launches (a B4 time far
+    below its per-phase stamps) or held none, so such a trace is taken
+    again, and the run fails if three in a row are short."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(warmup):
+    t0, calls = time.perf_counter(), 0
+    while calls < warmup or time.perf_counter() - t0 < warm_s:
         fn()
+        calls += 1
+        if calls % 8 == 0:
+            torch.cuda.synchronize()
     torch.cuda.synchronize()
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -207,10 +237,20 @@ def device_ms(torch, fn, kernel=None, reps: int = 20, warmup: int = 3) -> float:
                 total_us += getattr(e, "self_device_time_total", None) or getattr(
                     e, "self_cuda_time_total", 0.0)
                 launches += e.count
-        if kernel is not None:
-            print(f"device_ms: {kernel}: {launches} launches read in {reps} calls")
-        if total_us > 0 and (kernel is None or (launches >= reps and launches % reps == 0)):
+        if kernel is None and total_us > 0:
             return total_us / reps / 1e3
+        if kernel is not None:
+            runs = sorted((e.time_range.start, e.self_device_time_total)
+                          for e in prof.events()
+                          if e.device_type == DeviceType.CUDA and kernel in e.name)
+            if total_us > 0 and len(runs) == launches >= reps and launches % reps == 0:
+                per = launches // reps
+                calls_us = [sum(t for _, t in runs[i:i + per]) for i in range(0, launches, per)]
+                print(f"device_ms: {kernel}: {launches} launches read in {reps} calls; "
+                      f"us per call median {statistics.median(calls_us):.2f}, min "
+                      f"{min(calls_us):.2f}, max {max(calls_us):.2f}, mean "
+                      f"{statistics.mean(calls_us):.2f}")
+                return statistics.median(calls_us) / 1e3
         print(f"device_ms: the profiler recorded {launches} launches, {total_us:.1f} us, of "
               f"{kernel or 'the call'} in {reps} calls; measuring again")
     raise SmokeFailure(f"the profiler's traces of {kernel or 'the call'} stay short")
@@ -656,6 +696,10 @@ def decode_timing(torch, ds, state, cache, x):
             return ds.fused_decode_step(state.weights, x, kc, vc, pos, heads=HEADS)
 
         ms = device_ms(torch, kernel_call, "decode_kernel")
+        # the profiler's time against the stamps' span of the layers, read
+        # right after it at the same clocks: a trace that lost launches or
+        # misread their times reads far from it
+        layers_us = decode_stamps(torch, ds, state, cache, x, pos)["layers"]
         wrapper_ms = time_ms(torch, kernel_call)
         plain_ms = device_ms(torch, lambda: ds.fused_decode_step_plain(
             state.weights, x, kc, vc, pos, heads=HEADS), reps=5)
@@ -669,9 +713,6 @@ def decode_timing(torch, ds, state, cache, x):
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
               f"{100 * bms / ms:.1f} % of the bound; wrapper call between CUDA events "
               f"{wrapper_ms:.4f} ms")
-        # the profiler's time against the stamps' span of the layers: a trace
-        # that lost launches or misread their times reads far from it
-        layers_us = decode_stamps(torch, ds, state, cache, x, pos)["layers"]
         gap = abs(ms * 1e3 - layers_us) / layers_us
         print(f"decode_step pos {pos}: profiler {ms * 1e3:.2f} us against the stamped "
               f"layers {layers_us:.2f} us, {100 * gap:.1f} % apart (limit 20 %)")
@@ -983,6 +1024,11 @@ def _gap_text(gaps):
     return f"{gaps[0]:.3e} (worst leaf {gaps[2]} {gaps[1]:.3e})"
 
 
+# samples/s of the trainer and async legs in this run, for the telemetry
+# phase's off readings to stand beside
+LEG_RATES = {}
+
+
 def bench_images(np, rows, seed):
     """bench.py's data: standard-normal [rows, 28, 28, 1] images, one-hot
     labels drawn at random."""
@@ -1121,6 +1167,7 @@ def trainer_timing(torch, np, smi):
                                    communication_window=GATE_WINDOW, **common))):
         tr.train(ds, shuffle=False)
         m = tr.metrics[-1]
+        LEG_RATES[name] = m["samples_per_sec_per_chip"]
         print(f"trainer timing ({smi}): {name}, mnist_cnn bf16, {CNN_BATCHES} minibatches of "
               f"{CNN_BATCH}: {m['samples_per_sec_per_chip']} samples/s per chip, epoch "
               f"{m['seconds']} s (host clock; warm epoch {tr.metrics[0]['seconds']} s)")
@@ -1588,6 +1635,7 @@ def async_timing(torch, np, smi):
         check(extra.get("transport") != "shm" or rode == ["shm"] * ASYNC_WORKERS,
               f"{name}: the workers rode {rode}, not the shared-memory rings")
         m = tr.metrics[-1]
+        LEG_RATES[name] = m["samples_per_sec_per_chip"]
         walls = sorted(w for ws in tr.window_seconds for w in ws)
         final_loss = float(np.mean(tr.history[-8:]))
         tr.model, tr.num_epoch = Model.init(bf16, seed=0, device="cuda"), 1
@@ -1649,7 +1697,7 @@ def _timed_client_class(ps_mod, net):
             super()._reconnect(cause)
 
         def _consume_one_inner(self):
-            kind = self._pending[0] if self._pending else None
+            kind = self._pending[0][0] if self._pending else None
             super()._consume_one_inner()
             if kind == net.ACTION_ACK:
                 self.acks.append(time.perf_counter())
@@ -1990,6 +2038,235 @@ ENTRY_SEQ_TOL = 1e-5      # the Sequential forward, card against CPU, f32 (gate 
 # time limit.
 ENTRY_CONFIG5_ROWS = 4096
 ENTRY_KEEP_TOL = 0.01     # dropout's kept fraction against 0.75
+
+
+# the telemetry phase: the trainer cell (mnist_cnn bf16, batch 1024) for a
+# 40-minibatch epoch in the gates and the trainer leg's own 200-minibatch
+# warm epoch in the overhead leg, the async cell as the async phase's legs
+TEL_BATCHES, TEL_REPS, TEL_HEALTH_S = 40, 3, 0.25
+TEL_SECRET = "telemetry-phase"
+
+
+def _labelled(counters, name, **labels):
+    """A counter's value by its name and labels (0 when never recorded)."""
+    inner = ",".join(f'{k}="{v}"' for k, v in sorted(labels.items()))
+    return counters.get(f"{name}{{{inner}}}" if inner else name, 0.0)
+
+
+def _prometheus_parses(text):
+    """Every sample line of a Prometheus text exposition is
+    ``name[{labels}] value`` with a float value."""
+    samples = 0
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name, _, value = line.rpartition(" ")
+        float(value)
+        if not name or ("{" in name) != name.endswith("}"):
+            return 0
+        samples += 1
+    return samples
+
+
+def telemetry_phase(torch, np, smi):
+    """The telemetry plane on the card (see the module docstring, phase 10)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from distkeras_torch import ADAG, SingleTrainer, mnist_cnn_spec
+    from distkeras_torch import observability as obs
+    from distkeras_torch.data import Dataset
+    from distkeras_torch.observability import health as health_mod
+    from distkeras_torch.runtime import async_trainer as at
+    from distkeras_torch.runtime import job_deployment as jd
+
+    print(f"telemetry phase on {smi}")
+    t_phase = time.perf_counter()
+    spec = mnist_cnn_spec(compute_dtype="bfloat16")
+    x, y = bench_images(np, TEL_BATCHES * CNN_BATCH, seed=3)
+    tds = Dataset({"features": x, "label": y})
+    rows = ASYNC_WORKERS * ASYNC_BATCH * ASYNC_WINDOW * ASYNC_WPE
+    ax, ay = async_images(np, rows, np.random.default_rng(0))
+    ads = Dataset({"features": ax, "label": ay})
+    async_kw = dict(num_workers=ASYNC_WORKERS, communication_window=ASYNC_WINDOW,
+                    batch_size=ASYNC_BATCH, device="cuda", **ASYNC_OPT)
+    windows = ASYNC_WORKERS * ASYNC_WPE * ASYNC_EPOCHS
+
+    def single():
+        return SingleTrainer(spec, batch_size=CNN_BATCH, num_epoch=1, device="cuda", **CNN_OPT)
+
+    def adag():
+        return ADAG(spec, num_workers=GATE_REPLICAS, batch_size=CNN_BATCH // GATE_REPLICAS,
+                    communication_window=GATE_WINDOW, num_epoch=1, device="cuda", **CNN_OPT)
+
+    obs.reset()
+    obs.enable()
+    work = tempfile.mkdtemp(dir=os.path.join(HERE, "distkeras_torch", "_build"))
+    try:
+        # (a) the trainers: one epoch each, the whole epoch one chunk
+        for name, make in (("SingleTrainer", single), ("ADAG", adag)):
+            obs.reset()
+            tr = make()
+            tr.train(tds, shuffle=False)
+            counters = obs.snapshot()["counters"]
+            epochs = _labelled(counters, "trainer_epochs_total", trainer=name)
+            got = _labelled(counters, "trainer_samples_total", trainer=name)
+            events = obs.TRACER.events()
+            outer = [e for e in events if e["name"] == "trainer.epoch"]
+            inner = [e for e in events if e["name"] == "engine.run_epoch"]
+            line = (f"telemetry gate, {name} one epoch of {TEL_BATCHES} x {CNN_BATCH}: "
+                    f"trainer_epochs_total {epochs:g}, trainer_samples_total {got:g} (want "
+                    f"{TEL_BATCHES * CNN_BATCH}), {len(outer)} trainer.epoch span(s)")
+            check(epochs == 1 and got == TEL_BATCHES * CNN_BATCH and len(outer) == 1,
+                  f"{name}'s trainer telemetry does not count its epoch")
+            if name == "ADAG":
+                steps = _labelled(counters, "engine_steps_total", model="cnn",
+                                  replicas=str(GATE_REPLICAS))
+                want_steps = TEL_BATCHES
+                nested = (len(inner) == 1 and inner[0]["depth"] == outer[0]["depth"] + 1
+                          and outer[0]["ts_us"] <= inner[0]["ts_us"]
+                          and inner[0]["ts_us"] + inner[0]["dur_us"]
+                          <= outer[0]["ts_us"] + outer[0]["dur_us"] + 1)
+                line += (f", engine_steps_total {steps:g} (want {want_steps}), "
+                         f"{len(inner)} engine.run_epoch span(s) "
+                         f"{'nested in it' if nested else 'NOT NESTED'}")
+                check(steps == want_steps and nested,
+                      "ADAG's engine telemetry does not match its epoch")
+            print(line)
+
+        # (b) the async cell on both hubs, with health reports and a trace dir
+        for hub in ("python", "native"):
+            obs.reset()
+            trace_dir = os.path.join(work, f"trace-{hub}")
+            os.environ["DKT_TRACE_DIR"] = trace_dir
+            try:
+                t0 = time.perf_counter()
+                tr = at.AsyncADAG(spec, num_epoch=ASYNC_EPOCHS, native_ps=hub == "native",
+                                  health_interval_s=TEL_HEALTH_S, **async_kw)
+                tr.train(ads, shuffle=False)
+                wall = time.perf_counter() - t0
+            finally:
+                del os.environ["DKT_TRACE_DIR"]
+            counters = obs.snapshot()["counters"]
+            commits = counters.get("ps_commits_total", 0.0)
+            counted = counters.get("async_windows_total", 0.0)
+            spans = [e for e in obs.TRACER.events() if e["name"] == "ps.handle_commit"]
+            tagged = sum(1 for e in spans if "worker" in e["attrs"])
+            fleet = health_mod.health_snapshot()["fleet"]["workers"]
+            merged = obs.merge_traces(trace_dir)
+            names = {e["name"] for e in merged["traceEvents"] if e.get("ph") == "X"}
+            report = obs.fleet_report(trace_dir=trace_dir)
+            live = obs.fleet_report(trace_dir=trace_dir, live=health_mod.collector())
+            print(f"telemetry gate, AsyncADAG {hub} hub, {ASYNC_WORKERS} workers x "
+                  f"{ASYNC_WPE} windows x {ASYNC_EPOCHS} epochs ({wall:.2f} s): "
+                  f"ps_commits_total {commits:g}, async_windows_total {counted:g} (want "
+                  f"{windows}); {tagged}/{len(spans)} hub commit spans carry a worker's "
+                  f"context (fleet_report coverage {report['commit_context_coverage']}); "
+                  f"health_snapshot workers {sorted(fleet)} with "
+                  f"{[fleet[w]['meta'].get('reports') for w in sorted(fleet)]} reports; "
+                  f"merged trace of {len(merged['traceEvents'])} events from "
+                  f"{len(os.listdir(trace_dir))} file(s); fleet_report status "
+                  f"{report['coverage']['status']} (with the live collector: "
+                  f"{live['coverage']['status']})")
+            check(commits == counted == windows, f"the {hub} hub's commits are not the windows")
+            check(len(spans) == windows and tagged == windows
+                  and report["commit_context_coverage"] == 1.0,
+                  f"the {hub} hub's commit spans miss their workers' contexts")
+            check(sorted(fleet) == [str(i) for i in range(ASYNC_WORKERS)],
+                  f"health_snapshot lists {sorted(fleet)}, not both workers")
+            check({"async.window", "ps.handle_commit"} <= names,
+                  f"merge_traces did not join hub and worker spans: {sorted(names)}")
+            check(report["coverage"]["status"] == "ok",
+                  f"fleet_report is {report['coverage']}")
+
+        # (c) a Punchcard job on the card, then its daemon's telemetry pull
+        jx, jy = bench_images(np, 4 * CNN_BATCH, seed=4)
+        pc = jd.Punchcard(secret=TEL_SECRET, data_root=work, device="cuda").start()
+        try:
+            job = jd.Job("127.0.0.1", pc.port, TEL_SECRET, name="telemetry", model=spec,
+                         trainer="single", trainer_kwargs={"num_epoch": 1,
+                                                           "batch_size": CNN_BATCH},
+                         data=Dataset({"features": jx, "label": jy}), device="cuda")
+            job.run(timeout=300)
+            resp = jd.fetch_telemetry("127.0.0.1", pc.port, TEL_SECRET, trace=True,
+                                      prometheus=True, fleet=True, health=True)
+            frame = io.StringIO()
+            with contextlib.redirect_stdout(frame):
+                health_mod.main(["--port", str(pc.port), "--secret", TEL_SECRET,
+                                 "--iterations", "1", "--no-clear"])
+        finally:
+            pc.stop()
+        counters = resp["metrics"]["counters"]
+        samples = _prometheus_parses(resp["prometheus"])
+        top = frame.getvalue().strip().splitlines()
+        print(f"telemetry gate, Punchcard job on the card then its pull: keys "
+              f"{sorted(resp)}, punchcard_jobs_total{{state=\"done\"}} "
+              f"{_labelled(counters, 'punchcard_jobs_total', state='done'):g}, "
+              f"{samples} Prometheus samples parse, {len(resp['trace']['traceEvents'])} "
+              f"trace events; distkeras-torch-top --iterations 1 drew {len(top)} lines:")
+        for row in top[:4]:
+            print(f"  {row}")
+        check(_labelled(counters, "punchcard_jobs_total", state="done") == 1,
+              "the daemon did not count its job")
+        check(samples > 0, "the daemon's Prometheus text does not parse")
+        check(top and top[0].startswith("distkeras-top") and "WORKER" in top[1],
+              "distkeras-torch-top did not render the pull")
+        print(f"telemetry phase gates: {time.perf_counter() - t_phase:.1f} s")
+
+        # (d) what telemetry costs: off and on, the first state alternating
+        # from pair to pair, median of 3; SingleTrainer as the trainer leg
+        # reads it (the warm second epoch of 200 minibatches)
+        bx, by = bench_images(np, CNN_BATCHES * CNN_BATCH, seed=2)
+        bds = Dataset({"features": bx, "label": by})
+
+        def single_rate():
+            tr = SingleTrainer(spec, batch_size=CNN_BATCH, num_epoch=2, chunk_windows="auto",
+                               device="cuda", **CNN_OPT)
+            tr.train(bds, shuffle=False)
+            return tr.metrics[-1]["samples_per_sec_per_chip"]
+
+        def async_rate():
+            tr = at.AsyncADAG(spec, num_epoch=ASYNC_EPOCHS, **async_kw)
+            tr.train(ads, shuffle=False)
+            return tr.metrics[-1]["samples_per_sec_per_chip"]
+
+        for name, leg, rate in (("SingleTrainer", "SingleTrainer", single_rate),
+                                ("AsyncADAG python hub", "async_adag", async_rate)):
+            got = {"off": [], "on": []}
+            for rep in range(TEL_REPS):
+                for state in (("off", "on") if rep % 2 == 0 else ("on", "off")):
+                    (obs.enable if state == "on" else obs.disable)()
+                    got[state].append(rate())
+            off, on = statistics.median(got["off"]), statistics.median(got["on"])
+            same = LEG_RATES.get(leg)
+            beside = (f"this run's {leg} leg read {same} (off/leg {off / same:.4f})"
+                      if same else f"no {leg} leg ran in this run")
+            print(f"telemetry overhead ({smi}): {name}: {off:.1f} samples/s off, {on:.1f} on "
+                  f"(median of {TEL_REPS}, host clock; on/off {on / off:.4f}; off "
+                  f"{got['off']}, on {got['on']}); {beside}")
+
+        # (e) one window's device seconds beside the profiler's device time
+        obs.enable()
+        obs.reset()
+        tr = at.AsyncADAG(spec, num_epoch=1, **dict(async_kw, num_workers=1))
+        wall, busy_ms, _ = _profiled(torch, lambda: tr.train(ads, shuffle=False))
+        hist = obs.snapshot()["histograms"]["async_window_device_seconds"]
+        print(f"telemetry device time ({smi}): AsyncADAG one worker, one epoch of "
+              f"{hist['count']} windows under the profiler: async_window_device_seconds mean "
+              f"{hist['mean'] * 1e3:.3f} ms a window (dispatch to completion, host clock); "
+              f"the profiler's device busy {busy_ms / max(hist['count'], 1):.3f} ms a window "
+              f"(epoch wall {wall * 1e3:.1f} ms)")
+        check(hist["count"] == len(tr.history) > 0,
+              "a window did not record its device time")
+    finally:
+        obs.disable()
+        obs.reset()
+        health_mod.reset_default()
+        import shutil
+
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"telemetry phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 def _run_main(fn, argv):
@@ -2610,6 +2887,13 @@ def run() -> int:
     recovery_counts = dict(_counts(fa), decode_step=ds.DECODE_STEP.launches)
     print(f"recovery phase: launches of the port's kernels {recovery_counts}")
     check(not any(recovery_counts.values()), "the recovery legs launched an attention kernel")
+    # the telemetry plane launches no kernel of the port either
+    _zero_counts(fa)
+    ds.DECODE_STEP.launches = 0
+    telemetry_phase(torch, np, smi)
+    telemetry_counts = dict(_counts(fa), decode_step=ds.DECODE_STEP.launches)
+    print(f"telemetry phase: launches of the port's kernels {telemetry_counts}")
+    check(not any(telemetry_counts.values()), "the telemetry phase launched a kernel of the port")
     entry_profile(torch, np, smi)
     family_timing_fn()
 

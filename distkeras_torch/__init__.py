@@ -15,7 +15,10 @@ rest of the serving family (speculative decoding with the fused decode
 step as its draft step, beam search) with the LM workflow, every optimizer
 name of the JAX package and its DKCOL container and text preprocessing,
 and the scale-out hub (a center sharded over several hubs, shared-memory
-frame rings, batched receives) with its launcher (``distkeras-torch-ps``).
+frame rings, batched receives) with its launcher (``distkeras-torch-ps``),
+the asynchronous path's survival of faults, and the telemetry plane
+(``distkeras_torch.observability``: metrics, spans, trace contexts across
+the hub's wire, the live health plane and ``distkeras-torch-top``).
 Entry points run on the CUDA card unless a caller passes ``device="cpu"``.
 Imports PyTorch, numpy and the standard library only.
 """

@@ -16,11 +16,13 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
+import time
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from distkeras_torch import observability as obs
 from distkeras_torch import utils
 from distkeras_torch.platform import DeviceLike, resolve_device
 
@@ -49,14 +51,29 @@ def _map(fn: Callable, tree: Any) -> Any:
     return fn(tree)
 
 
-def _produced(source: Iterator, stage: Callable) -> Iterator:
+def feed_instruments(metric_prefix: str = "feed") -> Tuple[Any, Any, Any]:
+    """A feed's instruments: the time to produce each chunk
+    (``{metric_prefix}_chunk_load_seconds``), the handoff queue's occupancy
+    (``_queue_depth``) and the chunks produced (``_chunks_total``)."""
+    return (obs.histogram(f"{metric_prefix}_chunk_load_seconds"),
+            obs.gauge(f"{metric_prefix}_queue_depth"),
+            obs.counter(f"{metric_prefix}_chunks_total"))
+
+
+def _produced(source: Iterator, stage: Callable, metric_prefix: str = "feed") -> Iterator:
     """``stage(chunk)`` for each chunk of ``source``, run on a producer thread
     one chunk ahead of the consumer.  The producer puts with a bounded wait
     so an abandoned consumer cannot strand it, and the consumer checks the
     producer's liveness so a producer that died without its end sentinel
-    raises instead of hanging."""
+    raises instead of hanging.
+
+    Telemetry, when it is on as the feed starts: the time to produce each
+    chunk from ``source`` (``{metric_prefix}_chunk_load_seconds``), the
+    chunks produced (``_chunks_total``) and the handoff queue's occupancy
+    (``_queue_depth``).  Off, the feed touches no instrument."""
     q: "queue.Queue" = queue.Queue(maxsize=1)
     stop = threading.Event()
+    instruments = feed_instruments(metric_prefix) if obs.enabled() else None
 
     def put(item) -> bool:
         while not stop.is_set():
@@ -72,9 +89,21 @@ def _produced(source: Iterator, stage: Callable) -> Iterator:
         # live thread to the generator would keep its stop-setting finalizer
         # from running on an abandoned consumer
         try:
-            for c in source:
+            it_src = iter(source)
+            while True:
+                telemetry = instruments is not None and obs.enabled()
+                t0 = time.perf_counter() if telemetry else 0.0
+                try:
+                    c = next(it_src)
+                except StopIteration:
+                    break
+                if telemetry:
+                    instruments[0].observe(time.perf_counter() - t0)
+                    instruments[2].inc()
                 if not put(("chunk", stage(c))):
                     return
+                if telemetry:
+                    instruments[1].set(q.qsize())
         except BaseException as exc:  # surfaced on the consumer side
             put(("error", exc))
         else:

@@ -3,9 +3,9 @@
 Counterpart of ``distkeras_tpu/data/loaders.py``, returning the port's
 :class:`~distkeras_torch.data.dataset.Dataset`: the same cache search
 order, archive formats, trusted-directory rule for pickles and synthetic
-stand-ins (pure numpy, bit for bit the JAX package's for a seed and size).
-The JAX module's telemetry (the ``data.load`` span, ``data_loads_total``
-and ``data_load_seconds``) is ROADMAP item 15.
+stand-ins (pure numpy, bit for bit the JAX package's for a seed and size),
+and the same telemetry (the ``data.load`` span, ``data_loads_total`` and
+``data_load_seconds``).
 
 Offline-first: loaders search local caches for the standard archives and
 NEVER download.  When no cache exists they fall back to deterministic,
@@ -42,10 +42,12 @@ import os
 import pickle
 import struct
 import tarfile
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from distkeras_torch import observability as obs
 from distkeras_torch.data.dataset import Dataset
 
 
@@ -268,6 +270,23 @@ def _load(filename: str, num_classes: int, image_shape: Tuple[int, ...],
           synthetic_sizes: Tuple[int, int], seed: int, cache_dir: Optional[str],
           synthetic_fallback: bool, flatten: bool, raw_finder=None,
           signal_amplitude: float = 7.0) -> Tuple[Dataset, Dataset, Dict]:
+    with obs.span("data.load", dataset=filename):
+        train, test, info = _load_inner(
+            filename, num_classes, image_shape, synthetic_sizes, seed,
+            cache_dir, synthetic_fallback, flatten, raw_finder,
+            signal_amplitude)
+    if obs.enabled():
+        obs.counter("data_loads_total", dataset=filename,
+                    synthetic=str(bool(info["synthetic"])).lower()).inc()
+    return train, test, info
+
+
+def _load_inner(filename: str, num_classes: int, image_shape: Tuple[int, ...],
+                synthetic_sizes: Tuple[int, int], seed: int,
+                cache_dir: Optional[str], synthetic_fallback: bool,
+                flatten: bool, raw_finder=None,
+                signal_amplitude: float = 7.0) -> Tuple[Dataset, Dataset, Dict]:
+    t0 = time.perf_counter()
     path = _find_npz(filename, cache_dir)
     raw = raw_source = None
     if path is None and raw_finder is not None:
@@ -296,6 +315,8 @@ def _load(filename: str, num_classes: int, image_shape: Tuple[int, ...],
             "and synthetic_fallback=False (this environment has no network access)")
     train, test = _to_datasets(xtr, ytr, xte, yte, num_classes, flatten)
     info.update(num_classes=num_classes, train_rows=len(train), test_rows=len(test))
+    if obs.enabled():
+        obs.histogram("data_load_seconds").observe(time.perf_counter() - t0)
     return train, test, info
 
 

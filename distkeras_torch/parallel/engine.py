@@ -32,6 +32,7 @@ import numpy as np
 import torch
 from torch.func import grad_and_value, vmap
 
+from distkeras_torch import observability as obs
 from distkeras_torch.models.base import Model, ModelSpec
 from distkeras_torch.ops.optimizers import Optimizer, apply_updates, over_replicas
 from distkeras_torch.parallel.algorithms import Algorithm
@@ -178,16 +179,36 @@ class WindowEngine:
         arrays or device tensors; ``keys`` ``[num_windows, window, 2]``
         per-batch keys (required iff the spec ``needs_rng``).  Returns
         (new state, per-window mean losses as numpy): the one host read of
-        the chunk."""
-        xs, ys = self.place_data(xs, ys)
-        if keys is None:
-            if self.needs_rng:
-                raise ValueError("this engine's spec needs per-batch dropout "
-                                 "keys; pass keys=[num_windows, window, 2]")
-        else:
-            keys = torch.as_tensor(np.asarray(keys, dtype=np.int64), device=self.device)
-        state, losses = self._run(state, xs, ys, keys)
-        return state, losses.cpu().numpy()
+        the chunk.
+
+        Telemetry (when ``distkeras_torch.observability`` is enabled): the
+        epoch-chunk's dispatch-to-completion time (``engine_epoch_seconds``;
+        the losses' copy to the host waits for the chunk's work, so no other
+        synchronization is added), ``engine_samples_per_sec`` and the step
+        counter ``engine_steps_total``, labelled ``model`` and ``replicas``.
+        """
+        telemetry = obs.enabled()
+        t0 = time.perf_counter() if telemetry else 0.0
+        with obs.span("engine.run_epoch", windows=int(xs.shape[0]),
+                      replicas=self.num_replicas):
+            xs_d, ys_d = self.place_data(xs, ys)
+            if keys is None:
+                if self.needs_rng:
+                    raise ValueError("this engine's spec needs per-batch dropout "
+                                     "keys; pass keys=[num_windows, window, 2]")
+            else:
+                keys = torch.as_tensor(np.asarray(keys, dtype=np.int64), device=self.device)
+            state, losses = self._run(state, xs_d, ys_d, keys)
+            losses = losses.cpu().numpy()
+        if telemetry:
+            dt = time.perf_counter() - t0
+            num_windows, window, global_batch = (int(d) for d in xs.shape[:3])
+            ident = {"model": self.spec.name, "replicas": str(self.num_replicas)}
+            obs.histogram("engine_epoch_seconds", **ident).observe(dt)
+            obs.counter("engine_steps_total", **ident).inc(num_windows * window)
+            obs.gauge("engine_samples_per_sec", **ident).set(
+                num_windows * window * global_batch / max(dt, 1e-9))
+        return state, losses
 
     def steady_state_rate(self, state: ReplicaState, xs, ys, reps: int = 4,
                           repeat: int = 3) -> float:

@@ -5,7 +5,8 @@ C++ hub's binding (``native``), the seeded chaos harness (``faults``),
 the five ``Async*`` trainers (``async_trainer``) and the launcher with the
 ``distkeras-torch-ps`` daemon (``launcher``); and the services over the
 same wire: the streaming inference server (``streaming``) and the
-Punchcard job daemon (``job_deployment``)."""
+Punchcard job daemon (``job_deployment``).  Every layer records into
+``distkeras_torch.observability`` when telemetry is on."""
 
 from distkeras_torch.runtime.async_trainer import (
     AsyncADAG,

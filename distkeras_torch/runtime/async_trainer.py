@@ -55,14 +55,29 @@ starts the owned hub as a standby that takes a primary's job over,
 ``max_worker_restarts`` times) from the hub's current center at the epoch
 it died in.
 
-Not ported (``NotImplementedError`` naming the ROADMAP item): trace
-contexts, health reports, adaptive aggregation, autoscaling and jobs
-(item 8b, part 2), and sparse tables (item 13).
+Telemetry is the JAX package's.  With :mod:`distkeras_torch.observability`
+enabled every window records an ``async.window`` span,
+``async_window_wall_seconds``, ``async_window_device_seconds`` (dispatch
+to completion on the host clock: the worker's stream is synchronized once
+a window, only while telemetry is on), ``async_windows_total`` and the
+feed's ``async_feed_*`` names for each window's slice; each
+worker gets a trace context (``trace_context=`` names the job, else a
+fresh job id) that its client announces to the hub, and with
+``DKT_TRACE_DIR`` set the run flushes its spans there at the end for
+``merge_traces``.  ``health_interval_s`` has every worker report its
+windows, window wall and reconnects to the hub's health collector that
+often (and once at its end).  With telemetry off the window path makes no
+registry call and no extra synchronization.
+
+Not ported (``NotImplementedError`` naming the ROADMAP item): adaptive
+aggregation, autoscaling and jobs (item 8b, part 2), and sparse tables
+(item 13).
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import shutil
 import tempfile
 import threading
@@ -73,9 +88,11 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from distkeras_torch import observability as obs
 from distkeras_torch.bridge import flax_tensors, params_from_flax_tensors
 from distkeras_torch.checkpoint import params_from_tree, params_tree, unflatten_paths
-from distkeras_torch.data.dataset import Dataset
+from distkeras_torch.data.dataset import Dataset, feed_instruments
+from distkeras_torch.observability import distributed as dtrace
 from distkeras_torch.models.base import Model
 from distkeras_torch.parallel.engine import make_minibatch_step
 from distkeras_torch.runtime.parameter_server import (
@@ -254,9 +271,15 @@ class AsyncDistributedTrainer(Trainer):
         self.heartbeat_interval = heartbeat_interval
         self.elastic = bool(elastic)
         self.max_worker_restarts = int(max_worker_restarts)
+        # the job id every worker's trace context announces: None makes a
+        # fresh one each train() while telemetry is on; an explicit id joins
+        # a multi-host run's workers under one job in the merged trace
+        self.trace_context = trace_context
+        # every health_interval_s seconds each worker reports to the hub's
+        # health collector (None: no M frame ever leaves)
+        self.health_interval_s = (None if health_interval_s is None
+                                  else float(health_interval_s))
         unported = {
-            "trace_context": (trace_context is not None, "8b part 2"),
-            "health_interval_s": (health_interval_s is not None, "8b part 2"),
             "sparse_tables": (sparse_tables is not None, "13"),
             "sparse_cache_rows": (sparse_cache_rows is not None, "13"),
             "adaptive=True": (bool(adaptive), "8b part 2"),
@@ -402,11 +425,18 @@ class AsyncDistributedTrainer(Trainer):
 
     def _run_worker(self, idx: int, start_epoch: int, progress: List[int], dataset: Dataset,
                     shuffle: bool, make_client: Callable, treedef,
-                    losses: List[torch.Tensor], walls: List[float]) -> None:
+                    losses: List[torch.Tensor], walls: List[float],
+                    trace_job: Optional[str],
+                    instruments: Optional[Tuple[Any, ...]]) -> None:
         """One attempt at worker ``idx``'s epochs from ``start_epoch``.
         ``progress`` records the epoch being trained and the length of
         ``losses`` (and ``walls``) at its start, so the supervisor restarts
-        a crashed worker at that epoch and drops its partial windows."""
+        a crashed worker at that epoch and drops its partial windows.
+        ``trace_job`` (None with telemetry off) gives the worker a trace
+        context, a fresh span id under the job on every attempt;
+        ``instruments`` are the run's window wall, device and count
+        instruments and the feed's load, depth and chunk instruments (None
+        with telemetry off)."""
         device = self.device
         on_card = device.type == "cuda"
         # the worker's own stream: every copy and step of its windows
@@ -422,9 +452,43 @@ class AsyncDistributedTrainer(Trainer):
         window_fn = self._window_fn(idx)
         window = self.communication_window
         cols = [self.features_col, self.label_col]
+        # the worker's trace context: announced over the wire (socket) or
+        # read from this thread by the hub (inproc)
+        ctx = None
+        if trace_job is not None:
+            ctx = dtrace.TraceContext(job_id=trace_job, worker_id=idx,
+                                      span_id=dtrace.new_span_id())
+            dtrace.activate(ctx)
+        m_wall, m_dev, m_windows, m_load, m_depth, m_chunks = (
+            instruments or (None,) * 6)
+        health_interval = self.health_interval_s
+        h_next = time.monotonic() + (health_interval or 0.0)
+        h_seq = 0           # the worker's report sequence number
+        h_windows = 0       # windows this worker ran
+        h_wall_ms = 0.0     # window wall since the last report
+        h_wall_n = 0
         with (torch.cuda.stream(stream) if on_card else contextlib.nullcontext()):
-            client = make_client(pin_memory=on_card, landing_guard=landing_guard)
+            client = make_client(pin_memory=on_card, landing_guard=landing_guard,
+                                 trace_context=ctx)
             self.worker_transports[idx] = getattr(client, "transport", "inproc")
+
+            def send_health() -> None:
+                nonlocal h_seq, h_wall_ms, h_wall_n
+                client.report_health({
+                    "job": trace_job or "local", "worker": idx,
+                    "seq": h_seq, "t_wall": time.time(),
+                    "transport": getattr(client, "transport", None),
+                    "metrics": {
+                        # *_total are cumulative; window_wall_ms is the
+                        # mean since the last report
+                        "windows_total": float(h_windows),
+                        "window_wall_ms": h_wall_ms / h_wall_n if h_wall_n else None,
+                        "reconnects_total": float(client.reconnects_used),
+                        "failovers_total": float(client.failovers_used),
+                    }})
+                h_seq += 1
+                h_wall_ms, h_wall_n = 0.0, 0
+
             try:
                 shard = dataset.shard(self.num_workers, idx)
                 # np.array: the pulled arrays are the client's landing
@@ -443,41 +507,75 @@ class AsyncDistributedTrainer(Trainer):
                     xs, ys = _host(stacked[self.features_col]), _host(stacked[self.label_col])
                     n_windows = xs.shape[0]
                     for w in range(n_windows):
+                        telemetry = m_wall is not None and obs.enabled()
+                        t_load = time.perf_counter() if telemetry else 0.0
+                        wx_h, wy_h = xs[w], ys[w]
+                        if telemetry:
+                            # the feed's names: the slices are views, cut
+                            # in the window's own thread, so nothing queues
+                            m_load.observe(time.perf_counter() - t_load)
+                            m_chunks.inc()
+                            m_depth.set(0)
                         if self.fault_hook is not None:
                             self.fault_hook(idx, w)
                         t0 = time.perf_counter()
-                        if not pull_pending:
-                            client.pull_nowait()
-                        pulled_host = client.wait_weights()
-                        pull_pending = False
-                        pulled = [self._h2d(a) for a in pulled_host]
-                        wx, wy = self._h2d(xs[w]), self._h2d(ys[w])
-                        if on_card and client.last_landing is not None:
-                            ev = torch.cuda.Event()
-                            ev.record(stream)
-                            h2d_done[client.last_landing] = ev
-                        params, opt_state, commit, mloss = window_fn(
-                            params, opt_state, self._to_params(pulled, treedef), wx, wy)
-                        # prefetch the next window's pull while this one
-                        # computes: it sees the center before this window's
-                        # commit (self-staleness 1, as in the JAX package)
-                        last = w == n_windows - 1 and epoch == self.num_epoch - 1
-                        if self.pipeline and not last:
-                            client.pull_nowait()
-                            pull_pending = True
-                        for dst, src in zip(staging_t, self._to_flat(commit)):
-                            dst.copy_(src, non_blocking=True)
-                        if on_card:
-                            # the commit is framed only once it is in the frame
-                            copied = torch.cuda.Event()
-                            copied.record(stream)
-                            copied.synchronize()
-                        if self.pipeline:
-                            client.commit_nowait(staging)
-                        else:
-                            client.commit(staging)
+                        with obs.span("async.window", worker=idx, epoch=epoch, window=w):
+                            if not pull_pending:
+                                client.pull_nowait()
+                            pulled_host = client.wait_weights()
+                            pull_pending = False
+                            pulled = [self._h2d(a) for a in pulled_host]
+                            wx, wy = self._h2d(wx_h), self._h2d(wy_h)
+                            if on_card and client.last_landing is not None:
+                                ev = torch.cuda.Event()
+                                ev.record(stream)
+                                h2d_done[client.last_landing] = ev
+                            t_dev = time.perf_counter() if telemetry else 0.0
+                            params, opt_state, commit, mloss = window_fn(
+                                params, opt_state, self._to_params(pulled, treedef), wx, wy)
+                            # prefetch the next window's pull while this one
+                            # computes: it sees the center before this
+                            # window's commit (self-staleness 1, as in the
+                            # JAX package)
+                            last = w == n_windows - 1 and epoch == self.num_epoch - 1
+                            if self.pipeline and not last:
+                                client.pull_nowait()
+                                pull_pending = True
+                            if telemetry:
+                                # measuring only: the window's work to its
+                                # end (the commit's copy below waits for it
+                                # anyway)
+                                if on_card:
+                                    stream.synchronize()
+                                m_dev.observe(time.perf_counter() - t_dev)
+                            for dst, src in zip(staging_t, self._to_flat(commit)):
+                                dst.copy_(src, non_blocking=True)
+                            if on_card:
+                                # the commit is framed only once it is in
+                                # the frame
+                                copied = torch.cuda.Event()
+                                copied.record(stream)
+                                copied.synchronize()
+                            if self.pipeline:
+                                client.commit_nowait(staging)
+                            else:
+                                client.commit(staging)
+                        wall = time.perf_counter() - t0
+                        if telemetry:
+                            m_wall.observe(wall)
+                            m_windows.inc()
+                        if health_interval is not None:
+                            h_windows += 1
+                            h_wall_ms += wall * 1e3
+                            h_wall_n += 1
+                            if time.monotonic() >= h_next:
+                                send_health()
+                                h_next = time.monotonic() + health_interval
                         losses.append(mloss)
-                        walls.append(time.perf_counter() - t0)
+                        walls.append(wall)
+                if health_interval is not None:
+                    # a run shorter than the interval still lands a report
+                    send_health()
                 # the trailing acks: every commit is applied before the run
                 # reads its final center
                 client.drain()
@@ -522,6 +620,12 @@ class AsyncDistributedTrainer(Trainer):
             ps = None
             addresses = list(self._ps_addresses)
         else:
+            if self.health_interval_s is not None:
+                # the owned hub's run owns the process collector and
+                # monitor: the previous run's series and baselines go
+                from distkeras_torch.observability import health as _health
+
+                _health.reset_default()
             try:
                 ps = self._allocate_hub(templates, plan)
                 ps.start()
@@ -557,14 +661,14 @@ class AsyncDistributedTrainer(Trainer):
                 kw["failover"] = self._ps_failover if plan is not None else self._ps_failover[0]
             return kw
 
-        def make_client(pin_memory: bool = False, landing_guard=None):
+        def make_client(pin_memory: bool = False, landing_guard=None, trace_context=None):
             if self.transport == "inproc":
                 return InprocPSClient(ps, templates, compress=self.compress_commits,
-                                      pin_memory=pin_memory)
+                                      trace_context=trace_context, pin_memory=pin_memory)
             kw = failover(dict(compress=self.compress_commits,
                                max_inflight=self.max_inflight_commits, shm=shm,
                                pin_memory=pin_memory, landing_guard=landing_guard,
-                               **resilience))
+                               trace_context=trace_context, **resilience))
             if plan is not None:
                 return ShardedPSClient(addresses, templates, plan, **kw)
             return PSClient(addresses[0][0], addresses[0][1], templates, **kw)
@@ -578,6 +682,23 @@ class AsyncDistributedTrainer(Trainer):
                 return ShardedPSClient(addresses, templates, plan, **kw)
             return PSClient(addresses[0][0], addresses[0][1], templates, **kw)
 
+        # one job id for every worker of the run, kept across restarts; the
+        # process's clock-sync estimate starts afresh (an offset against an
+        # earlier run's hub must not outlive it)
+        trace_job = (self.trace_context or dtrace.new_job_id()) if obs.enabled() else None
+        if trace_job is not None:
+            dtrace.reset_clock_sync()
+            if os.environ.get("DKT_TRACE_DIR"):
+                # spans of an earlier train() in this process must not be
+                # flushed again under this run's job
+                obs.TRACER.clear()
+        # the window instruments exist only when telemetry is on as the run
+        # starts: off, the window path touches no instrument
+        instruments = ((obs.histogram("async_window_wall_seconds"),
+                        obs.histogram("async_window_device_seconds"),
+                        obs.counter("async_windows_total"))
+                       + feed_instruments("async_feed") if obs.enabled() else None)
+
         histories: List[List[torch.Tensor]] = [[] for _ in range(self.num_workers)]
         self.window_seconds = [[] for _ in range(self.num_workers)]
         self.worker_transports = [""] * self.num_workers
@@ -587,26 +708,39 @@ class AsyncDistributedTrainer(Trainer):
         def run_worker(idx: int) -> None:
             losses, walls = histories[idx], self.window_seconds[idx]
             progress = [0, 0]  # [epoch to resume at, len(losses) at its start]
-            while True:
-                try:
-                    self._run_worker(idx, progress[0], progress, dataset, shuffle,
-                                     make_client, treedef, losses, walls)
-                    return
-                except Exception as e:  # reported by train() after the join
-                    # "restart" runs the worker again from the hub's current
-                    # center at the epoch it died in, within its budget;
-                    # otherwise the error is recorded
-                    if (self.on_worker_failure != "restart"
-                            or restart_counts[idx] >= self.max_worker_restarts):
-                        errors.append(e)
+            # occupancy: started minus finished is the live workers; a
+            # worker counts its finish only if it counted its start
+            start_counted = obs.enabled()
+            if start_counted:
+                obs.counter("async_workers_started_total").inc()
+            try:
+                while True:
+                    try:
+                        self._run_worker(idx, progress[0], progress, dataset, shuffle,
+                                         make_client, treedef, losses, walls,
+                                         trace_job=trace_job, instruments=instruments)
                         return
-                    restart_counts[idx] += 1
-                    # the replay trains the aborted epoch again: its partial
-                    # windows leave the history
-                    del losses[progress[1]:]
-                    del walls[progress[1]:]
-                    warnings.warn(f"worker {idx} restarting ({restart_counts[idx]}/"
-                                  f"{self.max_worker_restarts}) after {type(e).__name__}: {e}")
+                    except Exception as e:  # reported by train() after the join
+                        # "restart" runs the worker again from the hub's
+                        # current center at the epoch it died in, within its
+                        # budget; otherwise the error is recorded
+                        if (self.on_worker_failure != "restart"
+                                or restart_counts[idx] >= self.max_worker_restarts):
+                            errors.append(e)
+                            return
+                        restart_counts[idx] += 1
+                        # the replay trains the aborted epoch again: its
+                        # partial windows leave the history
+                        del losses[progress[1]:]
+                        del walls[progress[1]:]
+                        warnings.warn(f"worker {idx} restarting ({restart_counts[idx]}/"
+                                      f"{self.max_worker_restarts}) after "
+                                      f"{type(e).__name__}: {e}")
+                        if obs.enabled():
+                            obs.counter("worker.restarts").inc()
+            finally:
+                if start_counted:
+                    obs.counter("async_workers_finished_total").inc()
 
         snap_stop = snap_thread = None
         if checkpointer is not None:
@@ -666,6 +800,16 @@ class AsyncDistributedTrainer(Trainer):
             epoch=self.num_epoch - 1,
             samples=total_windows * self.communication_window * self.batch_size,
             seconds=self.get_training_time(), chips=1)
+        # with DKT_TRACE_DIR set, this process's span ring goes there for
+        # merge_traces (in worker-only mode each worker host writes its own
+        # file with its clock offset to the hub)
+        trace_dir = os.environ.get("DKT_TRACE_DIR")
+        if trace_dir and obs.enabled():
+            try:
+                dtrace.flush_process_trace(trace_dir, job_id=trace_job,
+                                           role="trainer" if ps is not None else "worker")
+            except OSError as e:
+                warnings.warn(f"trace flush to {trace_dir} failed: {e}")
         params = unflatten_weights(treedef, [torch.from_numpy(w) for w in final], spec,
                                    device=self.device)
         self.model = Model(spec=spec, params={k: params[k] for k in self.model.params})

@@ -7,9 +7,9 @@ which either package reads.  The same protocol version, frame limits, HMAC
 challenge, job lifecycle, spool directory with its lock, reload and
 eviction.  The daemon owns its device (the card unless ``device="cpu"``) and
 passes it to every trainer it builds; the trainer registry points at this
-package's trainers.  The JAX daemon's telemetry pull (metrics, Prometheus
-text, trace, fleet and health) answers ``{"ok": false, "error": ...}``
-naming ROADMAP item 15.
+package's trainers.  The telemetry pull (metrics, Prometheus text, trace,
+fleet and health) answers with the JAX daemon's keys, read from this
+package's own observability registry, tracer and health collector.
 
 - Transport is the framed JSON/tensor protocol (``runtime/networking.py``)
   — no pickle, no Flask.  Control messages are JSON frames; inline
@@ -50,6 +50,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from distkeras_torch import observability as obs
 from distkeras_torch.platform import DeviceLike, resolve_device
 from distkeras_torch.runtime import networking as net
 
@@ -86,12 +87,6 @@ _TRAINER_PATHS = {
     "async-dynsgd": ("distkeras_torch.runtime.async_trainer", "AsyncDynSGD"),
 }
 _TRAINER_NAMES = tuple(_TRAINER_PATHS)
-
-# the JAX daemon's telemetry pull (metrics, prometheus, trace, fleet and
-# health) reads its observability package, which the port does not have yet
-TELEMETRY_ERROR = ("telemetry (metrics, prometheus, trace, fleet, health) is ROADMAP "
-                   "item 15 of the PyTorch port; this daemon records none")
-
 
 def _trainer_registry() -> Dict[str, Any]:
     import importlib
@@ -439,7 +434,33 @@ class Punchcard:
             for blob in rec.model_blobs:
                 net.send_frame(conn, blob)
         elif action == "telemetry":
-            net.send_json(conn, {"ok": False, "error": TELEMETRY_ERROR})
+            # a running job's metrics, readable while the executor is
+            # mid-job (the registry and tracer are thread-safe; no job lock
+            # is taken), and on request the span ring as a Chrome trace, the
+            # Prometheus text, the fleet report (over every flushed
+            # process's spans when DKT_TRACE_DIR is set, with the live
+            # collector) and the live health view
+            resp: Dict[str, Any] = {
+                "ok": True,
+                "enabled": obs.enabled(),
+                "metrics": obs.snapshot(),
+            }
+            if req.get("prometheus"):
+                resp["prometheus"] = obs.render_prometheus()
+            if req.get("trace"):
+                resp["trace"] = obs.chrome_trace()
+            if req.get("fleet"):
+                from distkeras_torch.observability import health as _health
+                from distkeras_torch.observability.distributed import fleet_report
+
+                resp["fleet"] = fleet_report(
+                    trace_dir=os.environ.get("DKT_TRACE_DIR") or None,
+                    live=_health.collector())
+            if req.get("health"):
+                from distkeras_torch.observability import health as _health
+
+                resp["health"] = _health.health_snapshot()
+            net.send_json(conn, resp)
         elif action == "shutdown":
             net.send_json(conn, {"ok": True})
             threading.Thread(target=self.stop, daemon=True).start()
@@ -661,12 +682,15 @@ class Punchcard:
                         continue  # cancelled while queued (finally still runs)
                     rec.state = RUNNING
                 self._save_record(rec)
-                self._run(rec)
+                with obs.span("punchcard.job", job_id=rec.job_id,
+                              trainer=rec.job.get("trainer")):
+                    self._run(rec)
                 rec.state = DONE
             except Exception as e:
                 rec.error = f"{type(e).__name__}: {e}"
                 rec.state = FAILED
             finally:
+                obs.counter("punchcard_jobs_total", state=rec.state).inc()
                 # a long-running daemon must not pin submitted datasets in
                 # RAM — cancelled ones included; only the fetchable model
                 # blobs outlive the run (and the spooled data.npz goes too).
@@ -883,9 +907,13 @@ def fetch_telemetry(host: str, port: int, secret: str,
                     prometheus: bool = False,
                     fleet: bool = False,
                     health: bool = False) -> Dict[str, Any]:
-    """The JAX daemon's telemetry pull, the same request: a daemon of this
-    package answers it with an error (ROADMAP item 15), raised here as
-    ``RuntimeError``; a JAX daemon answers with its snapshot."""
+    """Pull the daemon process's telemetry (authenticated): the metrics
+    snapshot, plus the span ring as Chrome ``trace_event`` JSON when
+    ``trace=True``, the Prometheus text when ``prometheus=True``, the
+    :func:`~distkeras_torch.observability.distributed.fleet_report` when
+    ``fleet=True`` and the live health view (what ``distkeras-torch-top``
+    renders) when ``health=True``.  The same request as the JAX
+    package's; either package's daemon answers it."""
     with _Conn(host, port, secret) as conn:
         return conn.request({"action": "telemetry", "trace": bool(trace),
                              "prometheus": bool(prometheus),

@@ -137,8 +137,15 @@ def start_parameter_server(model: Any, mode: str = "delta", num_workers: int = 1
     ``shard_index``), and ``elastic`` has an ``adag`` hub divide by the
     live workers.
 
-    ``health_jsonl`` and ``adaptive`` raise ``NotImplementedError`` (ROADMAP
-    item 8b, part 2), as does ``sparse_tables`` (item 13)."""
+    Health: a hub folds the workers' health reports (action ``M``, sent by
+    trainers with ``health_interval_s``) into this process's
+    :mod:`~distkeras_torch.observability.health` collector and runs the
+    detectors over them; ``health_jsonl`` also appends every
+    :class:`~distkeras_torch.observability.health.HealthEvent` to that
+    path as JSON lines.
+
+    ``adaptive`` raises ``NotImplementedError`` (ROADMAP item 8b, part 2),
+    as does ``sparse_tables`` (item 13)."""
     from distkeras_torch.runtime.parameter_server import ShardedParameterServer, shard_plan
     from distkeras_torch.utils import flatten_weights
 
@@ -150,8 +157,7 @@ def start_parameter_server(model: Any, mode: str = "delta", num_workers: int = 1
         if num_shards > 1 and shard_index is None:
             raise ValueError("replica_of with num_shards > 1 requires shard_index: run one "
                              "standby daemon per shard, each pointed at its own primary")
-    unported = {"health_jsonl": (health_jsonl is not None, "8b part 2"),
-                "sparse_tables": (sparse_tables is not None, "13"),
+    unported = {"sparse_tables": (sparse_tables is not None, "13"),
                 "adaptive=True": (bool(adaptive), "8b part 2")}
     for what, (given, item) in unported.items():
         if given:
@@ -188,6 +194,13 @@ def start_parameter_server(model: Any, mode: str = "delta", num_workers: int = 1
                "dynsgd": DynSGDParameterServer}[mode]
         kwargs = {"num_workers": num_workers, "elastic": elastic} if mode == "adag" else {}
         return cls(hub_weights, host=host, port=hub_port, **kwargs, **common)
+
+    if health_jsonl is not None:
+        # the monitor's durable sink is armed before the hub serves: the
+        # first event, maybe from the first report, lands on disk
+        from distkeras_torch.observability import health as _health
+
+        _health.monitor().jsonl_path = str(health_jsonl)
 
     if num_shards == 1:
         ps = make_hub(weights, None, port)
@@ -267,7 +280,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                         help="serve only this shard from this process (one daemon per "
                              "shard); omit to serve every shard from one process")
     parser.add_argument("--health-jsonl", default=None, metavar="PATH",
-                        help="fleet health events (not ported: ROADMAP item 8b, part 2)")
+                        help="append every fleet health event (detector firings over the "
+                             "workers' health reports) to PATH as JSON lines")
     parser.add_argument("--sparse-tables", default=None, metavar="SPEC",
                         help="row-sparse tables (not ported: ROADMAP item 13)")
     parser.add_argument("--shm-dir", default=None, metavar="DIR",
@@ -344,6 +358,20 @@ def main(argv: Optional[List[str]] = None) -> None:
         if stop_event.is_set():
             print("SIGTERM: stopping the hub", flush=True)
         ps.stop()
+        # the hub process is the trace merge's clock reference: with
+        # telemetry on and DKT_TRACE_DIR set its spans go there (the C++
+        # hub's commit log reaches the tracer in stop())
+        trace_dir = os.environ.get("DKT_TRACE_DIR")
+        if trace_dir:
+            from distkeras_torch import observability as obs
+
+            if obs.enabled():
+                from distkeras_torch.observability.distributed import flush_process_trace
+
+                try:
+                    flush_process_trace(trace_dir, role="hub")
+                except OSError as e:
+                    print(f"trace flush failed: {e}", flush=True)
         if args.save_final:
             final = _final_model(model, ps.get_weights(), args.num_shards, args.shard_index)
             with open(args.save_final, "wb") as f:

@@ -17,8 +17,13 @@ C++ hub's clock fence), elastic ADAG and the hot standby (``replica_of``,
 ``is_standby``, ``promoted``, ``wait_synced``, ``promote``; the C++ hub
 runs the feed thread and the promotion).  Its socket side speaks the same
 wire protocol, the shared-memory attach (action ``Z``) and the replication
-feed (action ``R``) included, and its ctypes calls release the GIL while
-the hub copies and applies.  The
+feed (action ``R``) included, the trace-context announce (``T``) and the
+health reports (``M``): a poll thread drains the reports the C++ hub
+parks into the process health collector.  :meth:`NativeParameterServer.
+sync_telemetry` surfaces the C++ hub's counters (``dk_ps_stats``) under
+the Python hub's registry names, and its commit log as
+``ps.handle_commit`` spans.  Its ctypes calls release the GIL while the
+hub copies and applies.  The
 standalone ring handles (``dk_shm_ring_*``) drive the C++ hub's own ring
 code, which shares one file layout with ``networking.ShmFrameRing``.
 """
@@ -27,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import socket
 import subprocess
@@ -39,7 +45,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from distkeras_torch import observability as obs
 from distkeras_torch._build import BUILD_DIR
+from distkeras_torch.observability import distributed as dtrace
 from distkeras_torch.runtime import networking as net
 from distkeras_torch.runtime.parameter_server import _reject
 
@@ -138,7 +146,15 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.dk_ps_pull.argtypes = [ctypes.c_void_p, P(ctypes.c_float)]
     lib.dk_ps_commit.restype = ctypes.c_int
     lib.dk_ps_commit.argtypes = [ctypes.c_void_p, P(ctypes.c_float), ctypes.c_int64]
+    lib.dk_ps_commit_ctx.restype = ctypes.c_int
+    lib.dk_ps_commit_ctx.argtypes = [ctypes.c_void_p, P(ctypes.c_float), ctypes.c_int64,
+                                     ctypes.c_int64]
     lib.dk_ps_stats.argtypes = [ctypes.c_void_p, P(ctypes.c_int64)]
+    lib.dk_ps_staleness_hist.argtypes = [ctypes.c_void_p, P(ctypes.c_int64)]
+    lib.dk_ps_drain_commits.restype = ctypes.c_int64
+    lib.dk_ps_drain_commits.argtypes = [ctypes.c_void_p, P(ctypes.c_int64), ctypes.c_int64]
+    lib.dk_ps_next_health.restype = ctypes.c_int64
+    lib.dk_ps_next_health.argtypes = [ctypes.c_void_p, P(ctypes.c_uint8), ctypes.c_int64]
     lib.dk_ps_destroy.argtypes = [ctypes.c_void_p]
     # the shared-memory transport: the hub's attach switch, and the ring
     # code it serves with, as standalone handles
@@ -172,12 +188,6 @@ def _f32p(arr: np.ndarray):
     return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
 
 
-# the slots of dk_ps_stats (native/ps_server.cpp StatSlot), of which the
-# binding reads live_workers
-_STAT_SLOTS = 28
-_STAT_LIVE_WORKERS = 5
-
-
 class NativeParameterServer:
     """The C++ hub with the Python hub's interface.  ``mode`` is the
     commit rule (``MODE_DELTA`` / ``MODE_ADAG`` / ``MODE_DYNSGD``).
@@ -195,6 +205,37 @@ class NativeParameterServer:
     primary (the C++ feed thread, promotion on feed loss or a first
     commit); an ``R`` hello from a peer attaches it to this hub's own feed
     as a primary."""
+
+    _POLL_INTERVAL_S = 0.25
+
+    # dk_ps_stats slot order (native/ps_server.cpp StatSlot)
+    _STAT_KEYS = ("commits", "pulls", "commit_bytes", "pull_bytes",
+                  "fenced_commits", "live_workers", "idle_evictions", "clock",
+                  "commit_log_dropped",
+                  "sparse_rows_pulled", "sparse_rows_committed",
+                  "sparse_wire_bytes_saved",
+                  "replicas_connected", "replicas_attached",
+                  "replica_disconnects",
+                  "merge_batches", "merged_commits", "max_merge_batch",
+                  "backpressure_hints", "replica_frames", "promotions",
+                  "health_reports_dropped", "is_standby", "promoted_flag",
+                  "promoted_at_clock", "synced",
+                  "repl_sparse_bytes", "repl_sparse_saved")
+
+    # the cumulative counters synced into the registry under the Python
+    # hub's names (the port's C++ hub serves no sparse tables and no
+    # adaptive merge, whose slots stay 0 and are not mapped)
+    _COUNTER_NAMES = (("commits", "ps_commits_total"),
+                      ("pulls", "ps_pulls_total"),
+                      ("commit_bytes", "ps_commit_bytes_total"),
+                      ("pull_bytes", "ps_pull_bytes_total"),
+                      ("fenced_commits", "ps_fenced_commits_total"),
+                      ("idle_evictions", "ps_idle_evictions_total"),
+                      ("commit_log_dropped", "ps_commit_log_dropped_total"),
+                      ("replicas_attached", "ps_replicas_attached_total"),
+                      ("replica_disconnects", "ps_replica_disconnects_total"),
+                      ("replica_frames", "ps_replica_frames_total"),
+                      ("promotions", "ps_promotions_total"))
 
     def __init__(self, weights: Sequence[np.ndarray], mode: int = MODE_DELTA,
                  num_workers: int = 1, port: int = 0, elastic: bool = False,
@@ -244,6 +285,23 @@ class NativeParameterServer:
         self._total = int(flat.size)
         lib.dk_ps_set_weights(self._handle, _f32p(flat))
         self.shard_id = None if shard_id is None else int(shard_id)
+        self._mlabels = {} if shard_id is None else {"shard": str(int(shard_id))}
+        # the telemetry bridge: the last cumulative stats and staleness
+        # histogram seen, so a sync advances the registry by deltas
+        self._stats_lock = threading.Lock()
+        # serializes the two C++ drains (health reports, commit log): they
+        # share the buffers below, and ctypes releases the GIL
+        self._drain_lock = threading.Lock()
+        self._last_stats = [0] * len(self._STAT_KEYS)
+        self._last_stale_hist = [0] * 65
+        self._drain_buf = np.zeros(4096 * 5, np.int64)
+        self._health_buf = np.zeros(
+            max(net.CONTROL_PAYLOAD_MAX, int(net.max_request_payload(self._templates))),
+            np.uint8)
+        self._health: Optional[Any] = None
+        self._health_monitor: Optional[Any] = None
+        self._poll_stop = threading.Event()
+        self._poll_thread: Optional[threading.Thread] = None
         self.shm_dir = None if shm_dir is None else str(shm_dir)
         if self.shm_dir is not None:
             os.makedirs(self.shm_dir, exist_ok=True)
@@ -276,6 +334,11 @@ class NativeParameterServer:
             raise RuntimeError("native hub failed to bind")
         self.port = port
         self._started = True
+        # the poll thread stands in for the Python hub's in-handler fold:
+        # it drains the wire's M reports into the process collector
+        self._poll_stop.clear()
+        self._poll_thread = threading.Thread(target=self._poll_loop, daemon=True)
+        self._poll_thread.start()
         if self.snapshotter is not None:
             self.snapshotter.start()
 
@@ -289,10 +352,126 @@ class NativeParameterServer:
 
     def _shutdown(self, final_snapshot: bool) -> None:
         if self._started:
+            self._poll_stop.set()
+            if self._poll_thread is not None:
+                self._poll_thread.join(timeout=5)
+                self._poll_thread = None
             if self.snapshotter is not None:
                 self.snapshotter.stop(final_snapshot=final_snapshot)
+            # the final counters and commit log reach the registry before
+            # the serving threads go
+            try:
+                self.sync_telemetry()
+            except Exception:
+                pass  # telemetry never blocks a teardown
             self._lib.dk_ps_stop(self._handle)
             self._started = False
+
+    # -- the health plane and the telemetry bridge ------------------------------------
+    def _poll_loop(self) -> None:
+        while not self._poll_stop.wait(self._POLL_INTERVAL_S):
+            try:
+                self._drain_health()
+            except Exception:
+                pass  # telemetry never kills the hub
+
+    def _ingest_health(self, report: Dict[str, Any]) -> None:
+        """Fold one drained report into the process collector (bound at
+        the first report, as the Python hub's)."""
+        if self._health is None or self._health_monitor is None:
+            from distkeras_torch.observability import health as _health
+
+            if self._health is None:
+                self._health = _health.collector()
+            if self._health_monitor is None:
+                self._health_monitor = _health.monitor()
+        self._health.ingest(report, shard=self.shard_id)
+        self._health_monitor.maybe_check()
+
+    def _drain_health(self) -> None:
+        """Drain the C++ hub's parked ``M`` reports into the collector."""
+        ptr = self._health_buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+        while True:
+            with self._drain_lock:
+                n = int(self._lib.dk_ps_next_health(self._handle, ptr, self._health_buf.size))
+                raw = bytes(self._health_buf[:n]) if n > 0 else b""
+            if n == 0:
+                break
+            if n < 0:
+                continue  # an oversized report, dropped (counted in C++)
+            try:
+                report = json.loads(raw.decode("utf-8"))
+            except Exception:
+                continue  # a malformed report is ignored
+            self._ingest_health(report)
+
+    def _shard_attrs(self) -> Dict[str, int]:
+        return {} if self.shard_id is None else {"shard": self.shard_id}
+
+    def stats(self) -> Dict[str, int]:
+        """The C++ hub's cumulative counters by name (``dk_ps_stats``)."""
+        out = (ctypes.c_int64 * len(self._STAT_KEYS))()
+        self._lib.dk_ps_stats(self._handle, out)
+        return dict(zip(self._STAT_KEYS, [int(v) for v in out]))
+
+    def _consume_commit_log(self) -> None:
+        """Drain the C++ commit log: each record becomes a
+        ``ps.handle_commit`` span (telemetry on) and, with the health plane
+        bound, the committing worker's staleness sample."""
+        telemetry = obs.enabled()
+        fold = self._health is not None
+        if not telemetry and not fold:
+            return
+        while True:
+            with self._drain_lock:
+                n = int(self._lib.dk_ps_drain_commits(
+                    self._handle, self._drain_buf.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                    4096))
+                records = self._drain_buf[:n * 5].copy()
+            for i in range(n):
+                clock, worker, staleness, t_ns, dur_ns = (int(v) for v in records[i * 5:i * 5 + 5])
+                if telemetry:
+                    attrs = {"staleness": staleness, "clock": clock, "hub": "native",
+                             **self._shard_attrs()}
+                    if worker >= 0:
+                        attrs["worker"] = worker
+                    obs.TRACER.record_span("ps.handle_commit", t_ns, t_ns + dur_ns,
+                                           tid="native-hub", **attrs)
+                if fold and worker >= 0 and (self.shard_id is None or self.shard_id == 0):
+                    # shard 0 only: one logical commit lands on every shard
+                    self._health.observe(str(worker), "staleness", float(staleness),
+                                         shard=self.shard_id)
+            if n < 4096:
+                break
+
+    def sync_telemetry(self) -> None:
+        """The C++ hub's telemetry into the process registry and tracer,
+        under the Python hub's names: counters advance by their deltas
+        since the last sync, the staleness histogram by its new counts,
+        and the commit log becomes spans.  Called at shutdown and at every
+        snapshot; call it for an up-to-the-moment view mid-run."""
+        self._drain_health()
+        if not obs.enabled():
+            return
+        with self._stats_lock:
+            stats = self.stats()
+            vals = [stats[k] for k in self._STAT_KEYS]
+            delta = {k: v - last for k, v, last in zip(self._STAT_KEYS, vals, self._last_stats)}
+            self._last_stats = vals
+            for key, name in self._COUNTER_NAMES:
+                if delta[key] > 0:
+                    obs.counter(name, **self._mlabels).inc(delta[key])
+            obs.gauge("ps_live_workers", **self._mlabels).set(stats["live_workers"])
+            obs.gauge("ps_replicas_connected", **self._mlabels).set(stats["replicas_connected"])
+            # exact small staleness counts into the log-bucket histogram
+            # (the overflow slot observes as its lower bound)
+            hist = (ctypes.c_int64 * 65)()
+            self._lib.dk_ps_staleness_hist(self._handle, hist)
+            stale = obs.histogram("ps_commit_staleness", **self._mlabels)
+            for slot in range(65):
+                stale.observe_n(slot, int(hist[slot]) - self._last_stale_hist[slot])
+                self._last_stale_hist[slot] = int(hist[slot])
+        self._consume_commit_log()
 
     # -- hot standby ---------------------------------------------------------------
     def is_standby(self) -> bool:
@@ -325,7 +504,12 @@ class NativeParameterServer:
 
     # -- durability -----------------------------------------------------------------
     def snapshot_state(self) -> Tuple[List[np.ndarray], Dict[str, Any]]:
-        """``(center copy, state)`` in one view taken under the C++ hub's gate."""
+        """``(center copy, state)`` in one view taken under the C++ hub's
+        gate; a snapshotting hub syncs its telemetry on the way."""
+        try:
+            self.sync_telemetry()
+        except Exception:
+            pass
         flat = np.empty(self._total, np.float32)
         clock = int(self._lib.dk_ps_snapshot(self._handle, _f32p(flat)))
         return self._split(flat, copy=True), {"clock": clock,
@@ -376,7 +560,12 @@ class NativeParameterServer:
                 raise ValueError(f"commit tensor size {a.size} != center size {t.size}")
             parts.append(a)
         flat = np.concatenate(parts) if parts else np.zeros(0, np.float32)
-        rc = int(self._lib.dk_ps_commit(self._handle, _f32p(flat), int(last_pull_clock)))
+        # the commit is attributed to the calling thread's trace context
+        # (-1: none, the wire's default)
+        ctx = dtrace.current()
+        worker = int(ctx.worker_id) if ctx is not None else -1
+        rc = int(self._lib.dk_ps_commit_ctx(self._handle, _f32p(flat), int(last_pull_clock),
+                                            worker))
         if rc == 1:
             raise RuntimeError("commit_direct into a never-synced standby refused (it has no "
                                "state to take over); wait_synced() first")
@@ -393,9 +582,7 @@ class NativeParameterServer:
     def live_workers(self) -> int:
         """Connections that committed and are still open (the C++ hub's
         count, with its idle eviction)."""
-        out = (ctypes.c_int64 * _STAT_SLOTS)()
-        self._lib.dk_ps_stats(self._handle, out)
-        return int(out[_STAT_LIVE_WORKERS])
+        return self.stats()["live_workers"]
 
     def __del__(self):
         try:

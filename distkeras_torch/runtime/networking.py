@@ -6,9 +6,10 @@ Here are the dense pull/commit plane, the shared-memory rings of the
 action-``Z`` attach (:class:`ShmFrameRing`, :class:`ShmEndpoint`, one file
 layout with the JAX module and the C++ hub) and the hub's batched receive
 (:class:`BatchedReceiver`) and the hub-to-hub replication feed (action
-``R``, :func:`encode_repl_hello`); the JAX module's sparse frames are
-ROADMAP item 13, its reconnect, admission, trace and health frames item
-8b's part 2.
+``R``, :func:`encode_repl_hello`), the trace-context announce (``T``)
+and the health reports (``M``); the JAX module's sparse frames are
+ROADMAP item 13, its reconnect, retry and admission frames item 8b's
+part 2.
 
 Wire format (all integers big-endian):
 
@@ -24,7 +25,8 @@ Actions: ``P`` pull request, ``C`` commit, ``Q`` int8-compressed commit,
 acks it), ``Z`` the shared-memory attach handshake (request, offer or
 decline, confirm; see :func:`encode_shm_request`), ``R`` the
 replication feed (a standby's hello, then the primary's full sync and one
-delta a commit).  Dtype and shape travel out of band: both ends hold the
+delta a commit), ``T`` a worker's trace context (the hub answers with its
+monotonic clock) and ``M`` a worker's health report (the hub acks it).  Dtype and shape travel out of band: both ends hold the
 model's weight list as templates.
 
 Two implementations move tensor frames with the same bytes: the generic
@@ -52,6 +54,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from distkeras_torch import observability as obs
+
 MAX_FRAME = 1 << 34  # 16 GiB sanity bound on a single frame
 
 ACTION_PULL = b"P"
@@ -61,6 +65,18 @@ ACTION_BYE = b"B"
 ACTION_WEIGHTS = b"W"
 ACTION_ACK = b"A"
 ACTION_PING = b"H"
+# the trace-context announce: one JSON blob (job_id/worker_id/span_id); the
+# hub tags this connection's spans with the context and replies with a T
+# frame of one 8-byte big-endian blob, its monotonic clock in ns (the
+# sample the client's clock-offset estimate is built from).  Sent only
+# when telemetry or a trace context is on, so a peer never sees it
+# otherwise
+ACTION_TRACE = b"T"
+# the health-report push: a worker periodically sends one M frame of a
+# single JSON blob (its compact metric report), which the hub folds into
+# the process HealthCollector and acks like a commit.  Sent only when the
+# trainer sets ``health_interval_s``
+ACTION_HEALTH = b"M"
 # the shared-memory attach: a client built with shm=True sends one Z
 # request (u8 version, u64 big-endian ring-capacity hint); the hub answers
 # with a Z offer of two ring-file paths or a Z decline of zero blobs; on an
@@ -83,8 +99,9 @@ REPL_HELLO = 2   # standby -> primary: no tensor blobs; clock is the standby's
 # package streams it dense deltas only (sparse tables are ROADMAP item 13)
 REPL_SPARSE = 3
 REPL_CAP_SPARSE = 1
-# receive-bound allowance of the control frames a hub of the JAX package
-# accepts: kept so both packages' hubs bound a request by the same number
+# receive-bound allowance of the control frames (the one-JSON-blob T and M
+# payloads, sized by their reports, not by the model): a hub receives
+# against max(largest tensor frame, CONTROL_PAYLOAD_MAX)
 CONTROL_PAYLOAD_MAX = 64 * 1024
 
 MIN_SOCKET_BUF = 64 << 10   # floor for SO_SNDBUF/SO_RCVBUF requests
@@ -159,8 +176,24 @@ def _recv_exact(sock: socket.socket, n: int) -> bytes:
     return bytes(buf)
 
 
+def _count_tx(nbytes: int) -> None:
+    # counted after the send returned: a frame a dying peer dropped must
+    # not inflate the accounting
+    if obs.enabled():
+        obs.counter("net_tx_frames_total").inc()
+        obs.counter("net_tx_bytes_total").inc(nbytes)
+
+
+def _count_rx(nbytes: int) -> None:
+    # counted once the whole frame has landed
+    if obs.enabled():
+        obs.counter("net_rx_frames_total").inc()
+        obs.counter("net_rx_bytes_total").inc(nbytes)
+
+
 def send_frame(sock: socket.socket, payload: bytes) -> None:
     sock.sendall(struct.pack(">Q", len(payload)) + payload)
+    _count_tx(8 + len(payload))
 
 
 def recv_frame(sock: socket.socket, limit: int = MAX_FRAME) -> bytes:
@@ -169,7 +202,9 @@ def recv_frame(sock: socket.socket, limit: int = MAX_FRAME) -> bytes:
     (n,) = struct.unpack(">Q", _recv_exact(sock, 8))
     if n > limit:
         raise ProtocolError(f"frame of {n} bytes exceeds limit={limit}")
-    return _recv_exact(sock, n)
+    payload = _recv_exact(sock, n)
+    _count_rx(8 + n)
+    return payload
 
 
 def recv_frame_into(sock: socket.socket, buf: bytearray,
@@ -188,12 +223,14 @@ def recv_frame_into(sock: socket.socket, buf: bytearray,
             buf = bytearray(n)
     mv = memoryview(buf)[:n]
     _recv_exact_into(sock, mv)
+    _count_rx(8 + n)
     return mv
 
 
 def send_raw_frame(sock: socket.socket, frame: bytes) -> None:
     """Send an already-framed byte string (8-byte header included)."""
     sock.sendall(frame)
+    _count_tx(len(frame))
 
 
 def send_json(sock: socket.socket, obj: Dict[str, Any]) -> None:
@@ -274,6 +311,7 @@ def _scatter_recv_into(sock: socket.socket, out: Sequence[np.ndarray],
                                 f"output slot ({dst.nbytes} bytes, contiguous)")
         if nbytes:
             _recv_exact_into(sock, memoryview(dst).cast("B"))
+    _count_rx(8 + n)
     return action
 
 
@@ -292,7 +330,43 @@ def recv_action(sock: socket.socket) -> bytes:
     (count,) = struct.unpack(">I", payload[1:5])
     if count != 0:
         raise ProtocolError(f"expected zero tensors, frame declares {count}")
+    _count_rx(8 + n)
     return payload[0:1]
+
+
+# -- trace-context announce (T) and health reports (M) -------------------------
+
+def encode_context_payload(context_json: bytes) -> bytes:
+    """The client->hub trace-context announce: a ``T`` tensor frame whose
+    one blob is the UTF-8 JSON of the worker's
+    :class:`~distkeras_torch.observability.distributed.TraceContext`."""
+    return encode_tensors(ACTION_TRACE, [np.frombuffer(context_json, np.uint8)])
+
+
+def encode_health_payload(report_json: bytes) -> bytes:
+    """The worker->hub health report (``M``): a tensor frame whose one blob
+    is the UTF-8 JSON report the
+    :class:`~distkeras_torch.observability.health.HealthCollector`
+    ingests."""
+    return encode_tensors(ACTION_HEALTH, [np.frombuffer(report_json, np.uint8)])
+
+
+def encode_time_payload(t_ns: int) -> bytes:
+    """The hub->client ``T`` reply: one 8-byte big-endian blob, the hub's
+    monotonic clock in nanoseconds."""
+    return ACTION_TRACE + struct.pack(">I", 1) + struct.pack(">Q", 8) \
+        + struct.pack(">Q", t_ns)
+
+
+def decode_time_payload(blobs: Sequence) -> int:
+    """Inverse of :func:`encode_time_payload` given the decoded blobs."""
+    if not blobs:
+        raise ProtocolError("T reply carries no timestamp blob")
+    raw = bytes(memoryview(blobs[0]))[:8]
+    if len(raw) != 8:
+        raise ProtocolError(f"T timestamp blob has {len(raw)} bytes, want 8")
+    (t_ns,) = struct.unpack(">Q", raw)
+    return t_ns
 
 
 def encoded_tensors_size(arrays: Sequence[np.ndarray]) -> int:
@@ -403,6 +477,7 @@ class FlatFrameCodec:
 
     def send_packed(self, sock: socket.socket) -> None:
         sock.sendall(self._tx_mv)
+        _count_tx(self.frame_len)
 
     def send(self, sock: socket.socket, action: bytes, arrays: Sequence[np.ndarray]) -> None:
         self.pack(action, arrays)
@@ -573,12 +648,15 @@ class ShmFrameRing:
         src = memoryview(data).cast("B")
         off, n = 0, len(src)
         head = int(self._q[_SHM_Q_HEAD])
-        spins, started = 0, time.monotonic()
+        spins, started, parked = 0, time.monotonic(), False
         while off < n:
             if self._i[_SHM_I_CONSUMER_CLOSED]:
                 raise ConnectionError("shm ring consumer closed")
             free = self.capacity - (head - int(self._q[_SHM_Q_TAIL]))
             if free == 0:
+                if not parked and obs.enabled():
+                    obs.counter("ps.shm_ring_full_waits").inc()
+                parked = True
                 spins = self._park(spins, started, timeout)
                 continue
             pos = head & self._mask
@@ -676,6 +754,8 @@ class ShmEndpoint:
 
     def sendall(self, data) -> None:
         self.tx_ring.write(data, timeout=self._timeout)
+        if obs.enabled():
+            obs.counter("ps.shm_frames_total").inc()
 
     def recv_into(self, view, nbytes: int = 0) -> int:
         mv = memoryview(view).cast("B")
@@ -813,7 +893,9 @@ class BatchedReceiver:
     many pipelined frames), nonblocking drains top it up, and the frames
     after the first are parsed out of the buffer with no syscall.
     ``frames_served`` and ``fills`` count frames and blocking fills, the
-    batching the ``recv_batch_depth`` option buys.
+    batching the ``recv_batch_depth`` option buys; with telemetry on, the
+    frames parsed between two blocking fills go to the
+    ``ps_recv_batch_depth`` histogram.
 
     :meth:`recv_frame_into` keeps :func:`recv_frame_into`'s contract: the
     view it returns aliases the buffer and holds until the next call.  One
@@ -827,6 +909,7 @@ class BatchedReceiver:
         self._tail = 0   # fill offset
         self.frames_served = 0
         self.fills = 0
+        self._batch_frames = 0  # frames parsed since the last blocking fill
 
     def pending(self) -> int:
         """Bytes buffered and not yet parsed: 0 at any hand-over of the
@@ -896,6 +979,9 @@ class BatchedReceiver:
         """One blocking read (under the socket's timeout), then a drain."""
         self._compact()
         self.fills += 1
+        if obs.enabled() and self._batch_frames:
+            obs.histogram("ps_recv_batch_depth").observe(self._batch_frames)
+        self._batch_frames = 0
         n = self.sock.recv_into(memoryview(self._buf)[self._tail:])
         if n == 0:
             raise ConnectionError("peer closed between frames")
@@ -925,4 +1011,6 @@ class BatchedReceiver:
         start = self._head + 8
         self._head += 8 + n
         self.frames_served += 1
+        self._batch_frames += 1
+        _count_rx(8 + n)
         return memoryview(self._buf)[start:start + n]

@@ -49,15 +49,25 @@ to the same bits.
   own.  A stripe whose budget is spent raises :class:`StripeLostError`,
   naming the shard.
 
+Telemetry, the JAX hubs' and clients': with :mod:`distkeras_torch.observability`
+enabled every hub and client records the JAX package's ``ps_*`` / ``ps.*``
+instruments and spans under the same labels.  A client given a
+``trace_context`` announces it (action ``T``) and estimates its clock
+offset from the replies; the hub tags that connection's spans with the
+worker's identity.  ``report_health`` pushes a health report (action
+``M``) that the hub folds into the process health collector.
+
 Not ported, each raising ``NotImplementedError`` that names its ROADMAP
-item: adaptive aggregation, jobs and trace contexts (item 8b, part 2),
-sparse tables (item 13), and the hubs' telemetry (item 15).
+item: adaptive aggregation and jobs (item 8b, part 2) and sparse tables
+(item 13).
 """
 
 from __future__ import annotations
 
 import contextlib
 import heapq
+import itertools
+import json
 import os
 import queue
 import random
@@ -70,7 +80,13 @@ from typing import Any, Callable, Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from distkeras_torch import observability as obs
+from distkeras_torch.observability import distributed as dtrace
 from distkeras_torch.runtime import networking as net
+
+# a process-monotonic ordinal per client: the dedup key of its failover
+# health events (an id() could be reused by a later client)
+_CLIENT_ORDINALS = itertools.count()
 
 # the ROADMAP item of every option that is not ported, by keyword
 _ITEMS = {"sparse_leaves": "13", "sparse_cache_rows": "13", "sparse_tables": "13"}
@@ -146,11 +162,15 @@ class HubSnapshotter:
         return False
 
     def save_now(self) -> None:
-        with self._save_lock:
+        with self._save_lock, obs.span("ps.snapshot"):
+            t0 = time.perf_counter()
             center, state = self.hub.snapshot_state()
             self.checkpointer.save(self._next_step, {"center": center},
                                    metadata={"kind": "ps-hub-snapshot", **state})
             self._next_step += 1
+            if obs.enabled():
+                obs.histogram("ps.snapshot_ms").observe((time.perf_counter() - t0) * 1e3)
+                obs.counter("ps_snapshots_total").inc()
 
     def _loop(self) -> None:
         while not self._stop.wait(self.interval):
@@ -208,6 +228,10 @@ class ReplicationFeed:
         # read without the lock on purpose: publish checks again under it
         return bool(self._conns)
 
+    def _set_gauge(self) -> None:
+        if obs.enabled():
+            obs.gauge("ps_replicas_connected", **self.hub._mlabels).set(len(self._conns))
+
     def attach(self, conn: socket.socket, conn_idx: int) -> None:
         """Register a standby's connection, then full-sync it.  A commit
         applied after the registration publishes (and waits on the feed
@@ -228,10 +252,18 @@ class ReplicationFeed:
                 self._conns.remove(entry)
                 raise
             entry[2] = clock
+        if obs.enabled():
+            obs.counter("ps_replicas_attached_total", **self.hub._mlabels).inc()
+            self._set_gauge()
 
     def publish(self, clock: int, scaled: Sequence[np.ndarray]) -> None:
         """Stream one applied commit to every attached standby; returns once
-        the frame is written everywhere (the caller acks after)."""
+        the frame is written everywhere (the caller acks after).  The
+        feed's backlog (commits applied while this publish waited) goes to
+        ``ps_replication_lag`` and to the health collector under the hub's
+        own pseudo-worker key."""
+        telemetry = obs.enabled()
+        t0 = time.perf_counter() if telemetry else 0.0
         with self._lock:
             if not self._conns:
                 return
@@ -252,6 +284,14 @@ class ReplicationFeed:
                     dead.append((entry, e))
             for entry, e in dead:
                 self._detach_locked(entry, e)
+        lag = max(0, self.hub._clock - clock)
+        if telemetry:
+            obs.histogram("ps.replicate_ms", **self.hub._mlabels).observe(
+                (time.perf_counter() - t0) * 1e3)
+            obs.gauge("ps_replication_lag", **self.hub._mlabels).set(lag)
+        self.hub._observe_health(
+            f"hub{'' if self.hub.shard_id is None else self.hub.shard_id}",
+            "replication_lag", lag, any_shard=True)
 
     def _detach_locked(self, entry: List[Any], cause: BaseException) -> None:
         conn, conn_idx = entry[0], entry[1]
@@ -265,6 +305,9 @@ class ReplicationFeed:
         with self.hub._conn_lock:
             if conn in self.hub._conns:
                 self.hub._conns.remove(conn)
+        if obs.enabled():
+            obs.counter("ps_replica_disconnects_total", **self.hub._mlabels).inc()
+            self._set_gauge()
 
 
 class SocketParameterServer:
@@ -293,7 +336,14 @@ class SocketParameterServer:
     (exponential backoff from ``replica_feed_backoff``), or on the first
     commit that arrives while the feed is down.  A commit that arrives
     while the feed is up is refused, and the feed is cut once as a probe
-    of the primary, so one stray worker cannot split the brain."""
+    of the primary, so one stray worker cannot split the brain.
+
+    Telemetry: a hub of a sharded deployment labels every metric with its
+    ``shard`` (and every span with it), so per-shard series stay apart.
+    A connection's spans carry the trace context its worker announced
+    (action ``T``).  Health reports (action ``M``) and the hub's own
+    signals (each commit's staleness, the replication lag) fold into the
+    process health collector, bound at the first report."""
 
     def __init__(self, weights: Sequence[np.ndarray], host: str = "0.0.0.0", port: int = 0,
                  idle_timeout: Optional[float] = 300.0,
@@ -325,6 +375,15 @@ class SocketParameterServer:
         self._max_payload = net.max_request_payload(self.center)
         self.idle_timeout = None if idle_timeout is None else float(idle_timeout)
         self.shard_id = None if shard_id is None else int(shard_id)
+        self._shard_attrs = {} if shard_id is None else {"shard": int(shard_id)}
+        self._mlabels = {} if shard_id is None else {"shard": str(int(shard_id))}
+        self._center_bytes = sum(w.nbytes for w in self.center)
+        self._conn_seq = 0
+        # the health plane, bound at the first report (or by a shard hub
+        # joining an already active collector)
+        self._health: Optional[Any] = None
+        self._health_monitor: Optional[Any] = None
+        self._health_mod: Optional[Any] = None
         self.shm_dir = None if shm_dir is None else str(shm_dir)
         self._shm_seq = 0  # ring-file ordinal (under _conn_lock)
         self.recv_batch_depth = max(0, int(recv_batch_depth))
@@ -465,7 +524,12 @@ class SocketParameterServer:
             # kernel must hold the frames one batched receive drains
             net.configure_socket(conn, quickack=True, payload_hint=self._frame_bytes
                                  * max(1, self.recv_batch_depth))
-            t = threading.Thread(target=self._handle_connection, args=(conn,), daemon=True)
+            # the ordinal wraps at 256 so the per-connection staleness
+            # gauge's labels stay bounded under connection churn
+            conn_idx = self._conn_seq % 256
+            self._conn_seq += 1
+            t = threading.Thread(target=self._handle_connection, args=(conn, conn_idx),
+                                 daemon=True)
             t.start()
             self._handlers = [h for h in self._handlers if h.is_alive()]
             self._handlers.append(t)
@@ -539,6 +603,7 @@ class SocketParameterServer:
             self._clock_fence = self._clock
             clock = self._clock
             self.promoted_at_clock = clock
+        t0_ns = time.perf_counter_ns()
         warnings.warn(f"replica hub promoting to primary at clock {clock}: {reason}")
         self._replica_stop.set()
         sock = self._replica_sock
@@ -547,6 +612,21 @@ class SocketParameterServer:
                 sock.shutdown(socket.SHUT_RDWR)
             except OSError:
                 pass
+        if obs.enabled():
+            obs.counter("ps_promotions_total", **self._mlabels).inc()
+            obs.TRACER.record_span("ps.promote", t0_ns, time.perf_counter_ns(),
+                                   clock=clock, reason=reason, **self._shard_attrs)
+        # a promotion is a failover event: the process monitor records it
+        # (never fatal to the promotion)
+        try:
+            from distkeras_torch.observability import health as _health
+
+            _health.monitor().emit(
+                "failover", "critical", shard=self.shard_id,
+                dedup=f"promote:{self.host}:{self.port}",
+                promoted=f"{self.host}:{self.port}", clock=clock, reason=reason)
+        except Exception:
+            pass
         return True
 
     def _apply_repl_frame(self, clock: int, kind: int, blobs) -> None:
@@ -617,6 +697,9 @@ class SocketParameterServer:
                         if self.promoted:
                             return
                         failures = 0  # a live stream resets the loss budget
+                        if obs.enabled():
+                            obs.counter("ps_replica_frames_total", **self._mlabels).inc()
+                            obs.gauge("ps_replica_clock", **self._mlabels).set(clock)
                 except (OSError, ValueError, ConnectionError):
                     pass  # feed lost, or the teardown cut it
                 finally:
@@ -662,7 +745,8 @@ class SocketParameterServer:
         return [net.dequantize_q_blob(blob, c.size).reshape(c.shape)
                 for blob, c in zip(blobs, self.center)]
 
-    def _commit_one(self, delta: Sequence[np.ndarray], last_pull_clock: int) -> Tuple[int, int]:
+    def _commit_one(self, delta: Sequence[np.ndarray], last_pull_clock: int,
+                    telemetry: bool = False) -> Tuple[int, int]:
         """Apply one commit: the fence raises the pull clock, the center
         moves under the lock, and the scaled delta goes to the standbys
         before the caller acks.  Returns ``(staleness, pull clock)``, the
@@ -670,6 +754,8 @@ class SocketParameterServer:
         with self._lock:
             if last_pull_clock < self._clock_fence:
                 last_pull_clock = self._clock_fence
+                if telemetry:
+                    obs.counter("ps_fenced_commits_total", **self._mlabels).inc()
             staleness = self._clock - last_pull_clock
             scaled = self._apply_commit_locked(list(delta), staleness)
             self.num_updates += 1
@@ -709,6 +795,8 @@ class SocketParameterServer:
     def _member_join(self, token: int) -> None:
         with self._member_lock:
             self._members[token] = time.monotonic()
+        if obs.enabled():
+            obs.gauge("ps_live_workers", **self._mlabels).set(self.live_workers())
 
     def _member_touch(self, token: int) -> None:
         with self._member_lock:
@@ -718,6 +806,8 @@ class SocketParameterServer:
     def _member_leave(self, token: int) -> None:
         with self._member_lock:
             self._members.pop(token, None)
+        if obs.enabled():
+            obs.gauge("ps_live_workers", **self._mlabels).set(self.live_workers())
 
     def live_workers(self) -> int:
         """Connections that committed at least once, are still open and,
@@ -728,11 +818,55 @@ class SocketParameterServer:
                 return len(self._members)
             return sum(1 for last in self._members.values() if now - last <= self.idle_timeout)
 
+    # -- the health plane ------------------------------------------------------------
+    def _ingest_health(self, report: Dict[str, Any]) -> None:
+        """Fold one worker's health report into the process
+        :class:`~distkeras_torch.observability.health.HealthCollector` and
+        give the detectors a (rate-limited) turn.  The health module loads
+        at the first report; collector and monitor bind independently."""
+        if self._health is None or self._health_monitor is None:
+            from distkeras_torch.observability import health as _health
+
+            if self._health is None:
+                self._health = _health.collector()
+            if self._health_monitor is None:
+                self._health_monitor = _health.monitor()
+        self._health.ingest(report, shard=self.shard_id)
+        self._health_monitor.maybe_check()
+
+    def _observe_health(self, worker: Any, metric: str, value: float,
+                        any_shard: bool = False) -> None:
+        """A hub-side signal (a commit's staleness, the replication lag)
+        into the worker's series the reports feed.  Under a sharded hub,
+        shard 0 only (one logical commit lands on every shard), unless
+        ``any_shard``: the series' key names the shard (the hub's own
+        pseudo-worker), and a shard hub joins a collector that is already
+        active without creating one."""
+        if worker is None:
+            return
+        if not any_shard and self.shard_id is not None and self.shard_id != 0:
+            return
+        if self._health is None:
+            if not any_shard:
+                return
+            if self._health_mod is None:
+                from distkeras_torch.observability import health as _health
+
+                self._health_mod = _health
+            bound = self._health_mod.active_collector()
+            if bound is None:
+                return
+            self._health = bound
+        self._health.observe(str(worker), metric, float(value), shard=self.shard_id)
+
     # -- the socket path -----------------------------------------------------
-    def _handle_connection(self, conn: socket.socket) -> None:
+    def _handle_connection(self, conn: socket.socket, conn_idx: int = 0) -> None:
         # a connection born after a restore or a promotion starts at the fence
         with self._lock:
             last_pull_clock = self._clock_fence
+        # the trace context the worker announced (action T): every span of
+        # this handler is tagged with it
+        ctx_attrs: Dict[str, Any] = {}
         rx = bytearray(self._frame_bytes)
         reply = net.FlatFrameCodec(self.center)
         ack = net.empty_tensor_frame(net.ACTION_ACK)
@@ -757,20 +891,36 @@ class SocketParameterServer:
                 try:
                     payload = next_frame()
                 except socket.timeout:
-                    break  # silent past the liveness window: evict
+                    # silent past the liveness window: evict
+                    if obs.enabled():
+                        obs.counter("ps_idle_evictions_total", **self._mlabels).inc()
+                        with obs.span("ps.evict", conn=conn_idx, **self._shard_attrs,
+                                      **ctx_attrs):
+                            pass
+                    break
                 self._member_touch(token)
                 action, blobs = net.decode_tensor_views(payload)
+                telemetry = obs.enabled()
+                t0 = time.perf_counter() if telemetry else 0.0
                 if action == net.ACTION_PULL:
                     if self._standby and not self._synced.is_set():
                         # seed weights are never served as the job's state
                         raise net.ProtocolError("pull from a never-synced standby refused "
                                                 "(it holds no job state yet)")
-                    with self._lock:
-                        # pack under the lock, send after it: a slow peer
-                        # cannot hold the center
-                        reply.pack(net.ACTION_WEIGHTS, self.center)
-                        last_pull_clock = self._clock
-                    reply.send_packed(conn)
+                    with obs.span("ps.handle_pull", conn=conn_idx, **self._shard_attrs,
+                                  **ctx_attrs):
+                        with self._lock:
+                            # pack under the lock, send after it: a slow
+                            # peer cannot hold the center
+                            reply.pack(net.ACTION_WEIGHTS, self.center)
+                            last_pull_clock = self._clock
+                        reply.send_packed(conn)
+                    if telemetry:
+                        obs.counter("ps_pulls_total", **self._mlabels).inc()
+                        obs.counter("ps_pull_bytes_total", **self._mlabels).inc(
+                            self._center_bytes)
+                        obs.histogram("ps_rpc_seconds", rpc="pull", **self._mlabels).observe(
+                            time.perf_counter() - t0)
                 elif action in (net.ACTION_COMMIT, net.ACTION_QCOMMIT):
                     delta = (self._decode_delta(blobs) if action == net.ACTION_COMMIT
                              else self._decode_qdelta(blobs))
@@ -788,12 +938,52 @@ class SocketParameterServer:
                         # elastic denominator counts it from this commit on
                         self._member_join(token)
                         joined = True
-                    _, last_pull_clock = self._commit_one(delta, last_pull_clock)
+                    with obs.span("ps.handle_commit", conn=conn_idx, **self._shard_attrs,
+                                  **ctx_attrs) as sp:
+                        staleness, last_pull_clock = self._commit_one(
+                            delta, last_pull_clock, telemetry=telemetry)
+                        net.send_raw_frame(conn, ack)
+                        if getattr(sp, "attrs", None) is not None:
+                            # the staleness this commit applied with, which
+                            # fleet_report joins to the announcing worker
+                            sp.attrs["staleness"] = staleness
+                    self._observe_health(ctx_attrs.get("worker"), "staleness", staleness)
+                    if telemetry:
+                        obs.counter("ps_commits_total", **self._mlabels).inc()
+                        obs.counter("ps_commit_bytes_total", **self._mlabels).inc(
+                            sum(b.nbytes for b in blobs))
+                        obs.histogram("ps_rpc_seconds", rpc="commit",
+                                      **self._mlabels).observe(time.perf_counter() - t0)
+                        obs.gauge("ps_staleness", conn=str(conn_idx),
+                                  **self._mlabels).set(staleness)
+                        obs.histogram("ps_commit_staleness", **self._mlabels).observe(staleness)
+                elif action == net.ACTION_TRACE:
+                    # a worker's trace context: tag this connection's spans
+                    # with it and answer with this hub's monotonic clock.
+                    # A malformed context leaves the connection unattributed,
+                    # never dropped.  A job-scoped announce (job admission
+                    # is item 8b part 2) gets the same clock reply, which a
+                    # JAX job client refuses as a malformed admission, as it
+                    # does the C++ hub's
+                    raw = bytes(blobs[0]) if blobs else b""
+                    try:
+                        ctx_attrs = dtrace.TraceContext.from_json(raw).span_attrs()
+                    except Exception:
+                        ctx_attrs = {}
+                    net.send_frame(conn, net.encode_time_payload(time.perf_counter_ns()))
+                elif action == net.ACTION_HEALTH:
+                    # a worker's health report: fold it in and ack (the ack
+                    # coalesces into the client's later receives).  Health
+                    # never takes a training connection down
+                    try:
+                        self._ingest_health(json.loads(bytes(blobs[0])))
+                    except Exception:
+                        pass
                     net.send_raw_frame(conn, ack)
                 elif action == net.ACTION_REPL:
                     # a standby's hello: attach it to the feed (full sync,
                     # then the delta stream) and hand the socket over
-                    _, kind = net.decode_repl_header(blobs[0])
+                    clock_hdr, kind = net.decode_repl_header(blobs[0])
                     if kind != net.REPL_HELLO:
                         raise net.ProtocolError(f"unexpected replication kind {kind} from a "
                                                 f"peer (only hello initiates a feed)")
@@ -803,7 +993,9 @@ class SocketParameterServer:
                         if self._feed is None:
                             self._feed = ReplicationFeed(self)
                         feed = self._feed
-                    feed.attach(conn, token)
+                    with obs.span("ps.replica_attach", conn=conn_idx, replica_clock=clock_hdr,
+                                  **self._shard_attrs):
+                        feed.attach(conn, conn_idx)
                     handoff = True
                     return
                 elif action == net.ACTION_SHM:
@@ -893,8 +1085,20 @@ class SocketParameterServer:
         if self._standby and not self._synced.is_set():
             raise RuntimeError("pull_direct from a never-synced standby refused (it holds "
                                "no job state yet); wait_synced() first")
-        with self._lock:
-            return [w.copy() for w in self.center], self._clock
+        telemetry = obs.enabled()
+        t0 = time.perf_counter() if telemetry else 0.0
+        # the call runs in the worker's thread: its thread-local trace
+        # context names the worker
+        with obs.span("ps.handle_pull", transport="inproc", **self._shard_attrs,
+                      **dtrace.current_span_attrs()):
+            with self._lock:
+                snapshot = [w.copy() for w in self.center]
+                clock = self._clock
+        if telemetry:
+            obs.counter("ps_pulls_total", **self._mlabels).inc()
+            obs.histogram("ps_rpc_seconds", rpc="pull.inproc", **self._mlabels).observe(
+                time.perf_counter() - t0)
+        return snapshot, clock
 
     def commit_direct(self, delta: Sequence[np.ndarray], last_pull_clock: int) -> None:
         if len(delta) != len(self.center):
@@ -903,6 +1107,8 @@ class SocketParameterServer:
             if np.asarray(d).size != c.size:
                 raise ValueError(f"commit tensor size {np.asarray(d).size} != "
                                  f"center size {c.size}")
+        telemetry = obs.enabled()
+        t0 = time.perf_counter() if telemetry else 0.0
         if self._standby:
             if not self._synced.is_set():
                 raise RuntimeError("commit_direct into a never-synced standby refused (it "
@@ -910,7 +1116,20 @@ class SocketParameterServer:
             self._standby_commit_gate()
             self.promote(reason="commit_direct while standby")
         arrays = [np.asarray(d, np.float32).reshape(c.shape) for d, c in zip(delta, self.center)]
-        self._commit_one(arrays, last_pull_clock)
+        with obs.span("ps.handle_commit", transport="inproc", **self._shard_attrs,
+                      **dtrace.current_span_attrs()) as sp:
+            staleness, _ = self._commit_one(arrays, last_pull_clock, telemetry=telemetry)
+            if getattr(sp, "attrs", None) is not None:
+                sp.attrs["staleness"] = staleness
+        if self._health is not None:
+            # guarded here so the plane-off path builds no attrs dict
+            self._observe_health(dtrace.current_span_attrs().get("worker"),
+                                 "staleness", staleness)
+        if telemetry:
+            obs.counter("ps_commits_total", **self._mlabels).inc()
+            obs.histogram("ps_rpc_seconds", rpc="commit.inproc", **self._mlabels).observe(
+                time.perf_counter() - t0)
+            obs.histogram("ps_commit_staleness", **self._mlabels).observe(staleness)
 
 
 class DeltaParameterServer(SocketParameterServer):
@@ -1048,7 +1267,15 @@ class PSClient:
     carry; on a decline the connection stays TCP, and a hub that closes on
     the request is redialed once over plain TCP.  ``transport`` is
     ``"shm"`` or ``"tcp"``.  ``shard_id`` names the shard of a striped
-    client's connection.
+    client's connection (and labels its telemetry).
+
+    ``trace_context`` (a :class:`~distkeras_torch.observability.distributed.
+    TraceContext`) is announced over action ``T`` right after connecting,
+    and again after each reconnect; the replies' hub clock gives the
+    client's clock offset (``clock_offset_ns``, the minimum-round-trip
+    sample, ``clock_error_ns`` half that round trip).  ``report_health``
+    pushes one health report (action ``M``); its ack coalesces like a
+    commit's.
     """
 
     _RETRYABLE = (ConnectionError, OSError, net.ProtocolError)
@@ -1066,8 +1293,7 @@ class PSClient:
                  landing_guard: Optional[Callable[[int], None]] = None):
         if compress not in (None, "int8"):
             raise ValueError(f"unknown compress {compress!r}; use None or 'int8'")
-        _reject(trace_context=(trace_context, None),
-                sparse_leaves=(tuple(sparse_leaves), ()), adaptive=(adaptive, False),
+        _reject(sparse_leaves=(tuple(sparse_leaves), ()), adaptive=(adaptive, False),
                 sparse_cache_rows=(sparse_cache_rows, None), job=(job, None))
         self.templates = [np.asarray(t, dtype=np.float32) for t in templates]
         self.compress = compress
@@ -1093,12 +1319,15 @@ class PSClient:
         self._pull_bufs = tuple([host_buffer(t.shape, np.float32, pin_memory)
                                  for t in self.templates] for _ in range(2))
         self._flip = 0
-        self._pending: Deque[bytes] = deque()   # expected replies, wire order
+        # expected replies in wire order: (kind, send time)
+        self._pending: Deque[Tuple[bytes, float]] = deque()
         self._ready: Deque[Tuple[List[np.ndarray], int]] = deque()
         self._pull_frame = net.empty_tensor_frame(net.ACTION_PULL)
         self._ping_frame = net.empty_tensor_frame(net.ACTION_PING)
         self.host, self.port, self.timeout = host, int(port), timeout
         self.shard_id = None if shard_id is None else int(shard_id)
+        self._mlabels = {} if shard_id is None else {"shard": str(int(shard_id))}
+        self._client_ordinal = next(_CLIENT_ORDINALS)
         # the primary first, then each standby
         self._addresses: List[Tuple[str, int]] = (
             [(str(host), int(port))] + [(str(h), int(p)) for h, p in (failover or ())])
@@ -1126,9 +1355,23 @@ class PSClient:
         except BaseException:
             self.sock.close()
             raise
+        self.trace_context = trace_context
+        self.clock_offset_ns = 0
+        self.clock_error_ns: Optional[int] = None
         self.heartbeat_interval = None if heartbeat_interval is None else float(heartbeat_interval)
         self._hb_stop = threading.Event()
         self._hb_thread: Optional[threading.Thread] = None
+        # the announce owns the fresh socket: after every attribute exists
+        # (close() must work after a failed announce), before the heartbeat
+        if trace_context is not None:
+            try:
+                self._announce_and_sync()
+            except BaseException:
+                try:
+                    self.sock.close()
+                except OSError:
+                    pass
+                raise
         if self.heartbeat_interval is not None:
             self._hb_thread = threading.Thread(target=self._heartbeat_loop, daemon=True)
             self._hb_thread.start()
@@ -1196,6 +1439,30 @@ class PSClient:
         self.sock.settimeout(self.timeout)
         self.transport = "shm"
 
+    # -- distributed tracing -----------------------------------------------------
+    def _announce_and_sync(self, rounds: int = 3) -> None:
+        """Send the ``T`` context announce ``rounds`` times and keep the
+        minimum-round-trip clock sample: ``offset = hub_ns - (t0 + t1) / 2``
+        with error bound rtt / 2.  Runs on a fresh connection before any
+        pipelined traffic."""
+        announce = net.encode_context_payload(self.trace_context.to_json().encode("utf-8"))
+        best_rtt = best_offset = None
+        for _ in range(max(1, rounds)):
+            t0 = time.perf_counter_ns()
+            net.send_frame(self.sock, announce)
+            action, blobs = net.recv_tensors(self.sock)
+            t1 = time.perf_counter_ns()
+            if action != net.ACTION_TRACE:
+                raise net.ProtocolError(f"expected T reply to context announce, got {action!r}")
+            hub_ns = net.decode_time_payload(blobs)
+            rtt = t1 - t0
+            if best_rtt is None or rtt < best_rtt:
+                best_rtt = rtt
+                best_offset = hub_ns - (t0 + t1) // 2
+        self.clock_offset_ns = int(best_offset)
+        self.clock_error_ns = int(best_rtt) // 2
+        dtrace.record_clock_sync(self.clock_offset_ns, self.clock_error_ns)
+
     # -- resilience ------------------------------------------------------------
     def _heartbeat_loop(self) -> None:
         interval = self.heartbeat_interval
@@ -1247,11 +1514,13 @@ class PSClient:
         addresses), attach the rings again when asked to, and send the
         pulls that were in flight once more.  Raises ``ConnectionError``
         from ``cause`` when the budget is spent."""
+        t_fault = time.perf_counter()
+        t_fault_ns = time.perf_counter_ns()
         addr_at_fault = (self.host, self.port)
         # the heartbeat must neither ping the socket being replaced nor
         # close the new one: the whole swap holds the io lock
         with self._io_lock:
-            lost_pulls = sum(1 for kind in self._pending if kind == net.ACTION_WEIGHTS)
+            lost_pulls = sum(1 for kind, _ in self._pending if kind == net.ACTION_WEIGHTS)
             self._pending.clear()
             try:
                 self.sock.close()
@@ -1274,20 +1543,57 @@ class PSClient:
                     self.sock = self._dial(host, port)
                     self.host, self.port = host, port
                     self._maybe_attach_shm()
+                    # a restarted hub has no memory of the context: announce
+                    # it again and refresh the clock offset
+                    if self.trace_context is not None:
+                        self._announce_and_sync()
                     # the pulls in flight go out again inside the attempt:
                     # a hub dying here costs another attempt, not the caller
                     for _ in range(lost_pulls):
                         self.sock.sendall(self._pull_frame)
-                        self._pending.append(net.ACTION_WEIGHTS)
+                        self._pending.append((net.ACTION_WEIGHTS, time.perf_counter()))
                     self._last_io = time.monotonic()
                     break
                 except (OSError, net.ProtocolError):
                     self._pending.clear()
                     self._addr_idx = (self._addr_idx + 1) % len(self._addresses)
-        if (self.host, self.port) != addr_at_fault:
+        failed_over = (self.host, self.port) != addr_at_fault
+        if obs.enabled():
+            # labelled by the worker's identity when it announced one, so
+            # fleet_report attributes reconnect storms
+            wattrs = self.trace_context.span_attrs() if self.trace_context is not None else {}
+            obs.counter("ps.reconnects", **self._mlabels).inc()
+            obs.histogram("ps.reconnect_ms", **self._mlabels).observe(
+                (time.perf_counter() - t_fault) * 1e3)
+            obs.TRACER.record_span("ps.reconnect", t_fault_ns, time.perf_counter_ns(),
+                                   **self._mlabels, **wattrs)
+            if failed_over:
+                obs.counter("ps.failovers", **self._mlabels).inc()
+                obs.histogram("ps.failover_ms", **self._mlabels).observe(
+                    (time.perf_counter() - t_fault) * 1e3)
+                obs.TRACER.record_span(
+                    "ps.failover", t_fault_ns, time.perf_counter_ns(),
+                    from_addr=f"{addr_at_fault[0]}:{addr_at_fault[1]}",
+                    to_addr=f"{self.host}:{self.port}", **self._mlabels, **wattrs)
+        if failed_over:
             self.failovers_used += 1
             warnings.warn(f"PS client failed over from {addr_at_fault[0]}:{addr_at_fault[1]} "
                           f"to {self.host}:{self.port}")
+            # the process monitor records the failover at once, naming the
+            # standby the client landed on (never fatal to the reconnect)
+            try:
+                from distkeras_torch.observability import health as _health
+
+                _health.monitor().emit(
+                    "failover", "critical",
+                    worker=(self.trace_context.worker_id
+                            if self.trace_context is not None else None),
+                    shard=self.shard_id, dedup=f"client:{self._client_ordinal}",
+                    from_addr=f"{addr_at_fault[0]}:{addr_at_fault[1]}",
+                    to_addr=f"{self.host}:{self.port}",
+                    failover_ms=round((time.perf_counter() - t_fault) * 1e3, 1))
+            except Exception:
+                pass
 
     def commit_staging(self) -> List[np.ndarray]:
         """Template-shaped float32 arrays to write the next commit into."""
@@ -1297,7 +1603,7 @@ class PSClient:
     def pull_nowait(self) -> None:
         """Send a pull request; :meth:`wait_weights` consumes its reply."""
         with self._io_lock:
-            outstanding = (sum(1 for kind in self._pending if kind == net.ACTION_WEIGHTS)
+            outstanding = (sum(1 for kind, _ in self._pending if kind == net.ACTION_WEIGHTS)
                            + len(self._ready))
         if outstanding >= 2:
             raise RuntimeError("at most 2 pulls may be outstanding (two landing "
@@ -1307,21 +1613,32 @@ class PSClient:
     def _pull_nowait_once(self) -> None:
         with self._io_lock:
             net.send_raw_frame(self.sock, self._pull_frame)
-            self._pending.append(net.ACTION_WEIGHTS)
+            self._pending.append((net.ACTION_WEIGHTS, time.perf_counter()))
             self._last_io = time.monotonic()
 
     def commit_nowait(self, delta: Sequence[np.ndarray]) -> None:
         """Send a commit without waiting for its ack.  Blocks only while
-        ``max_inflight`` commits are unacknowledged."""
-        self._resilient(lambda: self._commit_nowait_once(delta))
+        ``max_inflight`` commits are unacknowledged.  The ``ps.commit`` span
+        covers the client's own work (back-pressure, quantize and pack,
+        send); the ack's wait is ``ps.commit_latency_ms``."""
+        with obs.span("ps.commit", compress=self.compress or "none", **self._mlabels):
+            self._resilient(lambda: self._commit_nowait_once(delta))
 
     def _commit_nowait_once(self, delta: Sequence[np.ndarray]) -> None:
         # claim any weights reply in flight first: two large sendall's in
-        # opposite directions can fill both kernel buffers and stall
-        while self._has_pending(net.ACTION_WEIGHTS):
-            self._consume_one()
+        # opposite directions can fill both kernel buffers and stall.  That
+        # receive is pull wire-wait: it counts in ps.pull_stall_ms
+        if self._has_pending(net.ACTION_WEIGHTS):
+            t_drain = time.perf_counter() if obs.enabled() else 0.0
+            while self._has_pending(net.ACTION_WEIGHTS):
+                self._consume_one()
+            if t_drain:
+                obs.histogram("ps.pull_stall_ms", **self._mlabels).observe(
+                    (time.perf_counter() - t_drain) * 1e3)
         while self._unacked() >= self.max_inflight:
             self._consume_one()
+        telemetry = obs.enabled()
+        t0 = time.perf_counter() if telemetry else 0.0
         if self.compress == "int8":
             # a retry after a fault quantizes the same delta again: the
             # residual carries only rounding error, so the delta lands once
@@ -1331,15 +1648,26 @@ class PSClient:
             codec, action = self._codec, net.ACTION_COMMIT
             arrays = [np.asarray(d, np.float32) for d in delta]
         codec.pack(action, arrays)
+        if telemetry:
+            obs.histogram("ps.serialize_ms", **self._mlabels).observe(
+                (time.perf_counter() - t0) * 1e3)
+            obs.counter("ps.commit_bytes", **self._mlabels).inc(codec.frame_len)
         with self._io_lock:
             codec.send_packed(self.sock)
-            self._pending.append(net.ACTION_ACK)
+            self._pending.append((net.ACTION_ACK, time.perf_counter()))
             self._last_io = time.monotonic()
+        if telemetry:
+            obs.gauge("ps.inflight_depth", **self._mlabels).set(self._unacked())
 
     def wait_weights(self) -> List[np.ndarray]:
         """Hand out the oldest pull in flight, consuming the replies ahead
         of it."""
+        telemetry = obs.enabled()
+        t0 = time.perf_counter() if telemetry else 0.0
         self._resilient(self._fill_ready_once)
+        if telemetry:
+            obs.histogram("ps.pull_stall_ms", **self._mlabels).observe(
+                (time.perf_counter() - t0) * 1e3)
         out, self.last_landing = self._ready.popleft()
         return out
 
@@ -1355,18 +1683,37 @@ class PSClient:
         pull that will go unused."""
         self._resilient(self._drain_once)
         self._ready.clear()
+        if obs.enabled():
+            obs.gauge("ps.inflight_depth", **self._mlabels).set(0)
 
     def _drain_once(self) -> None:
         while self._pending:
             self._consume_one()
 
+    # -- the health plane ----------------------------------------------------------
+    def report_health(self, report: Dict[str, Any]) -> None:
+        """Push one health report to the hub (action ``M``), the worker's
+        half of the health plane.  Its ack coalesces into later receives
+        as a commit's does, so a report costs one small send."""
+        payload = net.encode_health_payload(json.dumps(report).encode("utf-8"))
+        self._resilient(lambda: self._report_health_once(payload))
+
+    def _report_health_once(self, payload: bytes) -> None:
+        with self._io_lock:
+            # the pending kind is ACTION_HEALTH: its ack is the commit's ack
+            # byte, but it holds no max_inflight slot and is no commit
+            # latency sample
+            net.send_frame(self.sock, payload)
+            self._pending.append((net.ACTION_HEALTH, time.perf_counter()))
+            self._last_io = time.monotonic()
+
     def _has_pending(self, kind: bytes) -> bool:
         with self._io_lock:
-            return kind in self._pending
+            return any(k == kind for k, _ in self._pending)
 
     def _unacked(self) -> int:
         with self._io_lock:
-            return sum(1 for kind in self._pending if kind == net.ACTION_ACK)
+            return sum(1 for k, _ in self._pending if k == net.ACTION_ACK)
 
     def _consume_one(self) -> None:
         # marked busy under the io lock: a ping in flight finishes first,
@@ -1379,12 +1726,18 @@ class PSClient:
             self._consuming = False
 
     def _consume_one_inner(self) -> None:
-        kind = self._pending.popleft()
-        if kind == net.ACTION_ACK:
+        kind, t_sent = self._pending.popleft()
+        if kind != net.ACTION_WEIGHTS:
+            # a commit and a health report await the same ack byte; only a
+            # commit's round trip is a commit latency sample
             reply = net.recv_action(self.sock)
             self._last_io = time.monotonic()
             if reply != net.ACTION_ACK:
                 raise ConnectionError(f"expected ack, got {reply!r}")
+            if kind == net.ACTION_ACK and obs.enabled():
+                obs.histogram("ps.commit_latency_ms", **self._mlabels).observe(
+                    (time.perf_counter() - t_sent) * 1e3)
+                obs.gauge("ps.inflight_depth", **self._mlabels).set(self._unacked())
             return
         k = self._flip
         if self.landing_guard is not None:
@@ -1399,15 +1752,19 @@ class PSClient:
             # the receive died mid-weights: the entry goes back, so a
             # reconnect counts this pull as lost and sends it again
             self._flip ^= 1
-            self._pending.appendleft(kind)
+            self._pending.appendleft((kind, t_sent))
             raise
         self._last_io = time.monotonic()
         self._ready.append((out, k))
+        if obs.enabled():
+            obs.histogram("ps.pull_latency_ms", **self._mlabels).observe(
+                (time.perf_counter() - t_sent) * 1e3)
 
     # -- blocking API ----------------------------------------------------------
     def pull(self) -> List[np.ndarray]:
-        self.pull_nowait()
-        return self.wait_weights()
+        with obs.span("ps.pull", **self._mlabels):
+            self.pull_nowait()
+            return self.wait_weights()
 
     def commit(self, delta: Sequence[np.ndarray]) -> None:
         self.commit_nowait(delta)
@@ -1443,7 +1800,11 @@ class InprocPSClient:
     hub's lock, no socket.  The nowait calls run at once, at the points
     where the socket client would send, so one worker sees the same
     center states on both transports; int8 commits go through the same
-    quantizer and straight back through the dequantizer."""
+    quantizer and straight back through the dequantizer.
+
+    The hub shares the worker's process and clock: a ``trace_context``
+    needs no announce (the hub reads the worker thread's context).
+    ``report_health`` folds a report straight into the hub's collector."""
 
     def __init__(self, ps: Any, templates: Sequence[np.ndarray],
                  compress: Optional[str] = None, trace_context: Optional[Any] = None,
@@ -1451,8 +1812,7 @@ class InprocPSClient:
                  pin_memory: bool = False):
         if compress not in (None, "int8"):
             raise ValueError(f"unknown compress {compress!r}; use None or 'int8'")
-        _reject(trace_context=(trace_context, None),
-                sparse_leaves=(tuple(sparse_leaves), ()),
+        _reject(sparse_leaves=(tuple(sparse_leaves), ()),
                 sparse_cache_rows=(sparse_cache_rows, None))
         self.ps = ps
         self.templates = [np.asarray(t, dtype=np.float32) for t in templates]
@@ -1464,14 +1824,35 @@ class InprocPSClient:
         self._pulled: Optional[List[np.ndarray]] = None
         self.landing_guard = None
         self.last_landing: Optional[int] = None  # pulls are fresh copies
+        self.transport = "inproc"
+        self.trace_context = trace_context
+        # nothing to reconnect: kept so health reports read one surface
+        self.reconnects_used = 0
+        self.failovers_used = 0
 
     def commit_staging(self) -> List[np.ndarray]:
         return self._staging
 
+    def report_health(self, report: Dict[str, Any]) -> None:
+        """:meth:`PSClient.report_health` minus the wire: into the hub's
+        collector (a C++ hub has none: the process collector)."""
+        ingest = getattr(self.ps, "_ingest_health", None)
+        if ingest is not None:
+            ingest(report)
+            return
+        from distkeras_torch.observability import health as _health
+
+        _health.collector().ingest(report)
+        _health.monitor().maybe_check()
+
     def pull_nowait(self) -> None:
+        telemetry = obs.enabled()
+        t0 = time.perf_counter() if telemetry else 0.0
         weights, clock = self.ps.pull_direct()
         self._last_pull_clock = clock
         self._pulled = weights
+        if telemetry:
+            obs.histogram("ps.pull_latency_ms").observe((time.perf_counter() - t0) * 1e3)
 
     def wait_weights(self) -> List[np.ndarray]:
         if self._pulled is None:
@@ -1480,20 +1861,26 @@ class InprocPSClient:
         return pulled
 
     def commit_nowait(self, delta: Sequence[np.ndarray]) -> None:
-        if self.compress == "int8":
-            blobs = _quantize_commit(delta, self._residual)
-            arrays = [net.dequantize_q_blob(memoryview(b), t.size).reshape(t.shape)
-                      for b, t in zip(blobs, self.templates)]
-        else:
-            arrays = [np.asarray(d, np.float32) for d in delta]
-        self.ps.commit_direct(arrays, self._last_pull_clock)
+        with obs.span("ps.commit", transport="inproc", compress=self.compress or "none"):
+            telemetry = obs.enabled()
+            t0 = time.perf_counter() if telemetry else 0.0
+            if self.compress == "int8":
+                blobs = _quantize_commit(delta, self._residual)
+                arrays = [net.dequantize_q_blob(memoryview(b), t.size).reshape(t.shape)
+                          for b, t in zip(blobs, self.templates)]
+            else:
+                arrays = [np.asarray(d, np.float32) for d in delta]
+            self.ps.commit_direct(arrays, self._last_pull_clock)
+            if telemetry:
+                obs.histogram("ps.commit_latency_ms").observe((time.perf_counter() - t0) * 1e3)
 
     def drain(self) -> None:
         pass  # commits apply at once
 
     def pull(self) -> List[np.ndarray]:
-        self.pull_nowait()
-        return self.wait_weights()
+        with obs.span("ps.pull", transport="inproc"):
+            self.pull_nowait()
+            return self.wait_weights()
 
     def commit(self, delta: Sequence[np.ndarray]) -> None:
         self.commit_nowait(delta)
@@ -1708,15 +2095,20 @@ class SnapshotSetCoordinator:
     def _cut(self) -> List[Tuple[List[np.ndarray], Dict[str, Any]]]:
         locks = [getattr(hub, "_lock", None) for hub in self.hubs]
         if all(lk is not None for lk in locks):
+            t0 = time.perf_counter()
             with contextlib.ExitStack() as stack:
                 for lk in locks:
                     stack.enter_context(lk)
-                return [hub._snapshot_state_locked() for hub in self.hubs]
+                states = [hub._snapshot_state_locked() for hub in self.hubs]
+            if obs.enabled():
+                obs.histogram("ps.snapshot_fence_ms").observe((time.perf_counter() - t0) * 1e3)
+            return states
         return [hub.snapshot_state() for hub in self.hubs]
 
     def save_set(self) -> None:
         """Write one set (every shard, one step, one cut), then prune."""
-        with self._save_lock:
+        with self._save_lock, obs.span("ps.snapshot_set"):
+            t0 = time.perf_counter()
             step = self._next_step
             set_id = f"set-{step:010d}-{random.getrandbits(32):08x}"
             states = self._cut()
@@ -1729,6 +2121,9 @@ class SnapshotSetCoordinator:
                         apply_retention=False)
             self._next_step = step + 1
             self._prune(step)
+            if obs.enabled():
+                obs.histogram("ps.snapshot_set_ms").observe((time.perf_counter() - t0) * 1e3)
+                obs.counter("ps_snapshot_sets_total").inc()
 
     def _prune(self, latest_step: int) -> None:
         doomed = sorted({s for cp in self.checkpointers for s in cp.all_steps()
@@ -1987,6 +2382,19 @@ class ShardedParameterServer:
             for fn in thunks:
                 fn()
 
+    def _ingest_health(self, report: Dict[str, Any]) -> None:
+        """Fold one worker report through shard 0, as the striped wire path
+        sends reports on the shard-0 connection only (a C++ shard hub has
+        no ingest: the process collector, labelled shard 0)."""
+        ingest = getattr(self.shards[0], "_ingest_health", None)
+        if ingest is not None:
+            ingest(report)
+            return
+        from distkeras_torch.observability import health as _health
+
+        _health.collector().ingest(report, shard=0)
+        _health.monitor().maybe_check()
+
     def pull_direct(self) -> Tuple[List[np.ndarray], Tuple[int, ...]]:
         """(full center in template order, the shards' clocks)."""
         n = self.plan.num_shards
@@ -2116,6 +2524,13 @@ class ShardedPSClient:
             raise
         except PSClient._RETRYABLE as e:
             client = self.shards[sid]
+            if obs.enabled():
+                t_ns = time.perf_counter_ns()
+                wattrs = (client.trace_context.span_attrs()
+                          if client.trace_context is not None else {})
+                obs.counter("ps_stripe_losses_total", shard=str(sid)).inc()
+                obs.TRACER.record_span("ps.stripe_lost", t_ns, t_ns, shard=sid,
+                                       address=f"{client.host}:{client.port}", **wattrs)
             raise StripeLostError(sid, client.host, client.port, e) from e
 
     def pull_nowait(self) -> None:
@@ -2144,9 +2559,15 @@ class ShardedPSClient:
     def failovers_used(self) -> int:
         return sum(c.failovers_used for c in self.shards)
 
+    def report_health(self, report: Dict[str, Any]) -> None:
+        """One report over the shard-0 connection only: a striped worker is
+        one logical worker, counted once in the fleet view."""
+        self._stripe(0, lambda: self.shards[0].report_health(report))
+
     def pull(self) -> List[np.ndarray]:
-        self.pull_nowait()
-        return self.wait_weights()
+        with obs.span("ps.pull", sharded=self.plan.num_shards):
+            self.pull_nowait()
+            return self.wait_weights()
 
     def commit(self, delta: Sequence[np.ndarray]) -> None:
         self.commit_nowait(delta)

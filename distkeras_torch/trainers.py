@@ -25,6 +25,7 @@ from typing import Any, Callable, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from distkeras_torch import observability as obs
 from distkeras_torch.checkpoint import (
     opt_state_from_tree,
     opt_state_tree,
@@ -264,7 +265,8 @@ class Trainer:
     def _record_epoch_metrics(self, epoch: int, samples: int, seconds: float,
                               chips: int = 1) -> None:
         """``chips`` = devices this trainer engaged (one: the replicas share
-        the card)."""
+        the card).  Mirrored into the telemetry registry (when enabled) under
+        the ``trainer`` label."""
         rate = round(samples / max(seconds, 1e-9) / max(chips, 1), 1)
         self.metrics.append({
             "epoch": epoch,
@@ -273,13 +275,25 @@ class Trainer:
             "chips": int(chips),
             "samples_per_sec_per_chip": rate,
         })
+        if obs.enabled():
+            name = type(self).__name__
+            obs.counter("trainer_epochs_total", trainer=name).inc()
+            obs.counter("trainer_samples_total", trainer=name).inc(samples)
+            obs.histogram("trainer_epoch_seconds", trainer=name).observe(seconds)
+            obs.gauge("trainer_samples_per_sec_per_chip", trainer=name).set(rate)
 
     def _record_window_losses(self, losses) -> None:
-        """Per-window (or per-batch) mean losses onto ``history``; this is the
+        """Per-window (or per-batch) mean losses onto ``history`` and (when
+        telemetry is on) the ``trainer_window_loss`` histogram; this is the
         chunk's one host read."""
         if isinstance(losses, torch.Tensor):
             losses = losses.cpu().numpy()
-        self.history.extend(float(x) for x in np.asarray(losses).ravel())
+        values = [float(x) for x in np.asarray(losses).ravel()]
+        self.history.extend(values)
+        if obs.enabled() and values:
+            hist = obs.histogram("trainer_window_loss", trainer=type(self).__name__)
+            for v in values:
+                hist.observe(v)
 
 
 class SingleTrainer(Trainer):
@@ -326,14 +340,16 @@ class SingleTrainer(Trainer):
                                      chunk_windows=self._resolve_chunk_windows(
                                          ds, self.batch_size, 1)),
                     lambda ch: self._place(ch, squeeze_window=True), device=self.device)
-                for chunk_idx, (xs, ys) in enumerate(placed):
-                    keys = None
-                    if needs_rng:
-                        keys = torch.as_tensor(self._batch_keys(epoch, chunk_idx, (xs.shape[0],))
-                                               .astype(np.int64), device=self.device)
-                    params, opt_state, losses = epoch_fn(params, opt_state, xs, ys, keys)
-                    self._record_window_losses(losses)
-                    samples += xs.shape[0] * xs.shape[1]
+                with obs.span("trainer.epoch", trainer=type(self).__name__, epoch=epoch):
+                    for chunk_idx, (xs, ys) in enumerate(placed):
+                        keys = None
+                        if needs_rng:
+                            keys = torch.as_tensor(
+                                self._batch_keys(epoch, chunk_idx, (xs.shape[0],))
+                                .astype(np.int64), device=self.device)
+                        params, opt_state, losses = epoch_fn(params, opt_state, xs, ys, keys)
+                        self._record_window_losses(losses)
+                        samples += xs.shape[0] * xs.shape[1]
                 self._record_epoch_metrics(epoch, samples, time.time() - t_epoch, chips=1)
                 val = self._validate(params, validation_data)
                 if val:
@@ -424,13 +440,14 @@ class DistributedTrainer(Trainer):
                                      chunk_windows=self._resolve_chunk_windows(
                                          ds, global_batch, window)),
                     self._place, device=self.device)
-                for chunk_idx, (xs, ys) in enumerate(placed):
-                    keys = None
-                    if engine.needs_rng:
-                        keys = self._batch_keys(epoch, chunk_idx, xs.shape[:2])
-                    state, losses = engine.run_epoch(state, xs, ys, keys=keys)
-                    self._record_window_losses(losses)
-                    samples += xs.shape[0] * window * global_batch
+                with obs.span("trainer.epoch", trainer=type(self).__name__, epoch=epoch):
+                    for chunk_idx, (xs, ys) in enumerate(placed):
+                        keys = None
+                        if engine.needs_rng:
+                            keys = self._batch_keys(epoch, chunk_idx, xs.shape[:2])
+                        state, losses = engine.run_epoch(state, xs, ys, keys=keys)
+                        self._record_window_losses(losses)
+                        samples += xs.shape[0] * window * global_batch
                 self._record_epoch_metrics(epoch, samples, time.time() - t_epoch, chips=1)
                 if validation_data is not None:
                     vparams = self._validation_params(state)

@@ -332,8 +332,8 @@ def test_native_build_failure_raises_with_compiler_output(tmp_path, monkeypatch,
 
 
 UNPORTED = {
-    "trace_context": "job", "health_interval_s": 1.0, "sparse_tables": "auto",
-    "sparse_cache_rows": 8, "adaptive": True, "autoscale": True, "job": "a",
+    "sparse_tables": "auto", "sparse_cache_rows": 8, "adaptive": True, "autoscale": True,
+    "job": "a",
 }
 
 
@@ -346,6 +346,38 @@ def test_unported_options_raise(option):
     item = "13" if option.startswith("sparse") else "8b"
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         ta.AsyncADAG(tm, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("option", ["trace_context", "health_interval_s"])
+def test_telemetry_options_work(option, monkeypatch):
+    """The telemetry options that once raised, each on a run of 2 workers
+    over sockets: a trace context names the job on every hub commit span,
+    and health reports reach the hub's collector from both workers."""
+    from distkeras_torch import observability as tobs
+    from distkeras_torch.observability import health as thealth
+
+    monkeypatch.setattr(tobs, "REGISTRY", tobs.MetricsRegistry(enabled=option == "trace_context"))
+    monkeypatch.setattr(tobs, "TRACER", tobs.SpanTracer(enabled=option == "trace_context"))
+    thealth.reset_default()
+    _, tm = _models("mlp")
+    kw = {"trace_context": "job-x"} if option == "trace_context" else {"health_interval_s": 0.01}
+    tr = ta.AsyncADAG(tm, device="cpu", num_workers=2, communication_window=2, batch_size=8,
+                      **kw)
+    try:
+        tr.train(TDataset(_data()))
+        windows = sum(len(w) for w in tr.window_seconds)
+        assert tr.parameter_server.num_updates == windows
+        if option == "trace_context":
+            commits = [e for e in tobs.TRACER.events() if e["name"] == "ps.handle_commit"]
+            assert len(commits) == windows
+            assert {e["attrs"]["job"] for e in commits} == {"job-x"}
+            assert {e["attrs"]["worker"] for e in commits} == {0, 1}
+        else:
+            col = thealth.collector()
+            assert col.workers() == ["0", "1"]
+            assert sum(col.series(w, "windows_total").last() for w in ("0", "1")) == windows
+    finally:
+        thealth.reset_default()
 
 
 @pytest.mark.parametrize("option", ["ps_failover", "replica_of", "max_reconnects",

@@ -42,7 +42,9 @@ def test_import_leaves_jax_out_of_sys_modules():
              "import distkeras_torch.examples.higgs_workflow\n"
              "import distkeras_torch.examples.lm_workflow, distkeras_torch.models.beam\n"
              "import distkeras_torch.models.speculative, distkeras_torch.data.colfile\n"
-             "import distkeras_torch.data.text\n"
+             "import distkeras_torch.data.text, distkeras_torch.observability\n"
+             "import distkeras_torch.observability.health\n"
+             "import distkeras_torch.observability.distributed\n"
              f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
              "print(bad)\n"
              "sys.exit(1 if bad else 0)")
@@ -99,7 +101,7 @@ def test_public_names_of_the_jax_package_resolve_on_the_port():
     import importlib
 
     checked = 0
-    for pkg in ("", ".parallel", ".runtime", ".ops", ".data", ".models"):
+    for pkg in ("", ".parallel", ".runtime", ".ops", ".data", ".models", ".observability"):
         relpath = "distkeras_tpu" + pkg.replace(".", "/") + "/__init__.py"
         port = importlib.import_module("distkeras_torch" + pkg)
         names = _jax_exports(relpath)

@@ -189,12 +189,48 @@ def test_spool_lock_is_shared_with_the_jax_daemon(tmp_path):
         pc.stop()
 
 
-def test_telemetry_answers_item_15_and_keeps_serving(port_pc):
+@pytest.fixture
+def fresh_telemetry(monkeypatch):
+    """Both packages' registry, tracer and health plane start empty and
+    disabled, and no trace directory is set: the two daemons then answer
+    from the same state, whatever earlier tests of this process recorded
+    (a JAX fleet report grows keys such as ``adaptive`` or ``jobs`` from
+    what its ring and collector hold).  monkeypatch restores the process's
+    own objects after the test."""
+    from distkeras_torch import observability as tobs
+    from distkeras_torch.observability import health as thealth
+    from distkeras_tpu import observability as jobs
+    from distkeras_tpu.observability import health as jhealth
+
+    monkeypatch.delenv("DKT_TRACE_DIR", raising=False)
+    for o in (jobs, tobs):
+        monkeypatch.setattr(o, "REGISTRY", o.MetricsRegistry(enabled=False))
+        monkeypatch.setattr(o, "TRACER", o.SpanTracer(enabled=False))
+    for h in (jhealth, thealth):
+        h.reset_default()
+    yield
+    for h in (jhealth, thealth):
+        h.reset_default()
+
+
+def test_telemetry_answers_item_15_and_keeps_serving(fresh_telemetry, port_pc, jax_pc):
+    """The pull the port's daemon once refused: both packages' fetchers,
+    every flag, get the keys the JAX daemon answers with, and the daemon
+    goes on serving."""
     for fetch in (jjd.fetch_telemetry, tjd.fetch_telemetry):
         for flags in ({}, {"prometheus": True}, {"trace": True}, {"fleet": True},
                       {"health": True}):
-            with pytest.raises(RuntimeError, match="ROADMAP item 15"):
-                fetch("127.0.0.1", port_pc.port, SECRET, **flags)
+            want = fetch("127.0.0.1", jax_pc.port, SECRET, **flags)
+            got = fetch("127.0.0.1", port_pc.port, SECRET, **flags)
+            assert got["ok"] is True
+            assert sorted(got) == sorted(want), flags
+            assert sorted(got["metrics"]) == sorted(want["metrics"])
+            for key in set(flags) & {"fleet", "health"}:
+                assert sorted(got[key]) == sorted(want[key])
+            if "trace" in flags:
+                assert sorted(got["trace"]) == sorted(want["trace"])
+            if "prometheus" in flags:
+                assert isinstance(got["prometheus"], str)
     assert jjd.list_jobs("127.0.0.1", port_pc.port, SECRET) == []
 
 

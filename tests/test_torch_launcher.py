@@ -11,6 +11,7 @@ to a port worker, and writes the center back with ``--save-final``.  Every
 subprocess and thread has a timeout.
 """
 
+import json
 import os
 import pathlib
 import signal
@@ -148,12 +149,37 @@ def test_start_parameter_server_validation_equals_jax(case):
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("health_jsonl", "/nonexistent", "8b"), ("sparse_tables", "auto", "13"),
-    ("adaptive", True, "8b")])
+    ("sparse_tables", "auto", "13"), ("adaptive", True, "8b")])
 def test_start_parameter_server_unported_options_name_their_items(option, value, item):
     _, tm = _models()
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         tl.start_parameter_server(tm, port=0, **{option: value})
+
+
+def test_start_parameter_server_health_jsonl(tmp_path):
+    """The option that once raised: as the JAX function does, it arms the
+    process monitor's JSON-lines sink before the hub serves, so the events
+    of the workers' reports land on disk."""
+    from distkeras_torch.observability import health as thealth
+    from distkeras_tpu.observability import health as jhealth
+
+    _, tm = _models()
+    path = tmp_path / "health.jsonl"
+    thealth.reset_default()
+    ps = tl.start_parameter_server(tm, port=0, health_jsonl=str(path))
+    try:
+        assert thealth.monitor().jsonl_path == str(path)
+        assert jhealth.monitor().jsonl_path != str(path)   # the JAX plane is its own
+        thealth.monitor().emit("failover", "critical", worker="3", promoted="h:1")
+        with tps.PSClient("127.0.0.1", ps.port, ps.get_weights(), timeout=30) as c:
+            c.report_health({"worker": 3, "metrics": {"windows_total": 1.0}})
+            c.drain()
+        assert thealth.collector().meta("3")["reports"] == 1
+    finally:
+        ps.stop()
+        thealth.reset_default()
+    (line,) = path.read_text().splitlines()
+    assert json.loads(line)["evidence"]["promoted"] == "h:1"
 
 
 @pytest.mark.parametrize("option", ["elastic", "snapshot_dir", "restore", "replica_of"])

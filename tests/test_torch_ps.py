@@ -10,6 +10,7 @@ port's C++ binding must move the center as the port's Python hub does, to
 the bit.  Every socket has a timeout and every thread is joined with one.
 """
 
+import struct
 import threading
 import time
 
@@ -241,7 +242,7 @@ def test_pipelined_client_coalesces_acks_and_prefetches(kind):
                 c.pull_nowait()
                 c.commit_nowait(one)
                 # the commit claimed the weights reply before sending
-                assert tnet.ACTION_WEIGHTS not in c._pending
+                assert tnet.ACTION_WEIGHTS not in [kind for kind, _ in c._pending]
                 np.testing.assert_array_equal(c.wait_weights()[0], np.full(4, float(k)))
             c.drain()
             assert len(c._pending) == 0
@@ -434,11 +435,65 @@ def test_hub_options_not_ported_raise(option):
         NativeParameterServer(_weights(), mode=MODE_ADAG, **{option: value})
 
 
-@pytest.mark.parametrize("option", ["job", "trace_context", "adaptive"])
+@pytest.mark.parametrize("option", ["job", "adaptive"])
 def test_client_options_not_ported_raise(option):
-    value = {"job": "a", "trace_context": object(), "adaptive": True}[option]
+    value = {"job": "a", "adaptive": True}[option]
     with pytest.raises(NotImplementedError, match="ROADMAP item 8b"):
         tps.PSClient("127.0.0.1", 1, _weights(), **{option: value})
+
+
+def test_client_trace_context_announces_as_the_jax_client_does(monkeypatch):
+    """The client option that once raised: a port client with a trace
+    context puts the JAX client's bytes on the wire, its T announce (three
+    clock samples before the first pull) included, and gets the same
+    clock-offset estimate's shape back from a JAX hub."""
+    from distkeras_torch.observability import distributed as tdtrace
+    from distkeras_tpu.observability import distributed as jdtrace
+
+    sessions = []
+    for mod, net_mod, dmod in ((jps, jnet, jdtrace), (tps, tnet, tdtrace)):
+        recorders = []
+        real = net_mod.connect
+
+        def recording_connect(*a, real=real, recorders=recorders, **k):
+            recorders.append(_Recorder(real(*a, **k)))
+            return recorders[-1]
+
+        monkeypatch.setattr(net_mod, "connect", recording_connect)
+        hub = jps.DeltaParameterServer(_weights(), port=0)
+        hub.start()
+        try:
+            ctx = dmod.TraceContext(job_id="wire", worker_id=3, span_id=77)
+            with mod.PSClient("127.0.0.1", hub.port, templates=_weights(), trace_context=ctx,
+                              timeout=30) as c:
+                assert c.clock_error_ns is not None and c.clock_error_ns >= 0
+                c.pull()
+                c.commit(_weights())
+                c.drain()
+        finally:
+            hub.stop()
+        (rec,) = recorders
+        sessions.append(bytes(rec.tx))
+    assert sessions[0] == sessions[1]
+    raw = tdtrace.TraceContext(job_id="wire", worker_id=3, span_id=77).to_json().encode()
+    announce = struct.pack(">Q", len(tnet.encode_context_payload(raw))) + \
+        tnet.encode_context_payload(raw)
+    assert sessions[1].startswith(announce * 3)
+
+
+class _Recorder:
+    """A socket that records every byte the client sends."""
+
+    def __init__(self, sock):
+        self._sock = sock
+        self.tx = bytearray()
+
+    def sendall(self, data):
+        self.tx += bytes(data)
+        return self._sock.sendall(data)
+
+    def __getattr__(self, name):
+        return getattr(self._sock, name)
 
 
 @pytest.mark.parametrize("option", ["snapshot_dir", "replica_of", "elastic"])
