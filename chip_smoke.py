@@ -133,7 +133,28 @@ Phases, in order; any failure exits non-zero and prints no result line:
    beside the trainer and async legs of the same run, and one
    window's async_window_device_seconds beside the profiler's device time.
    No kernel of the port lies on this path;
-11. report: one JSON line of kernels, the card's name and power limit, and
+11. control (main path, after the telemetry plane): the control half of
+   the async path.  (a) AsyncADAG (serial) and AsyncDynSGD (pipelined),
+   one worker, f32 mnist_cnn, window 8, batch 256: adaptive=True gives the
+   adaptive=False center to the bit on the Python and the C++ hub; (b)
+   bench.py:2122's straggler leg (the 16-32-10 MLP, 8 workers, window 4,
+   batch 64, 4 windows an epoch, 2 epochs, a ChaosProxy jittering conn 0
+   by 0.02-0.06 s, seed 11, health every 0.25 s), plain and adaptive on
+   both hubs: every commit applied, no worker raising, the adaptive hubs'
+   merge counters present; loss, wall, events, the straggler's
+   adaptive_scale and ps_merged_commits_total printed; (c) six adaptive
+   clients severed at once against each adaptive hub: retry-after hints
+   issued, every client readmitted, no exception; (d) bench.py:2230's
+   planned-preemption leg (6 workers, the last 2 preempted one window
+   apart mid-epoch, deadline 5 s, autoscale=True): two clean drains with
+   nothing unacknowledged, a respawn decision for each, every window
+   committed, the windows/s before the first notice and after the last
+   printed; (e) two jobs on one Python hub, one card worker each (f32
+   mnist_cnn): each job's center equals the job alone on a fresh hub to
+   the bit, the default center unmoved, a fifth job refused at
+   max_jobs=4 with the JAX reason, fleet_info JSON-safe, a job client
+   refused by the C++ hub.  No kernel of the port lies on this path;
+12. report: one JSON line of kernels, the card's name and power limit, and
    the final {"ok": true, ...} line.
 
 Weights are random, drawn from seed 0.  Needs nothing but this checkout,
@@ -2269,6 +2290,360 @@ def telemetry_phase(torch, np, smi):
     print(f"telemetry phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# the control half of the async path (control_phase): bench.py's adaptive
+# leg (_bench_async_adaptive, bench.py:2122) and planned-preemption leg
+# (_bench_async_spot_preemption, bench.py:2230) at their shapes
+CTRL_MLP = dict(name="mlp", config={"hidden_sizes": (32,), "num_outputs": 10},
+                input_shape=(16,))
+CTRL_OPT = dict(loss="categorical_crossentropy", learning_rate=0.05, seed=0)
+STRAGGLER = dict(workers=8, window=4, batch=64, wpe=4, epochs=2, jitter_s=(0.02, 0.06), seed=11)
+PREEMPT = dict(workers=6, preempt=2, window=4, batch=64, wpe=6, epochs=3, deadline_s=5.0)
+CTRL_JOBS_MAX = 4
+
+
+def _ctrl_dataset(np, Dataset, n):
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(n, 16)).astype(np.float32)
+    return Dataset({"features": x,
+                    "label": np.eye(10, dtype=np.float32)[rng.integers(0, 10, size=n)]})
+
+
+def control_phase(torch, np, smi):
+    """The control half of the asynchronous path on the card (module
+    docstring, phase 11): (a) adaptive uncontended runs equal plain ones to
+    the bit; (b) the straggler leg, plain and adaptive, on both hubs; (c) a
+    reconnect-storm drill on both adaptive hubs; (d) the planned-preemption
+    leg under autoscale; (e) two jobs on one Python hub."""
+    import json as _json
+    import threading as _threading
+
+    from distkeras_torch import Model, ModelSpec, mnist_cnn_spec
+    from distkeras_torch import observability as obs
+    from distkeras_torch.data import Dataset
+    from distkeras_torch.observability import health as health_mod
+    from distkeras_torch.runtime import async_trainer as at
+    from distkeras_torch.runtime import faults
+    from distkeras_torch.runtime import parameter_server as tps
+    from distkeras_torch.runtime.launcher import start_parameter_server
+    from distkeras_torch.runtime.native import MODE_DELTA, NativeParameterServer
+    from distkeras_torch.utils import flatten_weights
+
+    t_phase = time.perf_counter()
+    print(f"control phase on {smi}")
+    mlp = ModelSpec(**CTRL_MLP)
+
+    # (a) uncontended adaptive == plain, f32, the async phase's headline model
+    init = Model.init(mnist_cnn_spec(), seed=0, device="cpu")
+    rng = np.random.default_rng(1)
+    x, y = async_images(np, 2 * ASYNC_WINDOW * ASYNC_BATCH, rng)
+    ds = Dataset({"features": x, "label": y})
+    one = dict(num_workers=1, communication_window=ASYNC_WINDOW, batch_size=ASYNC_BATCH,
+               num_epoch=1, device="cuda", **ASYNC_OPT)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t_a = time.perf_counter()
+        line = []
+        for name, pipeline in (("AsyncADAG", False), ("AsyncDynSGD", True)):
+            for native in (False, True):
+                runs = {}
+                for adaptive in (False, True):
+                    tr = getattr(at, name)(init, pipeline=pipeline, native_ps=native,
+                                           adaptive=adaptive, **one)
+                    runs[adaptive] = tr.train(ds, shuffle=False).params, list(tr.history)
+                    if adaptive and not native:
+                        check(tr.parameter_server._combiner is not None,
+                              "an adaptive Python hub built no combiner")
+                same = _same_run(torch, runs[True], runs[False])
+                hub = "C++" if native else "Python"
+                line.append(f"{name} {'pipelined' if pipeline else 'serial'} {hub} hub "
+                            f"{'bit-equal' if same else 'DIFFERS'}")
+                check(same, f"control gate (a): adaptive {name} on the {hub} hub is not the "
+                            f"plain run to the bit")
+        print(f"control gate (a), one worker f32 mnist_cnn, window {ASYNC_WINDOW}, batch "
+              f"{ASYNC_BATCH}, 2 windows, adaptive against plain: {'; '.join(line)} "
+              f"({time.perf_counter() - t_a:.1f} s)")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    # (b) the straggler leg: a ChaosProxy jitters conn 0 only
+    t_b = time.perf_counter()
+    S = STRAGGLER
+    n = S["workers"] * S["batch"] * S["window"] * S["wpe"]
+    sds = _ctrl_dataset(np, Dataset, n)
+    windows = S["workers"] * S["wpe"] * S["epochs"]
+    for native in (False, True):
+        hub_name = "C++" if native else "Python"
+        for adaptive in (False, True):
+            health_mod.reset_default()
+            mon = health_mod.monitor()
+            mon.check_interval_s, mon.cooldown_s = 0.2, 0.5
+            model0 = Model.init(mlp, seed=0, device="cpu")
+            ps = proxy = None
+            obs.reset()
+            obs.enable()
+            try:
+                ps = start_parameter_server(model0, mode="adag", num_workers=S["workers"],
+                                            idle_timeout=None, adaptive=adaptive,
+                                            native=native)
+                proxy = faults.ChaosProxy("127.0.0.1", ps.port,
+                                          jitter_delay_s=S["jitter_s"], seed=S["seed"],
+                                          slow_conns={0}).start()
+                tr = at.AsyncADAG(Model.init(mlp, seed=0, device="cpu"),
+                                  ps_address=("127.0.0.1", proxy.port), adaptive=adaptive,
+                                  health_interval_s=0.25, max_reconnects=8,
+                                  reconnect_backoff=0.05, num_workers=S["workers"],
+                                  communication_window=S["window"], batch_size=S["batch"],
+                                  num_epoch=S["epochs"], on_worker_failure="continue",
+                                  device="cuda", **CTRL_OPT)
+                t0 = time.perf_counter()
+                tr.train(sds, shuffle=False)
+                wall = time.perf_counter() - t0
+                if native:
+                    ps.sync_telemetry()
+                    merge_batches = ps.stats()["merge_batches"]
+                else:
+                    merge_batches = (ps._combiner.batches_total
+                                     if ps._combiner is not None else 0)
+                snap = obs.snapshot()
+                updates = ps.num_updates
+                scales = {w: (e["metrics"]["adaptive_scale"] or {}).get("last")
+                          for w, e in health_mod.collector().snapshot()["workers"].items()
+                          if "adaptive_scale" in e["metrics"]}
+            finally:
+                obs.disable()
+                if proxy is not None:
+                    proxy.stop()
+                if ps is not None:
+                    ps.stop()
+            counters = snap.get("counters", {})
+            merged = sum(v for k, v in counters.items() if k.startswith("ps_merged_commits_total"))
+            has_merge = any(k.startswith("ps.merge_batch") for k in snap.get("histograms", {}))
+            events = sorted({e["kind"] for e in mon.events()})
+            loss = float(np.mean(tr.history[-8:])) if tr.history else float("nan")
+            print(f"control (b) straggler leg ({smi}), {hub_name} hub, "
+                  f"{'adaptive' if adaptive else 'plain'}: {S['workers']} workers, window "
+                  f"{S['window']}, batch {S['batch']}, {S['epochs']} epochs; final loss "
+                  f"{loss:.6f}, wall {wall:.3f} s, hub updates {updates} (want {windows}), "
+                  f"worker errors {len(tr.worker_errors)}, merge batches {merge_batches}, "
+                  f"ps_merged_commits_total {merged}, straggler (worker 0) adaptive_scale "
+                  f"{scales.get('0')}, scales {scales}, events {events}")
+            check(not tr.worker_errors, f"control gate (b): a worker raised: {tr.worker_errors}")
+            check(updates == windows == len(tr.history),
+                  f"control gate (b): {updates} commits applied, {len(tr.history)} windows, "
+                  f"want {windows}")
+            if adaptive:
+                check(merge_batches > 0 and has_merge,
+                      f"control gate (b): the adaptive {hub_name} hub shows no merge counters")
+    health_mod.reset_default()
+    print(f"control (b): {time.perf_counter() - t_b:.1f} s")
+
+    # (c) a reconnect storm: six clients severed at once, on both adaptive hubs
+    t_c = time.perf_counter()
+    tw = [np.zeros((4, 4), np.float32), np.zeros((6,), np.float32)]
+    for native in (False, True):
+        health_mod.reset_default()
+        if native:
+            hub = NativeParameterServer(tw, mode=MODE_DELTA, idle_timeout=None, adaptive=True)
+        else:
+            hub = tps.DeltaParameterServer(tw, idle_timeout=None, adaptive=True)
+            hub.RETRY_BASE_MS = 20
+        hub.start()
+        errors, recovered = [], []
+
+        def storm_worker(i, port=hub.port):
+            try:
+                c = tps.PSClient("127.0.0.1", port, tw, adaptive=True, max_reconnects=4,
+                                 reconnect_backoff=0.01, timeout=30.0)
+                c.pull()
+                c.commit([np.ones_like(a) for a in tw])
+                c.sock.shutdown(2)  # the blip: every client severed at once
+                c.pull()
+                c.commit([np.ones_like(a) for a in tw])
+                c.drain()
+                recovered.append((i, c.backpressure_waits, c.reconnects_used))
+                c.close()
+            except Exception as e:
+                errors.append((i, repr(e)))
+
+        ths = [_threading.Thread(target=storm_worker, args=(i,)) for i in range(6)]
+        try:
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join(60)
+            alive = sum(th.is_alive() for th in ths)
+            hints, updates = hub.backpressure_hints, hub.num_updates
+        finally:
+            hub.stop()
+        name = "C++" if native else "Python"
+        print(f"control (c) reconnect storm, adaptive {name} hub: {len(recovered)}/6 clients "
+              f"readmitted, backpressure hints {hints}, waits "
+              f"{sorted(w for _, w, _ in recovered)}, reconnects used "
+              f"{sorted(u for _, _, u in recovered)}, hub updates {updates} (want 12), "
+              f"exceptions {errors}")
+        check(alive == 0 and not errors and len(recovered) == 6 and updates == 12,
+              f"control gate (c): the storm drill on the {name} hub lost a client: {errors}")
+        check(hints > 0, f"control gate (c): the {name} hub issued no retry-after hint")
+    health_mod.reset_default()
+    print(f"control (c): {time.perf_counter() - t_c:.1f} s")
+
+    # (d) planned preemption: the last two workers, one window apart, mid-epoch
+    t_d = time.perf_counter()
+    P = PREEMPT
+    pds = _ctrl_dataset(np, Dataset, P["workers"] * P["batch"] * P["window"] * P["wpe"])
+    mid = P["wpe"] // 2
+    plan = faults.SpotPreemptionPlan([(P["workers"] - 1 - i, mid + i)
+                                      for i in range(P["preempt"])],
+                                     deadline_s=P["deadline_s"])
+    health_mod.reset_default()
+    mon = health_mod.monitor()
+    mon.check_interval_s, mon.cooldown_s = 0.2, 0.5
+    try:
+        tr = at.AsyncADAG(Model.init(mlp, seed=0, device="cpu"), num_workers=P["workers"],
+                          communication_window=P["window"], batch_size=P["batch"],
+                          num_epoch=P["epochs"], elastic=True, autoscale=True,
+                          health_interval_s=0.25, on_worker_failure="restart",
+                          max_worker_restarts=1, fault_hook=plan.hook, device="cuda",
+                          **CTRL_OPT)
+        t0 = time.perf_counter()
+        tr.train(pds, shuffle=False)
+        wall = time.perf_counter() - t0
+    finally:
+        health_mod.reset_default()
+    log = sorted(tr._window_log)
+    fired = sorted(plan.fired_at)
+    pre = post = None
+    if log and len(fired) == P["preempt"]:
+        n_pre = sum(1 for ts, _ in log if ts < fired[0])
+        n_post = sum(1 for ts, _ in log if ts >= fired[-1])
+        pre = n_pre / (fired[0] - log[0][0]) if fired[0] > log[0][0] else None
+        post = n_post / (log[-1][0] - fired[-1]) if log[-1][0] > fired[-1] else None
+    drains = list(tr.worker_preemptions)
+    respawns = [d for d in tr.fleet_controller.decisions() if d["action"] == "respawn"]
+    windows = P["workers"] * P["wpe"] * P["epochs"]
+    # a respawn replays its epoch from the center: the windows a preempted
+    # worker committed in it before the notice are committed twice
+    replayed = sum(d["window"] for d in drains)
+    updates = tr.parameter_server.num_updates
+    print(f"control (d) planned preemption ({smi}): {P['workers']} workers, window "
+          f"{P['window']}, batch {P['batch']}, {P['epochs']} epochs of {P['wpe']} windows, "
+          f"notices {plan.fired}; drains {drains}; respawn decisions "
+          f"{[d['worker'] for d in respawns]}; windows/s before the first notice "
+          f"{pre if pre is None else round(pre, 2)}, after the last "
+          f"{post if post is None else round(post, 2)}; hub updates {updates} (want "
+          f"{windows} windows + {replayed} replayed), restarts {tr.worker_restarts}, "
+          f"errors {len(tr.worker_errors)}, wall {wall:.3f} s")
+    check(len(drains) == P["preempt"] and all(d["drained_clean"] for d in drains)
+          and all(d["outstanding_after_drain"] == 0 for d in drains),
+          f"control gate (d): the drains were not all clean: {drains}")
+    check(sorted(int(d["worker"]) for d in respawns) == sorted(d["worker"] for d in drains),
+          f"control gate (d): a drained worker got no respawn decision: {respawns}")
+    check(not tr.worker_errors and tr.worker_restarts == 0,
+          f"control gate (d): the preemptions charged the restart budget or raised: "
+          f"{tr.worker_errors}")
+    check(len(tr.history) == windows and updates == windows + replayed,
+          f"control gate (d): {updates} commits for {len(tr.history)} windows, want "
+          f"{windows} windows and {windows + replayed} commits")
+    print(f"control (d): {time.perf_counter() - t_d:.1f} s")
+
+    # (e) two jobs on one Python hub, one card worker each
+    t_e = time.perf_counter()
+    class _JobClient(tps.PSClient):
+        """The trainer's worker client in the job its trace context names."""
+
+        def __init__(self, *a, **kw):
+            ctx = kw.get("trace_context")
+            super().__init__(*a, job=None if ctx is None else ctx.job_id, **kw)
+
+    jobs = ("job-a", "job-b")
+    jone = dict(one, num_workers=1)
+    jx, jy = async_images(np, 2 * 2 * ASYNC_WINDOW * ASYNC_BATCH, np.random.default_rng(5))
+    jds = {jobs[0]: Dataset({"features": jx[:len(jx) // 2], "label": jy[:len(jy) // 2]}),
+           jobs[1]: Dataset({"features": jx[len(jx) // 2:], "label": jy[len(jy) // 2:]})}
+
+    def job_center(port, job, templates):
+        with tps.PSClient("127.0.0.1", port, templates, job=job) as c:
+            return [np.array(w) for w in c.pull()]
+
+    def run_job(port, job, out):
+        tr = at.AsyncADAG(init, ps_address=("127.0.0.1", port), trace_context=job, **jone)
+        tr.train(jds[job], shuffle=False)
+        out[job] = tr
+
+    plain_client = at.PSClient
+    at.PSClient = _JobClient
+    torch.backends.cudnn.deterministic = True
+    obs.reset()
+    obs.enable()
+    hubs = []
+    try:
+        templates = [t.numpy() for t in flatten_weights(init.params, init.spec)[0]]
+        alone = {}
+        for job in jobs:
+            hub = start_parameter_server(init, mode="adag", num_workers=1, idle_timeout=None)
+            hubs.append(hub)
+            run_job(hub.port, job, {})
+            alone[job] = job_center(hub.port, job, templates)
+        shared = tps.ADAGParameterServer(templates, num_workers=1, idle_timeout=None,
+                                         max_jobs=CTRL_JOBS_MAX)
+        hubs.append(shared)
+        shared.start()
+        out = {}
+        ths = [_threading.Thread(target=run_job, args=(shared.port, job, out)) for job in jobs]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(120)
+        check(len(out) == 2 and not any(th.is_alive() for th in ths),
+              "control gate (e): a job's run did not finish")
+        together = {job: job_center(shared.port, job, templates) for job in jobs}
+        same = {job: all(np.array_equal(a, b) for a, b in zip(together[job], alone[job]))
+                for job in jobs}
+        default_unmoved = all(np.array_equal(a, b)
+                              for a, b in zip(shared.get_weights(), templates))
+        for extra in ("job-c", "job-d"):
+            job_center(shared.port, extra, templates)
+        refused = None
+        try:
+            tps.PSClient("127.0.0.1", shared.port, templates, job="job-e")
+        except tps.JobAdmissionError as e:
+            refused = e.reason
+        info = shared.fleet_info()
+        round_trip = _json.loads(_json.dumps(info)) == info
+        native_hub = NativeParameterServer(templates, mode=MODE_DELTA, idle_timeout=None)
+        native_hub.start()
+        hubs.append(native_hub)
+        native_refusal = None
+        try:
+            tps.PSClient("127.0.0.1", native_hub.port, templates, job="job-a")
+        except tps.net.ProtocolError as e:
+            native_refusal = f"{type(e).__name__}: {e}"
+        job_spans = sorted({e.get("attrs", {}).get("job") for e in obs.TRACER.events()
+                            if e["name"] == "ps.handle_commit"} - {None})
+    finally:
+        at.PSClient = plain_client
+        torch.backends.cudnn.deterministic = deterministic
+        obs.disable()
+        obs.reset()
+        for hub in hubs:
+            hub.stop()
+    print(f"control (e) two jobs on one Python hub, one card worker each (f32 mnist_cnn, "
+          f"2 windows): each job's center against the job alone on a fresh hub "
+          f"{same}; default center unmoved {default_unmoved}; fifth job refused: {refused!r}; "
+          f"fleet_info {info} (json round trip {round_trip}); C++ hub refuses a job client: "
+          f"{native_refusal}; jobs on the hub's commit spans {job_spans}")
+    check(all(same.values()), f"control gate (e): a job's center moved with the other job: {same}")
+    check(default_unmoved, "control gate (e): the jobs moved the default center")
+    check(refused == f"job slots exhausted ({CTRL_JOBS_MAX}/{CTRL_JOBS_MAX})",
+          f"control gate (e): the fifth job was not refused with the slot reason: {refused!r}")
+    check(round_trip and sorted(info["jobs"]) == ["job-a", "job-b", "job-c", "job-d"],
+          f"control gate (e): fleet_info is not complete and JSON-safe: {info}")
+    check(native_refusal is not None, "control gate (e): the C++ hub served a job client")
+    print(f"control (e): {time.perf_counter() - t_e:.1f} s")
+    print(f"control phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def _run_main(fn, argv):
     """An example's ``main(argv)`` with its standard output captured (and
     echoed); a ``SystemExit`` other than 0 fails the phase."""
@@ -2894,6 +3269,13 @@ def run() -> int:
     telemetry_counts = dict(_counts(fa), decode_step=ds.DECODE_STEP.launches)
     print(f"telemetry phase: launches of the port's kernels {telemetry_counts}")
     check(not any(telemetry_counts.values()), "the telemetry phase launched a kernel of the port")
+    # the control half of the async path launches no kernel of the port either
+    _zero_counts(fa)
+    ds.DECODE_STEP.launches = 0
+    control_phase(torch, np, smi)
+    control_counts = dict(_counts(fa), decode_step=ds.DECODE_STEP.launches)
+    print(f"control phase: launches of the port's kernels {control_counts}")
+    check(not any(control_counts.values()), "the control phase launched a kernel of the port")
     entry_profile(torch, np, smi)
     family_timing_fn()
 

@@ -69,8 +69,23 @@ windows, window wall and reconnects to the hub's health collector that
 often (and once at its end).  With telemetry off the window path makes no
 registry call and no extra synchronization.
 
-Not ported (``NotImplementedError`` naming the ROADMAP item): adaptive
-aggregation, autoscaling and jobs (item 8b, part 2), and sparse tables
+The control half is the JAX package's too.  ``adaptive=True`` gives the
+owned hub (Python or C++) the adaptive merge and the reconnect-storm
+shedding, and every worker's client the ``G`` / ``Y`` exchange; workers
+then announce trace contexts even with telemetry off, so the hub names
+each worker's staleness.  ``autoscale=True`` (an owned hub only) runs a
+:class:`~distkeras_torch.runtime.fleet_controller.FleetController` on the
+run's health monitor: it respawns a worker into an exited slot on a
+throughput regression and retires a worker the ``staleness_drift``
+detector keeps naming (never below half the fleet).  A
+:class:`~distkeras_torch.runtime.faults.WorkerPreempted` notice (the
+``SpotPreemptionPlan`` hook) or a retire request ends in a clean drain:
+the in-flight commits are acknowledged, an int8 residual is flushed, the
+worker's stream is synchronized and BYE is sent.  The drain is recorded in
+``worker_preemptions`` and ``worker.preemptions``; with the controller the
+worker is respawned at its epoch without charging ``max_worker_restarts``.
+
+Not ported (``NotImplementedError`` naming the ROADMAP item): sparse tables
 (item 13).
 """
 
@@ -95,6 +110,7 @@ from distkeras_torch.data.dataset import Dataset, feed_instruments
 from distkeras_torch.observability import distributed as dtrace
 from distkeras_torch.models.base import Model
 from distkeras_torch.parallel.engine import make_minibatch_step
+from distkeras_torch.runtime.faults import WorkerPreempted
 from distkeras_torch.runtime.parameter_server import (
     ADAGParameterServer,
     DeltaParameterServer,
@@ -109,6 +125,14 @@ from distkeras_torch.runtime.parameter_server import (
 )
 from distkeras_torch.trainers import Trainer, _host
 from distkeras_torch.utils import _leaves, flatten_weights, unflatten_weights
+
+
+class _DrainRequested(Exception):
+    """The fleet controller asked this worker to retire: unwinds the window
+    loop into the drain."""
+
+    def __init__(self, worker: int, window: int):
+        super().__init__(f"drain requested: worker {worker} at window {window}")
 
 
 def _make_window_fn(trainer: "AsyncDistributedTrainer", apply_fn: Callable,
@@ -164,7 +188,6 @@ class AsyncDistributedTrainer(Trainer):
                  sparse_cache_rows: Optional[int] = None,
                  adaptive: bool = False,
                  autoscale: bool = False,
-                 job: Optional[str] = None,
                  **kwargs):
         super().__init__(model, **kwargs)
         self.num_workers = int(num_workers)
@@ -279,16 +302,15 @@ class AsyncDistributedTrainer(Trainer):
         # health collector (None: no M frame ever leaves)
         self.health_interval_s = (None if health_interval_s is None
                                   else float(health_interval_s))
-        unported = {
-            "sparse_tables": (sparse_tables is not None, "13"),
-            "sparse_cache_rows": (sparse_cache_rows is not None, "13"),
-            "adaptive=True": (bool(adaptive), "8b part 2"),
-            "autoscale=True": (bool(autoscale), "8b part 2"),
-            "job": (job is not None, "8b part 2"),
-        }
-        for what, (given, item) in unported.items():
+        for what, given in (("sparse_tables", sparse_tables is not None),
+                            ("sparse_cache_rows", sparse_cache_rows is not None)):
             if given:
-                raise not_ported(f"the asynchronous trainers' {what}", item)
+                raise not_ported(f"the asynchronous trainers' {what}", "13")
+        # the adaptive merge and storm shedding on the owned hub, the G/Y
+        # exchange on every client
+        self.adaptive = bool(adaptive)
+        # a fleet controller on the run's health monitor (owned hub only)
+        self.autoscale = bool(autoscale)
         self.transport = transport
         self.pipeline = bool(pipeline)
         self.max_inflight_commits = int(max_inflight_commits)
@@ -301,6 +323,16 @@ class AsyncDistributedTrainer(Trainer):
         self.fault_hook = fault_hook
         self.worker_errors: List[BaseException] = []
         self.worker_restarts = 0  # the supervisor's restarts, last train()
+        # the drains of planned preemptions, last train(): {"worker",
+        # "window", "deadline_s", "drained_clean", "outstanding_after_drain"}
+        self.worker_preemptions: List[Dict[str, Any]] = []
+        self.fleet_controller: Optional[Any] = None  # last train()'s, if any
+        # (monotonic time, worker) of every window, autoscale runs only: the
+        # fleet's windows/s before and after a preemption
+        self._window_log: List[Tuple[float, int]] = []
+        self._window_log_lock = threading.Lock()
+        # guards the worker thread list a respawn appends to
+        self._fleet_lock = threading.Lock()
         self.parameter_server: Optional[Any] = None
         self._shard_plan = None  # the last train()'s plan, None unsharded
         self._shm_dir: Optional[str] = None  # the run's ring directory
@@ -324,6 +356,9 @@ class AsyncDistributedTrainer(Trainer):
               "replica_of": self.replica_of}
         if self.transport == "shm":
             kw["shm_dir"] = self._ensure_shm_dir()
+        if self.adaptive:
+            # only when on: a plain run builds no adaptive machinery
+            kw["adaptive"] = True
         if self.recv_batch_depth > 0:
             kw["recv_batch_depth"] = self.recv_batch_depth
         return kw
@@ -427,7 +462,8 @@ class AsyncDistributedTrainer(Trainer):
                     shuffle: bool, make_client: Callable, treedef,
                     losses: List[torch.Tensor], walls: List[float],
                     trace_job: Optional[str],
-                    instruments: Optional[Tuple[Any, ...]]) -> None:
+                    instruments: Optional[Tuple[Any, ...]],
+                    fleet: Optional[Dict[str, Any]] = None) -> None:
         """One attempt at worker ``idx``'s epochs from ``start_epoch``.
         ``progress`` records the epoch being trained and the length of
         ``losses`` (and ``walls``) at its start, so the supervisor restarts
@@ -436,7 +472,15 @@ class AsyncDistributedTrainer(Trainer):
         context, a fresh span id under the job on every attempt;
         ``instruments`` are the run's window wall, device and count
         instruments and the feed's load, depth and chunk instruments (None
-        with telemetry off)."""
+        with telemetry off).  ``fleet`` (autoscale runs) holds the run's
+        ``controller``, the ``lock``, and the ``drain_requests`` and
+        ``drained`` sets of the retires.
+
+        A preemption notice or a retire request drains the client: every
+        in-flight commit is acknowledged, an int8 residual goes out as one
+        zero commit, the worker's stream is synchronized, and ``close``
+        sends BYE.  A preemption is recorded and raised again for the
+        supervisor; a retire returns."""
         device = self.device
         on_card = device.type == "cuda"
         # the worker's own stream: every copy and step of its windows
@@ -507,6 +551,13 @@ class AsyncDistributedTrainer(Trainer):
                     xs, ys = _host(stacked[self.features_col]), _host(stacked[self.label_col])
                     n_windows = xs.shape[0]
                     for w in range(n_windows):
+                        if fleet is not None:
+                            with fleet["lock"]:
+                                wants_drain = idx in fleet["drain_requests"]
+                            if wants_drain:
+                                # at a window boundary: the previous
+                                # commit is out, no new work starts
+                                raise _DrainRequested(idx, w)
                         telemetry = m_wall is not None and obs.enabled()
                         t_load = time.perf_counter() if telemetry else 0.0
                         wx_h, wy_h = xs[w], ys[w]
@@ -571,6 +622,9 @@ class AsyncDistributedTrainer(Trainer):
                             if time.monotonic() >= h_next:
                                 send_health()
                                 h_next = time.monotonic() + health_interval
+                        if fleet is not None:
+                            with self._window_log_lock:
+                                self._window_log.append((time.monotonic(), idx))
                         losses.append(mloss)
                         walls.append(wall)
                 if health_interval is not None:
@@ -579,6 +633,42 @@ class AsyncDistributedTrainer(Trainer):
                 # the trailing acks: every commit is applied before the run
                 # reads its final center
                 client.drain()
+            except (WorkerPreempted, _DrainRequested) as stop_ev:
+                # the clean drain: the hub sees a voluntary leave (elastic
+                # denominators shrink), and every acknowledged commit is
+                # already in the center
+                clean = True
+                outstanding = 0
+                try:
+                    client.drain()
+                    if self.compress_commits == "int8":
+                        # the residual chain advances as it quantizes: one
+                        # zero commit carries the accumulated residual
+                        client.commit([np.zeros_like(s) for s in staging])
+                    if on_card:
+                        stream.synchronize()
+                except Exception:
+                    clean = False
+                    pend = getattr(client, "_pending", None)
+                    outstanding = len(pend) if pend is not None else -1
+                controller = fleet["controller"] if fleet is not None else None
+                if isinstance(stop_ev, WorkerPreempted):
+                    with self._fleet_lock:
+                        self.worker_preemptions.append({
+                            "worker": idx, "window": stop_ev.window,
+                            "deadline_s": stop_ev.deadline_s,
+                            "drained_clean": clean,
+                            "outstanding_after_drain": outstanding})
+                    if obs.enabled():
+                        obs.counter("worker.preemptions").inc()
+                    if controller is not None:
+                        controller.notify_drained(idx, clean=clean)
+                    raise  # the supervisor respawns, outside the budget
+                # a retire: recorded, and the worker ends as finished
+                with fleet["lock"]:
+                    fleet["drain_requests"].discard(idx)
+                    fleet["drained"].add(idx)
+                controller.notify_drained(idx, clean=clean)
             finally:
                 client.close()
 
@@ -586,8 +676,17 @@ class AsyncDistributedTrainer(Trainer):
     def _run_workers(self, threads: List[threading.Thread]) -> None:
         for t in threads:
             t.start()
-        for t in threads:
-            t.join()
+        # a respawn appends to ``threads`` while they run: join until a pass
+        # finds no new thread
+        joined = 0
+        while True:
+            with self._fleet_lock:
+                batch = threads[joined:]
+            if not batch:
+                break
+            for t in batch:
+                t.join()
+            joined += len(batch)
 
     def train(self, dataset: Dataset, shuffle: bool = True, checkpointer=None,
               validation_data: Optional[Dataset] = None) -> Model:
@@ -620,9 +719,10 @@ class AsyncDistributedTrainer(Trainer):
             ps = None
             addresses = list(self._ps_addresses)
         else:
-            if self.health_interval_s is not None:
+            if self.health_interval_s is not None or self.adaptive:
                 # the owned hub's run owns the process collector and
-                # monitor: the previous run's series and baselines go
+                # monitor: the previous run's series and baselines go (an
+                # adaptive hub subscribes at start(), so this comes first)
                 from distkeras_torch.observability import health as _health
 
                 _health.reset_default()
@@ -653,7 +753,8 @@ class AsyncDistributedTrainer(Trainer):
         shm = self.transport == "shm"
         resilience = dict(max_reconnects=self.max_reconnects,
                           reconnect_backoff=self.reconnect_backoff,
-                          heartbeat_interval=self.heartbeat_interval)
+                          heartbeat_interval=self.heartbeat_interval,
+                          adaptive=self.adaptive)
 
         def failover(kw):
             """The run's standbys, as the striped or the plain client takes them."""
@@ -684,8 +785,10 @@ class AsyncDistributedTrainer(Trainer):
 
         # one job id for every worker of the run, kept across restarts; the
         # process's clock-sync estimate starts afresh (an offset against an
-        # earlier run's hub must not outlive it)
-        trace_job = (self.trace_context or dtrace.new_job_id()) if obs.enabled() else None
+        # earlier run's hub must not outlive it).  An adaptive run announces
+        # contexts with telemetry off too: the hub scales by worker
+        trace_job = ((self.trace_context or dtrace.new_job_id())
+                     if obs.enabled() or self.adaptive else None)
         if trace_job is not None:
             dtrace.reset_clock_sync()
             if os.environ.get("DKT_TRACE_DIR"):
@@ -705,6 +808,49 @@ class AsyncDistributedTrainer(Trainer):
         errors: List[BaseException] = []
         restart_counts = [0] * self.num_workers
 
+        # the self-scaling fleet: state shared by the worker threads and the
+        # controller's callbacks
+        self.worker_preemptions = []
+        with self._window_log_lock:
+            self._window_log = []
+        threads: List[threading.Thread] = []
+        fleet: Optional[Dict[str, Any]] = None
+        controller = None
+        if self.autoscale:
+            from distkeras_torch.observability import health as _health
+            from distkeras_torch.runtime.fleet_controller import FleetController
+
+            fleet = {"lock": self._fleet_lock, "drain_requests": set(), "drained": set(),
+                     "exited": set()}
+
+            def spawn_replacement(_worker) -> None:
+                # a replacement takes an exited slot (its shard is
+                # otherwise orphaned); with every slot live the decision
+                # stays advisory
+                with self._fleet_lock:
+                    if not fleet["exited"]:
+                        return
+                    ridx = fleet["exited"].pop()
+                t = threading.Thread(target=run_worker, args=(ridx,),
+                                     name=f"async-worker-{ridx}")
+                with self._fleet_lock:
+                    threads.append(t)
+                t.start()
+
+            def request_drain(worker: str) -> None:
+                try:
+                    widx = int(worker)
+                except (TypeError, ValueError):
+                    return
+                with self._fleet_lock:
+                    fleet["drain_requests"].add(widx)
+
+            controller = FleetController(_health.monitor(), spawn_fn=spawn_replacement,
+                                         retire_fn=request_drain,
+                                         min_fleet=max(1, self.num_workers // 2))
+            fleet["controller"] = controller
+        self.fleet_controller = controller
+
         def run_worker(idx: int) -> None:
             losses, walls = histories[idx], self.window_seconds[idx]
             progress = [0, 0]  # [epoch to resume at, len(losses) at its start]
@@ -713,14 +859,26 @@ class AsyncDistributedTrainer(Trainer):
             start_counted = obs.enabled()
             if start_counted:
                 obs.counter("async_workers_started_total").inc()
+            if controller is not None:
+                controller.notify_worker_started(idx)
             try:
                 while True:
                     try:
                         self._run_worker(idx, progress[0], progress, dataset, shuffle,
                                          make_client, treedef, losses, walls,
-                                         trace_job=trace_job, instruments=instruments)
+                                         trace_job=trace_job, instruments=instruments,
+                                         fleet=fleet)
                         return
                     except Exception as e:  # reported by train() after the join
+                        if (isinstance(e, WorkerPreempted) and controller is not None
+                                and controller.notify_preempted(idx,
+                                                                deadline_s=e.deadline_s)):
+                            # planned capacity loss, drained clean: the
+                            # respawn resumes at the epoch from the hub's
+                            # current center, outside the restart budget
+                            del losses[progress[1]:]
+                            del walls[progress[1]:]
+                            continue
                         # "restart" runs the worker again from the hub's
                         # current center at the epoch it died in, within its
                         # budget; otherwise the error is recorded
@@ -739,6 +897,12 @@ class AsyncDistributedTrainer(Trainer):
                         if obs.enabled():
                             obs.counter("worker.restarts").inc()
             finally:
+                if controller is not None:
+                    controller.notify_worker_exited(idx)
+                    with self._fleet_lock:
+                        # a retired worker stays out of the respawn pool
+                        if idx not in fleet["drained"]:
+                            fleet["exited"].add(idx)
                 if start_counted:
                     obs.counter("async_workers_finished_total").inc()
 
@@ -759,8 +923,8 @@ class AsyncDistributedTrainer(Trainer):
                 daemon=True)
             snap_thread.start()
 
-        threads = [threading.Thread(target=run_worker, args=(i,), name=f"async-worker-{i}")
-                   for i in range(self.num_workers)]
+        threads.extend(threading.Thread(target=run_worker, args=(i,), name=f"async-worker-{i}")
+                       for i in range(self.num_workers))
         try:
             with self._profile_ctx():
                 self._run_workers(threads)
@@ -776,6 +940,8 @@ class AsyncDistributedTrainer(Trainer):
                         raise
                     errors.append(snap_err)
         finally:
+            if controller is not None:
+                controller.stop()
             if ps is not None:
                 ps.stop()
             self._cleanup_shm_dir()

@@ -144,8 +144,13 @@ def start_parameter_server(model: Any, mode: str = "delta", num_workers: int = 1
     :class:`~distkeras_torch.observability.health.HealthEvent` to that
     path as JSON lines.
 
-    ``adaptive`` raises ``NotImplementedError`` (ROADMAP item 8b, part 2),
-    as does ``sparse_tables`` (item 13)."""
+    ``adaptive=True`` makes either hub merge queued commits Adasum-style,
+    scale each worker's commits by its live staleness standing (the health
+    plane's events) and answer adaptive clients' reconnect announces with
+    retry-after slots while a storm lasts; pair it with trainers started
+    ``adaptive=True``.
+
+    ``sparse_tables`` raises ``NotImplementedError`` (ROADMAP item 13)."""
     from distkeras_torch.runtime.parameter_server import ShardedParameterServer, shard_plan
     from distkeras_torch.utils import flatten_weights
 
@@ -157,11 +162,8 @@ def start_parameter_server(model: Any, mode: str = "delta", num_workers: int = 1
         if num_shards > 1 and shard_index is None:
             raise ValueError("replica_of with num_shards > 1 requires shard_index: run one "
                              "standby daemon per shard, each pointed at its own primary")
-    unported = {"sparse_tables": (sparse_tables is not None, "13"),
-                "adaptive=True": (bool(adaptive), "8b part 2")}
-    for what, (given, item) in unported.items():
-        if given:
-            raise not_ported(f"start_parameter_server's {what}", item)
+    if sparse_tables is not None:
+        raise not_ported("start_parameter_server's sparse_tables", "13")
     if mode not in ("delta", "adag", "dynsgd"):
         raise ValueError(f"mode must be 'delta', 'adag' or 'dynsgd', got {mode!r}")
     flat, _ = flatten_weights(model.params, model.spec)
@@ -177,6 +179,9 @@ def start_parameter_server(model: Any, mode: str = "delta", num_workers: int = 1
                       snapshot_interval=snapshot_interval,
                       restore=restore if own_snapshots else False, shard_id=shard_id,
                       replica_of=replica_of, shm_dir=shm_dir, recv_batch_depth=recv_batch_depth)
+        if adaptive:
+            # only when on: a plain hub builds no adaptive machinery
+            common["adaptive"] = True
         if native:
             from distkeras_torch.runtime.native import (MODE_ADAG, MODE_DELTA, MODE_DYNSGD,
                                                         NativeParameterServer)
@@ -292,12 +297,18 @@ def main(argv: Optional[List[str]] = None) -> None:
                         help="parse up to N queued frames per receive wake-up; 0 = one "
                              "receive per frame")
     parser.add_argument("--adaptive", action="store_true",
-                        help="adaptive aggregation (not ported: ROADMAP item 8b, part 2)")
+                        help="adaptive aggregation (both hubs): merge queued commits "
+                             "Adasum-style, scale each worker's commits by its live staleness "
+                             "standing, and shed reconnect storms with retry-after hints "
+                             "(pair with trainers started adaptive=True)")
     parser.add_argument("--replica-of", default=None, metavar="HOST:PORT",
                         help="start as a hot standby of the primary hub at HOST:PORT: track its "
                              "center over the replication feed, promote when it dies")
     parser.add_argument("--autoscale", action="store_true",
-                        help="advisory fleet controller (not ported: ROADMAP item 8b, part 2)")
+                        help="run an advisory fleet controller on this hub's health monitor: "
+                             "its spawn, retire and respawn decisions are recorded and counted "
+                             "(ps_fleet_* telemetry) and printed at shutdown; the daemon starts "
+                             "no workers")
     args = parser.parse_args(argv)
     if args.restore and not args.snapshot_dir:
         parser.error("--restore requires --snapshot-dir")
@@ -312,8 +323,6 @@ def main(argv: Optional[List[str]] = None) -> None:
         if not host_part or not port_part.isdigit():
             parser.error(f"--replica-of expects HOST:PORT, got {args.replica_of!r}")
         replica_of = (host_part, int(port_part))
-    if args.autoscale:
-        raise not_ported("distkeras-torch-ps --autoscale", "8b part 2")
 
     from distkeras_torch.models.base import Model
 
@@ -348,6 +357,12 @@ def main(argv: Optional[List[str]] = None) -> None:
               f"{args.host}:{ps.port}", flush=True)
     else:
         print(f"ps listening on {args.host}:{ps.port}", flush=True)
+    controller = None
+    if args.autoscale:
+        from distkeras_torch.observability import health as _health
+        from distkeras_torch.runtime.fleet_controller import FleetController
+
+        controller = FleetController(_health.monitor())
     try:
         while not stop_event.wait(1.0):
             pass
@@ -357,6 +372,11 @@ def main(argv: Optional[List[str]] = None) -> None:
         signal.signal(signal.SIGTERM, prev_handler)
         if stop_event.is_set():
             print("SIGTERM: stopping the hub", flush=True)
+        if controller is not None:
+            controller.stop()
+            for d in controller.decisions():
+                print(f"fleet decision: {d['action']} worker={d['worker']} "
+                      f"reason={d['reason']}", flush=True)
         ps.stop()
         # the hub process is the trace merge's clock reference: with
         # telemetry on and DKT_TRACE_DIR set its spans go there (the C++

@@ -19,7 +19,14 @@ runs the feed thread and the promotion).  Its socket side speaks the same
 wire protocol, the shared-memory attach (action ``Z``) and the replication
 feed (action ``R``) included, the trace-context announce (``T``) and the
 health reports (``M``): a poll thread drains the reports the C++ hub
-parks into the process health collector.  :meth:`NativeParameterServer.
+parks into the process health collector.  With ``adaptive=True`` the C++
+hub merges queued commits (its Adasum flat combiner), answers reconnect
+announces (``G``) with retry-after hints in a storm, and takes each
+worker's commit scale from the Python
+:class:`~distkeras_torch.runtime.parameter_server.AdaptiveRateController`
+this binding subscribes to the health monitor.  Jobs are the Python hub's
+alone: a job-scoped announce gets the plain clock reply, which a job
+client refuses.  :meth:`NativeParameterServer.
 sync_telemetry` surfaces the C++ hub's counters (``dk_ps_stats``) under
 the Python hub's registry names, and its commit log as
 ``ps.handle_commit`` spans.  Its ctypes calls release the GIL while the
@@ -151,6 +158,13 @@ def _bind(lib: ctypes.CDLL) -> None:
                                      ctypes.c_int64]
     lib.dk_ps_stats.argtypes = [ctypes.c_void_p, P(ctypes.c_int64)]
     lib.dk_ps_staleness_hist.argtypes = [ctypes.c_void_p, P(ctypes.c_int64)]
+    lib.dk_ps_merge_hist.argtypes = [ctypes.c_void_p, P(ctypes.c_int64)]
+    lib.dk_ps_set_rate_scale.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_double,
+                                         ctypes.c_int64]
+    lib.dk_ps_set_storm_params.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5
+    lib.dk_ps_arm_storm.argtypes = [ctypes.c_void_p]
+    lib.dk_ps_time_ns.restype = ctypes.c_int64
+    lib.dk_ps_time_ns.argtypes = [ctypes.c_void_p]
     lib.dk_ps_drain_commits.restype = ctypes.c_int64
     lib.dk_ps_drain_commits.argtypes = [ctypes.c_void_p, P(ctypes.c_int64), ctypes.c_int64]
     lib.dk_ps_next_health.restype = ctypes.c_int64
@@ -204,7 +218,9 @@ class NativeParameterServer:
     armed in C++.  ``replica_of`` starts the hub as a standby of that
     primary (the C++ feed thread, promotion on feed loss or a first
     commit); an ``R`` hello from a peer attaches it to this hub's own feed
-    as a primary."""
+    as a primary.  ``adaptive=True`` turns on the C++ merger and storm
+    shedding.  The C++ hub has no job namespaces (``fleet_info()["jobs"]``
+    stays empty)."""
 
     _POLL_INTERVAL_S = 0.25
 
@@ -223,8 +239,8 @@ class NativeParameterServer:
                   "repl_sparse_bytes", "repl_sparse_saved")
 
     # the cumulative counters synced into the registry under the Python
-    # hub's names (the port's C++ hub serves no sparse tables and no
-    # adaptive merge, whose slots stay 0 and are not mapped)
+    # hub's names (the port's C++ hub serves no sparse tables, whose slots
+    # stay 0 and are not mapped)
     _COUNTER_NAMES = (("commits", "ps_commits_total"),
                       ("pulls", "ps_pulls_total"),
                       ("commit_bytes", "ps_commit_bytes_total"),
@@ -234,6 +250,8 @@ class NativeParameterServer:
                       ("commit_log_dropped", "ps_commit_log_dropped_total"),
                       ("replicas_attached", "ps_replicas_attached_total"),
                       ("replica_disconnects", "ps_replica_disconnects_total"),
+                      ("merged_commits", "ps_merged_commits_total"),
+                      ("backpressure_hints", "ps_backpressure_hints_total"),
                       ("replica_frames", "ps_replica_frames_total"),
                       ("promotions", "ps_promotions_total"))
 
@@ -247,7 +265,7 @@ class NativeParameterServer:
                  replica_feed_retries: int = 3, replica_feed_backoff: float = 0.2,
                  sparse_leaves: Sequence[int] = (), adaptive: bool = False,
                  shm_dir: Optional[str] = None, recv_batch_depth: int = 0):
-        _reject(sparse_leaves=(tuple(sparse_leaves), ()), adaptive=(adaptive, False))
+        _reject(sparse_leaves=(tuple(sparse_leaves), ()))
         if restore and snapshot_dir is None:
             raise ValueError("restore=True requires snapshot_dir")
         lib = load()
@@ -257,9 +275,11 @@ class NativeParameterServer:
         no_sparse_idx = (ctypes.c_int32 * 1)(0)
         no_sparse_dim = (ctypes.c_int64 * 1)(0)
         idle_ms = 0 if idle_timeout is None else max(1, int(idle_timeout * 1000))
+        self.adaptive = bool(adaptive)
         self._handle = lib.dk_ps_create(int(port), len(self._templates), sizes, int(mode),
                                         int(num_workers), 1 if elastic else 0, idle_ms, 0,
-                                        no_sparse_idx, no_sparse_dim, 0,
+                                        no_sparse_idx, no_sparse_dim,
+                                        1 if self.adaptive else 0,
                                         int(net.max_request_payload(self._templates)))
         if not self._handle:
             raise RuntimeError("dk_ps_create failed")
@@ -294,6 +314,10 @@ class NativeParameterServer:
         self._drain_lock = threading.Lock()
         self._last_stats = [0] * len(self._STAT_KEYS)
         self._last_stale_hist = [0] * 65
+        self._last_merge_hist = [0] * 65
+        # the adaptive glue, bound in start()
+        self._rate: Optional[Any] = None
+        self._health_unsub: Optional[Any] = None
         self._drain_buf = np.zeros(4096 * 5, np.int64)
         self._health_buf = np.zeros(
             max(net.CONTROL_PAYLOAD_MAX, int(net.max_request_payload(self._templates))),
@@ -329,6 +353,18 @@ class NativeParameterServer:
                         f"(see warnings)")
                 warnings.warn("restore requested but no snapshot exists yet; "
                               "serving initial weights")
+        if self.adaptive:
+            # the Python hub's rule: bind the health plane and subscribe at
+            # start; the rate controller's verdicts go to C++ per worker
+            from distkeras_torch.observability import health as _health
+            from distkeras_torch.runtime.parameter_server import AdaptiveRateController
+
+            if self._health is None:
+                self._health = _health.collector()
+            if self._health_monitor is None:
+                self._health_monitor = _health.monitor()
+            self._rate = AdaptiveRateController()
+            self._health_unsub = self._health_monitor.subscribe(self._on_health_event)
         port = self._lib.dk_ps_start(self._handle)
         if port < 0:
             raise RuntimeError("native hub failed to bind")
@@ -352,6 +388,9 @@ class NativeParameterServer:
 
     def _shutdown(self, final_snapshot: bool) -> None:
         if self._started:
+            if self._health_unsub is not None and self._health_monitor is not None:
+                self._health_monitor.unsubscribe(self._health_unsub)
+                self._health_unsub = None
             self._poll_stop.set()
             if self._poll_thread is not None:
                 self._poll_thread.join(timeout=5)
@@ -368,10 +407,42 @@ class NativeParameterServer:
             self._started = False
 
     # -- the health plane and the telemetry bridge ------------------------------------
+    def _on_health_event(self, event: Any) -> None:
+        """The health monitor's callback: a storm event arms the C++
+        shedding; a staleness or straggler event updates the rate
+        controller, whose new scale for that worker goes to C++ with an
+        expiry (an expired scale reads as 1.0 there)."""
+        try:
+            if getattr(event, "kind", None) in ("reconnect_storm", "failover_storm"):
+                self._lib.dk_ps_arm_storm(self._handle)
+            rate = self._rate
+            if rate is None:
+                return
+            rate.on_event(event)
+            worker = getattr(event, "worker", None)
+            if worker is None:
+                return
+            try:
+                wid = int(str(worker))
+            except ValueError:
+                return  # only integer worker ids are announced to C++
+            expires = self.time_ns() + int(rate.hold_s * 1e9)
+            self._lib.dk_ps_set_rate_scale(self._handle, wid, float(rate.scale_for(worker)),
+                                           expires)
+        except Exception:
+            pass  # adaptation never takes down the emitting path
+
     def _poll_loop(self) -> None:
         while not self._poll_stop.wait(self._POLL_INTERVAL_S):
             try:
                 self._drain_health()
+                if self.adaptive:
+                    # the detectors see the commits' staleness as they do
+                    # on the Python hub
+                    self._consume_commit_log()
+                    mon = self._health_monitor
+                    if mon is not None:
+                        mon.maybe_check()
             except Exception:
                 pass  # telemetry never kills the hub
 
@@ -413,6 +484,24 @@ class NativeParameterServer:
         out = (ctypes.c_int64 * len(self._STAT_KEYS))()
         self._lib.dk_ps_stats(self._handle, out)
         return dict(zip(self._STAT_KEYS, [int(v) for v in out]))
+
+    @property
+    def backpressure_hints(self) -> int:
+        """Nonzero retry-after hints issued (the Python hub's attribute)."""
+        return self.stats()["backpressure_hints"]
+
+    def fleet_info(self) -> Dict[str, Any]:
+        """The Python hubs' ``fleet_info`` keys; the jobs block is empty,
+        as the C++ hub has no job namespaces."""
+        st = self.stats()
+        return {"live_workers": int(st.get("live_workers", 0)), "jobs": {},
+                "clock": int(st.get("clock", 0)), "num_updates": int(st.get("commits", 0)),
+                "jobs_admitted": 0, "jobs_rejected": 0}
+
+    def time_ns(self) -> int:
+        """The hub's CLOCK_MONOTONIC in ns (``time.perf_counter_ns``'s epoch
+        on Linux)."""
+        return int(self._lib.dk_ps_time_ns(self._handle))
 
     def _consume_commit_log(self) -> None:
         """Drain the C++ commit log: each record becomes a
@@ -471,6 +560,12 @@ class NativeParameterServer:
             for slot in range(65):
                 stale.observe_n(slot, int(hist[slot]) - self._last_stale_hist[slot])
                 self._last_stale_hist[slot] = int(hist[slot])
+            if self.adaptive:
+                self._lib.dk_ps_merge_hist(self._handle, hist)
+                merge = obs.histogram("ps.merge_batch", **self._mlabels)
+                for slot in range(65):
+                    merge.observe_n(slot, int(hist[slot]) - self._last_merge_hist[slot])
+                    self._last_merge_hist[slot] = int(hist[slot])
         self._consume_commit_log()
 
     # -- hot standby ---------------------------------------------------------------

@@ -7,9 +7,9 @@ action-``Z`` attach (:class:`ShmFrameRing`, :class:`ShmEndpoint`, one file
 layout with the JAX module and the C++ hub) and the hub's batched receive
 (:class:`BatchedReceiver`) and the hub-to-hub replication feed (action
 ``R``, :func:`encode_repl_hello`), the trace-context announce (``T``)
-and the health reports (``M``); the JAX module's sparse frames are
-ROADMAP item 13, its reconnect, retry and admission frames item 8b's
-part 2.
+the health reports (``M``), the reconnect announce and its retry-after
+reply (``G`` / ``Y``) and the job admission verdict (a ``T`` reply); the
+JAX module's sparse frames are ROADMAP item 13.
 
 Wire format (all integers big-endian):
 
@@ -26,7 +26,9 @@ acks it), ``Z`` the shared-memory attach handshake (request, offer or
 decline, confirm; see :func:`encode_shm_request`), ``R`` the
 replication feed (a standby's hello, then the primary's full sync and one
 delta a commit), ``T`` a worker's trace context (the hub answers with its
-monotonic clock) and ``M`` a worker's health report (the hub acks it).  Dtype and shape travel out of band: both ends hold the
+monotonic clock, or with the admission verdict when the announce names a
+job), ``M`` a worker's health report (the hub acks it), ``G`` an adaptive
+client's reconnect announce and ``Y`` the hub's retry-after hint.  Dtype and shape travel out of band: both ends hold the
 model's weight list as templates.
 
 Two implementations move tensor frames with the same bytes: the generic
@@ -98,6 +100,13 @@ REPL_HELLO = 2   # standby -> primary: no tensor blobs; clock is the standby's
 # a standby of the port announces capability 0, so a primary of either
 # package streams it dense deltas only (sparse tables are ROADMAP item 13)
 REPL_SPARSE = 3
+# reconnect-storm backpressure: an adaptive client's first frame on a fresh
+# connection after a fault is a G announce (one 8-byte big-endian blob, the
+# hub-paced waits it already took this reconnect episode); the hub answers
+# with a Y frame (one 8-byte big-endian blob, a retry-after hint in ms, 0 to
+# proceed).  Sent only by a client built with adaptive=True
+ACTION_RECONNECT = b"G"
+ACTION_RETRY = b"Y"
 REPL_CAP_SPARSE = 1
 # receive-bound allowance of the control frames (the one-JSON-blob T and M
 # payloads, sized by their reports, not by the model): a hub receives
@@ -367,6 +376,68 @@ def decode_time_payload(blobs: Sequence) -> int:
         raise ProtocolError(f"T timestamp blob has {len(raw)} bytes, want 8")
     (t_ns,) = struct.unpack(">Q", raw)
     return t_ns
+
+
+def encode_admission_payload(t_ns: int, admitted: bool, reason: str = "") -> bytes:
+    """The hub's ``T`` reply to a job-scoped announce (one with a
+    ``job_ns`` key): one blob, the UTF-8 JSON verdict ``{"t", "admitted",
+    "reason"}``.  A plain announce keeps the :func:`encode_time_payload`
+    reply."""
+    doc = json.dumps({"t": int(t_ns), "admitted": bool(admitted),
+                      "reason": reason}).encode("utf-8")
+    return encode_tensors(ACTION_TRACE, [np.frombuffer(doc, np.uint8)])
+
+
+def decode_admission_payload(blobs: Sequence) -> Tuple[int, bool, str]:
+    """Inverse of :func:`encode_admission_payload` given the decoded
+    blobs: ``(t_ns, admitted, reason)``."""
+    if not blobs:
+        raise ProtocolError("T admission reply carries no blob")
+    try:
+        doc = json.loads(bytes(memoryview(blobs[0])).decode("utf-8"))
+        return int(doc["t"]), bool(doc["admitted"]), str(doc.get("reason", ""))
+    except (ValueError, KeyError, TypeError, UnicodeDecodeError) as ex:
+        raise ProtocolError(f"malformed T admission reply: {ex}")
+
+
+# -- reconnect backpressure (G / Y) -----------------------------------------------
+
+def encode_reconnect_payload(waits_taken: int) -> bytes:
+    """The adaptive client's reconnect announce (``G``): one 8-byte
+    big-endian blob, the hub-paced waits already taken in this reconnect
+    episode (the hub hints a slot only to an announcer at 0)."""
+    return encode_tensors(ACTION_RECONNECT,
+                          [np.frombuffer(struct.pack(">Q", int(waits_taken)), np.uint8)])
+
+
+def encode_retry_payload(retry_after_ms: int) -> bytes:
+    """The hub's ``Y`` reply: one 8-byte big-endian blob, the retry-after
+    hint in milliseconds (0 = proceed now)."""
+    return encode_tensors(ACTION_RETRY,
+                          [np.frombuffer(struct.pack(">Q", int(retry_after_ms)), np.uint8)])
+
+
+def decode_retry_payload(blobs: Sequence) -> int:
+    """Inverse of :func:`encode_retry_payload` given the decoded blobs."""
+    if not blobs:
+        raise ProtocolError("Y reply carries no retry-after blob")
+    raw = bytes(memoryview(blobs[0]))[:8]
+    if len(raw) != 8:
+        raise ProtocolError(f"Y retry-after blob has {len(raw)} bytes, want 8")
+    (ms,) = struct.unpack(">Q", raw)
+    return ms
+
+
+def decode_reconnect_payload(blobs: Sequence) -> int:
+    """Inverse of :func:`encode_reconnect_payload`: the waits already
+    taken; a malformed blob reads as 0 (the announcer gets a slot like a
+    fresh one, never a dropped connection)."""
+    try:
+        raw = bytes(memoryview(blobs[0]))[:8]
+        (attempt,) = struct.unpack(">Q", raw)
+        return attempt
+    except (IndexError, struct.error, TypeError):
+        return 0
 
 
 def encoded_tensors_size(arrays: Sequence[np.ndarray]) -> int:

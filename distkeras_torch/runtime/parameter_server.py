@@ -57,9 +57,20 @@ offset from the replies; the hub tags that connection's spans with the
 worker's identity.  ``report_health`` pushes a health report (action
 ``M``) that the hub folds into the process health collector.
 
-Not ported, each raising ``NotImplementedError`` that names its ROADMAP
-item: adaptive aggregation and jobs (item 8b, part 2) and sparse tables
-(item 13).
+The control half, the JAX hubs' and clients': with ``adaptive=True`` a hub
+applies commits through :class:`_AdaptiveCombiner` (the commits queued at
+one instant merge Adasum-style, :func:`adasum_merge`, into one apply, each
+scaled by the algorithm's rule times the per-worker scale that
+:class:`AdaptiveRateController` derives from the health monitor's events)
+and answers an adaptive client's reconnect announce (action ``G``) with a
+retry-after hint while a reconnect storm lasts.  A client that announces a
+job (``PSClient(job=...)``) is admitted (``max_jobs``, ``job_budget_bytes``)
+to a private copy of the center, or refused with
+:class:`JobAdmissionError`; :meth:`SocketParameterServer.fleet_info` is the
+hub's membership and jobs surface.
+
+Not ported, raising ``NotImplementedError`` that names its ROADMAP item:
+sparse tables (item 13).
 """
 
 from __future__ import annotations
@@ -91,8 +102,12 @@ _CLIENT_ORDINALS = itertools.count()
 # the ROADMAP item of every option that is not ported, by keyword
 _ITEMS = {"sparse_leaves": "13", "sparse_cache_rows": "13", "sparse_tables": "13"}
 
+# the JAX package's row-sparse actions (S pull, V reply, U / X commits),
+# which a job session refuses with the JAX hub's error
+_SPARSE_ACTIONS = (b"S", b"V", b"U", b"X")
 
-def not_ported(what: str, item: str = "8b part 2") -> NotImplementedError:
+
+def not_ported(what: str, item: str = "13") -> NotImplementedError:
     """The error every unported option of the asynchronous path raises."""
     return NotImplementedError(f"{what} is not ported to distkeras_torch yet "
                                f"(ROADMAP item {item})")
@@ -103,7 +118,7 @@ def _reject(**options) -> None:
     (the options are passed as ``name=(value, default)``)."""
     for name, (value, default) in options.items():
         if value != default:
-            raise not_ported(f"{name}={value!r}", _ITEMS.get(name, "8b part 2"))
+            raise not_ported(f"{name}={value!r}", _ITEMS[name])
 
 
 def host_buffer(shape, dtype=np.float32, pin_memory: bool = False) -> np.ndarray:
@@ -310,6 +325,330 @@ class ReplicationFeed:
             self._set_gauge()
 
 
+# -- adaptive aggregation --------------------------------------------------------
+# A commit here is a per-leaf parts list aligned with the center: a full
+# ndarray for a dense leaf, an ``(ids, grads)`` pair (sorted unique int64 ids,
+# ``[k, dim]`` float32 rows) for a sparse one.  The merge arithmetic is the
+# JAX hub's numpy arithmetic (float32 leaves, ``np.dot`` cast by ``float()``,
+# float32 scalars), so both packages' hubs merge to the same bits.  The
+# port's hubs submit dense commits only (sparse tables are ROADMAP item 13);
+# the pure functions take both representations.
+
+
+def _adasum_dot(a_parts: Sequence[Any], b_parts: Sequence[Any]) -> float:
+    """Inner product of two commits in the center's flat vector space; a
+    sparse pair contributes its common rows only."""
+    total = 0.0
+    for a, b in zip(a_parts, b_parts):
+        if isinstance(a, tuple) and isinstance(b, tuple):
+            ids_a, ga = a
+            ids_b, gb = b
+            common, ia, ib = np.intersect1d(ids_a, ids_b, assume_unique=True,
+                                            return_indices=True)
+            if common.size:
+                total += float(np.dot(ga[ia].ravel(), gb[ib].ravel()))
+        elif isinstance(a, tuple) or isinstance(b, tuple):
+            raise ValueError("adasum needs matching per-leaf representations"
+                             " (dense vs sparse); densify mixed batches "
+                             "first")
+        else:
+            total += float(np.dot(np.asarray(a).ravel(), np.asarray(b).ravel()))
+    return total
+
+
+def _adasum_normsq(parts: Sequence[Any]) -> float:
+    total = 0.0
+    for p in parts:
+        flat = (p[1] if isinstance(p, tuple) else np.asarray(p)).ravel()
+        total += float(np.dot(flat, flat))
+    return total
+
+
+def _scale_parts(parts: Sequence[Any], scale: np.float32) -> List[Any]:
+    """One commit times a float32 scalar (sparse rows scale compact)."""
+    return [(p[0], p[1] * scale) if isinstance(p, tuple) else np.asarray(p) * scale
+            for p in parts]
+
+
+def adasum_pair(a_parts: Sequence[Any], b_parts: Sequence[Any]) -> List[Any]:
+    """Adasum (arXiv:2006.02924) of two commits::
+
+        merged = (1 - <a,b> / 2|a|^2) * a  +  (1 - <a,b> / 2|b|^2) * b
+
+    the sum of orthogonal commits, the mean of parallel ones.  A zero-norm
+    side passes the other through unchanged; sparse leaves merge on the
+    union of their rows."""
+    na = _adasum_normsq(a_parts)
+    nb = _adasum_normsq(b_parts)
+    if na == 0.0:
+        return list(b_parts)
+    if nb == 0.0:
+        return list(a_parts)
+    dot = _adasum_dot(a_parts, b_parts)
+    alpha = np.float32(1.0 - dot / (2.0 * na))
+    beta = np.float32(1.0 - dot / (2.0 * nb))
+    merged: List[Any] = []
+    for a, b in zip(a_parts, b_parts):
+        if isinstance(a, tuple):
+            ids_a, ga = a
+            ids_b, gb = b
+            ids = np.union1d(ids_a, ids_b)
+            out = np.zeros((ids.size, ga.shape[1]), np.float32)
+            if ids_a.size:
+                out[np.searchsorted(ids, ids_a)] += alpha * ga
+            if ids_b.size:
+                out[np.searchsorted(ids, ids_b)] += beta * gb
+            merged.append((ids, out))
+        else:
+            merged.append(alpha * np.asarray(a, np.float32) + beta * np.asarray(b, np.float32))
+    return merged
+
+
+def _mixed_repr(commits: Sequence[Sequence[Any]]) -> bool:
+    """True when a leaf is sparse in one commit and dense in another (the
+    JAX hub applies such a batch in queue order instead of merging)."""
+    first = commits[0]
+    return any(any(isinstance(c[i], tuple) != isinstance(first[i], tuple) for c in commits[1:])
+               for i in range(len(first)))
+
+
+def adasum_merge(commits: Sequence[Sequence[Any]]) -> List[Any]:
+    """Balanced pairwise-tree Adasum over a batch of commits, the merge
+    rule the adaptive hub applies to every queued batch."""
+    items = [list(c) for c in commits]
+    if not items:
+        raise ValueError("adasum_merge of an empty batch")
+    while len(items) > 1:
+        nxt = [adasum_pair(items[i], items[i + 1]) for i in range(0, len(items) - 1, 2)]
+        if len(items) % 2:
+            nxt.append(items[-1])
+        items = nxt
+    return items[0]
+
+
+class AdaptiveRateController:
+    """Per-worker commit scales driven by the health monitor's events (the
+    staleness response of arXiv:1611.04581, relative to the fleet).  The
+    adaptive hub subscribes it to the process
+    :class:`~distkeras_torch.observability.health.HealthMonitor`; each
+    event naming a worker proposes a scale for that worker and kind:
+
+    - ``staleness_drift``: ``(fleet_median + 1) / (staleness_mean + 1)``;
+    - ``staleness_spike``: ``(baseline + 1) / (staleness + 1)``;
+    - ``straggler``: ``1 / factor``.
+
+    Scales clamp to ``[floor, 1]`` and expire ``hold_s`` after the event
+    that set them.  A worker's scale is the minimum over its unexpired
+    kinds; a new event of one kind replaces that kind's verdict only."""
+
+    def __init__(self, floor: float = 0.1, hold_s: float = 30.0):
+        self.floor = float(floor)
+        self.hold_s = float(hold_s)
+        self._lock = threading.Lock()
+        # (worker, kind) -> (scale, monotonic expiry)
+        self._scales: Dict[Tuple[str, str], Tuple[float, float]] = {}
+
+    def _propose(self, worker: str, kind: str, scale: float) -> None:
+        scale = min(1.0, max(self.floor, float(scale)))
+        with self._lock:
+            self._scales[(worker, kind)] = (scale, time.monotonic() + self.hold_s)
+
+    def on_event(self, event: Any) -> None:
+        """The monitor's callback; malformed evidence is ignored."""
+        worker = getattr(event, "worker", None)
+        if worker is None:
+            return
+        ev = getattr(event, "evidence", None) or {}
+        try:
+            kind = event.kind
+            if kind == "staleness_drift":
+                self._propose(worker, kind, (float(ev.get("fleet_median", 0.0)) + 1.0)
+                              / (float(ev.get("staleness_mean", 0.0)) + 1.0))
+            elif kind == "staleness_spike":
+                self._propose(worker, kind, (float(ev.get("baseline", 0.0)) + 1.0)
+                              / (float(ev.get("staleness", 0.0)) + 1.0))
+            elif kind == "straggler":
+                self._propose(worker, kind, 1.0 / max(1.0, float(ev.get("factor", 1.0))))
+        except (TypeError, ValueError):
+            return
+
+    def scale_for(self, worker: Any) -> float:
+        """The worker's live scale (1.0 when unknown or expired)."""
+        if worker is None:
+            return 1.0
+        wkey = str(worker)
+        now = time.monotonic()
+        scale = 1.0
+        with self._lock:
+            for (w, kind), (s, expires) in list(self._scales.items()):
+                if now >= expires:
+                    del self._scales[(w, kind)]
+                elif w == wkey:
+                    scale = min(scale, s)
+        return scale
+
+    def snapshot(self) -> Dict[str, float]:
+        """Unexpired per-worker scales (minimum over kinds), JSON-safe."""
+        now = time.monotonic()
+        out: Dict[str, float] = {}
+        with self._lock:
+            for (w, _), (s, exp) in self._scales.items():
+                if exp > now:
+                    out[w] = min(out.get(w, 1.0), s)
+        return out
+
+
+class _AdaptiveCombiner:
+    """Flat-combining commit application of an adaptive hub.  Each commit
+    is queued here and its submitter races for the drain lock; the winner
+    takes everything queued at that instant as one batch, scales each
+    member by ``commit_scale(staleness)`` times its worker's rate, merges
+    the batch with :func:`adasum_merge` and applies it as one center
+    update.  A loser finds its entry applied and returns.  An uncontended
+    hub runs batches of one, whose apply equals the plain hub's to the bit
+    (``x * float32(1.0)`` is exact).
+
+    A batch of K commits advances the clock and ``num_updates`` by K; all
+    members see the batch's base clock.  With a standby attached the
+    merged delta goes out as one ``R`` frame at the batch's final clock
+    before any member returns, so the standby tracks the center to the
+    bit.  A batch that fails raises in every submitter it holds (never an
+    ack for a commit that was dropped).
+
+    The caller's parts must stay valid until :meth:`commit` returns.  A
+    handler thread blocks here before it reads its next frame, so views
+    into its receive buffer (its own buffer, its batched receiver's, or
+    the copy an shm endpoint made out of the ring) are not overwritten
+    before the batch that holds them is applied."""
+
+    def __init__(self, hub: "SocketParameterServer",
+                 rate: Optional[AdaptiveRateController] = None):
+        self.hub = hub
+        self.rate = rate
+        self._qlock = threading.Lock()
+        self._drain = threading.Lock()
+        self._queue: List[Dict[str, Any]] = []
+        self.batches_total = 0
+        self.merged_total = 0  # commits folded into a larger batch
+        self.max_batch = 0
+
+    def commit(self, parts: Sequence[Any], last_pull_clock: int,
+               worker: Any = None) -> Dict[str, Any]:
+        """Submit one commit; returns its entry once applied (and
+        published), with the staleness and scales it applied with."""
+        entry: Dict[str, Any] = {"parts": list(parts), "clock": int(last_pull_clock),
+                                 "worker": worker, "done": False, "error": None,
+                                 "staleness": 0, "fenced": False, "fence": 0,
+                                 "scale": 1.0, "rate_scale": 1.0, "batch": 1}
+        with self._qlock:
+            self._queue.append(entry)
+        with self._drain:
+            # an entry is either still queued (taken below) or was taken by
+            # a predecessor, which marked it done or failed before release
+            if not entry["done"] and entry["error"] is None:
+                with self._qlock:
+                    batch, self._queue = self._queue, []
+                try:
+                    self._apply_batch(batch)
+                except BaseException as e:
+                    for en in batch:
+                        if not en["done"]:
+                            en["error"] = e
+                    raise
+        err = entry["error"]
+        if err is not None:
+            raise err
+        return entry
+
+    def _apply_batch(self, batch: List[Dict[str, Any]]) -> None:
+        hub = self.hub
+        telemetry = obs.enabled()
+        t0_ns = time.perf_counter_ns() if telemetry else 0
+        with hub._lock:
+            # decided under the center lock, as _apply_commit_locked does:
+            # a standby attaching now either syncs after this apply or is
+            # already active here
+            feed = hub._feed
+            replicate = feed is not None and feed.active()
+            clock0 = hub._clock
+            fence = hub._clock_fence
+            scaled_all: List[List[Any]] = []
+            for entry in batch:
+                lpc = entry["clock"]
+                if lpc < fence:
+                    lpc = fence
+                    entry["fenced"] = True
+                    entry["fence"] = fence
+                staleness = clock0 - lpc
+                wscale = self.rate.scale_for(entry["worker"]) if self.rate is not None else 1.0
+                scale = float(hub.commit_scale(staleness)) * wscale
+                entry.update(staleness=staleness, scale=scale, rate_scale=wscale,
+                             batch=len(batch))
+                scaled_all.append(_scale_parts(entry["parts"], np.float32(scale)))
+            applied = adasum_merge(scaled_all) if len(scaled_all) > 1 else scaled_all[0]
+            for c, p in zip(hub.center, applied):
+                c += p
+            hub.num_updates += len(batch)
+            hub._clock += len(batch)
+            commit_clock = hub._clock
+        if replicate:
+            feed.publish(commit_clock, applied)
+        size = len(batch)
+        self.batches_total += 1
+        self.max_batch = max(self.max_batch, size)
+        if size > 1:
+            self.merged_total += size - 1
+        if telemetry:
+            obs.gauge("ps_merge_queue_depth", **hub._mlabels).set(size)
+            obs.histogram("ps.merge_batch", **hub._mlabels).observe(size)
+            if size > 1:
+                obs.counter("ps_merged_commits_total", **hub._mlabels).inc(size - 1)
+            fenced = sum(1 for e in batch if e["fenced"])
+            if fenced:
+                obs.counter("ps_fenced_commits_total", **hub._mlabels).inc(fenced)
+            obs.TRACER.record_span("ps.merge", t0_ns, time.perf_counter_ns(), batch=size,
+                                   **hub._shard_attrs)
+        # the applied scales join each worker's health series, the batch
+        # size the hub's own (fleet_report["adaptive"] reads both)
+        for entry in batch:
+            if entry["rate_scale"] < 1.0 and telemetry:
+                obs.counter("ps_rate_scaled_commits_total", **hub._mlabels).inc()
+            if entry["worker"] is not None:
+                hub._observe_health(entry["worker"], "adaptive_scale", entry["rate_scale"])
+        hub._observe_health(f"hub{'' if hub.shard_id is None else hub.shard_id}",
+                            "merge_queue_depth", size, any_shard=True)
+        for entry in batch:
+            entry["done"] = True
+
+
+# -- jobs ----------------------------------------------------------------------------
+
+class JobAdmissionError(net.ProtocolError):
+    """The hub refused a client's job-scoped announce (job slots or the
+    memory budget exhausted).  A ``ProtocolError``, so a refusal met on a
+    reconnect rides the client's retry and rotation."""
+
+    def __init__(self, job: str, reason: str):
+        super().__init__(f"job {job!r} admission rejected: {reason}")
+        self.job = job
+        self.reason = reason
+
+
+class _JobState:
+    """One admitted job: a private copy of the center (seeded from the
+    hub's center at admission) with its own clock, guarded by the hub's
+    center lock.  Outside the combiner, the replication feed and the
+    snapshots: one job's machinery never moves another's."""
+
+    __slots__ = ("job", "center", "clock", "num_updates")
+
+    def __init__(self, job: str, center: Sequence[np.ndarray]):
+        self.job = job
+        self.center = [np.array(w, dtype=np.float32) for w in center]
+        self.clock = 0
+        self.num_updates = 0
+
+
 class SocketParameterServer:
     """Hub and spokes: a listener, one handler thread per worker
     connection, one lock around the center variable.
@@ -343,7 +682,32 @@ class SocketParameterServer:
     A connection's spans carry the trace context its worker announced
     (action ``T``).  Health reports (action ``M``) and the hub's own
     signals (each commit's staleness, the replication lag) fold into the
-    process health collector, bound at the first report."""
+    process health collector, bound at the first report.
+
+    Adaptive (``adaptive=True``): commits go through
+    :class:`_AdaptiveCombiner`, the hub subscribes its
+    :class:`AdaptiveRateController` to the process health monitor at
+    ``start()``, and a reconnect announce (action ``G``) is answered with a
+    retry-after slot while a storm lasts: at least ``STORM_HELLOS`` fresh
+    announces within ``STORM_WINDOW_S`` seconds (or a ``reconnect_storm`` /
+    ``failover_storm`` event) shed for ``STORM_SHED_S`` seconds, each fresh
+    announce getting the next ``RETRY_BASE_MS`` slot up to ``RETRY_CAP_MS``.
+    Off, no combiner or subscription exists and every byte on the wire is
+    the plain hub's (a ``G`` is still answered, with 0).
+
+    Jobs: a connection whose ``T`` announce carries a ``job_ns`` key is
+    admitted to that job's private center (:class:`_JobState`), at most
+    ``max_jobs`` of them within ``job_budget_bytes`` (4 center copies by
+    default), and is answered with the admission verdict; a refused session
+    is never served."""
+
+    # reconnect-storm shedding (adaptive hubs); instance attributes may be
+    # retuned without subclassing
+    STORM_HELLOS = 3
+    STORM_WINDOW_S = 5.0
+    STORM_SHED_S = 3.0
+    RETRY_BASE_MS = 50
+    RETRY_CAP_MS = 2000
 
     def __init__(self, weights: Sequence[np.ndarray], host: str = "0.0.0.0", port: int = 0,
                  idle_timeout: Optional[float] = 300.0,
@@ -353,8 +717,9 @@ class SocketParameterServer:
                  replica_of: Optional[Tuple[str, int]] = None,
                  replica_feed_retries: int = 3, replica_feed_backoff: float = 0.2,
                  sparse_leaves: Sequence[int] = (), adaptive: bool = False,
-                 shm_dir: Optional[str] = None, recv_batch_depth: int = 0):
-        _reject(sparse_leaves=(tuple(sparse_leaves), ()), adaptive=(adaptive, False))
+                 shm_dir: Optional[str] = None, recv_batch_depth: int = 0,
+                 max_jobs: int = 4, job_budget_bytes: Optional[int] = None):
+        _reject(sparse_leaves=(tuple(sparse_leaves), ()))
         self.center: List[np.ndarray] = [np.array(w, dtype=np.float32) for w in weights]
         self.host = host
         self.port = int(port)
@@ -393,6 +758,26 @@ class SocketParameterServer:
         self._members: Dict[int, float] = {}
         self._member_lock = threading.Lock()
         self._member_seq = 0
+        # jobs: admitted namespaces under the center lock
+        self.max_jobs = max(0, int(max_jobs))
+        self.job_budget_bytes = (4 * max(1, self._center_bytes) if job_budget_bytes is None
+                                 else int(job_budget_bytes))
+        self._jobs: Dict[str, _JobState] = {}
+        self.jobs_admitted = 0
+        self.jobs_rejected = 0
+        # adaptive aggregation: none of it exists on a plain hub
+        self.adaptive = bool(adaptive)
+        self._rate: Optional[AdaptiveRateController] = None
+        self._combiner: Optional[_AdaptiveCombiner] = None
+        self._health_unsub: Optional[Any] = None
+        self._bp_lock = threading.Lock()
+        self._hello_times: Deque[float] = deque()
+        self._storm_until = 0.0
+        self._retry_seq = 0
+        self.backpressure_hints = 0  # nonzero hints issued
+        if self.adaptive:
+            self._rate = AdaptiveRateController()
+            self._combiner = _AdaptiveCombiner(self, self._rate)
         # primary side of the hot standby: made on the first R hello
         self._feed: Optional[ReplicationFeed] = None
         self._feed_lock = threading.Lock()
@@ -420,6 +805,18 @@ class SocketParameterServer:
 
     # -- lifecycle -----------------------------------------------------------
     def start(self) -> None:
+        if self.adaptive:
+            # bind the health plane and subscribe now: the staleness folds
+            # need a collector from the first commit, and the rate
+            # controller and the storm shedding hear events as they fire
+            from distkeras_torch.observability import health as _health
+
+            self._health_mod = _health
+            if self._health is None:
+                self._health = _health.collector()
+            if self._health_monitor is None:
+                self._health_monitor = _health.monitor()
+            self._health_unsub = self._health_monitor.subscribe(self._on_health_event)
         if self._restore and self.snapshotter is not None:
             # before binding: the first pull must see the restored center
             if not self.snapshotter.restore_latest():
@@ -463,6 +860,10 @@ class SocketParameterServer:
 
     def _shutdown(self, final_snapshot: bool) -> None:
         self._running = False
+        if self._health_unsub is not None and self._health_monitor is not None:
+            # a stopped hub must not react to a later run's events
+            self._health_monitor.unsubscribe(self._health_unsub)
+            self._health_unsub = None
         # stop tracking the primary before severing anything: a teardown
         # must never race the feed thread into a promotion
         self._replica_stop.set()
@@ -745,12 +1146,42 @@ class SocketParameterServer:
         return [net.dequantize_q_blob(blob, c.size).reshape(c.shape)
                 for blob, c in zip(blobs, self.center)]
 
+    def _on_health_event(self, event: Any) -> None:
+        """The health monitor's callback (adaptive hubs): staleness and
+        straggler events drive the rate controller, storm events arm the
+        reconnect shedding."""
+        if getattr(event, "kind", None) in ("reconnect_storm", "failover_storm"):
+            now = time.monotonic()
+            with self._bp_lock:
+                if now >= self._storm_until:
+                    self._retry_seq = 0
+                self._storm_until = max(self._storm_until, now + self.STORM_SHED_S)
+        if self._rate is not None:
+            self._rate.on_event(event)
+
+    def _commit_adaptive(self, parts: Sequence[Any], last_pull_clock: int,
+                         worker: Any) -> Dict[str, Any]:
+        """One commit through the combiner, then a rate-limited detector
+        turn (a run with no health reports still reacts to the hub's own
+        staleness folds)."""
+        entry = self._combiner.commit(parts, last_pull_clock, worker=worker)
+        mon = self._health_monitor
+        if mon is not None:
+            mon.maybe_check()
+        return entry
+
     def _commit_one(self, delta: Sequence[np.ndarray], last_pull_clock: int,
-                    telemetry: bool = False) -> Tuple[int, int]:
-        """Apply one commit: the fence raises the pull clock, the center
-        moves under the lock, and the scaled delta goes to the standbys
-        before the caller acks.  Returns ``(staleness, pull clock)``, the
-        clock as the fence left it."""
+                    worker: Any = None, telemetry: bool = False) -> Tuple[int, int]:
+        """The one commit dispatch of the socket and in-process paths: an
+        adaptive hub goes through the combiner; a plain one raises the pull
+        clock to the fence, moves the center under the lock and sends the
+        scaled delta to the standbys before the caller acks.  Returns
+        ``(staleness, pull clock)``, the clock as the fence left it."""
+        if self._combiner is not None:
+            entry = self._commit_adaptive(delta, last_pull_clock, worker)
+            if entry["fenced"]:
+                last_pull_clock = entry["fence"]
+            return entry["staleness"], last_pull_clock
         with self._lock:
             if last_pull_clock < self._clock_fence:
                 last_pull_clock = self._clock_fence
@@ -859,6 +1290,125 @@ class SocketParameterServer:
             self._health = bound
         self._health.observe(str(worker), metric, float(value), shard=self.shard_id)
 
+    # -- jobs --------------------------------------------------------------------------
+    def _job_working_set_bytes_locked(self) -> int:
+        """The hot rows of the hub's sparse tables in bytes, which admission
+        projects beside the center copies: 0 here, as the port's hubs hold
+        no sparse tables (ROADMAP item 13)."""
+        return 0
+
+    def _admit_job(self, job: str) -> Tuple[bool, str, Optional[_JobState]]:
+        """Admission of one job-scoped announce: ``(admitted, reason,
+        state)``.  A job already admitted (a reconnecting worker) attaches
+        to its namespace again.  Settled under the center lock before the
+        connection is served."""
+        job = str(job)
+        reason = ""
+        with self._lock:
+            state = self._jobs.get(job)
+            n_jobs = len(self._jobs)
+            if state is None:
+                if self._standby and not self.promoted:
+                    reason = "standby hubs hold no job namespaces (admission is primary-only)"
+                elif self.max_jobs <= 0:
+                    reason = "multi-job serving is disabled (max_jobs=0)"
+                elif n_jobs >= self.max_jobs:
+                    reason = f"job slots exhausted ({n_jobs}/{self.max_jobs})"
+                else:
+                    ws = self._job_working_set_bytes_locked()
+                    projected = self._center_bytes * (n_jobs + 1) + ws
+                    if projected > self.job_budget_bytes:
+                        reason = (f"shard memory budget exceeded: projected "
+                                  f"{projected} bytes ({n_jobs + 1} job center "
+                                  f"copies + {ws}-byte hot working set) > "
+                                  f"budget {self.job_budget_bytes}")
+                    else:
+                        state = _JobState(job, self.center)
+                        self._jobs[job] = state
+                        self.jobs_admitted += 1
+                        n_jobs += 1
+            if state is None:
+                self.jobs_rejected += 1
+        if obs.enabled():
+            if state is not None:
+                obs.counter("ps_jobs_admitted_total", **self._mlabels).inc()
+                obs.gauge("ps_active_jobs", **self._mlabels).set(n_jobs)
+            else:
+                obs.counter("ps_jobs_rejected_total", **self._mlabels).inc()
+        return (state is not None), reason, state
+
+    def _job_commit_one(self, state: _JobState, delta: Sequence[np.ndarray],
+                        last_pull_clock: int) -> Tuple[int, int]:
+        """A job's commit: the hub's staleness rule (``commit_scale``) on
+        the job's center, under the center lock; no combiner, no standby,
+        no snapshot."""
+        with self._lock:
+            staleness = state.clock - last_pull_clock
+            scale = self.commit_scale(staleness)
+            for c, d in zip(state.center, delta):
+                if scale == 1.0:
+                    c += d
+                else:
+                    c += d * scale
+            state.num_updates += 1
+            state.clock += 1
+        return staleness, last_pull_clock
+
+    def fleet_info(self) -> Dict[str, Any]:
+        """Membership and jobs, one JSON-safe dict (the C++ hub's binding
+        returns the same keys)."""
+        with self._lock:
+            jobs = {name: {"clock": st.clock, "num_updates": st.num_updates}
+                    for name, st in self._jobs.items()}
+            clock = self._clock
+            num_updates = self.num_updates
+            admitted, rejected = self.jobs_admitted, self.jobs_rejected
+        return {"live_workers": self.live_workers(), "jobs": jobs, "clock": clock,
+                "num_updates": num_updates, "jobs_admitted": admitted,
+                "jobs_rejected": rejected}
+
+    # -- reconnect backpressure ------------------------------------------------------
+    def _retry_after_ms(self, waits_taken: int = 0) -> int:
+        """The answer to one reconnect announce (action ``G``): 0 to
+        proceed, else a retry-after slot in milliseconds.  Only an adaptive
+        hub in a storm hints, and only to an announcer that has not waited
+        a slot yet this episode, so every client waits at most once.  A
+        storm arms from the monitor's events or from the announces' own
+        rate here."""
+        if not self.adaptive:
+            return 0
+        now = time.monotonic()
+        storm_started = False
+        with self._bp_lock:
+            if waits_taken <= 0:
+                # paced returns are the drain, not the storm
+                self._hello_times.append(now)
+            while self._hello_times and now - self._hello_times[0] > self.STORM_WINDOW_S:
+                self._hello_times.popleft()
+            if now >= self._storm_until and len(self._hello_times) >= self.STORM_HELLOS:
+                self._storm_until = now + self.STORM_SHED_S
+                self._retry_seq = 0
+                storm_started = True
+            if now < self._storm_until and waits_taken <= 0:
+                self._retry_seq += 1
+                hint = min(self.RETRY_CAP_MS, self.RETRY_BASE_MS * self._retry_seq)
+                self.backpressure_hints += 1
+            else:
+                hint = 0
+        if storm_started:
+            try:
+                mon = self._health_monitor
+                if mon is not None:
+                    mon.emit("reconnect_storm", "critical", shard=self.shard_id,
+                             dedup=f"hub-hellos:{self.host}:{self.port}",
+                             hellos=len(self._hello_times), window_s=self.STORM_WINDOW_S)
+            except Exception:
+                pass
+        if hint and obs.enabled():
+            obs.counter("ps_backpressure_hints_total", **self._mlabels).inc()
+            obs.histogram("ps.retry_after_ms", **self._mlabels).observe(hint)
+        return hint
+
     # -- the socket path -----------------------------------------------------
     def _handle_connection(self, conn: socket.socket, conn_idx: int = 0) -> None:
         # a connection born after a restore or a promotion starts at the fence
@@ -867,6 +1417,12 @@ class SocketParameterServer:
         # the trace context the worker announced (action T): every span of
         # this handler is tagged with it
         ctx_attrs: Dict[str, Any] = {}
+        # set once a job-scoped announce is settled: an admitted session
+        # works on its job's center with its own pull clock, a refused one
+        # is never served
+        job_state: Optional[_JobState] = None
+        job_rejected = False
+        job_pull_clock = 0
         rx = bytearray(self._frame_bytes)
         reply = net.FlatFrameCodec(self.center)
         ack = net.empty_tensor_frame(net.ACTION_ACK)
@@ -903,6 +1459,23 @@ class SocketParameterServer:
                 telemetry = obs.enabled()
                 t0 = time.perf_counter() if telemetry else 0.0
                 if action == net.ACTION_PULL:
+                    if job_rejected:
+                        raise net.ProtocolError("pull on a rejected job session refused "
+                                                "(the admission verdict was reject)")
+                    if job_state is not None:
+                        with obs.span("ps.handle_pull", conn=conn_idx, **self._shard_attrs,
+                                      **ctx_attrs):
+                            with self._lock:
+                                reply.pack(net.ACTION_WEIGHTS, job_state.center)
+                                job_pull_clock = job_state.clock
+                            reply.send_packed(conn)
+                        if telemetry:
+                            obs.counter("ps_pulls_total", **self._mlabels).inc()
+                            obs.counter("ps_pull_bytes_total", **self._mlabels).inc(
+                                self._center_bytes)
+                            obs.histogram("ps_rpc_seconds", rpc="pull",
+                                          **self._mlabels).observe(time.perf_counter() - t0)
+                        continue
                     if self._standby and not self._synced.is_set():
                         # seed weights are never served as the job's state
                         raise net.ProtocolError("pull from a never-synced standby refused "
@@ -922,8 +1495,26 @@ class SocketParameterServer:
                         obs.histogram("ps_rpc_seconds", rpc="pull", **self._mlabels).observe(
                             time.perf_counter() - t0)
                 elif action in (net.ACTION_COMMIT, net.ACTION_QCOMMIT):
+                    if job_rejected:
+                        raise net.ProtocolError("commit on a rejected job session refused "
+                                                "(the admission verdict was reject)")
                     delta = (self._decode_delta(blobs) if action == net.ACTION_COMMIT
                              else self._decode_qdelta(blobs))
+                    if job_state is not None:
+                        if not joined:
+                            self._member_join(token)
+                            joined = True
+                        with obs.span("ps.handle_commit", conn=conn_idx, **self._shard_attrs,
+                                      **ctx_attrs) as sp:
+                            staleness, job_pull_clock = self._job_commit_one(
+                                job_state, delta, job_pull_clock)
+                            net.send_raw_frame(conn, ack)
+                            if getattr(sp, "attrs", None) is not None:
+                                sp.attrs["staleness"] = staleness
+                        self._observe_health(ctx_attrs.get("worker"), "staleness", staleness)
+                        if telemetry:
+                            self._count_commit(blobs, t0, conn_idx, staleness)
+                        continue
                     if self._standby:
                         if not self._synced.is_set():
                             raise net.ProtocolError("commit into a never-synced standby "
@@ -941,7 +1532,8 @@ class SocketParameterServer:
                     with obs.span("ps.handle_commit", conn=conn_idx, **self._shard_attrs,
                                   **ctx_attrs) as sp:
                         staleness, last_pull_clock = self._commit_one(
-                            delta, last_pull_clock, telemetry=telemetry)
+                            delta, last_pull_clock, ctx_attrs.get("worker"),
+                            telemetry=telemetry)
                         net.send_raw_frame(conn, ack)
                         if getattr(sp, "attrs", None) is not None:
                             # the staleness this commit applied with, which
@@ -949,28 +1541,46 @@ class SocketParameterServer:
                             sp.attrs["staleness"] = staleness
                     self._observe_health(ctx_attrs.get("worker"), "staleness", staleness)
                     if telemetry:
-                        obs.counter("ps_commits_total", **self._mlabels).inc()
-                        obs.counter("ps_commit_bytes_total", **self._mlabels).inc(
-                            sum(b.nbytes for b in blobs))
-                        obs.histogram("ps_rpc_seconds", rpc="commit",
-                                      **self._mlabels).observe(time.perf_counter() - t0)
-                        obs.gauge("ps_staleness", conn=str(conn_idx),
-                                  **self._mlabels).set(staleness)
-                        obs.histogram("ps_commit_staleness", **self._mlabels).observe(staleness)
+                        self._count_commit(blobs, t0, conn_idx, staleness)
+                elif action in _SPARSE_ACTIONS and (job_state is not None or job_rejected):
+                    raise net.ProtocolError("sparse actions are default-namespace only "
+                                            "(job-scoped sessions exchange dense P/C/Q)")
                 elif action == net.ACTION_TRACE:
                     # a worker's trace context: tag this connection's spans
                     # with it and answer with this hub's monotonic clock.
                     # A malformed context leaves the connection unattributed,
-                    # never dropped.  A job-scoped announce (job admission
-                    # is item 8b part 2) gets the same clock reply, which a
-                    # JAX job client refuses as a malformed admission, as it
-                    # does the C++ hub's
+                    # never dropped.  An announce with a ``job_ns`` key is
+                    # job-scoped: its reply is the admission verdict
                     raw = bytes(blobs[0]) if blobs else b""
                     try:
                         ctx_attrs = dtrace.TraceContext.from_json(raw).span_attrs()
                     except Exception:
                         ctx_attrs = {}
-                    net.send_frame(conn, net.encode_time_payload(time.perf_counter_ns()))
+                    job_ns = None
+                    try:
+                        doc = json.loads(raw.decode("utf-8"))
+                        if isinstance(doc, dict):
+                            job_ns = doc.get("job_ns")
+                    except Exception:
+                        job_ns = None
+                    if job_ns is None:
+                        if job_state is not None:
+                            # a later plain announce keeps the job's name
+                            ctx_attrs["job"] = job_state.job
+                        net.send_frame(conn, net.encode_time_payload(time.perf_counter_ns()))
+                    else:
+                        admitted, reason, job_state = self._admit_job(str(job_ns))
+                        job_rejected = not admitted
+                        if admitted:
+                            # spans and health series of this session carry the job
+                            ctx_attrs["job"] = job_state.job
+                        net.send_frame(conn, net.encode_admission_payload(
+                            time.perf_counter_ns(), admitted, reason))
+                elif action == net.ACTION_RECONNECT:
+                    # an adaptive client's reconnect announce: a retry-after
+                    # hint (0 on a plain hub or outside a storm)
+                    net.send_frame(conn, net.encode_retry_payload(
+                        self._retry_after_ms(net.decode_reconnect_payload(blobs))))
                 elif action == net.ACTION_HEALTH:
                     # a worker's health report: fold it in and ack (the ack
                     # coalesces into the client's later receives).  Health
@@ -1021,6 +1631,15 @@ class SocketParameterServer:
                 with self._conn_lock:
                     if conn in self._conns:
                         self._conns.remove(conn)
+    def _count_commit(self, blobs, t0: float, conn_idx: int, staleness: int) -> None:
+        """The telemetry of one socket commit (telemetry on)."""
+        obs.counter("ps_commits_total", **self._mlabels).inc()
+        obs.counter("ps_commit_bytes_total", **self._mlabels).inc(sum(b.nbytes for b in blobs))
+        obs.histogram("ps_rpc_seconds", rpc="commit", **self._mlabels).observe(
+            time.perf_counter() - t0)
+        obs.gauge("ps_staleness", conn=str(conn_idx), **self._mlabels).set(staleness)
+        obs.histogram("ps_commit_staleness", **self._mlabels).observe(staleness)
+
     def _shm_attach(self, conn, blobs, next_frame, receiver) -> Tuple[Any, bool]:
         """The hub's side of the ``Z`` handshake, all within one dispatch
         so the switch point is exact: offer two fresh ring files (or
@@ -1118,7 +1737,9 @@ class SocketParameterServer:
         arrays = [np.asarray(d, np.float32).reshape(c.shape) for d, c in zip(delta, self.center)]
         with obs.span("ps.handle_commit", transport="inproc", **self._shard_attrs,
                       **dtrace.current_span_attrs()) as sp:
-            staleness, _ = self._commit_one(arrays, last_pull_clock, telemetry=telemetry)
+            staleness, _ = self._commit_one(arrays, last_pull_clock,
+                                            dtrace.current_span_attrs().get("worker"),
+                                            telemetry=telemetry)
             if getattr(sp, "attrs", None) is not None:
                 sp.attrs["staleness"] = staleness
         if self._health is not None:
@@ -1276,9 +1897,23 @@ class PSClient:
     sample, ``clock_error_ns`` half that round trip).  ``report_health``
     pushes one health report (action ``M``); its ack coalesces like a
     commit's.
+
+    ``adaptive=True`` announces every reconnect (action ``G``, carrying
+    the hub-paced waits already taken in this episode) and honours the
+    hub's retry-after hint: it closes, waits the slot and dials again,
+    the wait refunded from the reconnect budget up to ``_MAX_BP_WAITS``
+    times (``backpressure_waits`` counts them).  ``job="name"`` announces
+    the job (a ``T`` with a ``job_ns`` key) on every connection, before
+    anything else, and trains on that job's center; a refusal raises
+    :class:`JobAdmissionError`.
     """
 
     _RETRYABLE = (ConnectionError, OSError, net.ProtocolError)
+    # hub-paced waits refunded from the reconnect budget, at most this many
+    # an episode (a hub that never stops hinting cannot park a worker)
+    _MAX_BP_WAITS = 32
+    # the ceiling on one honoured hint (the hub caps its own at 2 s)
+    _MAX_RETRY_AFTER_MS = 10_000
 
     def __init__(self, host: str, port: int, templates: Sequence[np.ndarray],
                  timeout: Optional[float] = 60.0, compress: Optional[str] = None,
@@ -1293,8 +1928,8 @@ class PSClient:
                  landing_guard: Optional[Callable[[int], None]] = None):
         if compress not in (None, "int8"):
             raise ValueError(f"unknown compress {compress!r}; use None or 'int8'")
-        _reject(sparse_leaves=(tuple(sparse_leaves), ()), adaptive=(adaptive, False),
-                sparse_cache_rows=(sparse_cache_rows, None), job=(job, None))
+        _reject(sparse_leaves=(tuple(sparse_leaves), ()),
+                sparse_cache_rows=(sparse_cache_rows, None))
         self.templates = [np.asarray(t, dtype=np.float32) for t in templates]
         self.compress = compress
         self.max_inflight = max(1, int(max_inflight))
@@ -1347,6 +1982,9 @@ class PSClient:
         self._io_lock = (threading.Lock() if heartbeat_interval is not None
                          else contextlib.nullcontext())
         self._last_io = time.monotonic()
+        self.adaptive = bool(adaptive)
+        self.backpressure_waits = 0
+        self.job = None if job is None else str(job)
         self.shm = bool(shm)
         self.transport = "tcp"
         self.sock = self._connect_any()
@@ -1361,8 +1999,18 @@ class PSClient:
         self.heartbeat_interval = None if heartbeat_interval is None else float(heartbeat_interval)
         self._hb_stop = threading.Event()
         self._hb_thread: Optional[threading.Thread] = None
-        # the announce owns the fresh socket: after every attribute exists
-        # (close() must work after a failed announce), before the heartbeat
+        # the announces own the fresh socket: after every attribute exists
+        # (close() must work after a failed announce), before the heartbeat;
+        # the job's verdict first, so a refused job never trains
+        if self.job is not None:
+            try:
+                self._announce_job()
+            except BaseException:
+                try:
+                    self.sock.close()
+                except OSError:
+                    pass
+                raise
         if trace_context is not None:
             try:
                 self._announce_and_sync()
@@ -1438,6 +2086,28 @@ class PSClient:
         self.sock = net.ShmEndpoint(self.sock, tx_ring, rx_ring)
         self.sock.settimeout(self.timeout)
         self.transport = "shm"
+
+    # -- jobs and reconnect backpressure ------------------------------------------
+    def _announce_job(self) -> None:
+        """Send the job-scoped ``T`` announce and settle the verdict on a
+        fresh connection; a refusal raises :class:`JobAdmissionError`."""
+        doc = json.dumps({"job_ns": self.job}).encode("utf-8")
+        net.send_frame(self.sock, net.encode_context_payload(doc))
+        action, blobs = net.recv_tensors(self.sock)
+        if action != net.ACTION_TRACE:
+            raise net.ProtocolError(f"expected T reply to job announce, got {action!r}")
+        _t_ns, admitted, reason = net.decode_admission_payload(blobs)
+        if not admitted:
+            raise JobAdmissionError(self.job, reason)
+
+    def _reconnect_hello(self, waits_taken: int) -> int:
+        """The ``G`` / ``Y`` round trip on a freshly dialed connection: the
+        hub's retry-after hint in ms, capped at ``_MAX_RETRY_AFTER_MS``."""
+        net.send_frame(self.sock, net.encode_reconnect_payload(waits_taken))
+        action, blobs = net.recv_tensors(self.sock)
+        if action != net.ACTION_RETRY:
+            raise net.ProtocolError(f"expected Y reply to reconnect announce, got {action!r}")
+        return min(net.decode_retry_payload(blobs), self._MAX_RETRY_AFTER_MS)
 
     # -- distributed tracing -----------------------------------------------------
     def _announce_and_sync(self, rounds: int = 3) -> None:
@@ -1526,6 +2196,11 @@ class PSClient:
                 self.sock.close()
             except OSError:
                 pass
+            # hub-paced waits taken in this episode (the G announce carries
+            # the count); a redial right after a slot skips the backoff, as
+            # the hub scheduled that arrival
+            bp_episode = 0
+            skip_backoff = False
             while True:
                 if self.reconnects_used >= self.max_reconnects:
                     raise ConnectionError(
@@ -1534,15 +2209,42 @@ class PSClient:
                         + (f" across {len(self._addresses)} failover addresses"
                            if len(self._addresses) > 1 else "")) from cause
                 self.reconnects_used += 1
-                nominal = min(self.reconnect_backoff * (2.0 ** (self.reconnects_used - 1)),
-                              self.reconnect_backoff_max)
-                time.sleep(nominal * (0.5 + 0.5 * self._jitter.random()))
+                if skip_backoff:
+                    skip_backoff = False
+                else:
+                    nominal = min(self.reconnect_backoff * (2.0 ** (self.reconnects_used - 1)),
+                                  self.reconnect_backoff_max)
+                    time.sleep(nominal * (0.5 + 0.5 * self._jitter.random()))
                 # the current address gets one retry, then the list is walked
                 host, port = self._addresses[self._addr_idx]
                 try:
                     self.sock = self._dial(host, port)
                     self.host, self.port = host, port
+                    if self.adaptive:
+                        hint_ms = self._reconnect_hello(bp_episode)
+                        if hint_ms > 0:
+                            # a healthy hub's pacing is no fault: the wait
+                            # is refunded from the budget
+                            try:
+                                self.sock.close()
+                            except OSError:
+                                pass
+                            bp_episode += 1
+                            self.backpressure_waits += 1
+                            if bp_episode <= self._MAX_BP_WAITS:
+                                self.reconnects_used -= 1
+                            if obs.enabled():
+                                obs.counter("ps.backpressure_waits", **self._mlabels).inc()
+                                obs.histogram("ps.retry_after_wait_ms",
+                                              **self._mlabels).observe(hint_ms)
+                            time.sleep(hint_ms / 1000.0)
+                            skip_backoff = True
+                            continue
                     self._maybe_attach_shm()
+                    # admission is per connection: announce the job again
+                    # (a full or standby hub refuses, which rotates)
+                    if self.job is not None:
+                        self._announce_job()
                     # a restarted hub has no memory of the context: announce
                     # it again and refresh the clock offset
                     if self.trace_context is not None:

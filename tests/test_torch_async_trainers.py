@@ -11,8 +11,9 @@ Then: a port worker against a JAX hub and a JAX worker against a port hub;
 int8 commits; the C++ hub; two workers that learn; worker threads that
 run at once committing what they commit one after the other; center
 snapshots; the survival options (failover, a standby hub, reconnects,
-heartbeats, elastic ADAG, restarts) working; and every option that is not
-ported raising, naming its ROADMAP item (8b, or 13 for sparse tables).
+heartbeats, elastic ADAG, restarts) working; the control options
+(adaptive, autoscale) behaving as the JAX trainer's; and sparse tables
+raising, naming ROADMAP item 13.
 """
 
 import sys
@@ -339,13 +340,35 @@ UNPORTED = {
 
 @pytest.mark.parametrize("option", sorted(UNPORTED))
 def test_unported_options_raise(option):
-    _, tm = _models("mlp")
+    """Sparse tables still raise, naming item 13.  The options that once
+    raised behave as the JAX trainer's: ``adaptive`` reaches the owned
+    hub's keywords, ``autoscale`` with a ``ps_address`` raises the JAX
+    ``ValueError``, and ``job`` is no trainer keyword in either package
+    (jobs are a client option)."""
+    jm, tm = _models("mlp")
     kw = {option: UNPORTED[option]}
-    if option == "sparse_cache_rows":
-        kw["sparse_tables"] = "auto"
-    item = "13" if option.startswith("sparse") else "8b"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        ta.AsyncADAG(tm, device="cpu", **kw)
+    if option.startswith("sparse"):
+        if option == "sparse_cache_rows":
+            kw["sparse_tables"] = "auto"
+        with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+            ta.AsyncADAG(tm, device="cpu", **kw)
+    elif option == "adaptive":
+        b = ta.AsyncADAG(tm, device="cpu", **kw)
+        a = ja.AsyncADAG(jm, **kw)
+        assert b.adaptive and a.adaptive
+        assert b._hub_kwargs()["adaptive"] is a._hub_kwargs()["adaptive"] is True
+    elif option == "autoscale":
+        kw["ps_address"] = ("127.0.0.1", 1)
+        with pytest.raises(ValueError) as te:
+            ta.AsyncADAG(tm, device="cpu", **kw)
+        with pytest.raises(ValueError) as je:
+            ja.AsyncADAG(jm, **kw)
+        assert str(te.value) == str(je.value)
+    else:
+        with pytest.raises(TypeError):
+            ta.AsyncADAG(tm, device="cpu", **kw)
+        with pytest.raises(TypeError):
+            ja.AsyncADAG(jm, **kw)
 
 
 @pytest.mark.parametrize("option", ["trace_context", "health_interval_s"])

@@ -151,9 +151,30 @@ def test_start_parameter_server_validation_equals_jax(case):
 @pytest.mark.parametrize("option,value,item", [
     ("sparse_tables", "auto", "13"), ("adaptive", True, "8b")])
 def test_start_parameter_server_unported_options_name_their_items(option, value, item):
-    _, tm = _models()
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        tl.start_parameter_server(tm, port=0, **{option: value})
+    """Sparse tables still raise, naming item 13.  The option that once
+    raised, ``adaptive``: as the JAX function's, it starts an adaptive hub
+    (Python and C++) that answers a reconnect announce with ``Y`` 0."""
+    jm, tm = _models()
+    if option == "sparse_tables":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+            tl.start_parameter_server(tm, port=0, **{option: value})
+        return
+    hubs = [tl.start_parameter_server(tm, port=0, mode="adag", adaptive=True),
+            tl.start_parameter_server(tm, port=0, mode="adag", adaptive=True, native=True),
+            jl.start_parameter_server(jm, port=0, mode="adag", adaptive=True)]
+    try:
+        assert all(h.adaptive for h in hubs)
+        for h in hubs:
+            sock = socket.create_connection(("127.0.0.1", h.port), timeout=10)
+            try:
+                tps.net.send_frame(sock, tps.net.encode_reconnect_payload(0))
+                action, blobs = tps.net.recv_tensors(sock)
+            finally:
+                sock.close()
+            assert action == tps.net.ACTION_RETRY and tps.net.decode_retry_payload(blobs) == 0
+    finally:
+        for h in hubs:
+            h.stop()
 
 
 def test_start_parameter_server_health_jsonl(tmp_path):

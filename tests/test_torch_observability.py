@@ -466,8 +466,9 @@ def test_unannounced_client_sends_no_t_and_spans_carry_no_worker(both):
 @pytest.mark.parametrize("hub", ["python", "native"])
 def test_malformed_t_keeps_the_connection_and_a_job_client_is_refused(both, hub):
     """A malformed context leaves the connection up (answered with the
-    clock); a JAX job client gets the clock, not an admission, and refuses
-    the hub, the port's Python hub as its C++ hub."""
+    clock).  A JAX job client is admitted by the port's Python hub, as by
+    the JAX hub; the C++ hub answers its announce with the clock, not an
+    admission, and the client refuses it."""
     ps = _hub(hub)
     try:
         sock = tnet.connect("127.0.0.1", ps.port, timeout=10)
@@ -480,8 +481,14 @@ def test_malformed_t_keeps_the_connection_and_a_job_client_is_refused(both, hub)
             assert action == tnet.ACTION_TRACE
         finally:
             sock.close()
-        with pytest.raises(jnet.ProtocolError, match="admission"):
-            jps.PSClient("127.0.0.1", ps.port, templates=_weights(), job="a", timeout=10)
+        if hub == "python":
+            with jps.PSClient("127.0.0.1", ps.port, templates=_weights(), job="a",
+                              timeout=10) as c:
+                c.pull()
+            assert ps.fleet_info()["jobs_admitted"] == 1
+        else:
+            with pytest.raises(jnet.ProtocolError, match="admission"):
+                jps.PSClient("127.0.0.1", ps.port, templates=_weights(), job="a", timeout=10)
     finally:
         ps.stop()
 

@@ -425,21 +425,69 @@ def test_native_initial_weights_and_int8_socket_path():
         np.testing.assert_array_equal(n, p)
 
 
+def _g_round_trip(port, waits_taken=0):
+    """One raw reconnect announce (``G``) against a hub: the reply's bytes."""
+    sock = jnet.connect("127.0.0.1", port, timeout=TIMEOUT)
+    try:
+        jnet.send_frame(sock, jnet.encode_reconnect_payload(waits_taken))
+        return jnet.recv_frame(sock)
+    finally:
+        sock.close()
+
+
 @pytest.mark.parametrize("option", ["sparse_leaves", "adaptive"])
 def test_hub_options_not_ported_raise(option):
-    value = {"sparse_leaves": (0,), "adaptive": True}[option]
-    item = "13" if option == "sparse_leaves" else "8b"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        tps.ADAGParameterServer(_weights(), num_workers=2, **{option: value})
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        NativeParameterServer(_weights(), mode=MODE_ADAG, **{option: value})
+    """Sparse tables still raise, naming item 13.  The option that once
+    raised, ``adaptive``: both of the port's hubs build with it and answer
+    a reconnect announce with the JAX adaptive hub's ``Y`` bytes (0 outside
+    a storm)."""
+    if option == "sparse_leaves":
+        with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+            tps.ADAGParameterServer(_weights(), num_workers=2, sparse_leaves=(0,))
+        with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+            NativeParameterServer(_weights(), mode=MODE_ADAG, sparse_leaves=(0,))
+        return
+    hubs = [tps.ADAGParameterServer(_weights(), num_workers=2, adaptive=True),
+            NativeParameterServer(_weights(), mode=MODE_ADAG, num_workers=2, adaptive=True),
+            jps.ADAGParameterServer(_weights(), num_workers=2, adaptive=True)]
+    for h in hubs:
+        h.start()
+    try:
+        assert hubs[0]._combiner is not None and hubs[1].adaptive
+        replies = [_g_round_trip(h.port) for h in hubs]
+        assert replies[0] == replies[1] == replies[2] == jnet.encode_retry_payload(0)
+    finally:
+        for h in hubs:
+            h.stop()
 
 
 @pytest.mark.parametrize("option", ["job", "adaptive"])
 def test_client_options_not_ported_raise(option):
-    value = {"job": "a", "adaptive": True}[option]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8b"):
-        tps.PSClient("127.0.0.1", 1, _weights(), **{option: value})
+    """The client options that once raised, on the port's hub and the JAX
+    hub: ``job`` trains on the job's center and leaves the default one
+    unmoved; ``adaptive`` reconnects across a severed connection through
+    the ``G`` / ``Y`` exchange, waiting no slot outside a storm."""
+    for hub in (tps.DeltaParameterServer(_weights(), adaptive=option == "adaptive"),
+                jps.DeltaParameterServer(_weights(), adaptive=option == "adaptive")):
+        hub.start()
+        try:
+            if option == "job":
+                with _client("port", hub.port, _weights(), job="a") as c:
+                    c.pull()
+                    c.commit([np.ones_like(w) for w in _weights()])
+                    assert all(np.array_equal(g, np.ones_like(g)) for g in c.pull())
+                assert hub.fleet_info()["jobs"] == {"a": {"clock": 1, "num_updates": 1}}
+                assert all(not w.any() for w in hub.get_weights())
+            else:
+                with _client("port", hub.port, _weights(), adaptive=True,
+                             max_reconnects=2, reconnect_backoff=0.01) as c:
+                    c.pull()
+                    c.sock.close()  # the fault: the next operation reconnects
+                    c.commit([np.ones_like(w) for w in _weights()])
+                    assert c.reconnects_used == 1 and c.backpressure_waits == 0
+                assert hub.num_updates == 1
+        finally:
+            hub.stop()
 
 
 def test_client_trace_context_announces_as_the_jax_client_does(monkeypatch):

@@ -254,8 +254,8 @@ def test_metrics_history_and_profile(tmp_path):
 def test_entry_points_refuse_what_is_not_ported():
     _, tm = _models("mlp")
     x, y, _ = _data()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8b"):
-        AsyncADAG(tm, device="cpu", adaptive=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+        AsyncADAG(tm, device="cpu", sparse_tables="auto")
     with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
         tt.ADAG(tm, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
