@@ -154,7 +154,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the bit, the default center unmoved, a fifth job refused at
    max_jobs=4 with the JAX reason, fleet_info JSON-safe, a job client
    refused by the C++ hub.  No kernel of the port lies on this path;
-12. report: one JSON line of kernels, the card's name and power limit, and
+12. sparse (main path, after the control half): the row-sparse embedding
+   workload.  (a) embedding_classifier (4 fields on one [25600, 128]
+   table) and multi_embedding_classifier (12 tables, whose leaves sort
+   table_0, table_1, table_10, ...): logits and the params after one sgd
+   step, card against CPU float32, relative L2 1e-5; (b) one pipelined
+   worker whose every window touches every row of the [25600, 128] table:
+   sparse_tables="auto" against dense to the bit, on the Python and the
+   C++ hub, float32 and int8 commits, the ids going to the card as int32;
+   (e) the same run striped over 2 shards against 1, to the bit, on both
+   hubs; (c) bench.py:2712's embedding leg (head 8 wide, batch 32, window
+   4, 4 windows an epoch, 2 epochs, 2 workers): dense and sparse, median
+   of 3 walls, wire and exchange bytes and rows/s, sparse_wire_ok (the
+   exchange ratio at most 1.1 x the touched-row fraction); the hot leg (a
+   0.01 / 0.9 hot/cold draw, sparse_cache_rows twice the hot set, a
+   sparse standby): repl_sparse_ok, cache_memory_ok, cache_hit_ok (hit
+   rate at least 0.3) and the standby's center equal to the primary's;
+   (d) the sparse and sparse_adaptive legs of bench.py:1756 on both hubs,
+   each one's per-window wall, and one worker serial on the two hubs to
+   the bit; (f) distkeras-torch-ctr at its defaults prints a wire ratio
+   below 1.  No kernel of the port lies on this path;
+13. report: one JSON line of kernels, the card's name and power limit, and
    the final {"ok": true, ...} line.
 
 Weights are random, drawn from seed 0.  Needs nothing but this checkout,
@@ -2644,6 +2664,303 @@ def control_phase(torch, np, smi):
     print(f"control phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- the row-sparse embedding workload (phase 12) ------------------------------------------
+# bench.py:2712's embedding leg: one [25600, 128] table under a head 8 wide
+EMB = dict(rows=25600, dim=128, fields=2, hidden=8, batch=32, window=4, wpe=4, epochs=2,
+           workers=2, reps=3)
+EMB_OPT = dict(loss="categorical_crossentropy", learning_rate=0.05, seed=0)
+# bench.py:1756's sparse legs of _bench_async_native_features
+NATIVE_SPARSE = dict(rows=256, dim=8, fields=4, hidden=16, workers=2, window=4, batch=64,
+                     wpe=4, epochs=2, lr=0.01)
+# gate (a): the classifiers at the embedding leg's width, 4 fields on one
+# table and 12 tables (their leaves sort table_0, table_1, table_10, ...)
+PARITY_SHARED = dict(rows=25600, dim=128, fields=4, hidden=(8,))
+PARITY_MULTI = [2048 + 256 * f for f in range(12)]
+
+
+def _full_touch(np, rows, fields, window, windows):
+    """Ids where every batch holds every row once (batch = rows / fields):
+    every window touches every row, and no batch repeats an id."""
+    batch = rows // fields
+    n = batch * window * windows
+    ids = np.tile(np.arange(rows, dtype=np.int32), window * windows).reshape(n, fields)
+    label = np.eye(2, dtype=np.float32)[np.arange(n) % 2]
+    return batch, {"features": ids, "label": label}
+
+
+def _counter(counters, name):
+    return sum(v for k, v in counters.items() if k == name or k.startswith(name + "{"))
+
+
+def sparse_phase(torch, np, smi):
+    """The row-sparse embedding workload on the card (module docstring,
+    phase 12): (a) both CTR classifiers card against CPU; (b) sparse
+    against dense with every row touched, to the bit, on both hubs, f32
+    and int8; (c) bench.py:2712's dense, sparse and hot legs with their
+    acceptance checks; (d) the sparse legs of bench.py:1756 on both hubs;
+    (e) two shards against one; (f) distkeras-torch-ctr at its defaults."""
+    from distkeras_torch import observability as obs
+    from distkeras_torch.data import Dataset
+    from distkeras_torch.data.ctr import synthetic_ctr_dataset
+    from distkeras_torch.examples import ctr_workflow
+    from distkeras_torch.models.base import Model, sparse_leaf_indices
+    from distkeras_torch.models.embedding import ctr_embedding_spec
+    from distkeras_torch.ops.losses import get_loss
+    from distkeras_torch.ops.optimizers import get_optimizer
+    from distkeras_torch.parallel.engine import make_minibatch_step
+    from distkeras_torch.runtime import async_trainer as at
+    from distkeras_torch.runtime.parameter_server import ADAGParameterServer
+    from distkeras_torch.utils import flatten_weights
+
+    t_phase = time.perf_counter()
+    print(f"sparse phase on {smi}")
+
+    # (a) card against CPU: forward and one sgd step, the whole param dict
+    t_a = time.perf_counter()
+    loss = get_loss("categorical_crossentropy")
+    for label, spec in (("embedding_classifier 4 fields",
+                         ctr_embedding_spec(PARITY_SHARED["rows"], dim=PARITY_SHARED["dim"],
+                                            fields=PARITY_SHARED["fields"],
+                                            hidden_sizes=PARITY_SHARED["hidden"])),
+                        ("multi_embedding_classifier 12 tables",
+                         ctr_embedding_spec(PARITY_MULTI, dim=PARITY_SHARED["dim"],
+                                            hidden_sizes=PARITY_SHARED["hidden"]))):
+        cpu = Model.init(spec, seed=0, device="cpu")
+        rows = spec.config.get("vocab_sizes") or [spec.config["rows"]] * spec.input_shape[0]
+        rng = np.random.default_rng(7)
+        x = np.stack([rng.integers(0, r, size=256) for r in rows], axis=1).astype(np.int32)
+        y = np.eye(2, dtype=np.float32)[rng.integers(0, 2, size=256)]
+        out = {}
+        for dev in ("cpu", "cuda"):
+            params = {k: v.to(dev) for k, v in cpu.params.items()}
+            step = make_minibatch_step(spec.apply_fn(), loss, get_optimizer("sgd", 0.05))
+            xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+            logits = spec.apply_fn()(params, xt)
+            (after, _), _ = step((params, get_optimizer("sgd", 0.05).init(params)), (xt, yt))
+            out[dev] = (logits.float().cpu(), {k: v.cpu() for k, v in after.items()})
+        gap_logits = float((out["cuda"][0] - out["cpu"][0]).norm() / out["cpu"][0].norm())
+        gap = max(float((out["cuda"][1][k] - out["cpu"][1][k]).norm()
+                        / max(float(out["cpu"][1][k].norm()), 1e-12)) for k in out["cpu"][1])
+        idx = sparse_leaf_indices(spec, cpu.params)
+        print(f"sparse gate (a) {label}: logits rel L2 {gap_logits:.3e}, params after one sgd "
+              f"step rel L2 {gap:.3e} (tol 1e-5); sparse leaves {idx}")
+        check(gap_logits <= 1e-5 and gap <= 1e-5,
+              f"sparse gate (a): {label} card against CPU {gap_logits:.3e} / {gap:.3e}")
+    print(f"sparse (a): {time.perf_counter() - t_a:.1f} s")
+
+    # (b) every window touches every row: sparse == dense to the bit
+    t_b = time.perf_counter()
+    E = EMB
+    spec = ctr_embedding_spec(E["rows"], dim=E["dim"], fields=E["fields"],
+                              hidden_sizes=(E["hidden"],))
+    init = Model.init(spec, seed=0, device="cpu")
+    batch, cols = _full_touch(np, E["rows"], E["fields"], window=2, windows=2)
+    ds = Dataset(cols)
+    seen = []
+    real_h2d = at.AsyncDistributedTrainer._h2d
+
+    def h2d(self, arr):
+        seen.append(np.asarray(arr).dtype.name)
+        return real_h2d(self, arr)
+
+    line = []
+    at.AsyncDistributedTrainer._h2d = h2d
+    try:
+        for native in (False, True):
+            for compress in (None, "int8"):
+                runs = {}
+                for sparse in ("auto", None):
+                    tr = at.AsyncADAG(init, num_workers=1, communication_window=2,
+                                      batch_size=batch, num_epoch=1, device="cuda",
+                                      sparse_tables=sparse, compress_commits=compress,
+                                      native_ps=native, **EMB_OPT)
+                    runs[sparse] = tr.train(ds, shuffle=False).params, list(tr.history)
+                same = _same_run(torch, runs["auto"], runs[None])
+                hub = "C++" if native else "Python"
+                line.append(f"{hub} hub {compress or 'f32'} {'bit-equal' if same else 'DIFFERS'}")
+                check(same, f"sparse gate (b): full touch sparse != dense on the {hub} hub "
+                            f"({compress or 'f32'})")
+    finally:
+        at.AsyncDistributedTrainer._h2d = real_h2d
+    check("int32" in seen and "float64" not in seen,
+          f"sparse gate (b): the ids did not go to the card as int32: {sorted(set(seen))}")
+    print(f"sparse gate (b) one worker, pipelined, every window touching all {E['rows']} rows "
+          f"(batch {batch}, 2 windows of 2): {'; '.join(line)}; arrays sent to the card "
+          f"{sorted(set(seen))} ({time.perf_counter() - t_b:.1f} s)")
+
+    # (e) two shards against one, the same full-touch run
+    t_e = time.perf_counter()
+    line = []
+    for native in (False, True):
+        runs = [at.AsyncADAG(init, num_workers=1, communication_window=2, batch_size=batch,
+                             num_epoch=1, device="cuda", sparse_tables="auto",
+                             num_shards=shards, native_ps=native, **EMB_OPT)
+                for shards in (1, 2)]
+        res = [(tr.train(ds, shuffle=False).params, list(tr.history)) for tr in runs]
+        same = _same_run(torch, res[0], res[1])
+        line.append(f"{'C++' if native else 'Python'} hubs {'bit-equal' if same else 'DIFFER'}")
+        check(same, f"sparse gate (e): 2 shards != 1 on the {'C++' if native else 'Python'} hub")
+    print(f"sparse gate (e) 2 shards against 1 (full touch): {'; '.join(line)} "
+          f"({time.perf_counter() - t_e:.1f} s)")
+
+    # (c) bench.py:2712: dense and sparse legs, median of 3 warm runs
+    t_c = time.perf_counter()
+    n = E["workers"] * E["batch"] * E["window"] * E["wpe"]
+    log = synthetic_ctr_dataset(n, E["rows"], fields=E["fields"], seed=0, hot_prob=0.0)
+    center_bytes = sum(w.nbytes for w in flatten_weights(init.params, spec)[0])
+    n_windows = E["workers"] * E["wpe"] * E["epochs"]
+    legs = {}
+    for sparse in (False, True):
+        kw = dict(num_workers=E["workers"], communication_window=E["window"],
+                  batch_size=E["batch"], num_epoch=E["epochs"], device="cuda",
+                  sparse_tables="auto" if sparse else None, **EMB_OPT)
+        at.AsyncADAG(init, **kw).train(log, shuffle=False)   # warm
+        walls, counters = [], {}
+        for _ in range(E["reps"]):
+            tr = at.AsyncADAG(init, **kw)
+            obs.reset()
+            obs.enable()
+            t0 = time.perf_counter()
+            try:
+                tr.train(log, shuffle=False)
+                walls.append(time.perf_counter() - t0)
+                counters = dict(obs.snapshot()["counters"])
+            finally:
+                obs.disable()
+                obs.reset()
+        wall = statistics.median(walls)
+        wire = _counter(counters, "ps_pull_bytes_total") + _counter(counters,
+                                                                    "ps_commit_bytes_total")
+        leg = {"wall_s": wall, "wire_bytes": wire,
+               "exchange_bytes": max(0.0, wire - E["workers"] * center_bytes)}
+        if sparse:
+            committed = _counter(counters, "ps.sparse_rows_committed")
+            leg.update(rows_pulled=_counter(counters, "ps.sparse_rows_pulled"),
+                       rows_committed=committed, rows_per_s=committed / wall,
+                       touched_row_fraction=committed / (n_windows * E["rows"]))
+        legs["sparse" if sparse else "dense"] = leg
+        print(f"sparse leg (c) {'sparse' if sparse else 'dense'} ({smi}): wall {wall:.4f} s "
+              f"(median of {E['reps']}: {[round(w, 4) for w in walls]}), wire {wire:.0f} B, "
+              f"exchange {leg['exchange_bytes']:.0f} B"
+              + (f", rows pulled {leg['rows_pulled']:.0f}, committed {committed:.0f}, "
+                 f"{leg['rows_per_s']:.1f} rows/s" if sparse else ""))
+    ratio = legs["sparse"]["exchange_bytes"] / legs["dense"]["exchange_bytes"]
+    bound = 1.1 * legs["sparse"]["touched_row_fraction"]
+    print(f"sparse gate (c) sparse_wire_ok: exchange ratio {ratio:.5f}, bound {bound:.5f} "
+          f"(1.1 x touched-row fraction {legs['sparse']['touched_row_fraction']:.5f})")
+    check(ratio <= bound, f"sparse gate (c): sparse_wire_ok false ({ratio:.5f} > {bound:.5f})")
+
+    # the hot leg: a hot/cold draw, an LRU of twice the hot set, a standby
+    hot_fraction, hot_prob = 0.01, 0.9
+    hot_rows = max(1, int(round(E["rows"] * hot_fraction)))
+    cache_rows = min(E["rows"], 2 * hot_rows)
+    log_hot = synthetic_ctr_dataset(n, E["rows"], fields=E["fields"], seed=0,
+                                    hot_fraction=hot_fraction, hot_prob=hot_prob)
+    flat = [w.numpy() for w in flatten_weights(init.params, spec)[0]]
+    sparse_idx = sparse_leaf_indices(spec, init.params)
+    hub = ADAGParameterServer(flat, num_workers=E["workers"], idle_timeout=None,
+                              sparse_leaves=sparse_idx)
+    hub.TOUCH_DECAY_EVERY = 8
+    hub.start()
+    standby = ADAGParameterServer(flat, num_workers=E["workers"], idle_timeout=None,
+                                  sparse_leaves=sparse_idx, replica_of=("127.0.0.1", hub.port))
+    standby.start()
+    try:
+        check(standby.wait_synced(30), "sparse hot leg: the standby never synced")
+        tr = at.AsyncADAG(init, num_workers=E["workers"], communication_window=E["window"],
+                          batch_size=E["batch"], num_epoch=E["epochs"], device="cuda",
+                          sparse_tables="auto", sparse_cache_rows=cache_rows,
+                          ps_address=("127.0.0.1", hub.port), **EMB_OPT)
+        obs.reset()
+        obs.enable()
+        t0 = time.perf_counter()
+        try:
+            tr.train(log_hot, shuffle=False)
+            wall = time.perf_counter() - t0
+            snap = obs.snapshot()
+        finally:
+            obs.disable()
+            obs.reset()
+        counters = dict(snap["counters"])
+        deadline = time.monotonic() + 30
+        while standby.num_updates < hub.num_updates and time.monotonic() < deadline:
+            time.sleep(0.01)
+        standby_same = all(np.array_equal(a, b) for a, b in zip(hub.get_weights(),
+                                                                standby.get_weights()))
+        repl = hub._feed.repl_sparse_bytes if hub._feed else 0
+        saved = _counter(counters, "ps.repl_sparse_bytes_saved")
+        hits = _counter(counters, "ps_sparse_cache_hits_total")
+        misses = _counter(counters, "ps_sparse_cache_misses_total")
+        committed = _counter(counters, "ps.sparse_rows_committed")
+        commits = _counter(counters, "ps_commits_total")
+        hot_est = [v for k, v in snap["gauges"].items() if k.startswith("ps.sparse_hot_rows")]
+        updates = hub.num_updates
+    finally:
+        standby.stop()
+        hub.stop()
+    hot_frac = committed / (commits * E["rows"])
+    repl_ratio = repl / (repl + saved)
+    cache_ratio = cache_rows / E["rows"]
+    hit_rate = hits / (hits + misses)
+    print(f"sparse hot leg (c) ({smi}): wall {wall:.4f} s, cache {cache_rows} rows "
+          f"({cache_rows * E['dim'] * 4} B against the table's {E['rows'] * E['dim'] * 4} B), "
+          f"hits {hits:.0f}, misses {misses:.0f}, hit rate {hit_rate:.4f}, row-delta "
+          f"replication {repl} B against {repl + saved:.0f} B dense (ratio {repl_ratio:.5f}, "
+          f"bound {1.1 * hot_frac:.5f}), hot-row estimate {max(hot_est) if hot_est else None}, "
+          f"{updates} commits; standby equal to the primary {standby_same}")
+    check(repl_ratio <= 1.1 * hot_frac, f"sparse gate (c): repl_sparse_ok false "
+                                        f"({repl_ratio:.5f} > {1.1 * hot_frac:.5f})")
+    check(cache_ratio <= 4.0 * hot_fraction, f"sparse gate (c): cache_memory_ok false "
+                                             f"({cache_ratio})")
+    check(hit_rate >= 0.3, f"sparse gate (c): cache_hit_ok false ({hit_rate:.4f})")
+    check(standby_same, "sparse gate (c): the standby's center is not the primary's")
+    print(f"sparse (c): {time.perf_counter() - t_c:.1f} s")
+
+    # (d) bench.py:1756's sparse and sparse_adaptive legs on both hubs
+    t_d = time.perf_counter()
+    N = NATIVE_SPARSE
+    nspec = ctr_embedding_spec(N["rows"], dim=N["dim"], fields=N["fields"],
+                               hidden_sizes=(N["hidden"],))
+    ninit = Model.init(nspec, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    nn_ = N["workers"] * N["batch"] * N["window"] * N["wpe"]
+    nds = Dataset({"features": rng.integers(0, N["rows"], size=(nn_, N["fields"]))
+                   .astype(np.int32),
+                   "label": np.eye(2, dtype=np.float32)[rng.integers(0, 2, size=nn_)]})
+    nkw = dict(num_workers=N["workers"], communication_window=N["window"],
+               batch_size=N["batch"], num_epoch=N["epochs"], device="cuda",
+               loss="categorical_crossentropy", learning_rate=N["lr"], seed=0,
+               sparse_tables="auto")
+    for leg, extra in (("sparse", {}), ("sparse_adaptive", {"adaptive": True})):
+        for native in (False, True):
+            tr = at.AsyncADAG(ninit, native_ps=native, **extra, **nkw)
+            tr.train(nds, shuffle=False)   # warm
+            tr = at.AsyncADAG(ninit, native_ps=native, **extra, **nkw)
+            t0 = time.perf_counter()
+            tr.train(nds, shuffle=False)
+            wall = time.perf_counter() - t0
+            print(f"sparse leg (d) {leg}_{'native' if native else 'python'} ({smi}): wall "
+                  f"{wall:.4f} s, {wall * 1e3 / max(len(tr.history), 1):.2f} ms a window, "
+                  f"{nn_ * N['epochs'] / wall:.1f} samples/s")
+        runs = [at.AsyncADAG(ninit, native_ps=native, pipeline=False,
+                             **extra, **dict(nkw, num_workers=1))
+                for native in (False, True)]
+        res = [(tr.train(nds, shuffle=False).params, list(tr.history)) for tr in runs]
+        same = _same_run(torch, res[0], res[1])
+        print(f"sparse gate (d) {leg}: one worker serial, C++ hub against Python hub "
+              f"{'bit-equal' if same else 'DIFFERS'}")
+        check(same, f"sparse gate (d): {leg} one-worker serial runs differ between the hubs")
+    print(f"sparse (d): {time.perf_counter() - t_d:.1f} s")
+
+    # (f) the example at its defaults
+    t_f = time.perf_counter()
+    out = _run_main(ctr_workflow.main, [])
+    ratio = float(out.split("wire ratio : ")[1].split()[0])
+    check(ratio < 1.0, f"sparse gate (f): distkeras-torch-ctr wire ratio {ratio} not below 1")
+    print(f"sparse (f): distkeras-torch-ctr wire ratio {ratio} ({time.perf_counter() - t_f:.1f} s)")
+    print(f"sparse phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def _run_main(fn, argv):
     """An example's ``main(argv)`` with its standard output captured (and
     echoed); a ``SystemExit`` other than 0 fails the phase."""
@@ -3276,6 +3593,13 @@ def run() -> int:
     control_counts = dict(_counts(fa), decode_step=ds.DECODE_STEP.launches)
     print(f"control phase: launches of the port's kernels {control_counts}")
     check(not any(control_counts.values()), "the control phase launched a kernel of the port")
+    # the row-sparse embedding workload launches no kernel of the port either
+    _zero_counts(fa)
+    ds.DECODE_STEP.launches = 0
+    sparse_phase(torch, np, smi)
+    sparse_counts = dict(_counts(fa), decode_step=ds.DECODE_STEP.launches)
+    print(f"sparse phase: launches of the port's kernels {sparse_counts}")
+    check(not any(sparse_counts.values()), "the sparse phase launched a kernel of the port")
     entry_profile(torch, np, smi)
     family_timing_fn()
 

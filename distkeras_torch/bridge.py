@@ -26,6 +26,11 @@ automatic names, nested as Flax nests them):
     GroupNorm_j/scale, bias             -> GroupNorm_j.weight, bias
     ResidualBlock_k/Conv_j/kernel       -> ResidualBlock_k.Conv_j.weight (and so on)
 
+``embedding_classifier`` and ``multi_embedding_classifier``:
+
+    table/embedding, table_f/embedding  -> table.weight, table_f.weight [rows, dim] as is
+    Dense_i/kernel, bias                -> Dense_i.weight [out, in], bias
+
 ``sequential`` (layers named by their index, in lowercase):
 
     dense_i/kernel, bias                -> dense_i.weight [out, in], bias
@@ -48,7 +53,8 @@ import torch
 from distkeras_torch.models.base import ModelSpec
 from distkeras_torch.platform import DeviceLike, resolve_device
 
-BRIDGED = ("transformer_lm", "mlp", "cnn", "resnet", "sequential")
+BRIDGED = ("transformer_lm", "mlp", "cnn", "resnet", "sequential", "embedding_classifier",
+           "multi_embedding_classifier")
 
 _CONV = ("Conv_", "conv_")     # Flax HWIO kernels -> OIHW
 _DENSE = ("Dense_", "dense_")   # [in, out] kernels -> [out, in]
@@ -71,7 +77,7 @@ def _n_in_axes(flax_path: str) -> int:
 
 
 def _is_embed(module: str) -> bool:
-    return module == "embed" or module.startswith("embed_")
+    return module in ("embed", "table") or module.startswith(("embed_", "table_"))
 
 
 def _port_key(flax_path: str) -> str:

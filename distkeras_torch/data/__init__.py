@@ -1,6 +1,7 @@
 """Data plane of the PyTorch port: the columnar Dataset, the double-buffered
 device feed, the feature/label transformers, the dataset loaders, the
-out-of-core DKCOL container and the Keras text preprocessing."""
+out-of-core DKCOL container, the Keras text preprocessing and the synthetic
+CTR impressions of the embedding workload."""
 
 from distkeras_torch.data.dataset import (  # noqa: F401
     Dataset,
@@ -25,3 +26,4 @@ from distkeras_torch.data.colfile import (  # noqa: F401
     write_columns,
 )
 from distkeras_torch.data.text import Tokenizer, pad_sequences  # noqa: F401
+from distkeras_torch.data.ctr import synthetic_ctr_dataset  # noqa: F401

@@ -1,6 +1,6 @@
 """Runnable example workflows of the PyTorch port: the JAX package's
 ``examples/`` (``workflow``, ``baseline``, ``higgs_workflow``,
-``streaming``, ``lm_workflow``) with the same flags, printed lines,
+``streaming``, ``lm_workflow``, ``ctr_workflow``) with the same flags, printed lines,
 accuracy gates and exit codes, installed as the ``distkeras-torch-*``
 console scripts.
 

@@ -11,7 +11,7 @@ params, as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +48,62 @@ def build_module(name: str, config: Dict[str, Any],
     if getattr(cls, "takes_input_shape", False):
         return cls(input_shape=tuple(input_shape), **config)
     return cls(**config)
+
+
+def sparse_param_names(spec: "ModelSpec") -> Tuple[str, ...]:
+    """The Flax param names an architecture declares as row-sparse
+    ``[rows, dim]`` embedding tables (``sparse_param_names`` on its
+    registered class; empty for every other architecture)."""
+    cls = _MODEL_REGISTRY.get(spec.name)
+    return tuple(getattr(cls, "sparse_param_names", ()) or ())
+
+
+def _flax_paths(spec: "ModelSpec", params) -> List[Tuple[List[str], Any]]:
+    """``(Flax path segments, leaf)`` in the hub's leaf order (the JAX
+    package's ``jax.tree.flatten`` order: keys sorted as strings, so
+    ``table_10`` comes before ``table_2``)."""
+    from distkeras_torch.bridge import flax_tensors
+
+    return [(path.split("/"), leaf)
+            for path, leaf in utils._leaves(flax_tensors(params, spec))]
+
+
+def sparse_leaf_indices(spec: "ModelSpec", params) -> Tuple[int, ...]:
+    """Positions, in the hub's leaf order, of the spec's declared sparse
+    tables: the leaves whose Flax path ends in one of
+    :func:`sparse_param_names` and that are 2-D.  ``params`` is a port
+    param dict."""
+    names = set(sparse_param_names(spec))
+    if not names:
+        return ()
+    return tuple(i for i, (segs, leaf) in enumerate(_flax_paths(spec, params))
+                 if segs[-1] in names and leaf.dim() == 2)
+
+
+def sparse_table_fields(spec: "ModelSpec", params):
+    """The feature columns that feed each sparse table, aligned with
+    :func:`sparse_leaf_indices`, for an architecture that declares a
+    ``sparse_field_map`` (module name -> columns); ``None`` without one
+    (one shared vocabulary: every column feeds every table).  Raises when
+    the map misses a sparse table: a table defaulted silently would be sent
+    another vocabulary's ids."""
+    cls = _MODEL_REGISTRY.get(spec.name)
+    fmap = getattr(cls, "sparse_field_map", None)
+    if not fmap:
+        return None
+    names = set(sparse_param_names(spec))
+    out = []
+    for segs, leaf in _flax_paths(spec, params):
+        if segs[-1] not in names or leaf.dim() != 2:
+            continue
+        owner = next((s for s in segs if s in fmap), None)
+        if owner is None:
+            raise ValueError(
+                f"architecture {spec.name!r} declares sparse_field_map "
+                f"{sorted(fmap)} but sparse leaf at {segs} matches no "
+                f"entry — every sparse table needs its column declaration")
+        out.append(tuple(int(c) for c in fmap[owner]))
+    return tuple(out)
 
 
 def resolve_dtype(value: Any) -> torch.dtype:

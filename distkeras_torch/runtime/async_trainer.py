@@ -85,8 +85,19 @@ worker's stream is synchronized and BYE is sent.  The drain is recorded in
 ``worker_preemptions`` and ``worker.preemptions``; with the controller the
 worker is respawned at its epoch without charging ``max_worker_restarts``.
 
-Not ported (``NotImplementedError`` naming the ROADMAP item): sparse tables
-(item 13).
+Row-sparse embedding tables are the JAX package's too.
+``sparse_tables="auto"`` (the spec's declared tables,
+:func:`~distkeras_torch.models.base.sparse_leaf_indices`) or explicit leaf
+indices make every window pull only the rows its batches touch and commit
+only those rows' deltas (a model with a ``sparse_field_map`` gets one id
+set a table, from that table's columns); the sparse prefetch stops at an
+epoch's end (the next epoch's shuffle is not drawn yet), one pipeline
+bubble an epoch.  ``sparse_cache_rows=N`` bounds each worker's host cache
+of a table to an LRU of N rows: the worker then keeps one full-size copy
+of each table on the device, seeded from the first pull, and writes each
+window's pulled rows into it with one ``index_copy_`` (the row block padded
+to a fixed cap by repeating its last row), so a window moves only the
+touched rows to the card.  Integer ids go to the card as they are.
 """
 
 from __future__ import annotations
@@ -120,7 +131,6 @@ from distkeras_torch.runtime.parameter_server import (
     ShardedParameterServer,
     ShardedPSClient,
     _normalize_failover,
-    not_ported,
     shard_plan,
 )
 from distkeras_torch.trainers import Trainer, _host
@@ -221,6 +231,11 @@ class AsyncDistributedTrainer(Trainer):
                                  "(there is no sparse exchange to cache)")
             if int(sparse_cache_rows) < 1:
                 raise ValueError(f"sparse_cache_rows must be >= 1, got {sparse_cache_rows}")
+            if int(num_shards) > 1:
+                raise ValueError(
+                    "sparse_cache_rows requires num_shards=1: the striped "
+                    "client's sparse design is row-range views of one "
+                    "full-size cache (see MIGRATION.md)")
         if autoscale and ps_address is not None:
             raise ValueError(
                 "autoscale=True requires a trainer-owned hub (the "
@@ -302,10 +317,15 @@ class AsyncDistributedTrainer(Trainer):
         # health collector (None: no M frame ever leaves)
         self.health_interval_s = (None if health_interval_s is None
                                   else float(health_interval_s))
-        for what, given in (("sparse_tables", sparse_tables is not None),
-                            ("sparse_cache_rows", sparse_cache_rows is not None)):
-            if given:
-                raise not_ported(f"the asynchronous trainers' {what}", "13")
+        # row-sparse tables: None, "auto" (the spec's declared tables) or
+        # leaf indices; resolved against the model at train()
+        if sparse_tables is not None and sparse_tables != "auto":
+            sparse_tables = tuple(sorted({int(i) for i in sparse_tables}))
+        self.sparse_tables = sparse_tables
+        self.sparse_cache_rows = None if sparse_cache_rows is None else int(sparse_cache_rows)
+        self._hub_sparse: Optional[Dict[Optional[int], Tuple[int, ...]]] = None
+        self._sparse_idx: Tuple[int, ...] = ()
+        self._sparse_fields = None
         # the adaptive merge and storm shedding on the owned hub, the G/Y
         # exchange on every client
         self.adaptive = bool(adaptive)
@@ -354,6 +374,9 @@ class AsyncDistributedTrainer(Trainer):
         """The keywords of every hub the trainer owns (Python or C++)."""
         kw = {"idle_timeout": self.ps_idle_timeout, "shard_id": shard_id,
               "replica_of": self.replica_of}
+        if self._hub_sparse is not None:
+            # only with sparse tables: a dense run's hubs get no such keyword
+            kw["sparse_leaves"] = self._hub_sparse.get(shard_id, ())
         if self.transport == "shm":
             kw["shm_dir"] = self._ensure_shm_dir()
         if self.adaptive:
@@ -375,6 +398,53 @@ class AsyncDistributedTrainer(Trainer):
         if self._shm_dir is not None:
             shutil.rmtree(self._shm_dir, ignore_errors=True)
             self._shm_dir = None
+
+    def _resolve_sparse_tables(self, flat: List[np.ndarray]) -> Tuple[int, ...]:
+        """The run's sparse leaf indices: () when off, the spec's declared
+        tables for ``"auto"``, or the checked explicit set.  Sets the
+        tables' feature columns (``sparse_field_map``), or refuses tables of
+        unequal row counts that would share one id set."""
+        from distkeras_torch.models.base import sparse_leaf_indices, sparse_table_fields
+
+        declared = self.sparse_tables
+        self._sparse_fields = None
+        if declared is None:
+            return ()
+        spec, params = self.model.spec, self.model.params
+        if declared == "auto":
+            declared = sparse_leaf_indices(spec, params)
+            if not declared:
+                raise ValueError(
+                    f"sparse_tables='auto' but architecture "
+                    f"{spec.name!r} declares no sparse embedding "
+                    f"tables (sparse_param_names); name leaf indices "
+                    f"explicitly or drop sparse_tables")
+        for i in declared:
+            if not 0 <= i < len(flat):
+                raise ValueError(f"sparse_tables index {i} out of range for "
+                                 f"{len(flat)} model leaves")
+            if flat[i].ndim != 2:
+                raise ValueError(f"sparse_tables leaf {i} must be a "
+                                 f"[rows, dim] table, got {flat[i].shape}")
+        fields = sparse_table_fields(spec, params)
+        if fields is not None:
+            by_leaf = dict(zip(sparse_leaf_indices(spec, params), fields))
+            missing = [i for i in declared if i not in by_leaf]
+            if missing:
+                raise ValueError(
+                    f"sparse_tables leaves {missing} have no "
+                    f"sparse_field_map entry on architecture "
+                    f"{spec.name!r} — every per-vocabulary "
+                    f"table needs its column declaration")
+            fields = tuple(by_leaf[i] for i in declared)
+        elif len({flat[i].shape[0] for i in declared}) > 1:
+            raise ValueError(
+                f"sparse_tables leaves have mismatched row counts "
+                f"{sorted({flat[i].shape[0] for i in declared})}: tables sharing one id set must "
+                f"share one vocabulary — declare a sparse_field_map "
+                f"on the architecture for per-table vocabularies")
+        self._sparse_fields = fields
+        return tuple(declared)
 
     def _allocate_hub(self, weights: List[np.ndarray], plan) -> Any:
         """One hub, or the sharded facade over one hub per shard, each
@@ -458,6 +528,30 @@ class AsyncDistributedTrainer(Trainer):
             return t.clone()
         return t.to(self.device, non_blocking=True)
 
+    def _refresh_mirror(self, pulled_host: List[np.ndarray], rows_w: List[np.ndarray],
+                        mirror: Dict[int, torch.Tensor], sparse_idx: Sequence[int],
+                        row_caps: List[int]) -> List[torch.Tensor]:
+        """The window's pulled leaves on the device with an LRU client: the
+        dense leaves copied up, each table's ``[k, dim]`` block written into
+        its device copy by one ``index_copy_`` (padded to the table's cap
+        by repeating the last row: a repeated id carries the same values)."""
+        blocks = dict(zip(sparse_idx, zip(rows_w, row_caps)))
+        out: List[torch.Tensor] = []
+        for j, a in enumerate(pulled_host):
+            if j not in blocks:
+                out.append(self._h2d(a))
+                continue
+            (ids, cap), k = blocks[j], int(blocks[j][0].size)
+            if k:
+                block = np.asarray(a, np.float32)
+                pid = np.empty(max(cap, k), np.int64)
+                pblk = np.empty((max(cap, k), block.shape[1]), np.float32)
+                pid[:k], pid[k:] = ids, ids[k - 1]
+                pblk[:k], pblk[k:] = block, block[k - 1]
+                mirror[j].index_copy_(0, self._h2d(pid), self._h2d(pblk))
+            out.append(mirror[j])
+        return out
+
     def _run_worker(self, idx: int, start_epoch: int, progress: List[int], dataset: Dataset,
                     shuffle: bool, make_client: Callable, treedef,
                     losses: List[torch.Tensor], walls: List[float],
@@ -511,6 +605,23 @@ class AsyncDistributedTrainer(Trainer):
         h_windows = 0       # windows this worker ran
         h_wall_ms = 0.0     # window wall since the last report
         h_wall_n = 0
+        h_rows = 0          # sparse rows this worker committed
+        # the sparse exchange: each window's touched rows, one id set a
+        # table (a table's own columns with a sparse_field_map, else every
+        # column for every table)
+        sparse_idx = self._sparse_idx
+        sparse_on = bool(sparse_idx)
+        sparse_fields = self._sparse_fields
+        cache_on = sparse_on and self.sparse_cache_rows is not None
+
+        def rows_of(window_x: np.ndarray) -> List[np.ndarray]:
+            if sparse_fields is None:
+                ids = np.unique(window_x.ravel().astype(np.int64))
+                return [ids] * len(sparse_idx)
+            flat_x = window_x.reshape(-1, window_x.shape[-1])
+            return [np.unique(flat_x[:, list(cols)].ravel().astype(np.int64))
+                    for cols in sparse_fields]
+
         with (torch.cuda.stream(stream) if on_card else contextlib.nullcontext()):
             client = make_client(pin_memory=on_card, landing_guard=landing_guard,
                                  trace_context=ctx)
@@ -518,18 +629,24 @@ class AsyncDistributedTrainer(Trainer):
 
             def send_health() -> None:
                 nonlocal h_seq, h_wall_ms, h_wall_n
+                metrics = {
+                    # *_total are cumulative; window_wall_ms is the mean
+                    # since the last report
+                    "windows_total": float(h_windows),
+                    "window_wall_ms": h_wall_ms / h_wall_n if h_wall_n else None,
+                    "reconnects_total": float(client.reconnects_used),
+                    "failovers_total": float(client.failovers_used),
+                }
+                if sparse_on:
+                    metrics["sparse_rows_total"] = float(h_rows)
+                if cache_on:
+                    metrics["sparse_cache_hits_total"] = float(client.sparse_cache_hits)
+                    metrics["sparse_cache_misses_total"] = float(client.sparse_cache_misses)
                 client.report_health({
                     "job": trace_job or "local", "worker": idx,
                     "seq": h_seq, "t_wall": time.time(),
                     "transport": getattr(client, "transport", None),
-                    "metrics": {
-                        # *_total are cumulative; window_wall_ms is the
-                        # mean since the last report
-                        "windows_total": float(h_windows),
-                        "window_wall_ms": h_wall_ms / h_wall_n if h_wall_n else None,
-                        "reconnects_total": float(client.reconnects_used),
-                        "failovers_total": float(client.failovers_used),
-                    }})
+                    "metrics": metrics})
                 h_seq += 1
                 h_wall_ms, h_wall_n = 0.0, 0
 
@@ -540,6 +657,11 @@ class AsyncDistributedTrainer(Trainer):
                 # the worker resumes from the hub's current center
                 first = [np.array(w) for w in client.pull()]
                 params = self._to_params([self._h2d(w) for w in first], treedef)
+                # with an LRU cache: the tables' one copy on the device,
+                # refreshed each window with the rows the client hands back
+                mirror = {i: self._h2d(first[i]) for i in sparse_idx} if cache_on else None
+                del first  # no full-size host copy of a table outlives the seed
+                row_caps: Optional[List[int]] = None
                 opt_state = self.optimizer.init(params)
                 staging = client.commit_staging()
                 staging_t = [torch.from_numpy(s) for s in staging]
@@ -550,6 +672,17 @@ class AsyncDistributedTrainer(Trainer):
                     stacked = ds.stacked_epoch(self.batch_size, cols, window=window)
                     xs, ys = _host(stacked[self.features_col]), _host(stacked[self.label_col])
                     n_windows = xs.shape[0]
+                    if cache_on and row_caps is None:
+                        # a window's distinct ids are at most its rows times
+                        # the table's columns: the block's fixed length
+                        per_window = int(np.prod(xs.shape[1:3]))
+                        ncols = ([len(c) for c in sparse_fields] if sparse_fields is not None
+                                 else [int(xs.shape[-1])] * len(sparse_idx))
+                        row_caps = [min(int(self._table_rows[i]), per_window * nc)
+                                    for i, nc in zip(sparse_idx, ncols)]
+                    # the ids the prefetched pull asked for: the window's
+                    # commit carries the same set
+                    next_rows: Optional[List[np.ndarray]] = None
                     for w in range(n_windows):
                         if fleet is not None:
                             with fleet["lock"]:
@@ -570,12 +703,20 @@ class AsyncDistributedTrainer(Trainer):
                         if self.fault_hook is not None:
                             self.fault_hook(idx, w)
                         t0 = time.perf_counter()
+                        rows_w: Optional[List[np.ndarray]] = None
+                        if sparse_on:
+                            rows_w = next_rows if next_rows is not None else rows_of(wx_h)
+                            next_rows = None
                         with obs.span("async.window", worker=idx, epoch=epoch, window=w):
                             if not pull_pending:
-                                client.pull_nowait()
+                                client.pull_nowait(sparse_rows=rows_w)
                             pulled_host = client.wait_weights()
                             pull_pending = False
-                            pulled = [self._h2d(a) for a in pulled_host]
+                            if cache_on:
+                                pulled = self._refresh_mirror(pulled_host, rows_w, mirror,
+                                                              sparse_idx, row_caps)
+                            else:
+                                pulled = [self._h2d(a) for a in pulled_host]
                             wx, wy = self._h2d(wx_h), self._h2d(wy_h)
                             if on_card and client.last_landing is not None:
                                 ev = torch.cuda.Event()
@@ -590,8 +731,15 @@ class AsyncDistributedTrainer(Trainer):
                             # JAX package)
                             last = w == n_windows - 1 and epoch == self.num_epoch - 1
                             if self.pipeline and not last:
-                                client.pull_nowait()
-                                pull_pending = True
+                                if not sparse_on:
+                                    client.pull_nowait()
+                                    pull_pending = True
+                                elif w + 1 < n_windows:
+                                    # a sparse prefetch needs the next
+                                    # window's ids: none past the epoch's end
+                                    next_rows = rows_of(xs[w + 1])
+                                    client.pull_nowait(sparse_rows=next_rows)
+                                    pull_pending = True
                             if telemetry:
                                 # measuring only: the window's work to its
                                 # end (the commit's copy below waits for it
@@ -608,10 +756,12 @@ class AsyncDistributedTrainer(Trainer):
                                 copied.record(stream)
                                 copied.synchronize()
                             if self.pipeline:
-                                client.commit_nowait(staging)
+                                client.commit_nowait(staging, sparse_rows=rows_w)
                             else:
-                                client.commit(staging)
+                                client.commit(staging, sparse_rows=rows_w)
                         wall = time.perf_counter() - t0
+                        if sparse_on:
+                            h_rows += int(sum(ids.size for ids in rows_w))
                         if telemetry:
                             m_wall.observe(wall)
                             m_windows.inc()
@@ -641,7 +791,7 @@ class AsyncDistributedTrainer(Trainer):
                 outstanding = 0
                 try:
                     client.drain()
-                    if self.compress_commits == "int8":
+                    if self.compress_commits == "int8" and not sparse_on:
                         # the residual chain advances as it quantizes: one
                         # zero commit carries the accumulated residual
                         client.commit([np.zeros_like(s) for s in staging])
@@ -710,11 +860,25 @@ class AsyncDistributedTrainer(Trainer):
                 f"float32); found dtypes {sorted(bad)} — cast the model's "
                 f"params or use the sync trainers in distkeras_torch.trainers")
         templates = [t.numpy() for t in flat0]
+        sparse_idx = self._resolve_sparse_tables(templates)
+        if sparse_idx and self.transport == "inproc" and self.num_shards > 1:
+            raise ValueError(
+                "sparse_tables with transport='inproc' requires "
+                "num_shards=1 (the sharded facade has no sparse direct "
+                "pair; inproc moves no wire bytes to save anyway) — use "
+                "the socket transport for sharded sparse runs")
+        self._sparse_idx = sparse_idx
+        self._table_rows = {i: templates[i].shape[0] for i in sparse_idx}
         # the leaf-to-shard plan: both ends of a sharded deployment derive
         # it from the model, so worker-only mode agrees with standalone
         # distkeras-torch-ps --shard-index hubs
-        plan = shard_plan(templates, self.num_shards) if self.num_shards > 1 else None
+        plan = (shard_plan(templates, self.num_shards, sparse_leaves=sparse_idx)
+                if self.num_shards > 1 else None)
         self._shard_plan = plan
+        # each hub's sparse positions (None with no sparse tables)
+        self._hub_sparse = (None if not sparse_idx
+                            else {None: sparse_idx} if plan is None
+                            else {sid: plan.local_sparse(sid) for sid in range(plan.num_shards)})
         if self.ps_address is not None:
             ps = None
             addresses = list(self._ps_addresses)
@@ -765,14 +929,18 @@ class AsyncDistributedTrainer(Trainer):
         def make_client(pin_memory: bool = False, landing_guard=None, trace_context=None):
             if self.transport == "inproc":
                 return InprocPSClient(ps, templates, compress=self.compress_commits,
-                                      trace_context=trace_context, pin_memory=pin_memory)
+                                      trace_context=trace_context, pin_memory=pin_memory,
+                                      sparse_leaves=sparse_idx,
+                                      sparse_cache_rows=self.sparse_cache_rows)
             kw = failover(dict(compress=self.compress_commits,
                                max_inflight=self.max_inflight_commits, shm=shm,
                                pin_memory=pin_memory, landing_guard=landing_guard,
-                               trace_context=trace_context, **resilience))
+                               trace_context=trace_context, sparse_leaves=sparse_idx,
+                               **resilience))
             if plan is not None:
                 return ShardedPSClient(addresses, templates, plan, **kw)
-            return PSClient(addresses[0][0], addresses[0][1], templates, **kw)
+            return PSClient(addresses[0][0], addresses[0][1], templates,
+                            sparse_cache_rows=self.sparse_cache_rows, **kw)
 
         def control_client(**kw):
             """A blocking client for the center reads of worker-only mode

@@ -26,12 +26,11 @@ import argparse
 import os
 import signal
 import threading
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from distkeras_torch.runtime.parameter_server import not_ported
 
 
 def initialize_multihost(coordinator_address: Optional[str] = None,
@@ -150,7 +149,11 @@ def start_parameter_server(model: Any, mode: str = "delta", num_workers: int = 1
     retry-after slots while a storm lasts; pair it with trainers started
     ``adaptive=True``.
 
-    ``sparse_tables`` raises ``NotImplementedError`` (ROADMAP item 13)."""
+    ``sparse_tables="auto"`` has the hub serve the model's declared
+    embedding tables by row (``sparse_param_names``), or an iterable names
+    the leaf indices; workers started with the same ``sparse_tables`` then
+    move only the rows they touch.  Both ends derive the same leaves (and,
+    sharded, the same row ranges) from the same model."""
     from distkeras_torch.runtime.parameter_server import ShardedParameterServer, shard_plan
     from distkeras_torch.utils import flatten_weights
 
@@ -162,14 +165,13 @@ def start_parameter_server(model: Any, mode: str = "delta", num_workers: int = 1
         if num_shards > 1 and shard_index is None:
             raise ValueError("replica_of with num_shards > 1 requires shard_index: run one "
                              "standby daemon per shard, each pointed at its own primary")
-    if sparse_tables is not None:
-        raise not_ported("start_parameter_server's sparse_tables", "13")
     if mode not in ("delta", "adag", "dynsgd"):
         raise ValueError(f"mode must be 'delta', 'adag' or 'dynsgd', got {mode!r}")
     flat, _ = flatten_weights(model.params, model.spec)
     weights = [np.asarray(w.float().numpy(), dtype=np.float32) for w in flat]
+    sparse_idx = _sparse_indices(model, sparse_tables)
 
-    def make_hub(hub_weights, shard_id, hub_port, own_snapshots=True):
+    def make_hub(hub_weights, shard_id, hub_port, own_snapshots=True, hub_sparse=()):
         # the facade's coordinated sets own durability when every shard is
         # here: its hubs then keep no snapshotter of their own
         shard_snap = snapshot_dir if own_snapshots else None
@@ -182,6 +184,8 @@ def start_parameter_server(model: Any, mode: str = "delta", num_workers: int = 1
         if adaptive:
             # only when on: a plain hub builds no adaptive machinery
             common["adaptive"] = True
+        if hub_sparse:
+            common["sparse_leaves"] = hub_sparse
         if native:
             from distkeras_torch.runtime.native import (MODE_ADAG, MODE_DELTA, MODE_DYNSGD,
                                                         NativeParameterServer)
@@ -208,28 +212,47 @@ def start_parameter_server(model: Any, mode: str = "delta", num_workers: int = 1
         _health.monitor().jsonl_path = str(health_jsonl)
 
     if num_shards == 1:
-        ps = make_hub(weights, None, port)
+        ps = make_hub(weights, None, port, hub_sparse=sparse_idx)
     else:
-        plan = shard_plan(weights, num_shards)
+        plan = shard_plan(weights, num_shards, sparse_leaves=sparse_idx)
         if shard_index is not None:
             sid = int(shard_index)
-            ps = make_hub(plan.split(weights)[sid], sid, port)
+            ps = make_hub(plan.split(weights)[sid], sid, port,
+                          hub_sparse=plan.local_sparse(sid))
         else:
             ps = ShardedParameterServer(
                 weights, plan,
-                lambda w, sid: make_hub(w, sid, port + sid if port else 0, own_snapshots=False),
+                lambda w, sid: make_hub(w, sid, port + sid if port else 0, own_snapshots=False,
+                                        hub_sparse=plan.local_sparse(sid)),
                 snapshot_dir=snapshot_dir, snapshot_interval=snapshot_interval,
                 restore=restore)
     ps.start()
     return ps
 
 
+def _sparse_indices(model: Any, sparse_tables: Optional[Any]) -> Tuple[int, ...]:
+    """The hub's sparse leaves: none, the spec's declared tables for
+    ``"auto"``, or the given indices."""
+    if sparse_tables is None:
+        return ()
+    if sparse_tables == "auto":
+        from distkeras_torch.models.base import sparse_leaf_indices
+
+        idx = sparse_leaf_indices(model.spec, model.params)
+        if not idx:
+            raise ValueError(f"sparse_tables='auto' but architecture {model.spec.name!r} "
+                             f"declares no sparse embedding tables")
+        return idx
+    return tuple(sorted({int(i) for i in sparse_tables}))
+
+
 def _final_model(model: Any, center: List[np.ndarray], num_shards: int = 1,
-                shard_index: Optional[int] = None) -> Any:
+                shard_index: Optional[int] = None, sparse_tables: Optional[Any] = None) -> Any:
     """The model blob's ``Model`` with ``center`` as its weights.  A
     one-shard daemon holds only its slice: its leaves come from ``center``
-    and the other shards' leaves stay ``model``'s, so each shard's file
-    gives its slice back through ``shard_plan(...).split(...)[shard_index]``."""
+    and the other shards' leaves stay ``model``'s (a sparse table's rows
+    outside the shard's range too), so each shard's file gives its slice
+    back through ``shard_plan(...).split(...)[shard_index]``."""
     from distkeras_torch.models.base import Model
     from distkeras_torch.runtime.parameter_server import shard_plan
     from distkeras_torch.utils import flatten_weights, unflatten_weights
@@ -239,9 +262,15 @@ def _final_model(model: Any, center: List[np.ndarray], num_shards: int = 1,
     if shard_index is None:
         full = list(center)
     else:
-        plan = shard_plan(full, num_shards)
-        for i, w in zip(plan.assignments[int(shard_index)], center):
-            full[i] = w
+        sid = int(shard_index)
+        plan = shard_plan(full, num_shards, sparse_leaves=_sparse_indices(model, sparse_tables))
+        for i, w in zip(plan.assignments[sid], center):
+            if i in plan.sparse_ranges:
+                lo, hi = plan.sparse_ranges[i][sid]
+                full[i] = full[i].copy()
+                full[i][lo:hi] = w
+            else:
+                full[i] = w
     params = unflatten_weights(treedef, [torch.from_numpy(np.asarray(w)) for w in full],
                                model.spec, device="cpu")
     return Model(spec=model.spec, params={k: params[k] for k in model.params})
@@ -288,7 +317,10 @@ def main(argv: Optional[List[str]] = None) -> None:
                         help="append every fleet health event (detector firings over the "
                              "workers' health reports) to PATH as JSON lines")
     parser.add_argument("--sparse-tables", default=None, metavar="SPEC",
-                        help="row-sparse tables (not ported: ROADMAP item 13)")
+                        help="row-sparse embedding service (both hubs): 'auto' serves the "
+                             "model's declared tables by row, or a comma-separated list of "
+                             "leaf indices; workers started with the same sparse_tables then "
+                             "move only the rows each batch touches")
     parser.add_argument("--shm-dir", default=None, metavar="DIR",
                         help="serve shared-memory ring attaches (wire action Z) to same-host "
                              "clients dialed with shm=True, ring files under DIR; omit to "
@@ -323,6 +355,16 @@ def main(argv: Optional[List[str]] = None) -> None:
         if not host_part or not port_part.isdigit():
             parser.error(f"--replica-of expects HOST:PORT, got {args.replica_of!r}")
         replica_of = (host_part, int(port_part))
+    sparse_tables: Optional[Any] = None
+    if args.sparse_tables:
+        if args.sparse_tables == "auto":
+            sparse_tables = "auto"
+        else:
+            try:
+                sparse_tables = tuple(int(p) for p in args.sparse_tables.split(",") if p)
+            except ValueError:
+                parser.error(f"--sparse-tables expects 'auto' or a comma-separated index "
+                             f"list, got {args.sparse_tables!r}")
 
     from distkeras_torch.models.base import Model
 
@@ -341,7 +383,7 @@ def main(argv: Optional[List[str]] = None) -> None:
             snapshot_dir=args.snapshot_dir, snapshot_interval=args.snapshot_interval,
             restore=args.restore, num_shards=args.num_shards, shard_index=args.shard_index,
             replica_of=replica_of, health_jsonl=args.health_jsonl,
-            sparse_tables=args.sparse_tables, adaptive=args.adaptive, shm_dir=args.shm_dir,
+            sparse_tables=sparse_tables, adaptive=args.adaptive, shm_dir=args.shm_dir,
             recv_batch_depth=args.recv_batch_depth)
     except BaseException:
         signal.signal(signal.SIGTERM, prev_handler)
@@ -393,7 +435,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                 except OSError as e:
                     print(f"trace flush failed: {e}", flush=True)
         if args.save_final:
-            final = _final_model(model, ps.get_weights(), args.num_shards, args.shard_index)
+            final = _final_model(model, ps.get_weights(), args.num_shards, args.shard_index,
+                                 sparse_tables)
             with open(args.save_final, "wb") as f:
                 f.write(final.serialize())
             print(f"final model written to {args.save_final} ({ps.num_updates} updates)",

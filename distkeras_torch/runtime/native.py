@@ -24,7 +24,12 @@ hub merges queued commits (its Adasum flat combiner), answers reconnect
 announces (``G``) with retry-after hints in a storm, and takes each
 worker's commit scale from the Python
 :class:`~distkeras_torch.runtime.parameter_server.AdaptiveRateController`
-this binding subscribes to the health monitor.  Jobs are the Python hub's
+this binding subscribes to the health monitor.  ``sparse_leaves`` makes
+the C++ hub serve the row-sparse exchange (``S`` / ``V`` / ``U`` / ``X``,
+the row-delta replication frames, the decayed hot-row estimate), and
+:meth:`NativeParameterServer.pull_sparse_direct` /
+:meth:`~NativeParameterServer.commit_sparse_direct` are its in-process
+pair (``dk_ps_pull_sparse`` / ``dk_ps_commit_sparse``).  Jobs are the Python hub's
 alone: a job-scoped announce gets the plain clock reply, which a job
 client refuses.  :meth:`NativeParameterServer.
 sync_telemetry` surfaces the C++ hub's counters (``dk_ps_stats``) under
@@ -56,7 +61,6 @@ from distkeras_torch import observability as obs
 from distkeras_torch._build import BUILD_DIR
 from distkeras_torch.observability import distributed as dtrace
 from distkeras_torch.runtime import networking as net
-from distkeras_torch.runtime.parameter_server import _reject
 
 SOURCE = Path(__file__).resolve().parents[2] / "native" / "ps_server.cpp"
 BUILD_FLAGS = ["-O3", "-shared", "-fPIC", "-pthread", "-std=c++17", "-ffp-contract=off"]
@@ -156,6 +160,13 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.dk_ps_commit_ctx.restype = ctypes.c_int
     lib.dk_ps_commit_ctx.argtypes = [ctypes.c_void_p, P(ctypes.c_float), ctypes.c_int64,
                                      ctypes.c_int64]
+    lib.dk_ps_pull_sparse.restype = ctypes.c_int64
+    lib.dk_ps_pull_sparse.argtypes = [ctypes.c_void_p, P(ctypes.c_int64), P(ctypes.c_int64),
+                                      P(ctypes.c_float)]
+    lib.dk_ps_commit_sparse.restype = ctypes.c_int
+    lib.dk_ps_commit_sparse.argtypes = [ctypes.c_void_p, P(ctypes.c_float), P(ctypes.c_int64),
+                                        P(ctypes.c_int64), ctypes.c_int64, ctypes.c_int64]
+    lib.dk_ps_hot_rows.argtypes = [ctypes.c_void_p, P(ctypes.c_int64)]
     lib.dk_ps_stats.argtypes = [ctypes.c_void_p, P(ctypes.c_int64)]
     lib.dk_ps_staleness_hist.argtypes = [ctypes.c_void_p, P(ctypes.c_int64)]
     lib.dk_ps_merge_hist.argtypes = [ctypes.c_void_p, P(ctypes.c_int64)]
@@ -219,7 +230,7 @@ class NativeParameterServer:
     primary (the C++ feed thread, promotion on feed loss or a first
     commit); an ``R`` hello from a peer attaches it to this hub's own feed
     as a primary.  ``adaptive=True`` turns on the C++ merger and storm
-    shedding.  The C++ hub has no job namespaces (``fleet_info()["jobs"]``
+    shedding.  ``sparse_leaves`` are the Python hub's.  The C++ hub has no job namespaces (``fleet_info()["jobs"]``
     stays empty)."""
 
     _POLL_INTERVAL_S = 0.25
@@ -239,8 +250,7 @@ class NativeParameterServer:
                   "repl_sparse_bytes", "repl_sparse_saved")
 
     # the cumulative counters synced into the registry under the Python
-    # hub's names (the port's C++ hub serves no sparse tables, whose slots
-    # stay 0 and are not mapped)
+    # hub's names
     _COUNTER_NAMES = (("commits", "ps_commits_total"),
                       ("pulls", "ps_pulls_total"),
                       ("commit_bytes", "ps_commit_bytes_total"),
@@ -248,12 +258,16 @@ class NativeParameterServer:
                       ("fenced_commits", "ps_fenced_commits_total"),
                       ("idle_evictions", "ps_idle_evictions_total"),
                       ("commit_log_dropped", "ps_commit_log_dropped_total"),
+                      ("sparse_rows_pulled", "ps.sparse_rows_pulled"),
+                      ("sparse_rows_committed", "ps.sparse_rows_committed"),
+                      ("sparse_wire_bytes_saved", "ps.sparse_wire_bytes_saved"),
                       ("replicas_attached", "ps_replicas_attached_total"),
                       ("replica_disconnects", "ps_replica_disconnects_total"),
                       ("merged_commits", "ps_merged_commits_total"),
                       ("backpressure_hints", "ps_backpressure_hints_total"),
                       ("replica_frames", "ps_replica_frames_total"),
-                      ("promotions", "ps_promotions_total"))
+                      ("promotions", "ps_promotions_total"),
+                      ("repl_sparse_saved", "ps.repl_sparse_bytes_saved"))
 
     def __init__(self, weights: Sequence[np.ndarray], mode: int = MODE_DELTA,
                  num_workers: int = 1, port: int = 0, elastic: bool = False,
@@ -265,22 +279,31 @@ class NativeParameterServer:
                  replica_feed_retries: int = 3, replica_feed_backoff: float = 0.2,
                  sparse_leaves: Sequence[int] = (), adaptive: bool = False,
                  shm_dir: Optional[str] = None, recv_batch_depth: int = 0):
-        _reject(sparse_leaves=(tuple(sparse_leaves), ()))
         if restore and snapshot_dir is None:
             raise ValueError("restore=True requires snapshot_dir")
         lib = load()
         self._lib = lib
         self._templates = [np.array(w, dtype=np.float32) for w in weights]
+        self.sparse_leaves = tuple(sorted({int(i) for i in sparse_leaves}))
+        for i in self.sparse_leaves:
+            if not 0 <= i < len(self._templates):
+                raise ValueError(f"sparse leaf index {i} out of range for "
+                                 f"{len(self._templates)} center leaves")
+            if self._templates[i].ndim != 2:
+                raise ValueError(f"sparse leaf {i} must be a [rows, dim] table, got "
+                                 f"shape {self._templates[i].shape}")
+        self._sparse_set = frozenset(self.sparse_leaves)
         sizes = (ctypes.c_int64 * len(self._templates))(*[t.size for t in self._templates])
-        no_sparse_idx = (ctypes.c_int32 * 1)(0)
-        no_sparse_dim = (ctypes.c_int64 * 1)(0)
+        n_sp = len(self.sparse_leaves)
+        sp_idx = (ctypes.c_int32 * max(1, n_sp))(*(self.sparse_leaves or (0,)))
+        sp_dim = (ctypes.c_int64 * max(1, n_sp))(
+            *([self._templates[i].shape[1] for i in self.sparse_leaves] or [0]))
         idle_ms = 0 if idle_timeout is None else max(1, int(idle_timeout * 1000))
         self.adaptive = bool(adaptive)
-        self._handle = lib.dk_ps_create(int(port), len(self._templates), sizes, int(mode),
-                                        int(num_workers), 1 if elastic else 0, idle_ms, 0,
-                                        no_sparse_idx, no_sparse_dim,
-                                        1 if self.adaptive else 0,
-                                        int(net.max_request_payload(self._templates)))
+        self._handle = lib.dk_ps_create(
+            int(port), len(self._templates), sizes, int(mode), int(num_workers),
+            1 if elastic else 0, idle_ms, n_sp, sp_idx, sp_dim, 1 if self.adaptive else 0,
+            int(net.max_request_payload(self._templates, self.sparse_leaves)))
         if not self._handle:
             raise RuntimeError("dk_ps_create failed")
         self.elastic = bool(elastic)
@@ -566,6 +589,13 @@ class NativeParameterServer:
                 for slot in range(65):
                     merge.observe_n(slot, int(hist[slot]) - self._last_merge_hist[slot])
                     self._last_merge_hist[slot] = int(hist[slot])
+            if self.sparse_leaves:
+                # the decayed hot-set estimates, under the Python hub's gauge
+                hot = (ctypes.c_int64 * len(self.sparse_leaves))()
+                self._lib.dk_ps_hot_rows(self._handle, hot)
+                for leaf, count in zip(self.sparse_leaves, hot):
+                    obs.gauge("ps.sparse_hot_rows", table=str(leaf), **self._mlabels).set(
+                        int(count))
         self._consume_commit_log()
 
     # -- hot standby ---------------------------------------------------------------
@@ -669,6 +699,92 @@ class NativeParameterServer:
                                     "verifying the primary — retry)")
         if rc != 0:
             raise RuntimeError(f"the native hub refused a commit (code {rc})")
+
+    # -- the sparse in-process pair ------------------------------------------------------
+    def _row_ids(self, ids_list) -> List[np.ndarray]:
+        """Checked, contiguous int64 ids, one array a sparse table."""
+        if len(ids_list) != len(self.sparse_leaves):
+            raise ValueError(f"got {len(ids_list)} id arrays, hub has "
+                             f"{len(self.sparse_leaves)} sparse tables")
+        return [net.check_row_ids(np.ascontiguousarray(np.asarray(ids).ravel(), np.int64),
+                                  self._templates[i].shape[0], i)
+                for ids, i in zip(ids_list, self.sparse_leaves)]
+
+    @staticmethod
+    def _concat(arrays: List[np.ndarray], dtype) -> np.ndarray:
+        """One contiguous buffer (never empty: ctypes needs a pointer)."""
+        flat = np.concatenate(arrays) if arrays else np.zeros(0, dtype)
+        flat = np.ascontiguousarray(flat, dtype)
+        return flat if flat.size else np.zeros(1, dtype)
+
+    def pull_sparse_direct(self, ids_list) -> Tuple[List[np.ndarray], int]:
+        """The Python hub's :meth:`~distkeras_torch.runtime.parameter_server.
+        SocketParameterServer.pull_sparse_direct` against the C++ center."""
+        if not self.sparse_leaves:
+            raise RuntimeError("pull_sparse_direct on a hub with no sparse "
+                               "tables (pass sparse_leaves to the hub)")
+        norm = self._row_ids(ids_list)
+        counts = (ctypes.c_int64 * max(1, len(norm)))(*([ids.size for ids in norm] or [0]))
+        sizes, it = [], iter(norm)
+        for i, t in enumerate(self._templates):
+            sizes.append(next(it).size * t.shape[1] if i in self._sparse_set else t.size)
+        out = np.empty(max(1, sum(sizes)), np.float32)
+        flat_ids = self._concat(norm, np.int64)
+        clock = int(self._lib.dk_ps_pull_sparse(
+            self._handle, flat_ids.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), counts,
+            _f32p(out)))
+        if clock == -1:
+            raise RuntimeError("pull_sparse_direct from a never-synced standby refused "
+                               "(it holds no job state yet); wait_synced() first")
+        if clock == -2:
+            raise ValueError("sparse pull row ids rejected by the native "
+                             "hub (sorted-unique, in-bounds required)")
+        values, off, it = [], 0, iter(norm)
+        for i, (t, n) in enumerate(zip(self._templates, sizes)):
+            shape = (next(it).size, t.shape[1]) if i in self._sparse_set else t.shape
+            values.append(out[off:off + n].reshape(shape).copy())
+            off += n
+        return values, clock
+
+    def commit_sparse_direct(self, parts, last_pull_clock: int) -> None:
+        """The Python hub's :meth:`~distkeras_torch.runtime.parameter_server.
+        SocketParameterServer.commit_sparse_direct` against the C++ center."""
+        if not self.sparse_leaves:
+            raise RuntimeError("commit_sparse_direct on a hub with no "
+                               "sparse tables (pass sparse_leaves)")
+        if len(parts) != len(self._templates):
+            raise ValueError(f"commit has {len(parts)} parts, center has "
+                             f"{len(self._templates)}")
+        ids_list = self._row_ids([p[0] for i, p in enumerate(parts) if i in self._sparse_set])
+        vals, it = [], iter(ids_list)
+        for i, (p, t) in enumerate(zip(parts, self._templates)):
+            if i in self._sparse_set:
+                ids = next(it)
+                vals.append(np.ascontiguousarray(p[1], np.float32).reshape(
+                    ids.size, t.shape[1]).reshape(-1))
+            else:
+                vals.append(np.ascontiguousarray(p, np.float32).reshape(-1))
+        counts = (ctypes.c_int64 * max(1, len(ids_list)))(
+            *([ids.size for ids in ids_list] or [0]))
+        flat_ids = self._concat(ids_list, np.int64)
+        flat_vals = self._concat(vals, np.float32)
+        ctx = dtrace.current()
+        worker = int(ctx.worker_id) if ctx is not None else -1
+        rc = int(self._lib.dk_ps_commit_sparse(
+            self._handle, _f32p(flat_vals),
+            flat_ids.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), counts,
+            int(last_pull_clock), worker))
+        if rc == 1:
+            raise RuntimeError("commit_sparse_direct into a never-synced standby refused "
+                               "(it has no state to take over); wait_synced() first")
+        if rc == 2:
+            raise net.ProtocolError("commit into a standby refused (not promoted yet; "
+                                    "verifying the primary — retry)")
+        if rc == 3:
+            raise ValueError("sparse commit row ids rejected by the native "
+                             "hub (sorted-unique, in-bounds required)")
+        if rc != 0:
+            raise RuntimeError(f"the native hub refused a sparse commit (code {rc})")
 
     @property
     def num_updates(self) -> int:

@@ -8,8 +8,9 @@ layout with the JAX module and the C++ hub) and the hub's batched receive
 (:class:`BatchedReceiver`) and the hub-to-hub replication feed (action
 ``R``, :func:`encode_repl_hello`), the trace-context announce (``T``)
 the health reports (``M``), the reconnect announce and its retry-after
-reply (``G`` / ``Y``) and the job admission verdict (a ``T`` reply); the
-JAX module's sparse frames are ROADMAP item 13.
+reply (``G`` / ``Y``), the job admission verdict (a ``T`` reply) and the
+row-sparse exchange of embedding tables (``S`` / ``V`` / ``U`` / ``X``,
+:class:`VarFrameEncoder`, :func:`normalize_row_ids`).
 
 Wire format (all integers big-endian):
 
@@ -28,8 +29,10 @@ replication feed (a standby's hello, then the primary's full sync and one
 delta a commit), ``T`` a worker's trace context (the hub answers with its
 monotonic clock, or with the admission verdict when the announce names a
 job), ``M`` a worker's health report (the hub acks it), ``G`` an adaptive
-client's reconnect announce and ``Y`` the hub's retry-after hint.  Dtype and shape travel out of band: both ends hold the
-model's weight list as templates.
+client's reconnect announce and ``Y`` the hub's retry-after hint, ``S``
+a sparse pull, ``V`` its reply, ``U`` / ``X`` a sparse f32 / int8 commit.
+Dtype and shape travel out of band: both ends hold the model's weight list
+as templates.
 
 Two implementations move tensor frames with the same bytes: the generic
 path (:func:`encode_tensors` / :func:`decode_tensors`) and the flat path
@@ -96,9 +99,11 @@ ACTION_REPL = b"R"
 REPL_DELTA = 0   # primary -> standby: blobs[1:] are the scaled applied delta
 REPL_SYNC = 1    # primary -> standby: blobs[1:] are the whole center at clock
 REPL_HELLO = 2   # standby -> primary: no tensor blobs; clock is the standby's
-# the row-sparse delta kind and the hello capability bit that asks for it:
-# a standby of the port announces capability 0, so a primary of either
-# package streams it dense deltas only (sparse tables are ROADMAP item 13)
+# the row-sparse delta kind: blobs[1:] carry the applied commit in the U
+# layout (per center leaf, one f32 delta blob for a dense leaf, an int64 id
+# blob and an f32 [k, dim] row blob for a sparse one).  A primary sends it
+# only to a standby whose hello announced REPL_CAP_SPARSE (a tenth header
+# byte); every other standby gets the dense REPL_DELTA of the same commit
 REPL_SPARSE = 3
 # reconnect-storm backpressure: an adaptive client's first frame on a fresh
 # connection after a fault is a G announce (one 8-byte big-endian blob, the
@@ -108,6 +113,18 @@ REPL_SPARSE = 3
 ACTION_RECONNECT = b"G"
 ACTION_RETRY = b"Y"
 REPL_CAP_SPARSE = 1
+# the row-sparse exchange of a model with embedding tables (both ends hold
+# the same sparse leaf indices): S, a pull request of one int64
+# sorted-unique row-id blob per sparse table; V, its reply of one blob per
+# center leaf (the whole leaf if dense, the requested [k, dim] rows if
+# sparse); U, an f32 commit of one delta blob per dense leaf and two blobs
+# (ids, [k, dim] rows) per sparse leaf; X, U with every value blob a Q blob
+# (one scale per row block).  Sent only when both ends declare sparse tables
+ACTION_SPARSE_PULL = b"S"
+ACTION_SPARSE_WEIGHTS = b"V"
+ACTION_SPARSE_COMMIT = b"U"
+ACTION_SPARSE_QCOMMIT = b"X"
+ROW_ID_DTYPE = np.dtype(np.int64)
 # receive-bound allowance of the control frames (the one-JSON-blob T and M
 # payloads, sized by their reports, not by the model): a hub receives
 # against max(largest tensor frame, CONTROL_PAYLOAD_MAX)
@@ -445,14 +462,20 @@ def encoded_tensors_size(arrays: Sequence[np.ndarray]) -> int:
     return 5 + sum(8 + np.asarray(a).nbytes for a in arrays)
 
 
-def max_request_payload(templates: Sequence[np.ndarray]) -> int:
+def max_request_payload(templates: Sequence[np.ndarray],
+                        sparse_leaves: Sequence[int] = ()) -> int:
     """Largest valid request payload for a hub serving ``templates``: per
     tensor the larger of the f32 blob and the ``Q`` blob, floored at the
-    control allowance.  The bound the Python hub receives against and the
-    one the C++ hub is created with, as in the JAX package."""
+    control allowance; with sparse tables, a sparse commit that touches
+    every row also carries one int64 id blob a table.  The bound the Python
+    hub receives against and the one the C++ hub is created with, as in the
+    JAX package."""
     arrays = [np.asarray(t) for t in templates]
     dense = 5 + sum(8 + max(w.nbytes, 4 + w.size) for w in arrays)
-    return max(dense, CONTROL_PAYLOAD_MAX)
+    bound = max(dense, CONTROL_PAYLOAD_MAX)
+    if sparse_leaves:
+        bound = max(bound, dense + sum(8 + 8 * arrays[i].shape[0] for i in sparse_leaves))
+    return bound
 
 
 def encode_repl_header(clock: int, kind: int) -> np.ndarray:
@@ -565,6 +588,67 @@ class FlatFrameCodec:
                 raise ValueError(f"output slot of {dst.nbytes} bytes does "
                                  f"not match schema ({tmpl.nbytes} bytes)")
         return _scatter_recv_into(sock, out, self._scratch, limit=self.payload_len)
+
+
+class VarFrameEncoder:
+    """The flat path for frames whose blob count and sizes vary by message
+    (the sparse exchange, ``S``/``V``/``U``/``X``, and the ``R`` row
+    deltas): one buffer that grows to the largest frame, the header and
+    every blob written into it, one ``sendall``.  The bytes are
+    :func:`encode_tensors`' bytes.  One owner: the view :meth:`pack`
+    returns holds until the next pack."""
+
+    def __init__(self, initial: int = 4096):
+        self._tx = bytearray(int(initial))
+        self.frame_len = 0  # of the last pack
+
+    def pack(self, action: bytes, arrays: Sequence[np.ndarray]) -> memoryview:
+        arrays = [np.ascontiguousarray(a) for a in arrays]
+        payload = 5 + sum(8 + a.nbytes for a in arrays)
+        total = 8 + payload
+        if len(self._tx) < total:
+            self._tx = bytearray(total)
+        struct.pack_into(">Q", self._tx, 0, payload)
+        self._tx[8:9] = action
+        struct.pack_into(">I", self._tx, 9, len(arrays))
+        mv = memoryview(self._tx)
+        pos = 13
+        for a in arrays:
+            struct.pack_into(">Q", self._tx, pos, a.nbytes)
+            pos += 8
+            if a.nbytes:
+                mv[pos:pos + a.nbytes] = memoryview(a).cast("B")
+            pos += a.nbytes
+        self.frame_len = total
+        return mv[:total]
+
+    def send(self, sock: socket.socket, action: bytes, arrays: Sequence[np.ndarray]) -> int:
+        """Pack and send one frame; its length on the wire."""
+        sock.sendall(self.pack(action, arrays))
+        _count_tx(self.frame_len)
+        return self.frame_len
+
+
+def check_row_ids(ids: np.ndarray, rows: int, leaf: int) -> np.ndarray:
+    """One table's row ids as they come off the wire, checked: in
+    ``[0, rows)`` and strictly ascending (what makes ``center[ids] += g``
+    exact).  Both hubs refuse ids that break this rather than repair them.
+    Returns ``ids`` unchanged."""
+    if ids.size:
+        if ids[0] < 0 or ids[-1] >= rows:
+            raise ValueError(f"sparse leaf {leaf}: row ids outside [0, {rows})")
+        if ids.size > 1 and not (np.diff(ids) > 0).all():
+            raise ValueError(f"sparse leaf {leaf}: row ids must be sorted and unique")
+    return ids
+
+
+def normalize_row_ids(ids, rows: int) -> np.ndarray:
+    """One table's touched rows in their wire form: flat int64, sorted,
+    unique, checked against ``rows``."""
+    arr = np.unique(np.asarray(ids).ravel().astype(ROW_ID_DTYPE, copy=False))
+    if arr.size and (arr[0] < 0 or arr[-1] >= rows):
+        raise ValueError(f"row ids outside [0, {rows}): [{arr[0]}, {arr[-1]}]")
+    return arr
 
 
 def quantize_q_blob(delta: np.ndarray) -> Tuple[bytes, np.ndarray]:

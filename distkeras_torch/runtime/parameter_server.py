@@ -69,8 +69,22 @@ to a private copy of the center, or refused with
 :class:`JobAdmissionError`; :meth:`SocketParameterServer.fleet_info` is the
 hub's membership and jobs surface.
 
-Not ported, raising ``NotImplementedError`` that names its ROADMAP item:
-sparse tables (item 13).
+Row-sparse embedding tables, the JAX hubs' and clients': a hub given
+``sparse_leaves`` (the positions of a model's ``[rows, dim]`` tables,
+:func:`~distkeras_torch.models.base.sparse_leaf_indices`) serves the
+sparse exchange beside the dense one: a worker pulls only the rows its
+next window touches (action ``S``, answered with ``V``) and commits only
+those rows' deltas (``U``, or ``X`` in int8), applied ``center[ids] +=
+scale * rows`` under the same clock and scaling rule as a dense commit,
+merged by the adaptive combiner over the row union, and streamed to a
+standby that announced :data:`~distkeras_torch.runtime.networking.
+REPL_CAP_SPARSE` as one ``R`` row-delta frame.  While telemetry is on the
+hub keeps a decayed touch count per row (``ps.sparse_hot_rows{table=}``,
+and the hot working set that job admission counts).  A client keeps one
+host cache per table that each sparse pull merges into, or with
+``sparse_cache_rows`` a bounded LRU of the hot rows (:class:`_RowLRU`):
+hits cost no wire bytes, and ``wait_weights`` then hands out ``[k, dim]``
+row blocks in the order of the requested ids.
 """
 
 from __future__ import annotations
@@ -98,28 +112,6 @@ from distkeras_torch.runtime import networking as net
 # a process-monotonic ordinal per client: the dedup key of its failover
 # health events (an id() could be reused by a later client)
 _CLIENT_ORDINALS = itertools.count()
-
-# the ROADMAP item of every option that is not ported, by keyword
-_ITEMS = {"sparse_leaves": "13", "sparse_cache_rows": "13", "sparse_tables": "13"}
-
-# the JAX package's row-sparse actions (S pull, V reply, U / X commits),
-# which a job session refuses with the JAX hub's error
-_SPARSE_ACTIONS = (b"S", b"V", b"U", b"X")
-
-
-def not_ported(what: str, item: str = "13") -> NotImplementedError:
-    """The error every unported option of the asynchronous path raises."""
-    return NotImplementedError(f"{what} is not ported to distkeras_torch yet "
-                               f"(ROADMAP item {item})")
-
-
-def _reject(**options) -> None:
-    """Raise for the first option given a value other than its default
-    (the options are passed as ``name=(value, default)``)."""
-    for name, (value, default) in options.items():
-        if value != default:
-            raise not_ported(f"{name}={value!r}", _ITEMS[name])
-
 
 def host_buffer(shape, dtype=np.float32, pin_memory: bool = False) -> np.ndarray:
     """An uninitialised host array; with ``pin_memory`` a numpy view of a
@@ -228,16 +220,26 @@ class ReplicationFeed:
     flow.  The sync clock never moves after the attach (concurrent
     handlers publish out of clock order, and adds commute).  A standby
     that stops reading stalls commits at most ``REPLICA_SEND_TIMEOUT``
-    seconds, then is dropped with a warning.  Every standby gets the dense
-    stream (the port's hubs hold no sparse tables)."""
+    seconds, then is dropped with a warning.
+
+    A sparse commit (row-sparse parts, ``(ids, rows)`` tuples) goes as one
+    ``REPL_SPARSE`` frame of the touched rows to a standby whose hello
+    announced ``REPL_CAP_SPARSE``, and densified into the ``REPL_DELTA``
+    frame for any other (``full[ids] = rows``, so the standby's additions
+    are the primary's).  ``repl_sparse_bytes`` counts the row-delta bytes
+    sent."""
 
     REPLICA_SEND_TIMEOUT = 30.0
 
     def __init__(self, hub: "SocketParameterServer"):
         self.hub = hub
         self._lock = threading.Lock()  # serializes attach and publish
-        self._conns: List[List[Any]] = []  # [socket, ordinal, sync clock]
+        # [socket, ordinal, sync clock, sparse-capable] per standby; the
+        # capability is the hello's, fixed at the attach
+        self._conns: List[List[Any]] = []
         self._codec = net.FlatFrameCodec(net.repl_frame_templates(hub.center))
+        self._sp_enc = net.VarFrameEncoder()  # row-delta frames vary in size
+        self.repl_sparse_bytes = 0
 
     def active(self) -> bool:
         # read without the lock on purpose: publish checks again under it
@@ -247,14 +249,15 @@ class ReplicationFeed:
         if obs.enabled():
             obs.gauge("ps_replicas_connected", **self.hub._mlabels).set(len(self._conns))
 
-    def attach(self, conn: socket.socket, conn_idx: int) -> None:
+    def attach(self, conn: socket.socket, conn_idx: int, capabilities: int = 0) -> None:
         """Register a standby's connection, then full-sync it.  A commit
         applied after the registration publishes (and waits on the feed
         lock until the sync is out); one applied before it is in the
-        sync: nothing falls between."""
+        sync: nothing falls between.  ``capabilities`` are the hello's."""
         conn.settimeout(self.REPLICA_SEND_TIMEOUT)
         with self._lock:
-            entry: List[Any] = [conn, conn_idx, -1]
+            entry: List[Any] = [conn, conn_idx, -1,
+                                bool(capabilities & net.REPL_CAP_SPARSE)]
             self._conns.append(entry)
             try:
                 with self.hub._lock:
@@ -271,42 +274,94 @@ class ReplicationFeed:
             obs.counter("ps_replicas_attached_total", **self.hub._mlabels).inc()
             self._set_gauge()
 
-    def publish(self, clock: int, scaled: Sequence[np.ndarray]) -> None:
+    def _densify(self, scaled: Sequence[Any]) -> List[np.ndarray]:
+        """The center-shaped delta of a commit with row-sparse parts."""
+        out: List[np.ndarray] = []
+        for c, p in zip(self.hub.center, scaled):
+            if isinstance(p, tuple):
+                ids, g = p
+                full = np.zeros_like(c)
+                if ids.size:
+                    full[ids] = g
+                out.append(full)
+            else:
+                out.append(np.asarray(p, np.float32))
+        return out
+
+    @staticmethod
+    def _sparse_blobs(header: np.ndarray, scaled: Sequence[Any]) -> List[np.ndarray]:
+        """The blobs of one ``REPL_SPARSE`` frame: the header, then the
+        ``U`` layout (a dense leaf whole, a sparse one as ids and rows)."""
+        blobs: List[np.ndarray] = [header]
+        for p in scaled:
+            if isinstance(p, tuple):
+                blobs.append(np.ascontiguousarray(p[0], net.ROW_ID_DTYPE))
+                blobs.append(np.ascontiguousarray(p[1], np.float32))
+            else:
+                blobs.append(np.ascontiguousarray(p, np.float32))
+        return blobs
+
+    def publish(self, clock: int, scaled: Sequence[Any]) -> None:
         """Stream one applied commit to every attached standby; returns once
-        the frame is written everywhere (the caller acks after).  The
-        feed's backlog (commits applied while this publish waited) goes to
-        ``ps_replication_lag`` and to the health collector under the hub's
-        own pseudo-worker key."""
+        the frame is written everywhere (the caller acks after).  ``scaled``
+        holds a full array per dense leaf and ``(ids, scaled rows)`` per
+        sparse leaf of a sparse commit.  The feed's backlog (commits applied
+        while this publish waited) goes to ``ps_replication_lag`` and to the
+        health collector under the hub's own pseudo-worker key."""
         telemetry = obs.enabled()
         t0 = time.perf_counter() if telemetry else 0.0
+        has_rows = any(isinstance(p, tuple) for p in scaled)
+        sp_sent = sp_frame_len = 0
         with self._lock:
             if not self._conns:
                 return
             packed = False
+            sp_frame = None
             dead = []
             for entry in self._conns:
-                conn, _, sync_clock = entry
+                conn, _, sync_clock, sparse_ok = entry
                 if sync_clock >= clock:
                     continue  # the standby's full sync already holds it
                 try:
-                    if not packed:
-                        self._codec.pack(net.ACTION_REPL,
-                                         [net.encode_repl_header(clock, net.REPL_DELTA)]
-                                         + list(scaled))
-                        packed = True
-                    self._codec.send_packed(conn)
+                    if has_rows and sparse_ok:
+                        if sp_frame is None:
+                            sp_frame = self._sp_enc.pack(net.ACTION_REPL, self._sparse_blobs(
+                                net.encode_repl_header(clock, net.REPL_SPARSE), scaled))
+                        conn.sendall(sp_frame)
+                        net._count_tx(self._sp_enc.frame_len)
+                        sp_sent += 1
+                    else:
+                        if not packed:
+                            self._codec.pack(net.ACTION_REPL,
+                                             [net.encode_repl_header(clock, net.REPL_DELTA)]
+                                             + (self._densify(scaled) if has_rows
+                                                else list(scaled)))
+                            packed = True
+                        self._codec.send_packed(conn)
                 except (OSError, ValueError) as e:
                     dead.append((entry, e))
             for entry, e in dead:
                 self._detach_locked(entry, e)
+            if sp_sent:
+                # read under the feed lock: the next publish repacks the
+                # encoder
+                sp_frame_len = self._sp_enc.frame_len
+                self.repl_sparse_bytes += sp_sent * sp_frame_len
+                repl_sparse_total = self.repl_sparse_bytes
+        hub_key = f"hub{'' if self.hub.shard_id is None else self.hub.shard_id}"
+        if sp_sent:
+            if telemetry:
+                # what the row framing saved against the dense frame
+                obs.counter("ps.repl_sparse_bytes_saved", **self.hub._mlabels).inc(
+                    sp_sent * max(0, self._codec.frame_len - sp_frame_len))
+            self.hub._observe_health(hub_key, "repl_sparse_bytes_total", repl_sparse_total,
+                                     any_shard=True)
         lag = max(0, self.hub._clock - clock)
         if telemetry:
             obs.histogram("ps.replicate_ms", **self.hub._mlabels).observe(
                 (time.perf_counter() - t0) * 1e3)
             obs.gauge("ps_replication_lag", **self.hub._mlabels).set(lag)
-        self.hub._observe_health(
-            f"hub{'' if self.hub.shard_id is None else self.hub.shard_id}",
-            "replication_lag", lag, any_shard=True)
+        self.hub._observe_health(hub_key, "replication_lag", lag, any_shard=True)
 
     def _detach_locked(self, entry: List[Any], cause: BaseException) -> None:
         conn, conn_idx = entry[0], entry[1]
@@ -330,9 +385,8 @@ class ReplicationFeed:
 # ndarray for a dense leaf, an ``(ids, grads)`` pair (sorted unique int64 ids,
 # ``[k, dim]`` float32 rows) for a sparse one.  The merge arithmetic is the
 # JAX hub's numpy arithmetic (float32 leaves, ``np.dot`` cast by ``float()``,
-# float32 scalars), so both packages' hubs merge to the same bits.  The
-# port's hubs submit dense commits only (sparse tables are ROADMAP item 13);
-# the pure functions take both representations.
+# float32 scalars), so both packages' hubs merge to the same bits, dense and
+# sparse commits alike.
 
 
 def _adasum_dot(a_parts: Sequence[Any], b_parts: Sequence[Any]) -> float:
@@ -426,6 +480,17 @@ def adasum_merge(commits: Sequence[Sequence[Any]]) -> List[Any]:
     return items[0]
 
 
+def _add_parts(center: Sequence[np.ndarray], parts: Sequence[Any]) -> None:
+    """``center += parts``: a sparse part adds to its rows only."""
+    for c, p in zip(center, parts):
+        if isinstance(p, tuple):
+            ids, g = p
+            if ids.size:
+                c[ids] += g
+        else:
+            c += p
+
+
 class AdaptiveRateController:
     """Per-worker commit scales driven by the health monitor's events (the
     staleness response of arXiv:1611.04581, relative to the fleet).  The
@@ -509,10 +574,13 @@ class _AdaptiveCombiner:
     (``x * float32(1.0)`` is exact).
 
     A batch of K commits advances the clock and ``num_updates`` by K; all
-    members see the batch's base clock.  With a standby attached the
-    merged delta goes out as one ``R`` frame at the batch's final clock
-    before any member returns, so the standby tracks the center to the
-    bit.  A batch that fails raises in every submitter it holds (never an
+    members see the batch's base clock.  Sparse commits merge over the
+    union of their rows and apply to those rows only; a batch that mixes
+    dense and sparse representations of one leaf applies member by member.
+    With a standby attached the merged delta goes out as one ``R`` frame
+    at the batch's final clock before any member returns (the row form
+    when it is one commit's, the dense sum of a mixed batch), so the
+    standby tracks the center to the bit.  A batch that fails raises in every submitter it holds (never an
     ack for a commit that was dropped).
 
     The caller's parts must stay valid until :meth:`commit` returns.  A
@@ -585,14 +653,31 @@ class _AdaptiveCombiner:
                 entry.update(staleness=staleness, scale=scale, rate_scale=wscale,
                              batch=len(batch))
                 scaled_all.append(_scale_parts(entry["parts"], np.float32(scale)))
-            applied = adasum_merge(scaled_all) if len(scaled_all) > 1 else scaled_all[0]
-            for c, p in zip(hub.center, applied):
-                c += p
+                if telemetry:
+                    hub._touch_rows_locked((i, p[0]) for i, p in enumerate(entry["parts"])
+                                           if isinstance(p, tuple))
+            if len(scaled_all) > 1 and not _mixed_repr(scaled_all):
+                applied = [adasum_merge(scaled_all)]
+            else:
+                # one commit, or a rare mixed batch applied in queue order
+                # (merging would densify its sparse sides under the lock)
+                applied = scaled_all
+            if replicate and len(applied) > 1:
+                # the mixed batch: one center-shaped delta, applied as it
+                # is published, so both hubs make the same additions
+                publish_parts: Optional[List[Any]] = [np.zeros_like(c) for c in hub.center]
+                for parts in applied:
+                    _add_parts(publish_parts, parts)
+                _add_parts(hub.center, publish_parts)
+            else:
+                publish_parts = applied[0] if replicate else None
+                for parts in applied:
+                    _add_parts(hub.center, parts)
             hub.num_updates += len(batch)
             hub._clock += len(batch)
             commit_clock = hub._clock
         if replicate:
-            feed.publish(commit_clock, applied)
+            feed.publish(commit_clock, publish_parts)
         size = len(batch)
         self.batches_total += 1
         self.max_batch = max(self.max_batch, size)
@@ -699,7 +784,21 @@ class SocketParameterServer:
     admitted to that job's private center (:class:`_JobState`), at most
     ``max_jobs`` of them within ``job_budget_bytes`` (4 center copies by
     default), and is answered with the admission verdict; a refused session
-    is never served."""
+    is never served.
+
+    Sparse tables: ``sparse_leaves`` names the center's ``[rows, dim]``
+    leaves served by row (actions ``S`` / ``U`` / ``X``, and
+    :meth:`pull_sparse_direct` / :meth:`commit_sparse_direct` in process);
+    the dense exchange keeps serving every leaf whole.  Job sessions
+    exchange dense frames only.  While telemetry is on each sparse pull and
+    commit folds its rows into a per-row touch count that halves every
+    ``TOUCH_DECAY_EVERY`` folds; the rows still at ``TOUCH_HOT_MIN`` or
+    above are the hot set (``ps.sparse_hot_rows{table=}``), whose bytes job
+    admission adds to its projection."""
+
+    # the decay of the hot-row estimate (instance attributes may be retuned)
+    TOUCH_DECAY_EVERY = 64
+    TOUCH_HOT_MIN = 1.0
 
     # reconnect-storm shedding (adaptive hubs); instance attributes may be
     # retuned without subclassing
@@ -719,7 +818,6 @@ class SocketParameterServer:
                  sparse_leaves: Sequence[int] = (), adaptive: bool = False,
                  shm_dir: Optional[str] = None, recv_batch_depth: int = 0,
                  max_jobs: int = 4, job_budget_bytes: Optional[int] = None):
-        _reject(sparse_leaves=(tuple(sparse_leaves), ()))
         self.center: List[np.ndarray] = [np.array(w, dtype=np.float32) for w in weights]
         self.host = host
         self.port = int(port)
@@ -734,10 +832,23 @@ class SocketParameterServer:
         self._conns: List[socket.socket] = []
         self._conn_lock = threading.Lock()
         self._running = False
+        self.sparse_leaves = tuple(sorted({int(i) for i in sparse_leaves}))
+        for i in self.sparse_leaves:
+            if not 0 <= i < len(self.center):
+                raise ValueError(f"sparse leaf index {i} out of range for "
+                                 f"{len(self.center)} center leaves")
+            if self.center[i].ndim != 2:
+                raise ValueError(f"sparse leaf {i} must be a [rows, dim] table, got "
+                                 f"shape {self.center[i].shape}")
+        self._sparse_set = frozenset(self.sparse_leaves)
+        # the decayed touch count of every row of every table (telemetry on)
+        self._sparse_touch: Dict[int, np.ndarray] = {
+            i: np.zeros(self.center[i].shape[0], np.float32) for i in self.sparse_leaves}
+        self._touch_folds = 0
         self._frame_bytes = net.tensor_frame_len(self.center)
         # the largest valid request: a garbage length prefix raises
         # ProtocolError instead of allocating what the 8 bytes say
-        self._max_payload = net.max_request_payload(self.center)
+        self._max_payload = net.max_request_payload(self.center, self.sparse_leaves)
         self.idle_timeout = None if idle_timeout is None else float(idle_timeout)
         self.shard_id = None if shard_id is None else int(shard_id)
         self._shard_attrs = {} if shard_id is None else {"shard": int(shard_id)}
@@ -1031,10 +1142,14 @@ class SocketParameterServer:
         return True
 
     def _apply_repl_frame(self, clock: int, kind: int, blobs) -> None:
-        """Apply one ``R`` sync or delta frame under the center lock (a
-        late frame after the promotion never lands)."""
+        """Apply one ``R`` sync, delta or row-delta frame under the center
+        lock (a late frame after the promotion never lands).  A
+        ``REPL_SPARSE`` frame adds its rows, ``center[ids] += rows``."""
         with self._lock:
             if self.promoted:
+                return
+            if kind == net.REPL_SPARSE:
+                self._apply_repl_rows_locked(clock, blobs)
                 return
             if kind not in (net.REPL_SYNC, net.REPL_DELTA):
                 raise net.ProtocolError(f"unknown replication kind {kind}")
@@ -1058,15 +1173,48 @@ class SocketParameterServer:
                 self._clock = max(self._clock, clock)
                 self.num_updates += 1
 
+    def _apply_repl_rows_locked(self, clock: int, blobs) -> None:
+        expected = len(self.center) + len(self.sparse_leaves)
+        if len(blobs) != expected:
+            raise net.ProtocolError(f"sparse replication frame has {len(blobs)} blobs, "
+                                    f"expected {expected}")
+        it = iter(blobs)
+        for i, c in enumerate(self.center):
+            if i in self._sparse_set:
+                ids = self._check_row_ids(np.frombuffer(next(it), net.ROW_ID_DTYPE), i)
+                rows = np.frombuffer(next(it), np.float32)
+                if rows.size != ids.size * c.shape[1]:
+                    raise net.ProtocolError(f"sparse replication leaf {i}: {rows.size} values "
+                                            f"for {ids.size} rows of dim {c.shape[1]}")
+                if ids.size:
+                    c[ids] += rows.reshape(ids.size, c.shape[1])
+            else:
+                arr = np.frombuffer(next(it), np.float32)
+                if arr.size != c.size:
+                    raise net.ProtocolError(f"replication blob of {arr.size} values does not "
+                                            f"match its leaf ({c.size})")
+                c += arr.reshape(c.shape)
+        self._clock = max(self._clock, clock)
+        self.num_updates += 1
+
     def _replica_loop(self) -> None:
         """Track the primary: connect, send the hello, apply the full sync
         and every delta.  On feed loss retry ``replica_feed_retries`` times
         with exponential backoff, then promote.  A standby that never
-        synced has nothing to take over: it keeps retrying and warns once."""
+        synced has nothing to take over: it keeps retrying and warns once.
+        A standby with sparse tables announces ``REPL_CAP_SPARSE`` and
+        reads its feed frame by frame (sizes vary with the rows); one
+        without reads fixed frames into preallocated buffers."""
         host, port = self.replica_of
         codec = net.FlatFrameCodec(net.repl_frame_templates(self.center))
         hdr = np.empty(9, np.uint8)
         bufs = [np.empty(c.shape, np.float32) for c in self.center]
+        sparse_feed = bool(self.sparse_leaves)
+        # the largest valid feed frame: a full sync, plus one id blob a
+        # table for a row-delta frame
+        feed_limit = codec.payload_len + sum(8 + 8 * self.center[i].shape[0]
+                                             for i in self.sparse_leaves)
+        rx = bytearray(4096) if sparse_feed else None
         failures = 0
         warned_unsynced = False
         while not self._replica_stop.is_set():
@@ -1088,13 +1236,20 @@ class SocketParameterServer:
             if sock is not None:
                 self._replica_sock = sock
                 try:
-                    net.send_frame(sock, net.encode_repl_hello(self._clock))
+                    net.send_frame(sock, net.encode_repl_hello(
+                        self._clock, net.REPL_CAP_SPARSE if sparse_feed else 0))
                     while not self._replica_stop.is_set():
-                        action = codec.recv_into(sock, [hdr] + bufs)
+                        if sparse_feed:
+                            action, blobs = net.decode_tensor_views(
+                                net.recv_frame_into(sock, rx, limit=feed_limit))
+                            header, body = (blobs[0], blobs[1:]) if blobs else (b"", [])
+                        else:
+                            action = codec.recv_into(sock, [hdr] + bufs)
+                            header, body = hdr, bufs
                         if action != net.ACTION_REPL:
                             raise net.ProtocolError(f"replica feed expected R, got {action!r}")
-                        clock, kind = net.decode_repl_header(hdr)
-                        self._apply_repl_frame(clock, kind, bufs)
+                        clock, kind = net.decode_repl_header(header)
+                        self._apply_repl_frame(clock, kind, body)
                         if self.promoted:
                             return
                         failures = 0  # a live stream resets the loss budget
@@ -1146,6 +1301,106 @@ class SocketParameterServer:
         return [net.dequantize_q_blob(blob, c.size).reshape(c.shape)
                 for blob, c in zip(blobs, self.center)]
 
+    # -- sparse tables ---------------------------------------------------------
+    def _touch_rows_locked(self, pairs) -> None:
+        """Fold ``(leaf, ids)`` pairs into the decayed touch counts (the
+        caller holds the lock, with telemetry on); every
+        ``TOUCH_DECAY_EVERY`` folds the counts halve and the
+        ``ps.sparse_hot_rows`` gauges are set."""
+        for leaf, ids in pairs:
+            touch = self._sparse_touch.get(leaf)
+            if touch is not None and ids.size:
+                touch[ids] += np.float32(1.0)
+        self._touch_folds += 1
+        if self._touch_folds >= self.TOUCH_DECAY_EVERY:
+            self._touch_folds = 0
+            for leaf, touch in self._sparse_touch.items():
+                touch *= np.float32(0.5)
+                obs.gauge("ps.sparse_hot_rows", table=str(leaf), **self._mlabels).set(
+                    int(np.count_nonzero(touch >= self.TOUCH_HOT_MIN)))
+
+    def _q_payload_bytes(self) -> int:
+        """The payload of a dense ``Q`` commit: what an ``X`` commit saves
+        against."""
+        return 5 + sum(8 + 4 + w.size for w in self.center)
+
+    def _check_row_ids(self, ids: np.ndarray, leaf: int) -> np.ndarray:
+        return net.check_row_ids(ids, self.center[leaf].shape[0], leaf)
+
+    def _decode_sparse_ids(self, blobs) -> List[np.ndarray]:
+        """An ``S`` request: one checked id array a sparse table, views of
+        the receive buffer."""
+        if len(blobs) != len(self.sparse_leaves):
+            raise ValueError(f"sparse pull has {len(blobs)} id blobs, hub has "
+                             f"{len(self.sparse_leaves)} sparse tables")
+        return [self._check_row_ids(np.frombuffer(blob, net.ROW_ID_DTYPE), i)
+                for blob, i in zip(blobs, self.sparse_leaves)]
+
+    def _decode_sparse_commit(self, blobs, quantized: bool) -> List[Any]:
+        """A ``U`` / ``X`` commit as parts aligned with the center: the delta
+        of a dense leaf, ``(ids, rows)`` of a sparse one."""
+        expected = len(self.center) + len(self.sparse_leaves)
+        if len(blobs) != expected:
+            raise ValueError(f"sparse commit has {len(blobs)} blobs, expected {expected}")
+        parts: List[Any] = []
+        it = iter(blobs)
+        for i, c in enumerate(self.center):
+            if i in self._sparse_set:
+                ids = self._check_row_ids(np.frombuffer(next(it), net.ROW_ID_DTYPE), i)
+                dim = c.shape[1]
+                blob = next(it)
+                if quantized:
+                    grads = net.dequantize_q_blob(blob, ids.size * dim)
+                else:
+                    grads = np.frombuffer(blob, np.float32)
+                    if grads.size != ids.size * dim:
+                        raise ValueError(f"sparse leaf {i}: {grads.size} grad values for "
+                                         f"{ids.size} rows of dim {dim}")
+                parts.append((ids, grads.reshape(ids.size, dim)))
+            else:
+                blob = next(it)
+                if quantized:
+                    arr = net.dequantize_q_blob(blob, c.size)
+                else:
+                    arr = np.frombuffer(blob, np.float32)
+                    if arr.size != c.size:
+                        raise ValueError(f"commit tensor size {arr.size} != center size "
+                                         f"{c.size}")
+                parts.append(arr.reshape(c.shape))
+        return parts
+
+    def _apply_sparse_commit_locked(self, parts: Sequence[Any],
+                                    staleness: int) -> Optional[List[Any]]:
+        """:meth:`_apply_commit_locked` for a sparse commit (the caller holds
+        the lock): dense leaves move whole, sparse ones
+        ``center[ids] += scale * rows``.  With a standby attached returns the
+        scaled parts (owned copies, rows still as ``(ids, rows)``) for the
+        feed, else None."""
+        feed = self._feed
+        replicate = feed is not None and feed.active()
+        scale = np.float32(self.commit_scale(staleness))
+        one = scale == np.float32(1.0)
+        scaled: Optional[List[Any]] = [] if replicate else None
+        for c, p in zip(self.center, parts):
+            if isinstance(p, tuple):
+                ids, grads = p
+                g = grads if one else grads * scale
+                if replicate:
+                    scaled.append((np.array(ids, net.ROW_ID_DTYPE),
+                                   np.array(g, np.float32) if one else g))
+                if ids.size:
+                    c[ids] += g
+            else:
+                arr = np.asarray(p, np.float32)
+                g = arr if one else arr * scale
+                if replicate:
+                    scaled.append(np.array(g, np.float32) if one else g)
+                c += g
+        if obs.enabled():
+            self._touch_rows_locked((i, p[0]) for i, p in enumerate(parts)
+                                    if isinstance(p, tuple))
+        return scaled
+
     def _on_health_event(self, event: Any) -> None:
         """The health monitor's callback (adaptive hubs): staleness and
         straggler events drive the rate controller, storm events arm the
@@ -1170,13 +1425,16 @@ class SocketParameterServer:
             mon.maybe_check()
         return entry
 
-    def _commit_one(self, delta: Sequence[np.ndarray], last_pull_clock: int,
-                    worker: Any = None, telemetry: bool = False) -> Tuple[int, int]:
-        """The one commit dispatch of the socket and in-process paths: an
-        adaptive hub goes through the combiner; a plain one raises the pull
-        clock to the fence, moves the center under the lock and sends the
-        scaled delta to the standbys before the caller acks.  Returns
-        ``(staleness, pull clock)``, the clock as the fence left it."""
+    def _commit_one(self, delta: Sequence[Any], last_pull_clock: int,
+                    worker: Any = None, telemetry: bool = False,
+                    sparse: bool = False) -> Tuple[int, int]:
+        """The one commit dispatch of the socket and in-process paths, dense
+        and sparse (``sparse``: ``delta`` holds ``(ids, rows)`` for the
+        sparse leaves): an adaptive hub goes through the combiner; a plain
+        one raises the pull clock to the fence, moves the center under the
+        lock and sends the scaled delta to the standbys before the caller
+        acks.  Returns ``(staleness, pull clock)``, the clock as the fence
+        left it."""
         if self._combiner is not None:
             entry = self._commit_adaptive(delta, last_pull_clock, worker)
             if entry["fenced"]:
@@ -1188,7 +1446,8 @@ class SocketParameterServer:
                 if telemetry:
                     obs.counter("ps_fenced_commits_total", **self._mlabels).inc()
             staleness = self._clock - last_pull_clock
-            scaled = self._apply_commit_locked(list(delta), staleness)
+            scaled = (self._apply_sparse_commit_locked(delta, staleness) if sparse
+                      else self._apply_commit_locked(list(delta), staleness))
             self.num_updates += 1
             self._clock += 1
             commit_clock = self._clock
@@ -1292,10 +1551,14 @@ class SocketParameterServer:
 
     # -- jobs --------------------------------------------------------------------------
     def _job_working_set_bytes_locked(self) -> int:
-        """The hot rows of the hub's sparse tables in bytes, which admission
-        projects beside the center copies: 0 here, as the port's hubs hold
-        no sparse tables (ROADMAP item 13)."""
-        return 0
+        """The hot rows of the hub's sparse tables in bytes (the rows whose
+        decayed touch count is at least ``TOUCH_HOT_MIN``), which admission
+        projects beside the center copies; the caller holds the lock."""
+        total = 0
+        for leaf, touch in self._sparse_touch.items():
+            hot = int(np.count_nonzero(touch >= self.TOUCH_HOT_MIN))
+            total += hot * int(self.center[leaf].shape[1]) * 4
+        return total
 
     def _admit_job(self, job: str) -> Tuple[bool, str, Optional[_JobState]]:
         """Admission of one job-scoped announce: ``(admitted, reason,
@@ -1425,6 +1688,8 @@ class SocketParameterServer:
         job_pull_clock = 0
         rx = bytearray(self._frame_bytes)
         reply = net.FlatFrameCodec(self.center)
+        # sparse replies vary in size: a growing encoder, on a sparse hub only
+        sp_enc = net.VarFrameEncoder() if self.sparse_leaves else None
         ack = net.empty_tensor_frame(net.ACTION_ACK)
         receiver = (net.BatchedReceiver(conn, self._frame_bytes, self.recv_batch_depth)
                     if self.recv_batch_depth > 0 else None)
@@ -1542,9 +1807,81 @@ class SocketParameterServer:
                     self._observe_health(ctx_attrs.get("worker"), "staleness", staleness)
                     if telemetry:
                         self._count_commit(blobs, t0, conn_idx, staleness)
-                elif action in _SPARSE_ACTIONS and (job_state is not None or job_rejected):
-                    raise net.ProtocolError("sparse actions are default-namespace only "
-                                            "(job-scoped sessions exchange dense P/C/Q)")
+                elif action == net.ACTION_SPARSE_PULL:
+                    if job_state is not None or job_rejected:
+                        raise net.ProtocolError("sparse actions are default-namespace only "
+                                                "(job-scoped sessions exchange dense P/C/Q)")
+                    if sp_enc is None:
+                        raise net.ProtocolError("sparse pull against a hub with no sparse "
+                                                "tables (pass sparse_leaves to the hub)")
+                    if self._standby and not self._synced.is_set():
+                        raise net.ProtocolError("pull from a never-synced standby refused "
+                                                "(it holds no job state yet)")
+                    ids_list = self._decode_sparse_ids(blobs)
+                    rows_pulled = int(sum(ids.size for ids in ids_list))
+                    with obs.span("ps.handle_pull", conn=conn_idx, sparse_rows=rows_pulled,
+                                  **self._shard_attrs, **ctx_attrs):
+                        with self._lock:
+                            # the row gathers copy; the frame is packed under
+                            # the lock and sent after it
+                            it = iter(ids_list)
+                            arrays = [self.center[i][next(it)] if i in self._sparse_set
+                                      else self.center[i] for i in range(len(self.center))]
+                            frame = sp_enc.pack(net.ACTION_SPARSE_WEIGHTS, arrays)
+                            last_pull_clock = self._clock
+                            if telemetry:
+                                self._touch_rows_locked(zip(self.sparse_leaves, ids_list))
+                        net.send_raw_frame(conn, frame)
+                    if telemetry:
+                        obs.counter("ps_pulls_total", **self._mlabels).inc()
+                        # raw tensor bytes, as the dense pull counts them
+                        obs.counter("ps_pull_bytes_total", **self._mlabels).inc(
+                            sum(a.nbytes for a in arrays))
+                        obs.counter("ps.sparse_rows_pulled", **self._mlabels).inc(rows_pulled)
+                        obs.counter("ps.sparse_wire_bytes_saved", **self._mlabels).inc(
+                            max(0, self._frame_bytes - sp_enc.frame_len))
+                        obs.histogram("ps_rpc_seconds", rpc="pull", **self._mlabels).observe(
+                            time.perf_counter() - t0)
+                elif action in (net.ACTION_SPARSE_COMMIT, net.ACTION_SPARSE_QCOMMIT):
+                    if job_state is not None or job_rejected:
+                        raise net.ProtocolError("sparse actions are default-namespace only "
+                                                "(job-scoped sessions exchange dense P/C/Q)")
+                    if not self.sparse_leaves:
+                        raise net.ProtocolError("sparse commit against a hub with no sparse "
+                                                "tables (pass sparse_leaves to the hub)")
+                    parts = self._decode_sparse_commit(
+                        blobs, quantized=action == net.ACTION_SPARSE_QCOMMIT)
+                    if self._standby:
+                        if not self._synced.is_set():
+                            raise net.ProtocolError("commit into a never-synced standby "
+                                                    "refused (it has no state to take over)")
+                        self._standby_commit_gate()
+                        self.promote(reason="commit received while standby (worker "
+                                            "failed over)")
+                    if not joined:
+                        self._member_join(token)
+                        joined = True
+                    rows_committed = int(sum(p[0].size for p in parts if isinstance(p, tuple)))
+                    with obs.span("ps.handle_commit", conn=conn_idx,
+                                  sparse_rows=rows_committed, **self._shard_attrs,
+                                  **ctx_attrs) as sp:
+                        staleness, last_pull_clock = self._commit_one(
+                            parts, last_pull_clock, ctx_attrs.get("worker"),
+                            telemetry=telemetry, sparse=True)
+                        net.send_raw_frame(conn, ack)
+                        if getattr(sp, "attrs", None) is not None:
+                            sp.attrs["staleness"] = staleness
+                    self._observe_health(ctx_attrs.get("worker"), "staleness", staleness)
+                    if telemetry:
+                        self._count_commit(blobs, t0, conn_idx, staleness)
+                        wire = sum(b.nbytes for b in blobs)
+                        dense_equiv = (self._frame_bytes - 8
+                                       if action == net.ACTION_SPARSE_COMMIT
+                                       else self._q_payload_bytes())
+                        obs.counter("ps.sparse_rows_committed", **self._mlabels).inc(
+                            rows_committed)
+                        obs.counter("ps.sparse_wire_bytes_saved", **self._mlabels).inc(
+                            max(0, dense_equiv - wire))
                 elif action == net.ACTION_TRACE:
                     # a worker's trace context: tag this connection's spans
                     # with it and answer with this hub's monotonic clock.
@@ -1605,7 +1942,7 @@ class SocketParameterServer:
                         feed = self._feed
                     with obs.span("ps.replica_attach", conn=conn_idx, replica_clock=clock_hdr,
                                   **self._shard_attrs):
-                        feed.attach(conn, conn_idx)
+                        feed.attach(conn, conn_idx, capabilities=net.decode_repl_caps(blobs[0]))
                     handoff = True
                     return
                 elif action == net.ACTION_SHM:
@@ -1752,6 +2089,84 @@ class SocketParameterServer:
                 time.perf_counter() - t0)
             obs.histogram("ps_commit_staleness", **self._mlabels).observe(staleness)
 
+    def pull_sparse_direct(self, ids_list: Sequence[np.ndarray]) -> Tuple[List[Any], int]:
+        """The ``S`` / ``V`` exchange without the frame: one sorted-unique id
+        array a sparse table in; ``(values, clock)`` out, a copy of each
+        dense leaf and the requested ``[k, dim]`` rows of each sparse one."""
+        if not self.sparse_leaves:
+            raise RuntimeError("pull_sparse_direct on a hub with no sparse "
+                               "tables (pass sparse_leaves to the hub)")
+        if self._standby and not self._synced.is_set():
+            raise RuntimeError("pull_sparse_direct from a never-synced standby refused (it "
+                               "holds no job state yet); wait_synced() first")
+        if len(ids_list) != len(self.sparse_leaves):
+            raise ValueError(f"got {len(ids_list)} id arrays, hub has "
+                             f"{len(self.sparse_leaves)} sparse tables")
+        ids_list = [self._check_row_ids(np.asarray(ids, net.ROW_ID_DTYPE), i)
+                    for ids, i in zip(ids_list, self.sparse_leaves)]
+        telemetry = obs.enabled()
+        t0 = time.perf_counter() if telemetry else 0.0
+        rows_pulled = int(sum(ids.size for ids in ids_list))
+        with obs.span("ps.handle_pull", transport="inproc", sparse_rows=rows_pulled,
+                      **self._shard_attrs, **dtrace.current_span_attrs()):
+            with self._lock:
+                it = iter(ids_list)
+                values: List[Any] = [self.center[i][next(it)] if i in self._sparse_set
+                                     else self.center[i].copy()
+                                     for i in range(len(self.center))]
+                clock = self._clock
+                if telemetry:
+                    self._touch_rows_locked(zip(self.sparse_leaves, ids_list))
+        if telemetry:
+            obs.counter("ps_pulls_total", **self._mlabels).inc()
+            obs.counter("ps.sparse_rows_pulled", **self._mlabels).inc(rows_pulled)
+            obs.histogram("ps_rpc_seconds", rpc="pull.inproc", **self._mlabels).observe(
+                time.perf_counter() - t0)
+        return values, clock
+
+    def commit_sparse_direct(self, parts: Sequence[Any], last_pull_clock: int) -> None:
+        """The ``U`` exchange without the frame: ``parts`` aligned with the
+        center, the delta of each dense leaf and ``(ids, rows)`` of each
+        sparse one, with the staleness ``last_pull_clock`` implies."""
+        if not self.sparse_leaves:
+            raise RuntimeError("commit_sparse_direct on a hub with no "
+                               "sparse tables (pass sparse_leaves)")
+        if len(parts) != len(self.center):
+            raise ValueError(f"commit has {len(parts)} parts, center has {len(self.center)}")
+        norm: List[Any] = []
+        for i, (p, c) in enumerate(zip(parts, self.center)):
+            if i in self._sparse_set:
+                ids, grads = p
+                ids = self._check_row_ids(np.asarray(ids, net.ROW_ID_DTYPE), i)
+                norm.append((ids, np.asarray(grads, np.float32).reshape(ids.size, c.shape[1])))
+            else:
+                norm.append(np.asarray(p, np.float32).reshape(c.shape))
+        telemetry = obs.enabled()
+        t0 = time.perf_counter() if telemetry else 0.0
+        if self._standby:
+            if not self._synced.is_set():
+                raise RuntimeError("commit_sparse_direct into a never-synced standby refused "
+                                   "(it has no state to take over); wait_synced() first")
+            self._standby_commit_gate()
+            self.promote(reason="commit_sparse_direct while standby")
+        rows_committed = int(sum(p[0].size for p in norm if isinstance(p, tuple)))
+        with obs.span("ps.handle_commit", transport="inproc", sparse_rows=rows_committed,
+                      **self._shard_attrs, **dtrace.current_span_attrs()) as sp:
+            staleness, _ = self._commit_one(norm, last_pull_clock,
+                                            dtrace.current_span_attrs().get("worker"),
+                                            telemetry=telemetry, sparse=True)
+            if getattr(sp, "attrs", None) is not None:
+                sp.attrs["staleness"] = staleness
+        if self._health is not None:
+            self._observe_health(dtrace.current_span_attrs().get("worker"),
+                                 "staleness", staleness)
+        if telemetry:
+            obs.counter("ps_commits_total", **self._mlabels).inc()
+            obs.counter("ps.sparse_rows_committed", **self._mlabels).inc(rows_committed)
+            obs.histogram("ps_rpc_seconds", rpc="commit.inproc", **self._mlabels).observe(
+                time.perf_counter() - t0)
+            obs.histogram("ps_commit_staleness", **self._mlabels).observe(staleness)
+
 
 class DeltaParameterServer(SocketParameterServer):
     """``center += delta``: DOWNPOUR and the elastic family (the workers
@@ -1838,7 +2253,314 @@ def _quantize_commit(delta: Sequence[np.ndarray], residual: List[np.ndarray],
     return blobs
 
 
-class PSClient:
+def _sparse_commit_arrays(delta: Sequence[np.ndarray], sparse_set, ids_list: Sequence[np.ndarray],
+                          residual: Optional[List[np.ndarray]],
+                          compress: Optional[str]) -> List[np.ndarray]:
+    """A full-order delta and each table's touched ids -> the ``U`` / ``X``
+    blobs (the int8 residuals advance in place); both clients call this.
+    An int8 table keeps a full-size residual indexed by the touched rows,
+    and its row block is quantized as one unit (one scale)."""
+    arrays: List[np.ndarray] = []
+    it = iter(ids_list)
+    for i, d in enumerate(delta):
+        if i in sparse_set:
+            ids = next(it)
+            rows = np.ascontiguousarray(np.asarray(d, np.float32)[ids])
+            arrays.append(ids)
+            if compress == "int8":
+                blob, r = net.quantize_q_blob(rows + residual[i][ids])
+                residual[i][ids] = r
+                arrays.append(np.frombuffer(blob, np.uint8))
+            else:
+                arrays.append(rows)
+        elif compress == "int8":
+            blob, residual[i] = net.quantize_q_blob(np.asarray(d, np.float32) + residual[i])
+            arrays.append(np.frombuffer(blob, np.uint8))
+        else:
+            arrays.append(np.asarray(d, np.float32))
+    return arrays
+
+
+def _sparse_parts_from_arrays(arrays: Sequence[np.ndarray], templates: Sequence[np.ndarray],
+                              sparse_set, compress: Optional[str]) -> List[Any]:
+    """The parts a hub reconstructs from :func:`_sparse_commit_arrays`'
+    blobs: the in-process client sends every sparse commit through this, so
+    both transports apply the same values."""
+    parts: List[Any] = []
+    it = iter(arrays)
+    for i, t in enumerate(templates):
+        if i in sparse_set:
+            ids, val = next(it), next(it)
+            dim = t.shape[1]
+            if compress == "int8":
+                val = net.dequantize_q_blob(memoryview(val), ids.size * dim).reshape(
+                    ids.size, dim)
+            parts.append((ids, val))
+        else:
+            val = next(it)
+            if compress == "int8":
+                val = net.dequantize_q_blob(memoryview(val), t.size).reshape(t.shape)
+            parts.append(val)
+    return parts
+
+
+def _init_hot_tier(client: Any, sparse_cache_rows: Optional[int], compress: Optional[str],
+                   pin_memory: bool = False) -> None:
+    """The sparse cache state both clients share (``client.templates`` and
+    ``client._sparse`` set first): a full-size host cache a table (pinned
+    with ``pin_memory``), or with ``sparse_cache_rows`` one bounded
+    :class:`_RowLRU` a table, and the overflow of residuals an eviction
+    flushes."""
+    client._cache_rows = None if sparse_cache_rows is None else int(sparse_cache_rows)
+    if client._cache_rows is not None:
+        if not client._sparse:
+            raise ValueError("sparse_cache_rows needs sparse_leaves")
+        if client._cache_rows < 1:
+            raise ValueError(f"sparse_cache_rows must be >= 1, got {client._cache_rows}")
+    client._cache = {}
+    client._lru = {}
+    for i in client._sparse:
+        t = client.templates[i]
+        if client._cache_rows is None:
+            cache = host_buffer(t.shape, np.float32, pin_memory)
+            cache[...] = t
+            client._cache[i] = cache
+        else:
+            client._lru[i] = _RowLRU(min(client._cache_rows, t.shape[0]), t.shape[1],
+                                     residual=compress == "int8")
+    # leaf -> {row id: residual row} an eviction flushed: the rows join the
+    # table's next sparse commit, so no residual is lost
+    client._flush_pending = {i: {} for i in client._sparse}
+
+
+def _hot_tier_gather(client: Any, ids_list: Sequence[np.ndarray]
+                     ) -> Tuple[List[np.ndarray], List[np.ndarray], List[np.ndarray]]:
+    """One pull's ids against the LRUs now (hit rows copied into fresh
+    blocks at this instant): ``(blocks, miss positions, miss ids)`` a
+    table.  Counts the hits."""
+    hits0 = client.sparse_cache_hits
+    blocks, miss_pos, miss = [], [], []
+    for ids, i in zip(ids_list, client._sparse):
+        block = np.empty((ids.size, client.templates[i].shape[1]), np.float32)
+        mp, miss_ids = client._lru[i].gather(ids, block)
+        blocks.append(block)
+        miss_pos.append(mp)
+        miss.append(miss_ids)
+    if obs.enabled() and client.sparse_cache_hits > hits0:
+        obs.counter("ps_sparse_cache_hits_total", **getattr(client, "_mlabels", {})).inc(
+            client.sparse_cache_hits - hits0)
+    return blocks, miss_pos, miss
+
+
+def _hot_tier_file_misses(client: Any, leaf: int, miss_ids: np.ndarray,
+                          rows: np.ndarray) -> None:
+    """A table's freshly pulled miss rows into its LRU; the pending int8
+    residuals of the rows they evict go to the flush overflow."""
+    pend = client._flush_pending[leaf]
+    for rid, res_row in client._lru[leaf].insert(miss_ids, rows):
+        if rid in pend:
+            pend[rid] += res_row
+        else:
+            pend[rid] = res_row
+
+
+def _count_cache_misses(client: Any, misses0: int) -> None:
+    if obs.enabled() and client.sparse_cache_misses > misses0:
+        obs.counter("ps_sparse_cache_misses_total", **getattr(client, "_mlabels", {})).inc(
+            client.sparse_cache_misses - misses0)
+
+
+def _hot_tier_seed(client: Any, leaf: int, full: np.ndarray) -> None:
+    """A full pull refreshes every resident row; the first one seeds the
+    LRU with the table's lowest ids (CTR vocabularies put frequent ids low;
+    a wrong guess costs misses only)."""
+    lru = client._lru[leaf]
+    full = np.asarray(full, np.float32)
+    if not lru.slots:
+        lru.insert(np.arange(lru.cap, dtype=net.ROW_ID_DTYPE), full[:lru.cap])
+        lru.misses -= lru.cap  # seeding is no demand miss
+    else:
+        for rid, slot in lru.slots.items():
+            lru.vals[slot] = full[rid]
+
+
+def _hot_tier_commit_arrays(client: Any, delta: Sequence[np.ndarray],
+                            ids_list: Sequence[np.ndarray]) -> List[np.ndarray]:
+    """:func:`_sparse_commit_arrays` of a client with bounded LRUs: the
+    residuals live in the LRU slots, the rows an eviction flushed join the
+    id set (their delta rows plus the flushed residual), and the committed
+    rows, as the hub will read them, merge into the resident entries."""
+    arrays: List[np.ndarray] = []
+    it = iter(ids_list)
+    for i, d in enumerate(delta):
+        if i not in client._sparse_set:
+            if client.compress == "int8":
+                blob, client._residual[i] = net.quantize_q_blob(
+                    np.asarray(d, np.float32) + client._residual[i])
+                arrays.append(np.frombuffer(blob, np.uint8))
+            else:
+                arrays.append(np.asarray(d, np.float32))
+            continue
+        ids = next(it)
+        lru = client._lru[i]
+        dim = client.templates[i].shape[1]
+        pend = client._flush_pending[i]
+        ids_all = (np.union1d(ids, np.fromiter(pend.keys(), np.int64, len(pend)))
+                   if pend else ids)
+        rows = np.ascontiguousarray(np.asarray(d, np.float32)[ids_all])
+        arrays.append(ids_all)
+        if client.compress == "int8":
+            carried = rows + lru.residual_rows(ids_all)
+            if pend:
+                for pos, rid in enumerate(ids_all):
+                    r = pend.pop(int(rid), None)
+                    if r is not None:
+                        carried[pos] += r
+            blob, res = net.quantize_q_blob(carried)
+            lru.store_residuals(ids_all, res)
+            wire_rows = net.dequantize_q_blob(blob, ids_all.size * dim).reshape(
+                ids_all.size, dim)
+            arrays.append(np.frombuffer(blob, np.uint8))
+        else:
+            wire_rows = rows
+            arrays.append(rows)
+        lru.merge(ids_all, wire_rows)
+    return arrays
+
+
+class _RowLRU:
+    """The bounded host store of one table's hot rows: ``cap`` value rows
+    (and int8 residual rows with error feedback) by row id, least recently
+    used evicted first.  Host memory per table is ``cap x dim`` floats
+    instead of the vocabulary's.
+
+    - :meth:`gather` resolves a pull's ids: hit rows are copied out at
+      once, only the misses go to the wire;
+    - :meth:`insert` files a reply's rows, evicting; an evicted row's
+      nonzero residual is returned (it rides the next commit);
+    - :meth:`merge` adds the client's own committed rows into resident
+      entries (other workers' updates arrive at the row's next miss).
+
+    One owner (the client's caller thread)."""
+
+    def __init__(self, cap: int, dim: int, residual: bool):
+        self.cap = max(1, int(cap))
+        self.dim = int(dim)
+        self.vals = np.zeros((self.cap, self.dim), np.float32)
+        self.res = np.zeros((self.cap, self.dim), np.float32) if residual else None
+        # id -> slot; a touched id is reinserted, so the first key is the
+        # least recently used
+        self.slots: Dict[int, int] = {}
+        self._free = list(range(self.cap - 1, -1, -1))
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    def nbytes(self) -> int:
+        return self.vals.nbytes + (self.res.nbytes if self.res is not None else 0)
+
+    def _touch(self, rid: int, slot: int) -> None:
+        del self.slots[rid]
+        self.slots[rid] = slot
+
+    def gather(self, ids: np.ndarray, out: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Copy the resident rows of ``ids`` (sorted unique) into their
+        positions of ``out`` (``[k, dim]``); ``(miss positions, miss ids)``."""
+        miss_pos: List[int] = []
+        for pos, rid in enumerate(ids):
+            slot = self.slots.get(int(rid))
+            if slot is None:
+                miss_pos.append(pos)
+            else:
+                out[pos] = self.vals[slot]
+                self._touch(int(rid), slot)
+                self.hits += 1
+        mp = np.asarray(miss_pos, np.int64)
+        return mp, ids[mp]
+
+    def insert(self, ids: np.ndarray, rows: np.ndarray) -> List[Tuple[int, np.ndarray]]:
+        """File freshly pulled rows; ``[(evicted id, its residual row)]``
+        for the victims whose int8 residual was nonzero."""
+        flushed: List[Tuple[int, np.ndarray]] = []
+        for pos, rid in enumerate(ids):
+            rid = int(rid)
+            slot = self.slots.get(rid)
+            if slot is not None:
+                self.vals[slot] = rows[pos]
+                self._touch(rid, slot)
+                continue
+            self.misses += 1
+            if self._free:
+                slot = self._free.pop()
+            else:
+                victim, slot = next(iter(self.slots.items()))
+                del self.slots[victim]
+                self.evictions += 1
+                if self.res is not None and self.res[slot].any():
+                    flushed.append((victim, self.res[slot].copy()))
+            self.vals[slot] = rows[pos]
+            if self.res is not None:
+                self.res[slot] = 0.0
+            self.slots[rid] = slot
+        return flushed
+
+    def merge(self, ids: np.ndarray, rows: np.ndarray) -> None:
+        """Add committed rows into the resident entries; absent rows are
+        pulled fresh at their next miss."""
+        for pos, rid in enumerate(ids):
+            slot = self.slots.get(int(rid))
+            if slot is not None:
+                self.vals[slot] += rows[pos]
+
+    def residual_rows(self, ids: np.ndarray) -> np.ndarray:
+        """The ``[k, dim]`` residuals of ``ids`` (zero for an absent row:
+        its residual was flushed at the eviction)."""
+        out = np.zeros((len(ids), self.dim), np.float32)
+        if self.res is not None:
+            for pos, rid in enumerate(ids):
+                slot = self.slots.get(int(rid))
+                if slot is not None:
+                    out[pos] = self.res[slot]
+        return out
+
+    def store_residuals(self, ids: np.ndarray, rows: np.ndarray) -> None:
+        """Keep the new residual rows of the resident ids (an absent id's
+        rounding error, one quantization step of its block, is dropped)."""
+        if self.res is None:
+            return
+        for pos, rid in enumerate(ids):
+            slot = self.slots.get(int(rid))
+            if slot is not None:
+                self.res[slot] = rows[pos]
+
+
+class _HotTierCacheSurface:
+    """The sparse cache accessors both clients share: hit and miss totals
+    (the health reports and the registry) and the host bytes the caches
+    hold."""
+
+    @property
+    def sparse_cache_hits(self) -> int:
+        """Pulled rows served from the LRU (0 with full caches)."""
+        return sum(lru.hits for lru in self._lru.values())
+
+    @property
+    def sparse_cache_misses(self) -> int:
+        """Pulled rows fetched over the wire into the LRU."""
+        return sum(lru.misses for lru in self._lru.values())
+
+    def sparse_cache_bytes(self) -> int:
+        """Host bytes of the sparse caches: the LRUs, or the full caches and
+        their int8 residuals."""
+        if self._cache_rows is not None:
+            return sum(lru.nbytes() for lru in self._lru.values())
+        total = sum(c.nbytes for c in self._cache.values())
+        if self._residual is not None:
+            total += sum(self._residual[i].nbytes for i in self._sparse)
+        return total
+
+
+class PSClient(_HotTierCacheSurface):
     """A worker's connection: ``pull()`` / ``commit(delta)`` and the
     pipelined ``pull_nowait`` / ``wait_weights`` / ``commit_nowait`` /
     ``drain``.
@@ -1906,6 +2628,20 @@ class PSClient:
     the job (a ``T`` with a ``job_ns`` key) on every connection, before
     anything else, and trains on that job's center; a refusal raises
     :class:`JobAdmissionError`.
+
+    ``sparse_leaves`` (the hub's) lets ``pull_nowait(sparse_rows=...)`` and
+    ``commit_nowait(delta, sparse_rows=...)`` move only the given rows of
+    each table (one id array a table; actions ``S`` / ``U`` / ``X``).  The
+    client keeps a host cache a table (pinned with ``pin_memory``) that a
+    full pull seeds and each sparse pull merges its rows into, and
+    ``wait_weights`` hands the caches out as the tables: a row this worker
+    has not pulled lately is as stale as async SGD already allows.  Before
+    a reply merges into a cache, ``landing_guard`` is called for both
+    landing buffers (a copy of the cache may still be reading it).  With
+    ``sparse_cache_rows`` each table's cache is a :class:`_RowLRU` of that
+    many rows instead: a pull fetches only the rows not resident, and
+    ``wait_weights`` hands out ``[k, dim]`` blocks in the order of the
+    requested ids.
     """
 
     _RETRYABLE = (ConnectionError, OSError, net.ProtocolError)
@@ -1928,10 +2664,24 @@ class PSClient:
                  landing_guard: Optional[Callable[[int], None]] = None):
         if compress not in (None, "int8"):
             raise ValueError(f"unknown compress {compress!r}; use None or 'int8'")
-        _reject(sparse_leaves=(tuple(sparse_leaves), ()),
-                sparse_cache_rows=(sparse_cache_rows, None))
         self.templates = [np.asarray(t, dtype=np.float32) for t in templates]
         self.compress = compress
+        self._sparse = tuple(sorted({int(i) for i in sparse_leaves}))
+        for i in self._sparse:
+            if not 0 <= i < len(self.templates):
+                raise ValueError(f"sparse leaf index {i} out of range for "
+                                 f"{len(self.templates)} templates")
+            if self.templates[i].ndim != 2:
+                raise ValueError(f"sparse leaf {i} must be a [rows, dim] "
+                                 f"table, got {self.templates[i].shape}")
+        self._sparse_set = frozenset(self._sparse)
+        _init_hot_tier(self, sparse_cache_rows, compress, pin_memory)
+        self._sp_enc = net.VarFrameEncoder() if self._sparse else None
+        # the ids of the sparse pulls in flight, in the order of their
+        # ACTION_SPARSE_WEIGHTS entries (a reconnect sends them again from
+        # here); an LRU client's entries are records of the request ids,
+        # the blocks its hits filled and the misses the wire was asked for
+        self._sparse_pull_ids: Deque[Any] = deque()
         self.max_inflight = max(1, int(max_inflight))
         self.landing_guard = landing_guard
         self.last_landing: Optional[int] = None
@@ -1941,7 +2691,10 @@ class PSClient:
         self._codec = net.FlatFrameCodec(
             self.templates, tx_buffer=host_buffer((frame_len,), np.uint8, pin_memory))
         if compress == "int8":
-            self._residual = [np.zeros(t.shape, np.float32) for t in self.templates]
+            # an LRU client keeps a sparse table's residuals in its slots
+            self._residual = [None if self._cache_rows is not None and i in self._sparse_set
+                              else np.zeros(t.shape, np.float32)
+                              for i, t in enumerate(self.templates)]
             self._q_codec = net.FlatFrameCodec(
                 [np.zeros(4 + t.size, np.uint8) for t in self.templates])
             self._staging = [host_buffer(t.shape, np.float32, pin_memory)
@@ -1951,8 +2704,11 @@ class PSClient:
             self._q_codec = None
             self._staging = [s.reshape(t.shape)
                              for s, t in zip(self._codec.slots, self.templates)]
-        self._pull_bufs = tuple([host_buffer(t.shape, np.float32, pin_memory)
-                                 for t in self.templates] for _ in range(2))
+        # an LRU client keeps no full-size landing slot for a table (that
+        # memory is what the LRU bounds): a full pull lands it in a fresh array
+        self._pull_bufs = tuple([None if self._cache_rows is not None and i in self._sparse_set
+                                 else host_buffer(t.shape, np.float32, pin_memory)
+                                 for i, t in enumerate(self.templates)] for _ in range(2))
         self._flip = 0
         # expected replies in wire order: (kind, send time)
         self._pending: Deque[Tuple[bytes, float]] = deque()
@@ -2190,7 +2946,10 @@ class PSClient:
         # the heartbeat must neither ping the socket being replaced nor
         # close the new one: the whole swap holds the io lock
         with self._io_lock:
-            lost_pulls = sum(1 for kind, _ in self._pending if kind == net.ACTION_WEIGHTS)
+            # the pulls in flight, in wire order (a sparse pull's ids stay in
+            # _sparse_pull_ids, which the reconnect sends again)
+            lost_kinds = [kind for kind, _ in self._pending
+                          if kind in (net.ACTION_WEIGHTS, net.ACTION_SPARSE_WEIGHTS)]
             self._pending.clear()
             try:
                 self.sock.close()
@@ -2250,10 +3009,19 @@ class PSClient:
                     if self.trace_context is not None:
                         self._announce_and_sync()
                     # the pulls in flight go out again inside the attempt:
-                    # a hub dying here costs another attempt, not the caller
-                    for _ in range(lost_pulls):
-                        self.sock.sendall(self._pull_frame)
-                        self._pending.append((net.ACTION_WEIGHTS, time.perf_counter()))
+                    # a hub dying here costs another attempt, not the caller.
+                    # A sparse pull asks for the same rows (an LRU client's
+                    # for the same misses: its hits were resolved when it was sent)
+                    si = 0
+                    for kind in lost_kinds:
+                        if kind == net.ACTION_WEIGHTS:
+                            self.sock.sendall(self._pull_frame)
+                        else:
+                            sp = self._sparse_pull_ids[si]
+                            self._sp_enc.send(self.sock, net.ACTION_SPARSE_PULL,
+                                              sp["miss"] if isinstance(sp, dict) else sp)
+                            si += 1
+                        self._pending.append((kind, time.perf_counter()))
                     self._last_io = time.monotonic()
                     break
                 except (OSError, net.ProtocolError):
@@ -2302,15 +3070,48 @@ class PSClient:
         return self._staging
 
     # -- pipelined API ---------------------------------------------------------
-    def pull_nowait(self) -> None:
-        """Send a pull request; :meth:`wait_weights` consumes its reply."""
+    def pull_nowait(self, sparse_rows: Optional[Sequence] = None) -> None:
+        """Send a pull request; :meth:`wait_weights` consumes its reply.
+        ``sparse_rows`` (one id array a sparse table) pulls only those rows
+        of the tables; ``None`` pulls the whole center and seeds the
+        caches."""
         with self._io_lock:
-            outstanding = (sum(1 for kind, _ in self._pending if kind == net.ACTION_WEIGHTS)
+            outstanding = (sum(1 for kind, _ in self._pending
+                               if kind in (net.ACTION_WEIGHTS, net.ACTION_SPARSE_WEIGHTS))
                            + len(self._ready))
         if outstanding >= 2:
             raise RuntimeError("at most 2 pulls may be outstanding (two landing "
                                "buffers); claim one with wait_weights() first")
-        self._resilient(self._pull_nowait_once)
+        if sparse_rows is None:
+            self._resilient(self._pull_nowait_once)
+            return
+        ids_list = self._row_ids(sparse_rows)
+        if self._cache_rows is None:
+            self._resilient(lambda: self._sparse_pull_once(ids_list))
+            return
+        # the hits are resolved now, once (a retry asks for the same misses)
+        blocks, miss_pos, miss = _hot_tier_gather(self, ids_list)
+        record = {"ids": ids_list, "out": blocks, "miss_pos": miss_pos, "miss": miss}
+        self._resilient(lambda: self._sparse_pull_once(miss, record=record))
+
+    def _row_ids(self, sparse_rows: Sequence) -> List[np.ndarray]:
+        """One id array a sparse table, in the wire's form."""
+        if not self._sparse:
+            raise ValueError("sparse_rows passed to a client with no "
+                             "sparse_leaves configured")
+        if len(sparse_rows) != len(self._sparse):
+            raise ValueError(f"got {len(sparse_rows)} id arrays, client has "
+                             f"{len(self._sparse)} sparse tables")
+        return [net.normalize_row_ids(ids, self.templates[i].shape[0])
+                for ids, i in zip(sparse_rows, self._sparse)]
+
+    def _sparse_pull_once(self, ids_list: List[np.ndarray],
+                          record: Optional[Dict[str, Any]] = None) -> None:
+        with self._io_lock:
+            self._sp_enc.send(self.sock, net.ACTION_SPARSE_PULL, ids_list)
+            self._pending.append((net.ACTION_SPARSE_WEIGHTS, time.perf_counter()))
+            self._sparse_pull_ids.append(ids_list if record is None else record)
+            self._last_io = time.monotonic()
 
     def _pull_nowait_once(self) -> None:
         with self._io_lock:
@@ -2318,21 +3119,29 @@ class PSClient:
             self._pending.append((net.ACTION_WEIGHTS, time.perf_counter()))
             self._last_io = time.monotonic()
 
-    def commit_nowait(self, delta: Sequence[np.ndarray]) -> None:
+    def commit_nowait(self, delta: Sequence[np.ndarray],
+                      sparse_rows: Optional[Sequence] = None) -> None:
         """Send a commit without waiting for its ack.  Blocks only while
-        ``max_inflight`` commits are unacknowledged.  The ``ps.commit`` span
-        covers the client's own work (back-pressure, quantize and pack,
-        send); the ack's wait is ``ps.commit_latency_ms``."""
+        ``max_inflight`` commits are unacknowledged.  ``sparse_rows`` (one
+        id array a sparse table) sends only those rows of the tables'
+        deltas.  The ``ps.commit`` span covers the client's own work
+        (back-pressure, quantize and pack, send); the ack's wait is
+        ``ps.commit_latency_ms``."""
         with obs.span("ps.commit", compress=self.compress or "none", **self._mlabels):
-            self._resilient(lambda: self._commit_nowait_once(delta))
+            self._resilient(lambda: self._commit_nowait_once(delta, sparse_rows))
 
-    def _commit_nowait_once(self, delta: Sequence[np.ndarray]) -> None:
+    def _pulls_in_flight(self) -> bool:
+        return (self._has_pending(net.ACTION_WEIGHTS)
+                or self._has_pending(net.ACTION_SPARSE_WEIGHTS))
+
+    def _commit_nowait_once(self, delta: Sequence[np.ndarray],
+                            sparse_rows: Optional[Sequence] = None) -> None:
         # claim any weights reply in flight first: two large sendall's in
         # opposite directions can fill both kernel buffers and stall.  That
         # receive is pull wire-wait: it counts in ps.pull_stall_ms
-        if self._has_pending(net.ACTION_WEIGHTS):
+        if self._pulls_in_flight():
             t_drain = time.perf_counter() if obs.enabled() else 0.0
-            while self._has_pending(net.ACTION_WEIGHTS):
+            while self._pulls_in_flight():
                 self._consume_one()
             if t_drain:
                 obs.histogram("ps.pull_stall_ms", **self._mlabels).observe(
@@ -2341,6 +3150,26 @@ class PSClient:
             self._consume_one()
         telemetry = obs.enabled()
         t0 = time.perf_counter() if telemetry else 0.0
+        if sparse_rows is not None:
+            ids_list = self._row_ids(sparse_rows)
+            arrays = (_sparse_commit_arrays(delta, self._sparse_set, ids_list,
+                                            self._residual, self.compress)
+                      if self._cache_rows is None
+                      else _hot_tier_commit_arrays(self, delta, ids_list))
+            action = (net.ACTION_SPARSE_QCOMMIT if self.compress == "int8"
+                      else net.ACTION_SPARSE_COMMIT)
+            frame = self._sp_enc.pack(action, arrays)
+            if telemetry:
+                obs.histogram("ps.serialize_ms", **self._mlabels).observe(
+                    (time.perf_counter() - t0) * 1e3)
+                obs.counter("ps.commit_bytes", **self._mlabels).inc(self._sp_enc.frame_len)
+            with self._io_lock:
+                net.send_raw_frame(self.sock, frame)
+                self._pending.append((net.ACTION_ACK, time.perf_counter()))
+                self._last_io = time.monotonic()
+            if telemetry:
+                obs.gauge("ps.inflight_depth", **self._mlabels).set(self._unacked())
+            return
         if self.compress == "int8":
             # a retry after a fault quantizes the same delta again: the
             # residual carries only rounding error, so the delta lands once
@@ -2429,6 +3258,9 @@ class PSClient:
 
     def _consume_one_inner(self) -> None:
         kind, t_sent = self._pending.popleft()
+        if kind == net.ACTION_SPARSE_WEIGHTS:
+            self._consume_sparse_reply(t_sent)
+            return
         if kind != net.ACTION_WEIGHTS:
             # a commit and a health report await the same ack byte; only a
             # commit's round trip is a commit latency sample
@@ -2444,7 +3276,9 @@ class PSClient:
         k = self._flip
         if self.landing_guard is not None:
             self.landing_guard(k)
-        out = self._pull_bufs[k]
+        # an LRU client lands a full pull's tables in fresh arrays
+        out = [np.empty_like(t) if b is None else b
+               for b, t in zip(self._pull_bufs[k], self.templates)]
         self._flip ^= 1
         try:
             reply = self._codec.recv_into(self.sock, out)
@@ -2457,7 +3291,81 @@ class PSClient:
             self._pending.appendleft((kind, t_sent))
             raise
         self._last_io = time.monotonic()
+        if self._sparse:
+            # a full pull seeds the caches, the stable copies the sparse
+            # pulls merge into
+            self._guard_caches()
+            for i in self._sparse:
+                if self._cache_rows is None:
+                    self._cache[i][...] = out[i]
+                else:
+                    _hot_tier_seed(self, i, out[i])
         self._ready.append((out, k))
+        if obs.enabled():
+            obs.histogram("ps.pull_latency_ms", **self._mlabels).observe(
+                (time.perf_counter() - t_sent) * 1e3)
+
+    def _guard_caches(self) -> None:
+        """Wait until no copy out of the caches is in flight: the caller's
+        copy of a handed-out cache is guarded by the landing buffer of the
+        same pull, which may be either."""
+        if self.landing_guard is not None and self._cache_rows is None:
+            self.landing_guard(0)
+            self.landing_guard(1)
+
+    def _consume_sparse_reply(self, t_sent: float) -> None:
+        """A ``V`` reply: dense leaves land in the next landing buffer as a
+        full pull's do, row blocks in fresh arrays; the rows merge into the
+        caches (or into the LRU client's blocks and LRUs)."""
+        entry = self._sparse_pull_ids[0]
+        cached = isinstance(entry, dict)
+        ids_list = entry["miss"] if cached else entry
+        k = self._flip
+        if self.landing_guard is not None:
+            self.landing_guard(k)
+        bufs = self._pull_bufs[k]
+        self._flip ^= 1
+        out: List[np.ndarray] = []
+        si = 0
+        for i, t in enumerate(self.templates):
+            if i in self._sparse_set:
+                out.append(np.empty((ids_list[si].size, t.shape[1]), np.float32))
+                si += 1
+            else:
+                out.append(bufs[i])
+        try:
+            reply, _ = net.recv_tensors(self.sock, out=out)
+            if reply != net.ACTION_SPARSE_WEIGHTS:
+                raise ConnectionError(f"expected sparse weights reply, got {reply!r}")
+        except Exception:
+            self._flip ^= 1
+            self._pending.appendleft((net.ACTION_SPARSE_WEIGHTS, t_sent))
+            raise
+        self._last_io = time.monotonic()
+        self._sparse_pull_ids.popleft()
+        self._guard_caches()
+        result: List[np.ndarray] = []
+        si = 0
+        misses0 = self.sparse_cache_misses
+        for i in range(len(self.templates)):
+            if i not in self._sparse_set:
+                result.append(out[i])
+                continue
+            if cached:
+                block, mp = entry["out"][si], entry["miss_pos"][si]
+                if mp.size:
+                    block[mp] = out[i]
+                _hot_tier_file_misses(self, i, entry["miss"][si], out[i])
+                result.append(block)
+            else:
+                ids = ids_list[si]
+                if ids.size:
+                    self._cache[i][ids] = out[i]
+                result.append(self._cache[i])
+            si += 1
+        self._ready.append((result, k))
+        if cached:
+            _count_cache_misses(self, misses0)
         if obs.enabled():
             obs.histogram("ps.pull_latency_ms", **self._mlabels).observe(
                 (time.perf_counter() - t_sent) * 1e3)
@@ -2468,8 +3376,9 @@ class PSClient:
             self.pull_nowait()
             return self.wait_weights()
 
-    def commit(self, delta: Sequence[np.ndarray]) -> None:
-        self.commit_nowait(delta)
+    def commit(self, delta: Sequence[np.ndarray],
+               sparse_rows: Optional[Sequence] = None) -> None:
+        self.commit_nowait(delta, sparse_rows=sparse_rows)
         self.drain()
 
     def close(self) -> None:
@@ -2496,7 +3405,7 @@ class PSClient:
 
     def __exit__(self, *exc) -> None:
         self.close()
-class InprocPSClient:
+class InprocPSClient(_HotTierCacheSurface):
     """:class:`PSClient`'s surface over a co-located hub
     (``transport="inproc"``): ``pull_direct`` / ``commit_direct`` under the
     hub's lock, no socket.  The nowait calls run at once, at the points
@@ -2506,7 +3415,13 @@ class InprocPSClient:
 
     The hub shares the worker's process and clock: a ``trace_context``
     needs no announce (the hub reads the worker thread's context).
-    ``report_health`` folds a report straight into the hub's collector."""
+    ``report_health`` folds a report straight into the hub's collector.
+
+    ``sparse_leaves`` and ``sparse_cache_rows`` are :class:`PSClient`'s,
+    over the hub's ``pull_sparse_direct`` / ``commit_sparse_direct`` (both
+    unsharded hubs have them; the sharded facade has not): the same caches
+    and LRUs, and a sparse commit goes through the wire's row gather and
+    quantizer and back, so both transports apply the same values."""
 
     def __init__(self, ps: Any, templates: Sequence[np.ndarray],
                  compress: Optional[str] = None, trace_context: Optional[Any] = None,
@@ -2514,12 +3429,21 @@ class InprocPSClient:
                  pin_memory: bool = False):
         if compress not in (None, "int8"):
             raise ValueError(f"unknown compress {compress!r}; use None or 'int8'")
-        _reject(sparse_leaves=(tuple(sparse_leaves), ()),
-                sparse_cache_rows=(sparse_cache_rows, None))
         self.ps = ps
         self.templates = [np.asarray(t, dtype=np.float32) for t in templates]
         self.compress = compress
-        self._residual = ([np.zeros(t.shape, np.float32) for t in self.templates]
+        self._sparse = tuple(sorted({int(i) for i in sparse_leaves}))
+        self._sparse_set = frozenset(self._sparse)
+        _init_hot_tier(self, sparse_cache_rows, compress)
+        if self._sparse and not hasattr(ps, "pull_sparse_direct"):
+            raise ValueError(
+                f"sparse_leaves need a hub with a sparse direct pair "
+                f"(pull_sparse_direct/commit_sparse_direct); "
+                f"{type(ps).__name__} has none — use the socket transport "
+                f"or an unsharded hub")
+        self._residual = ([None if self._cache_rows is not None and i in self._sparse_set
+                           else np.zeros(t.shape, np.float32)
+                           for i, t in enumerate(self.templates)]
                           if compress else None)
         self._staging = [host_buffer(t.shape, np.float32, pin_memory) for t in self.templates]
         self._last_pull_clock = 0
@@ -2535,6 +3459,8 @@ class InprocPSClient:
     def commit_staging(self) -> List[np.ndarray]:
         return self._staging
 
+    _row_ids = PSClient._row_ids
+
     def report_health(self, report: Dict[str, Any]) -> None:
         """:meth:`PSClient.report_health` minus the wire: into the hub's
         collector (a C++ hub has none: the process collector)."""
@@ -2547,14 +3473,51 @@ class InprocPSClient:
         _health.collector().ingest(report)
         _health.monitor().maybe_check()
 
-    def pull_nowait(self) -> None:
+    def pull_nowait(self, sparse_rows: Optional[Sequence] = None) -> None:
         telemetry = obs.enabled()
         t0 = time.perf_counter() if telemetry else 0.0
-        weights, clock = self.ps.pull_direct()
+        if sparse_rows is None:
+            weights, clock = self.ps.pull_direct()
+            for i in self._sparse:
+                if self._cache_rows is None:
+                    self._cache[i][...] = weights[i]
+                else:
+                    _hot_tier_seed(self, i, weights[i])
+        else:
+            weights, clock = self._pull_rows(self._row_ids(sparse_rows))
         self._last_pull_clock = clock
         self._pulled = weights
         if telemetry:
             obs.histogram("ps.pull_latency_ms").observe((time.perf_counter() - t0) * 1e3)
+
+    def _pull_rows(self, ids_list: List[np.ndarray]) -> Tuple[List[np.ndarray], int]:
+        """A sparse pull through the hub's direct pair, merged as
+        :class:`PSClient` merges a ``V`` reply."""
+        if self._cache_rows is not None:
+            blocks, miss_pos, miss = _hot_tier_gather(self, ids_list)
+            misses0 = self.sparse_cache_misses
+            values, clock = self.ps.pull_sparse_direct(miss)
+        else:
+            values, clock = self.ps.pull_sparse_direct(ids_list)
+        result: List[np.ndarray] = []
+        si = 0
+        for i, v in enumerate(values):
+            if i not in self._sparse_set:
+                result.append(v)
+                continue
+            if self._cache_rows is not None:
+                if miss_pos[si].size:
+                    blocks[si][miss_pos[si]] = v
+                _hot_tier_file_misses(self, i, miss[si], np.asarray(v, np.float32))
+                result.append(blocks[si])
+            else:
+                if ids_list[si].size:
+                    self._cache[i][ids_list[si]] = v
+                result.append(self._cache[i])
+            si += 1
+        if self._cache_rows is not None:
+            _count_cache_misses(self, misses0)
+        return result, clock
 
     def wait_weights(self) -> List[np.ndarray]:
         if self._pulled is None:
@@ -2562,17 +3525,29 @@ class InprocPSClient:
         pulled, self._pulled = self._pulled, None
         return pulled
 
-    def commit_nowait(self, delta: Sequence[np.ndarray]) -> None:
+    def commit_nowait(self, delta: Sequence[np.ndarray],
+                      sparse_rows: Optional[Sequence] = None) -> None:
         with obs.span("ps.commit", transport="inproc", compress=self.compress or "none"):
             telemetry = obs.enabled()
             t0 = time.perf_counter() if telemetry else 0.0
-            if self.compress == "int8":
-                blobs = _quantize_commit(delta, self._residual)
-                arrays = [net.dequantize_q_blob(memoryview(b), t.size).reshape(t.shape)
-                          for b, t in zip(blobs, self.templates)]
+            if sparse_rows is not None:
+                ids_list = self._row_ids(sparse_rows)
+                arrays = (_sparse_commit_arrays(delta, self._sparse_set, ids_list,
+                                                self._residual, self.compress)
+                          if self._cache_rows is None
+                          else _hot_tier_commit_arrays(self, delta, ids_list))
+                self.ps.commit_sparse_direct(
+                    _sparse_parts_from_arrays(arrays, self.templates, self._sparse_set,
+                                              self.compress),
+                    self._last_pull_clock)
             else:
-                arrays = [np.asarray(d, np.float32) for d in delta]
-            self.ps.commit_direct(arrays, self._last_pull_clock)
+                if self.compress == "int8":
+                    blobs = _quantize_commit(delta, self._residual)
+                    arrays = [net.dequantize_q_blob(memoryview(b), t.size).reshape(t.shape)
+                              for b, t in zip(blobs, self.templates)]
+                else:
+                    arrays = [np.asarray(d, np.float32) for d in delta]
+                self.ps.commit_direct(arrays, self._last_pull_clock)
             if telemetry:
                 obs.histogram("ps.commit_latency_ms").observe((time.perf_counter() - t0) * 1e3)
 
@@ -2584,8 +3559,9 @@ class InprocPSClient:
             self.pull_nowait()
             return self.wait_weights()
 
-    def commit(self, delta: Sequence[np.ndarray]) -> None:
-        self.commit_nowait(delta)
+    def commit(self, delta: Sequence[np.ndarray],
+               sparse_rows: Optional[Sequence] = None) -> None:
+        self.commit_nowait(delta, sparse_rows=sparse_rows)
 
     def close(self) -> None:
         pass  # the hub belongs to the trainer
@@ -2625,8 +3601,7 @@ class ShardPlan:
     ends of a sharded deployment derive the same plan from the same model;
     no plan travels on the wire.  ``sparse_ranges`` maps a row-sparse leaf
     to one ``(row_lo, row_hi)`` per shard (every shard owns a row range of
-    it); the port's hubs and clients reject sparse leaves (ROADMAP item
-    13), but the plan is the JAX package's whole."""
+    it)."""
 
     def __init__(self, num_shards: int, assignments: Sequence[Sequence[int]],
                  shard_bytes: Sequence[int],
@@ -3153,7 +4128,16 @@ class ShardedPSClient:
     them).  A stripe whose budget runs out (or that has none) raises
     :class:`StripeLostError` naming the shard; the client is then out of
     step and single-use.  ``addresses`` holds one ``(host, port)`` per
-    shard, aligned with ``plan.assignments``."""
+    shard, aligned with ``plan.assignments``.
+
+    Sparse tables (``sparse_leaves``, the plan's): the plan splits each
+    table over every shard by row range.  The client keeps one full-size
+    cache a table and gives each shard's client its row range of it as
+    that shard's cache, so the shards' merges land in the full table and
+    ``wait_weights`` hands it out whole; a pull's or a commit's row ids go
+    to the shards that own them, rebased to the shard's row 0.
+    ``sparse_cache_rows`` is refused (a bounded LRU would need the row
+    ranges split between per-shard LRUs)."""
 
     def __init__(self, addresses: Sequence[Tuple[str, int]], templates: Sequence[np.ndarray],
                  plan: ShardPlan, timeout: Optional[float] = 60.0,
@@ -3166,7 +4150,11 @@ class ShardedPSClient:
                  adaptive: bool = False, sparse_cache_rows: Optional[int] = None,
                  shm: bool = False, pin_memory: bool = False,
                  landing_guard: Optional[Callable[[int], None]] = None):
-        _reject(sparse_cache_rows=(sparse_cache_rows, None))
+        if sparse_cache_rows is not None:
+            raise ValueError(
+                "sparse_cache_rows is not supported on the sharded client: "
+                "hot-tier caching needs num_shards=1 (PSClient/"
+                "InprocPSClient) — drop sparse_cache_rows or the sharding")
         if len(addresses) != plan.num_shards:
             raise ValueError(f"got {len(addresses)} shard addresses, plan has "
                              f"{plan.num_shards} shards")
@@ -3180,11 +4168,21 @@ class ShardedPSClient:
                              f"{len(self.templates)}")
         self.plan = plan
         self.compress = compress
+        self._sparse = tuple(sorted({int(i) for i in sparse_leaves}))
+        if self._sparse and set(self._sparse) != set(plan.sparse_ranges):
+            raise ValueError(
+                f"sparse_leaves {list(self._sparse)} do not match the "
+                f"plan's sparse tables {sorted(plan.sparse_ranges)}; build "
+                f"the plan with shard_plan(..., sparse_leaves=...)")
+        self._cache: Dict[int, np.ndarray] = {}
+        for i in self._sparse:
+            self._cache[i] = host_buffer(self.templates[i].shape, np.float32, pin_memory)
+            self._cache[i][...] = self.templates[i]
         self.shards: List[PSClient] = []
         try:
             for sid, ((host, port), local) in enumerate(zip(addresses,
                                                             plan.split(self.templates))):
-                self.shards.append(PSClient(
+                client = PSClient(
                     host, port, local, timeout=timeout, compress=compress,
                     max_inflight=max_inflight, max_reconnects=max_reconnects,
                     reconnect_backoff=reconnect_backoff,
@@ -3193,12 +4191,24 @@ class ShardedPSClient:
                     shard_id=sid,
                     failover=_normalize_failover(
                         failover[sid] if failover is not None else None),
-                    sparse_leaves=sparse_leaves, adaptive=adaptive, shm=shm,
-                    pin_memory=pin_memory, landing_guard=landing_guard))
+                    sparse_leaves=plan.local_sparse(sid) if self._sparse else (),
+                    adaptive=adaptive, shm=shm,
+                    pin_memory=pin_memory, landing_guard=landing_guard)
+                # the shard's caches are row-range views of the full tables
+                owned = [j for j in plan.assignments[sid] if j in plan.sparse_ranges]
+                for pos, i in zip(plan.local_sparse(sid) if self._sparse else (), owned):
+                    lo, hi = plan.sparse_ranges[i][sid]
+                    client._cache[pos] = self._cache[i][lo:hi]
+                self.shards.append(client)
         except BaseException:
             self.close()
             raise
-        self._staging = plan.assemble([c.commit_staging() for c in self.shards])
+        # a table's staging is one full-size array whose row ranges the
+        # shards' commits gather from
+        self._staging = plan.assemble(
+            [c.commit_staging() for c in self.shards],
+            sparse_fill={i: host_buffer(self.templates[i].shape, np.float32, pin_memory)
+                         for i in self._sparse} or None)
 
     @property
     def transport(self) -> str:
@@ -3235,19 +4245,51 @@ class ShardedPSClient:
                                        address=f"{client.host}:{client.port}", **wattrs)
             raise StripeLostError(sid, client.host, client.port, e) from e
 
-    def pull_nowait(self) -> None:
-        for sid, client in enumerate(self.shards):
-            self._stripe(sid, client.pull_nowait)
+    def _route_rows(self, sparse_rows: Sequence) -> List[List[np.ndarray]]:
+        """Each table's ids split by the shard that owns their row range
+        (one ``searchsorted`` slice of the sorted ids), rebased to the
+        shard's row 0."""
+        if not self._sparse:
+            raise ValueError("sparse_rows passed to a client with no "
+                             "sparse_leaves configured")
+        if len(sparse_rows) != len(self._sparse):
+            raise ValueError(f"got {len(sparse_rows)} id arrays, client has "
+                             f"{len(self._sparse)} sparse tables")
+        ids_list = [net.normalize_row_ids(ids, self.templates[i].shape[0])
+                    for ids, i in zip(sparse_rows, self._sparse)]
+        per_shard: List[List[np.ndarray]] = []
+        for sid in range(self.plan.num_shards):
+            local = []
+            for ids, i in zip(ids_list, self._sparse):
+                lo, hi = self.plan.sparse_ranges[i][sid]
+                a, b = np.searchsorted(ids, (lo, hi))
+                local.append(ids[a:b] - lo)
+            per_shard.append(local)
+        return per_shard
+
+    def pull_nowait(self, sparse_rows: Optional[Sequence] = None) -> None:
+        if sparse_rows is None:
+            for sid, client in enumerate(self.shards):
+                self._stripe(sid, client.pull_nowait)
+            return
+        for sid, (client, local) in enumerate(zip(self.shards, self._route_rows(sparse_rows))):
+            self._stripe(sid, lambda c=client, l=local: c.pull_nowait(sparse_rows=l))
 
     def wait_weights(self) -> List[np.ndarray]:
-        """The full-order weight list; each leaf aliases its shard
-        client's landing buffer, reused two pulls later."""
+        """The full-order weight list; each dense leaf aliases its shard
+        client's landing buffer, reused two pulls later; each table is the
+        client's full cache."""
         return self.plan.assemble([self._stripe(sid, c.wait_weights)
-                                   for sid, c in enumerate(self.shards)])
+                                   for sid, c in enumerate(self.shards)],
+                                  sparse_fill=self._cache or None)
 
-    def commit_nowait(self, delta: Sequence[np.ndarray]) -> None:
+    def commit_nowait(self, delta: Sequence[np.ndarray],
+                      sparse_rows: Optional[Sequence] = None) -> None:
+        routed = self._route_rows(sparse_rows) if sparse_rows is not None else None
         for sid, (client, part) in enumerate(zip(self.shards, self.plan.split(list(delta)))):
-            self._stripe(sid, lambda c=client, p=part: c.commit_nowait(p))
+            local = routed[sid] if routed is not None else None
+            self._stripe(sid, lambda c=client, p=part, l=local: c.commit_nowait(
+                p, sparse_rows=l))
 
     def drain(self) -> None:
         for sid, client in enumerate(self.shards):
@@ -3261,6 +4303,14 @@ class ShardedPSClient:
     def failovers_used(self) -> int:
         return sum(c.failovers_used for c in self.shards)
 
+    @property
+    def sparse_cache_hits(self) -> int:
+        return sum(c.sparse_cache_hits for c in self.shards)
+
+    @property
+    def sparse_cache_misses(self) -> int:
+        return sum(c.sparse_cache_misses for c in self.shards)
+
     def report_health(self, report: Dict[str, Any]) -> None:
         """One report over the shard-0 connection only: a striped worker is
         one logical worker, counted once in the fleet view."""
@@ -3271,8 +4321,9 @@ class ShardedPSClient:
             self.pull_nowait()
             return self.wait_weights()
 
-    def commit(self, delta: Sequence[np.ndarray]) -> None:
-        self.commit_nowait(delta)
+    def commit(self, delta: Sequence[np.ndarray],
+               sparse_rows: Optional[Sequence] = None) -> None:
+        self.commit_nowait(delta, sparse_rows=sparse_rows)
         self.drain()
 
     def close(self) -> None:

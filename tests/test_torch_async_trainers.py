@@ -12,8 +12,8 @@ int8 commits; the C++ hub; two workers that learn; worker threads that
 run at once committing what they commit one after the other; center
 snapshots; the survival options (failover, a standby hub, reconnects,
 heartbeats, elastic ADAG, restarts) working; the control options
-(adaptive, autoscale) behaving as the JAX trainer's; and sparse tables
-raising, naming ROADMAP item 13.
+(adaptive, autoscale) and the sparse-table options behaving as the JAX
+trainer's.
 """
 
 import sys
@@ -340,18 +340,31 @@ UNPORTED = {
 
 @pytest.mark.parametrize("option", sorted(UNPORTED))
 def test_unported_options_raise(option):
-    """Sparse tables still raise, naming item 13.  The options that once
-    raised behave as the JAX trainer's: ``adaptive`` reaches the owned
-    hub's keywords, ``autoscale`` with a ``ps_address`` raises the JAX
-    ``ValueError``, and ``job`` is no trainer keyword in either package
-    (jobs are a client option)."""
+    """The options that once raised behave as the JAX trainer's:
+    ``sparse_tables`` builds with the JAX hub keywords (a model with no
+    declared table is refused at train with the JAX message),
+    ``sparse_cache_rows`` without tables raises the JAX ``ValueError``,
+    ``adaptive`` reaches the owned hub's keywords, ``autoscale`` with a
+    ``ps_address`` raises the JAX ``ValueError``, and ``job`` is no trainer
+    keyword in either package (jobs are a client option)."""
     jm, tm = _models("mlp")
     kw = {option: UNPORTED[option]}
-    if option.startswith("sparse"):
-        if option == "sparse_cache_rows":
-            kw["sparse_tables"] = "auto"
-        with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+    if option == "sparse_tables":
+        b = ta.AsyncADAG(tm, device="cpu", **dict(ONE, **kw))
+        a = ja.AsyncADAG(jm, **dict(ONE, **kw))
+        assert b.sparse_tables == a.sparse_tables == "auto"
+        assert b._hub_kwargs() == a._hub_kwargs()
+        with pytest.raises(ValueError) as te:
+            b.train(TDataset(_data()))
+        with pytest.raises(ValueError) as je:
+            a.train(JDataset(_data()))
+        assert str(te.value) == str(je.value)
+    elif option == "sparse_cache_rows":
+        with pytest.raises(ValueError) as te:
             ta.AsyncADAG(tm, device="cpu", **kw)
+        with pytest.raises(ValueError) as je:
+            ja.AsyncADAG(jm, **kw)
+        assert str(te.value) == str(je.value)
     elif option == "adaptive":
         b = ta.AsyncADAG(tm, device="cpu", **kw)
         a = ja.AsyncADAG(jm, **kw)

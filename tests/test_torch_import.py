@@ -73,7 +73,6 @@ def test_source_imports_nothing_of_jax(relpath):
 # with the ROADMAP item that ports each
 UNPORTED_NAMES = {
     "create_mesh": "11",
-    "synthetic_ctr_dataset": "13",
 }
 # names the port leaves out by design (ROADMAP Queue C says why)
 BY_DESIGN = {"pin_cpu_devices"}

@@ -151,13 +151,45 @@ def test_start_parameter_server_validation_equals_jax(case):
 @pytest.mark.parametrize("option,value,item", [
     ("sparse_tables", "auto", "13"), ("adaptive", True, "8b")])
 def test_start_parameter_server_unported_options_name_their_items(option, value, item):
-    """Sparse tables still raise, naming item 13.  The option that once
-    raised, ``adaptive``: as the JAX function's, it starts an adaptive hub
-    (Python and C++) that answers a reconnect announce with ``Y`` 0."""
+    """The options that once raised (the ROADMAP item named the port's),
+    as the JAX function's: ``sparse_tables="auto"`` on a model with no
+    declared table raises the JAX ``ValueError``, and on the CTR model
+    serves its table by row on both hubs (an ``S`` pull answered with the
+    JAX hub's ``V`` bytes); ``adaptive`` starts an adaptive hub (Python and
+    C++) that answers a reconnect announce with ``Y`` 0."""
     jm, tm = _models()
     if option == "sparse_tables":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+        with pytest.raises(ValueError) as te:
             tl.start_parameter_server(tm, port=0, **{option: value})
+        with pytest.raises(ValueError) as je:
+            jl.start_parameter_server(jm, port=0, **{option: value})
+        assert str(te.value) == str(je.value)
+        from distkeras_torch.models.embedding import ctr_embedding_spec as tctr
+        from distkeras_tpu.models.embedding import ctr_embedding_spec as jctr
+
+        jcm = JModel.init(jctr(40, dim=3, fields=2, hidden_sizes=(4,)), seed=0)
+        tcm = TModel(tctr(40, dim=3, fields=2, hidden_sizes=(4,)),
+                     params_from_jax(jax.tree.map(np.asarray, jcm.params),
+                                     tctr(40, dim=3, fields=2, hidden_sizes=(4,)), device="cpu"))
+        hubs = [tl.start_parameter_server(tcm, port=0, **{option: value}),
+                tl.start_parameter_server(tcm, port=0, native=True, **{option: value}),
+                jl.start_parameter_server(jcm, port=0, **{option: value})]
+        request = tps.net.encode_tensors(tps.net.ACTION_SPARSE_PULL,
+                                         [np.array([1, 7, 39], np.int64)])
+        try:
+            assert hubs[0].sparse_leaves == hubs[1].sparse_leaves == hubs[2].sparse_leaves == (4,)
+            replies = []
+            for h in hubs:
+                sock = socket.create_connection(("127.0.0.1", h.port), timeout=10)
+                try:
+                    tps.net.send_frame(sock, request)
+                    replies.append(tps.net.recv_frame(sock))
+                finally:
+                    sock.close()
+            assert replies[0] == replies[1] == replies[2]
+        finally:
+            for h in hubs:
+                h.stop()
         return
     hubs = [tl.start_parameter_server(tm, port=0, mode="adag", adaptive=True),
             tl.start_parameter_server(tm, port=0, mode="adag", adaptive=True, native=True),
@@ -354,9 +386,48 @@ def test_daemon_per_shard_blobs_reassemble_to_the_trainer_center(tmp_path):
         np.testing.assert_array_equal(a, b.numpy())
 
 
+def test_sparse_shard_daemons_serve_a_sparse_run_and_blobs_reassemble(tmp_path):
+    """Two ``--sparse-tables auto`` shard daemons (the table split by row
+    range) serve a worker-only sparse AsyncADAG on the CTR model; each
+    applies every commit, and their ``--save-final`` blobs (the shard's
+    rows written into the table) reassemble through the plan to the
+    trainer's center."""
+    from distkeras_torch.data.ctr import synthetic_ctr_dataset
+    from distkeras_torch.models.base import sparse_leaf_indices
+    from distkeras_torch.models.embedding import ctr_embedding_spec
+    from distkeras_torch.utils import flatten_weights
+
+    tm = TModel.init(ctr_embedding_spec(40, dim=4, fields=2, hidden_sizes=(4,)), device="cpu")
+    blob = tmp_path / "model.bin"
+    blob.write_bytes(tm.serialize())
+    daemons = []
+    try:
+        for i in range(2):
+            daemons.append(_daemon(["--model", str(blob), "--mode", "adag", "--host", "127.0.0.1",
+                                    "--port", "0", "--num-shards", "2", "--shard-index", str(i),
+                                    "--sparse-tables", "auto",
+                                    "--save-final", str(tmp_path / f"final{i}.bin")],
+                                   tmp_path, f"ps{i}"))
+        tr = ta.AsyncADAG(tm, device="cpu", ps_address=[("127.0.0.1", p) for _, p in daemons],
+                          sparse_tables="auto", **ONE)
+        trained = tr.train(synthetic_ctr_dataset(64, 40, fields=2), shuffle=False)
+    finally:
+        outs = [_stop(proc) for proc, _ in daemons]
+    assert all(f"({len(tr.history)} updates)" in out for out in outs)
+    center = [c.numpy() for c in flatten_weights(trained.params, trained.spec)[0]]
+    plan = tps.shard_plan(center, 2, sparse_leaves=sparse_leaf_indices(tm.spec, tm.params))
+    parts = []
+    for i in range(2):
+        saved = TModel.deserialize((tmp_path / f"final{i}.bin").read_bytes(), device="cpu")
+        parts.append(plan.split([w.numpy() for w in flatten_weights(saved.params,
+                                                                     saved.spec)[0]])[i])
+    for a, b in zip(plan.assemble(parts), center):
+        np.testing.assert_array_equal(a, b)
+
+
 @pytest.mark.parametrize("argv", [["--shard-index", "0"], ["--restore"],
                                   ["--num-shards", "2", "--replica-of", "h:1"],
-                                  ["--replica-of", "nohostport"]])
+                                  ["--replica-of", "nohostport"], ["--sparse-tables", "0,x"]])
 def test_daemon_argument_errors_equal_jax(argv, capsys):
     for main in (tl.main, jl.main):
         with pytest.raises(SystemExit) as exit_info:

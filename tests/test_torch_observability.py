@@ -610,6 +610,49 @@ def _async(**extra):
     return leg
 
 
+def _leg_sparse(jm, tm, cols):
+    """A sparse run in each package: a worker-only ``AsyncADAG`` with a
+    hot-tier cache on a CTR log, against a sparse hub (its hot-row gauge
+    set every 4 folds) with a sparse standby (row-delta replication)."""
+    from distkeras_torch.data.ctr import synthetic_ctr_dataset as tctr_data
+    from distkeras_torch.models.base import sparse_leaf_indices
+    from distkeras_torch.models.embedding import ctr_embedding_spec as tctr
+    from distkeras_torch.utils import flatten_weights
+    from distkeras_tpu.data.ctr import synthetic_ctr_dataset as jctr_data
+    from distkeras_tpu.models.embedding import ctr_embedding_spec as jctr
+
+    jcm = JModel.init(jctr(48, dim=4, fields=2, hidden_sizes=(4,)), seed=0)
+    spec = tctr(48, dim=4, fields=2, hidden_sizes=(4,))
+    tcm = TModel(spec, params_from_jax(jax.tree.map(np.asarray, jcm.params), spec,
+                                       device="cpu"))
+    flat = [w.numpy() for w in flatten_weights(tcm.params, spec)[0]]
+    sparse = sparse_leaf_indices(spec, tcm.params)
+    kw = dict(ONE, sparse_tables="auto", sparse_cache_rows=12, trace_context="job-parity",
+              max_reconnects=0)
+    for mod, trainer, model, log in ((jps, ja.AsyncADAG, jcm, jctr_data(64, 48, fields=2)),
+                                     (tps, ta.AsyncADAG, tcm, tctr_data(64, 48, fields=2))):
+        hub = mod.ADAGParameterServer(flat, num_workers=1, idle_timeout=None,
+                                      sparse_leaves=sparse)
+        hub.TOUCH_DECAY_EVERY = 4
+        hub.start()
+        standby = mod.ADAGParameterServer(flat, num_workers=1, idle_timeout=None,
+                                          sparse_leaves=sparse,
+                                          replica_of=("127.0.0.1", hub.port))
+        standby.start()
+        try:
+            assert standby.wait_synced(10)
+            extra = {} if mod is jps else {"device": "cpu"}
+            trainer(model, ps_address=("127.0.0.1", hub.port), **kw, **extra).train(
+                log, shuffle=False)
+            deadline = time.monotonic() + 10
+            while standby.num_updates < hub.num_updates and time.monotonic() < deadline:
+                time.sleep(0.01)
+            assert standby.num_updates == hub.num_updates > 0
+        finally:
+            standby.stop()
+            hub.stop()
+
+
 LEGS = {
     "single": _leg_single, "adag": _leg_adag, "feed": _leg_feed, "loader": _leg_loader,
     "punchcard": _leg_punchcard,
@@ -620,6 +663,7 @@ LEGS = {
     "async-socket-sharded": _async(transport="socket", num_shards=2),
     "async-socket-health": _async(transport="socket", health_interval_s=3600.0,
                                   pipeline=False),
+    "async-sparse": _leg_sparse,
 }
 
 
@@ -628,7 +672,10 @@ def test_hooks_record_the_same_names_and_counts(both, fixed_span_ids, leg, monke
                                                 tmp_path):
     """Equal names everywhere, and equal counts; on the health leg the
     frames' byte counters are left out of the values: a report carries the
-    worker's wall clock and window times, whose decimal length varies."""
+    worker's wall clock and window times, whose decimal length varies.
+    The sparse leg's counts include the rows pulled and committed, the
+    bytes saved, the hot-row gauge, the cache hits and misses and the
+    row-delta replication's saved bytes."""
     cols = _data()
     jm, tm = _models()
     fn = LEGS[leg]
@@ -648,6 +695,12 @@ def test_hooks_record_the_same_names_and_counts(both, fixed_span_ids, leg, monke
 
     assert valued(b) == valued(a)
     assert _span_names(tobs.TRACER) == _span_names(jobs.TRACER)
+    if leg == "async-sparse":
+        for name in ("counter ps.sparse_rows_pulled", "counter ps.sparse_rows_committed",
+                     "counter ps.sparse_wire_bytes_saved", 'gauge ps.sparse_hot_rows{table="4"}',
+                     "counter ps_sparse_cache_hits_total", "counter ps_sparse_cache_misses_total",
+                     "counter ps.repl_sparse_bytes_saved"):
+            assert name in b, name
 
 
 def test_trainer_and_engine_spans_nest_per_epoch(both):
@@ -701,7 +754,8 @@ def test_every_commit_span_carries_its_workers_context(both, native, tmp_path, m
 
 def test_telemetry_off_makes_zero_registry_calls(monkeypatch):
     """Off, the trainers, the engine, the feed, the hubs, the clients and
-    the async window path never look an instrument up, and no span records."""
+    the async window path (dense and sparse) never look an instrument up,
+    and no span records."""
     _fresh(monkeypatch, enabled=False)
     calls = []
     orig = tmetrics.MetricsRegistry._get
@@ -719,6 +773,14 @@ def test_telemetry_off_makes_zero_registry_calls(monkeypatch):
     for transport in ("socket", "inproc"):
         ta.AsyncADAG(tm, device="cpu", transport=transport, **ONE).train(TDataset(cols))
     ta.AsyncADAG(tm, device="cpu", native_ps=True, **ONE).train(TDataset(cols))
+    # the sparse window, with and without the hot tier, on both hubs
+    from distkeras_torch.data.ctr import synthetic_ctr_dataset
+    from distkeras_torch.models.embedding import ctr_embedding_spec
+
+    ctr = TModel.init(ctr_embedding_spec(32, dim=4, fields=2, hidden_sizes=(4,)), device="cpu")
+    for kw in (dict(), dict(sparse_cache_rows=8), dict(native_ps=True, transport="inproc")):
+        ta.AsyncADAG(ctr, device="cpu", sparse_tables="auto", **kw, **ONE).train(
+            synthetic_ctr_dataset(64, 32, fields=2))
     assert calls == []
     assert len(tobs.TRACER.events()) == 0
 

@@ -437,15 +437,40 @@ def _g_round_trip(port, waits_taken=0):
 
 @pytest.mark.parametrize("option", ["sparse_leaves", "adaptive"])
 def test_hub_options_not_ported_raise(option):
-    """Sparse tables still raise, naming item 13.  The option that once
-    raised, ``adaptive``: both of the port's hubs build with it and answer
-    a reconnect announce with the JAX adaptive hub's ``Y`` bytes (0 outside
-    a storm)."""
+    """The options that once raised, as the JAX hub's: with
+    ``sparse_leaves`` both of the port's hubs answer an ``S`` pull with the
+    JAX hub's ``V`` bytes (and refuse a 1-D leaf as it does); ``adaptive``
+    builds both and they answer a reconnect announce with the JAX adaptive
+    hub's ``Y`` bytes (0 outside a storm)."""
     if option == "sparse_leaves":
-        with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-            tps.ADAGParameterServer(_weights(), num_workers=2, sparse_leaves=(0,))
-        with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-            NativeParameterServer(_weights(), mode=MODE_ADAG, sparse_leaves=(0,))
+        w = [np.arange(24, dtype=np.float32).reshape(6, 4), np.ones(3, np.float32)]
+        for make in (lambda: tps.ADAGParameterServer(_weights(), num_workers=2,
+                                                     sparse_leaves=(1,)),
+                     lambda: jps.ADAGParameterServer(_weights(), num_workers=2,
+                                                     sparse_leaves=(1,))):
+            with pytest.raises(ValueError, match="must be a \\[rows, dim\\] table"):
+                make()
+        hubs = [tps.ADAGParameterServer(w, num_workers=2, sparse_leaves=(0,)),
+                NativeParameterServer(w, mode=MODE_ADAG, num_workers=2, sparse_leaves=(0,)),
+                jps.ADAGParameterServer(w, num_workers=2, sparse_leaves=(0,))]
+        for h in hubs:
+            h.start()
+        try:
+            request = jnet.encode_tensors(jnet.ACTION_SPARSE_PULL, [np.array([0, 2, 5], np.int64)])
+            replies = []
+            for h in hubs:
+                sock = jnet.connect("127.0.0.1", h.port, timeout=TIMEOUT)
+                try:
+                    jnet.send_frame(sock, request)
+                    replies.append(jnet.recv_frame(sock))
+                finally:
+                    sock.close()
+            assert replies[0] == replies[1] == replies[2]
+            assert replies[0] == jnet.encode_tensors(jnet.ACTION_SPARSE_WEIGHTS,
+                                                     [w[0][[0, 2, 5]], w[1]])
+        finally:
+            for h in hubs:
+                h.stop()
         return
     hubs = [tps.ADAGParameterServer(_weights(), num_workers=2, adaptive=True),
             NativeParameterServer(_weights(), mode=MODE_ADAG, num_workers=2, adaptive=True),

@@ -327,10 +327,16 @@ def test_start_is_all_or_nothing():
 
 
 def test_unported_facade_and_striped_options_name_their_items():
+    """The striped client's ``sparse_cache_rows`` raises the JAX client's
+    ``ValueError`` (a bounded LRU needs one shard), before it dials."""
     t = _templates()
     plan = tps.shard_plan(t, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        tps.ShardedPSClient([("127.0.0.1", 1), ("127.0.0.1", 2)], t, plan, sparse_cache_rows=4)
+    addresses = [("127.0.0.1", 1), ("127.0.0.1", 2)]
+    with pytest.raises(ValueError) as te:
+        tps.ShardedPSClient(addresses, t, plan, sparse_cache_rows=4)
+    with pytest.raises(ValueError) as je:
+        jps.ShardedPSClient(addresses, t, plan, sparse_cache_rows=4)
+    assert str(te.value) == str(je.value)
 
 
 @pytest.mark.parametrize("option", ["snapshot_dir", "max_reconnects", "failover",

@@ -254,8 +254,8 @@ def test_metrics_history_and_profile(tmp_path):
 def test_entry_points_refuse_what_is_not_ported():
     _, tm = _models("mlp")
     x, y, _ = _data()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        AsyncADAG(tm, device="cpu", sparse_tables="auto")
+    with pytest.raises(ValueError, match="sparse_cache_rows requires num_shards=1"):
+        AsyncADAG(tm, device="cpu", sparse_tables="auto", sparse_cache_rows=4, num_shards=2)
     with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
         tt.ADAG(tm, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
