@@ -174,7 +174,33 @@ Phases, in order; any failure exits non-zero and prints no result line:
    each one's per-window wall, and one worker serial on the two hubs to
    the bit; (f) distkeras-torch-ctr at its defaults prints a wire ratio
    below 1.  No kernel of the port lies on this path;
-13. report: one JSON line of kernels, the card's name and power limit, and
+13. moe_rnn (main path, after the sparse workload): (a) the MoE
+   TransformerLM of bench.py:1114-1230's MoE leg (batch 4, seq 512, 512
+   wide, 4 heads of 128, 8 layers, vocab 8192, 8 experts, capacity 512,
+   bf16 compute, f32 params, sgd 0.01) through make_moe_lm_train_step, on
+   the legs top-1 and top-2, each with sorted and dense dispatch.  Gates:
+   (1) one step at 2 layers, card against the port's CPU path in float32
+   (the whole param dict's relative L2, 1e-4, and the update's, 1e-3,
+   which a step with learning rate 0 or 1.02 times too large must fail);
+   (2) sorted against dense on the card, loss and router stats; (3) B1 and
+   B2 once a layer in each leg's counted step; (4) 20 adam 3e-3 steps on a
+   fixed batch lower the loss; (5) an ep > 1 mesh and make_generate_fn on
+   the MoE spec raise; (6) the bf16 top-1 step with dense attention in
+   place of B1 and B2, loss, stats and update.
+   Then each leg's ms a step (host-clock median of 3 and the profiler's
+   device ms), tokens/s, idle share, the expert-FLOP-accounted MFU as
+   bench.py:1160-1170 reckons it, dispatch_flops_pct, dropped fraction and
+   max expert load, sorted_vs_dense at each top-k, and one profiled sorted
+   top-1 step.  (b) moe_classifier_spec's model with f32 experts through
+   make_moe_train_step, one step card against CPU (params and update, as
+   gate 1).  (c) the RNN family at
+   lstm_classifier_spec's defaults (vocab 1024, seq 64, embed 128, hidden
+   128, batch 256): LSTM and GRU logits card against CPU (f32),
+   SingleTrainer learning tests/test_rnn.py's token-parity task (accuracy
+   above 0.9), ADAG over 8 stacked GRU replicas for one window card against
+   CPU (f32; params and update, as gate 1); then samples/s of SingleTrainer and 8-replica ADAG and a
+   profiled epoch of each.  No kernel of the port lies on (b) or (c);
+14. report: one JSON line of kernels, the card's name and power limit, and
    the final {"ok": true, ...} line.
 
 Weights are random, drawn from seed 0.  Needs nothing but this checkout,
@@ -2961,6 +2987,409 @@ def sparse_phase(torch, np, smi):
     print(f"sparse phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# the MoE leg of bench.py (_bench_moe, bench.py:1114-1230): batch 4, seq
+# 512, 512 wide, 4 heads of 128, 8 layers, vocab 8192, 8 experts, capacity
+# the block default ceil(2 B L / E) = 512; bf16 compute, f32 params, sgd 0.01
+MOE = dict(batch=4, seq=512, dim=512, heads=4, layers=8, vocab=8192, experts=8)
+MOE_GATE_LAYERS = 2      # gate 1 runs the full width at this depth (the CPU side)
+MOE_F32_TOL = 1e-4       # gates 1 and (b): card against CPU, f32, param dict relative L2
+# Gates 1, (b) and (c)3 also hold the step's update, new params less the
+# old, card against CPU: ||dA - dB|| / ||dB|| over the whole dict.  The
+# update is about 1e-4 of the params' norm, so the relative L2 of the params
+# alone would pass a step that does not update.  Each of these gates also
+# runs two faulty steps on the card, one with learning rate 0 (no update,
+# reads 1) and one with it 1.02 times too large (its gradient scaled, reads
+# about 2e-2), and requires each to read above ten times the limit
+UPDATE_TOL = 1e-3
+UPDATE_FAULT_SCALE = 1.02
+# gate 2: sorted against dense on the card, bf16.  Top-1 moves each row
+# unchanged on both paths; top-2 sums two gated rows in another order, and a
+# one-ulp change can flip a later layer's near-tie routing, which moves a
+# stat by 1/(k T) and the loss a little
+MOE_LOSS_TOL = 1e-3      # relative
+MOE_STAT_TOL = 1e-2      # absolute, dropped_fraction and max_expert_load
+MOE_ADAM_MIN_DROP = 0.5  # gate 4: 20 adam 3e-3 steps on a fixed batch
+# gate 6: B1 and B2 at the legs' attention shape [4, 512, 4, 128] bf16
+# against their plain versions (flash_bwd_phase's tolerances), then the bf16
+# top-1 step with flash attention against the same step with dense
+# attention, which rounds the scores and probabilities to bf16 where flash
+# keeps them in f32 (training_phase holds the dense LM to 1e-4 and 3e-2).
+# Here a router choice within that rounding of a tie flips, in some layer,
+# which sends the token through another expert and moves its loss and its
+# whole expert gradient: measured on an H100, loss 9.0e-5, stats 1.7e-3,
+# update 3.2e-2 of its norm (the worst leaf a router, 0.17)
+MOE_ATTN_LOSS_TOL = 1e-3     # relative
+MOE_ATTN_UPDATE_TOL = 1e-1   # update gap over the whole dict
+# the RNN family at lstm_classifier_spec's defaults, batch 256
+RNN = dict(vocab=1024, seq=64, embed=128, batch=256)
+RNN_TOL = 1e-4           # gates (c)1 and (c)3: card against CPU, f32, relative L2
+RNN_ADAG_REPLICAS, RNN_ADAG_BATCH, RNN_ADAG_WINDOW = 8, 32, 2
+
+
+def _moe_spec(small_lm_spec, top_k, impl, layers=None, dtype="bfloat16"):
+    spec = small_lm_spec(vocab_size=MOE["vocab"], model_dim=MOE["dim"], num_heads=MOE["heads"],
+                         num_layers=layers or MOE["layers"], max_seq_len=MOE["seq"],
+                         moe_experts=MOE["experts"], moe_top_k=top_k, moe_dispatch=impl)
+    spec.config["compute_dtype"] = dtype
+    return spec
+
+
+def _moe_flops(moe_mod):
+    """bench.py:1160-1170's per-step matmul FLOPs (fwd x3): the experts'
+    executed slabs (E x capacity slots through up and down), qkv + proj,
+    causal attention, the router, the tied unembed; and each dispatch
+    implementation's routing einsums, kept out of the MFU."""
+    e, f, n = MOE["dim"], 4 * MOE["dim"], MOE["layers"]
+    t = MOE["batch"] * MOE["seq"]
+    cap = -(-2 * t // MOE["experts"])
+    expert_fl = 3 * 4 * MOE["experts"] * cap * e * f
+    attn_proj_fl = 3 * (2 * t * 4 * e * e + 2 * MOE["batch"] * MOE["seq"] ** 2 * e)
+    router_fl = 3 * 2 * t * e * MOE["experts"]
+    model_fl = n * (expert_fl + attn_proj_fl + router_fl) + 3 * 2 * t * e * MOE["vocab"]
+    dispatch = {impl: n * 3 * moe_mod.dispatch_matmul_flops(t, MOE["experts"], cap, e, impl)
+                for impl in ("sorted", "dense")}
+    return model_fl, dispatch
+
+
+def _moe_attention_kernels(torch, fa):
+    """B1 and the fused B2 on causal bf16 q/k/v of the MoE legs' shape,
+    strided views of one qkv tensor as the blocks hand them over, against
+    the plain forward and backward."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    d = MOE["dim"] // MOE["heads"]
+    qkv = torch.randn((MOE["batch"], MOE["seq"], 3, MOE["heads"], d), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    o, lse, _ = check_fwd(torch, fa, q, k, v, "causal (moe gate 6)", True, 0, 0)
+    got = fa.flash_backward_cuda(q, k, v, o, lse, do, None, True, 0, 0, split=False)
+    torch.cuda.synchronize()
+    errs = _rel_err(got, fa.flash_backward_plain(q, k, v, o, lse, do, None, True, 0, 0))
+    print(f"moe gate 6, flash_bwd_fused [{MOE['batch']},{MOE['seq']},{MOE['heads']},{d}] "
+          f"causal: max|d - d_plain| (rel to max|d|) dq/dk/dv "
+          + ", ".join(f"{e:.3e} ({r:.1e})" for e, r in errs) + " (tol 1e-02 rel)")
+    check(all(r <= 1e-2 for _, r in errs) and all(bool(torch.isfinite(g.float()).all())
+                                                   for g in got),
+          "moe gate 6: flash_bwd_fused disagrees with plain at the MoE shape")
+
+
+def _parity_tokens(np, n, seq_len, vocab, seed):
+    """tests/test_rnn.py:37-44's task: is token 0's count even?"""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, vocab, (n, seq_len)).astype(np.int32)
+    labels = ((toks == 0).sum(axis=1) % 2 == 0).astype(np.int64)
+    return toks, np.eye(2, dtype=np.float32)[labels], labels
+
+
+def _held_update(p0, card, cpu, faults, what):
+    """Gate on the update, card against CPU (see UPDATE_TOL): ``p0`` the
+    params before, ``card`` and ``cpu`` after, ``faults`` the params after
+    each faulty card run by name, which must each read above ten times the
+    limit."""
+    def host(tree):
+        return {k: t.detach().cpu() for k, t in tree.items()}
+
+    p0, cpu = host(p0), host(cpu)
+    upd, worst, worst_name = _update_gap(p0, host(card), cpu)
+    faulty = {name: _update_gap(p0, host(p), cpu)[0] for name, p in faults.items()}
+    print(f"{what}: update gap {upd:.3e} of its norm (tol {UPDATE_TOL:g}; worst leaf "
+          f"{worst_name} {worst:.3e}); faulty steps "
+          f"{', '.join(f'{k} {v:.3e}' for k, v in faulty.items())} (each must read above "
+          f"{10 * UPDATE_TOL:g})")
+    check(upd <= UPDATE_TOL, f"{what}: the update on the card departs from the CPU's")
+    check(all(v > 10 * UPDATE_TOL for v in faulty.values()),
+          f"{what}: a faulty step passed the update gate: {faulty}")
+
+
+def _fault_lrs(lr):
+    return {"lr 0": 0.0, f"lr x{UPDATE_FAULT_SCALE:g}": lr * UPDATE_FAULT_SCALE}
+
+
+def _gate_runs(lr):
+    """(name, device, learning rate) of a gate's runs: the CPU and the card
+    at ``lr``, then the faulty card runs."""
+    return [("cpu", "cpu", lr), ("cuda", "cuda", lr),
+            *((name, "cuda", f) for name, f in _fault_lrs(lr).items())]
+
+
+def moe_rnn_phase(torch, np, smi, fa):
+    """(a) The MoE TransformerLM at bench.py's MoE leg through
+    make_moe_lm_train_step, its attention through the flash kernels; (b)
+    moe_classifier_spec through make_moe_train_step; (c) the RNN family.
+    Returns the B1/B2 launches of the counted MoE steps, one a leg."""
+    from distkeras_torch import ADAG, Model, SingleTrainer
+    from distkeras_torch.data import Dataset
+    from distkeras_torch.models.base import ModelSpec, register_model
+    from distkeras_torch.models.decode import make_generate_fn
+    from distkeras_torch.models.rnn import lstm_classifier_spec
+    from distkeras_torch.models.transformer import small_lm_spec
+    from distkeras_torch.ops.optimizers import get_optimizer
+    from distkeras_torch.parallel import moe
+    from distkeras_torch.parallel.lm import shift_targets
+
+    t_phase = time.perf_counter()
+    print(f"moe_rnn phase on {smi}")
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, MOE["vocab"], (MOE["batch"], MOE["seq"]))
+    targets = shift_targets(tokens)
+    sgd = get_optimizer("sgd", 0.01)
+    n_layers = MOE["layers"]
+
+    # (a) gate 1: one step at full width and 2 layers, card against CPU, f32
+    spec32 = _moe_spec(small_lm_spec, 1, "auto", layers=MOE_GATE_LAYERS, dtype="float32")
+    p0 = spec32.init_params(seed=0, device="cpu")
+    runs = {}
+    for name, dev, lr in _gate_runs(0.01):
+        opt = get_optimizer("sgd", lr)
+        step = moe.make_moe_lm_train_step(spec32, opt, device=dev)
+        p = {k: t.to(dev) for k, t in p0.items()}
+        runs[name] = step(p, opt.init(p), tokens, targets)
+    card = {k: t.cpu() for k, t in runs["cuda"][0].items()}
+    gaps = _gaps(card, runs["cpu"][0])
+    l_card, l_cpu = runs["cuda"][2].item(), runs["cpu"][2].item()
+    stats = {k: (float(runs["cuda"][3][k]), float(runs["cpu"][3][k])) for k in runs["cpu"][3]}
+    print(f"moe gate 1, {MOE_GATE_LAYERS} layers f32 sorted top-1, card against CPU: loss "
+          f"{l_card:.6f} / {l_cpu:.6f}; params relative L2 {_gap_text(gaps)} (tol "
+          f"{MOE_F32_TOL:g}); stats card / cpu {stats}")
+    check(gaps[0] <= MOE_F32_TOL and abs(l_card - l_cpu) <= MOE_F32_TOL * abs(l_cpu)
+          and all(abs(a - b) <= MOE_STAT_TOL for a, b in stats.values()),
+          "moe gate 1: the f32 MoE LM step on the card disagrees with its CPU path")
+    _held_update(p0, card, runs["cpu"][0],
+                 {name: runs[name][0] for name in _fault_lrs(0.01)}, "moe gate 1")
+    del runs, card
+
+    # the main path: one counted step a leg, counts set to 0 just before it
+    params = _moe_spec(small_lm_spec, 1, "sorted").init_params(seed=0, device="cuda")
+    legs, launched = {}, {"flash_fwd": 0, "flash_bwd_fused": 0}
+    for top_k in (1, 2):
+        for impl in ("sorted", "dense"):
+            spec = _moe_spec(small_lm_spec, top_k, impl)
+            step = moe.make_moe_lm_train_step(spec, sgd, {"dp": 1, "ep": 1}, device="cuda")
+            _zero_counts(fa)
+            p, _, loss, st = step(dict(params), sgd.init(params), tokens, targets)
+            torch.cuda.synchronize()
+            counts = _counts(fa)
+            name = f"top{top_k}" + ("" if impl == "sorted" else "_dense")
+            legs[name] = dict(step=step, spec=spec, impl=impl, loss=loss.item(),
+                              stats={k: float(v) for k, v in st.items()})
+            print(f"moe leg {name}: loss {loss.item():.6f} (ln V = {np.log(MOE['vocab']):.6f}), "
+                  f"stats {legs[name]['stats']}, launches {counts}")
+            # gate 3: B1 and B2 once a layer in the one counted step
+            check(counts == {"flash_fwd": n_layers, "flash_bwd_fused": n_layers,
+                             "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
+                  f"moe gate 3: leg {name} launches {counts}, want {n_layers} B1 and B2")
+            check(bool(torch.isfinite(loss)) and all(bool(torch.isfinite(t).all())
+                                                     for t in p.values()),
+                  f"moe leg {name}: non-finite loss or params")
+            for k in launched:
+                launched[k] += counts[k]
+            if name == "top1":
+                p_top1 = p
+            del p
+    # gate 2: sorted against dense, same seats, on the card
+    for top_k in (1, 2):
+        s, d = legs[f"top{top_k}"], legs[f"top{top_k}_dense"]
+        loss_gap = abs(s["loss"] - d["loss"]) / abs(d["loss"])
+        stat_gap = max(abs(s["stats"][k] - d["stats"][k])
+                       for k in ("dropped_fraction", "max_expert_load"))
+        print(f"moe gate 2, top-{top_k} sorted against dense: loss gap {loss_gap:.3e} (tol "
+              f"{MOE_LOSS_TOL:g}), stats gap {stat_gap:.3e} (tol {MOE_STAT_TOL:g}), "
+              f"dispatch_flops_pct {s['stats']['dispatch_flops_pct']} / "
+              f"{d['stats']['dispatch_flops_pct']}")
+        check(loss_gap <= MOE_LOSS_TOL and stat_gap <= MOE_STAT_TOL
+              and s["stats"]["dispatch_flops_pct"] == 0.0 < d["stats"]["dispatch_flops_pct"],
+              f"moe gate 2: top-{top_k} sorted and dense dispatch disagree")
+    # gate 6: B1 and B2 at the legs' attention shape against their plain
+    # versions, then the same bf16 step with dense attention in place of them
+    _moe_attention_kernels(torch, fa)
+    dspec = _moe_spec(small_lm_spec, 1, "sorted")
+    dspec.config["attn_impl"] = "dense"
+    dstep = moe.make_moe_lm_train_step(dspec, sgd, device="cuda")
+    p_dense, _, loss_dense, st_dense = dstep(dict(params), sgd.init(params), tokens, targets)
+    loss_gap = abs(legs["top1"]["loss"] - loss_dense.item()) / loss_dense.item()
+    gap_dense, worst, worst_name = _update_gap(params, p_top1, p_dense)
+    stat_gap = max(abs(legs["top1"]["stats"][k] - float(st_dense[k]))
+                   for k in ("dropped_fraction", "max_expert_load"))
+    print(f"moe gate 6, top-1 sorted bf16, flash against dense attention: loss gap "
+          f"{loss_gap:.3e} (tol {MOE_ATTN_LOSS_TOL:g}), stats gap {stat_gap:.3e} (tol "
+          f"{MOE_STAT_TOL:g}), update gap {gap_dense:.3e} of its norm (tol "
+          f"{MOE_ATTN_UPDATE_TOL:g}), worst leaf {worst_name} {worst:.3e}")
+    check(loss_gap <= MOE_ATTN_LOSS_TOL and stat_gap <= MOE_STAT_TOL
+          and gap_dense <= MOE_ATTN_UPDATE_TOL,
+          "moe gate 6: the flash step disagrees with the dense-attention step")
+    del p_top1, p_dense
+    # gate 4: the loss falls on a fixed batch
+    adam = get_optimizer("adam", 3e-3)
+    astep = moe.make_moe_lm_train_step(legs["top1"]["spec"], adam, device="cuda")
+    p, state, losses = dict(params), adam.init(params), []
+    for _ in range(20):
+        p, state, l_, _ = astep(p, state, tokens, targets)
+        losses.append(l_.item())
+    print(f"moe gate 4, adam 3e-3, 20 steps on a fixed batch (sorted top-1): loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (want a drop of at least {MOE_ADAM_MIN_DROP})")
+    check(losses[-1] < losses[0] - MOE_ADAM_MIN_DROP, "moe gate 4: the loss did not fall")
+    del p, state
+    # gate 5: what a MoE spec may not do here
+    rejected = []
+    for call, exc in ((lambda: moe.make_moe_lm_train_step(legs["top1"]["spec"], sgd,
+                                                          {"dp": 1, "ep": 2}, device="cuda"),
+                       NotImplementedError),
+                      (lambda: make_generate_fn(legs["top1"]["spec"], 4, device="cuda"),
+                       ValueError)):
+        try:
+            call()
+        except exc as e:
+            rejected.append(str(e))
+    print(f"moe gate 5: {rejected}")
+    check(len(rejected) == 2 and "14c" in rejected[0] and "MoE" in rejected[1],
+          "moe gate 5: an ep > 1 mesh or MoE decoding did not raise")
+
+    # timings: host-clock median of 3, the profiler's device ms, MFU as bench.py
+    model_fl, dispatch_fl = _moe_flops(moe)
+    t_tok = MOE["batch"] * MOE["seq"]
+    state = sgd.init(params)
+    for name, leg in legs.items():
+        run = (lambda step=leg["step"]: step(params, state, tokens, targets))
+        run()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        host_ms = statistics.median(walls) * 1e3
+        dev_ms = device_ms(torch, run, reps=3, warmup=1, warm_s=0.0)
+        disp = dispatch_fl[leg["impl"]]
+        leg.update(host_ms=host_ms, dev_ms=dev_ms, tokens_per_s=t_tok / host_ms * 1e3)
+        mfu_dev, mfu_host = (100 * model_fl / (ms / 1e3) / PEAK_FLOPS["bfloat16"]
+                             for ms in (dev_ms, host_ms))
+        print(f"moe timing {name} ({smi}): {host_ms:.2f} ms/step host clock (median of 3, "
+              f"{', '.join(f'{w * 1e3:.2f}' for w in walls)}), {dev_ms:.2f} ms device "
+              f"(profiler), {leg['tokens_per_s']:.1f} tokens/s, idle share "
+              f"{100 * (1 - dev_ms / host_ms):.1f} %, MFU {mfu_dev:.2f} % on device time "
+              f"({mfu_host:.2f} % on the host clock) of {model_fl / 1e12:.3f} TFLOP/step, "
+              f"dispatch_flops_pct "
+              f"(model-wide, bench.py) {100 * disp / (model_fl + disp):.1f}, (layer-local stat) "
+              f"{leg['stats']['dispatch_flops_pct']:.1f}, dropped fraction "
+              f"{leg['stats']['dropped_fraction']:.4f}, max expert load "
+              f"{leg['stats']['max_expert_load']:.3f}")
+    for top_k in (1, 2):
+        s, d = legs[f"top{top_k}"], legs[f"top{top_k}_dense"]
+        print(f"moe sorted_vs_dense_top{top_k}: {s['tokens_per_s'] / d['tokens_per_s']:.4f} "
+              f"(tokens/s, host clock); device ms {s['dev_ms'] / d['dev_ms']:.4f} of dense's")
+    print("moe profile, sorted top-1:")
+    train_profile(torch, legs["top1"]["step"], params, state, tokens, targets)
+    del params, legs, state
+    print(f"moe (a): {time.perf_counter() - t_phase:.1f} s")
+
+    # (b) and (c) launch no kernel of the port
+    _zero_counts(fa)
+    t_b = time.perf_counter()
+    # moe_classifier_spec's model with its MoE layer in f32 (the spec's
+    # experts compute in bf16), under a name registered in this script only
+    @register_model("chip_smoke_moe_classifier_f32")
+    class MoEClassifierF32(moe.MoEClassifier):
+        def __init__(self, **config):
+            super().__init__(**config)
+            self.moe.dtype = torch.float32
+
+    cspec = moe.moe_classifier_spec()
+    cspec = ModelSpec("chip_smoke_moe_classifier_f32", cspec.config, cspec.input_shape)
+    p0 = cspec.init_params(seed=0, device="cpu")
+    x = rng.normal(size=(256, cspec.config["input_dim"])).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 256)]
+    runs = {}
+    for name, dev, lr in _gate_runs(0.01):
+        opt = get_optimizer("sgd", lr)
+        step = moe.make_moe_train_step(cspec, opt, device=dev)
+        p = {k: t.to(dev) for k, t in p0.items()}
+        runs[name] = step(p, opt.init(p), x, y)
+    gaps = _gaps(runs["cuda"][0], runs["cpu"][0])
+    l_card, l_cpu = runs["cuda"][2].item(), runs["cpu"][2].item()
+    print(f"moe gate (b), moe_classifier_spec with f32 experts, make_moe_train_step, batch 256, "
+          f"card against CPU: loss {l_card:.6f} / {l_cpu:.6f}; params relative L2 "
+          f"{_gap_text(gaps)} (tol {MOE_F32_TOL:g}); {time.perf_counter() - t_b:.1f} s")
+    check(gaps[0] <= MOE_F32_TOL and abs(l_card - l_cpu) <= MOE_F32_TOL * abs(l_cpu),
+          "moe gate (b): the classifier step on the card disagrees with its CPU path")
+    _held_update(p0, runs["cuda"][0], runs["cpu"][0],
+                 {name: runs[name][0] for name in _fault_lrs(0.01)}, "moe gate (b)")
+
+    t_c = time.perf_counter()
+    toks = rng.integers(0, RNN["vocab"], (RNN["batch"], RNN["seq"]))
+    for cell in ("lstm", "gru"):
+        spec = lstm_classifier_spec(cell_type=cell)
+        m = Model.init(spec, seed=0, device="cpu")
+        want = m.apply(toks)
+        got = Model(spec, {k: t.to("cuda") for k, t in m.params.items()}).apply(toks).cpu()
+        gap = ((got - want).norm() / want.norm()).item()
+        print(f"rnn gate (c)1, {cell} f32 logits [{RNN['batch']}, {RNN['seq']}] card against "
+              f"CPU: relative L2 {gap:.3e} (tol {RNN_TOL:g})")
+        check(gap <= RNN_TOL, f"rnn gate (c)1: {cell} logits on the card disagree with the CPU")
+
+    ptoks, ponehot, plabels = _parity_tokens(np, 512, 8, 4, seed=0)
+    pspec = lstm_classifier_spec(vocab_size=4, seq_len=8, embed_dim=16, hidden_sizes=(32,),
+                                 num_outputs=2)
+    tr = SingleTrainer(pspec, loss="categorical_crossentropy", worker_optimizer="adam",
+                       learning_rate=3e-3, batch_size=64, num_epoch=30, seed=1, device="cuda")
+    model = tr.train(Dataset({"features": ptoks, "label": ponehot}))
+    acc = float((model.predict(ptoks).argmax(axis=1) == plabels).mean())
+    print(f"rnn gate (c)2, SingleTrainer learns the token-parity task (tests/test_rnn.py) on "
+          f"the card: accuracy {acc:.4f} (want > 0.9)")
+    check(acc > 0.9, "rnn gate (c)2: the LSTM did not learn the parity task")
+
+    gspec = lstm_classifier_spec(cell_type="gru")
+    init = Model.init(gspec, seed=0, device="cpu")
+    rows = RNN_ADAG_REPLICAS * RNN_ADAG_BATCH * RNN_ADAG_WINDOW
+    gtoks, gonehot, _ = _parity_tokens(np, rows, RNN["seq"], RNN["vocab"], seed=3)
+    gds = Dataset({"features": gtoks, "label": gonehot})
+    out = {}
+    for name, dev, lr in _gate_runs(0.01):
+        tr = ADAG(init, num_workers=RNN_ADAG_REPLICAS, batch_size=RNN_ADAG_BATCH,
+                  communication_window=RNN_ADAG_WINDOW, num_epoch=1, learning_rate=lr,
+                  device=dev)
+        out[name] = tr.train(gds, shuffle=False).params
+    gaps = _gaps(out["cuda"], out["cpu"])
+    print(f"rnn gate (c)3, ADAG {RNN_ADAG_REPLICAS} stacked GRU replicas, one window, card "
+          f"against CPU f32: params relative L2 {_gap_text(gaps)} (tol {RNN_TOL:g})")
+    check(gaps[0] <= RNN_TOL, "rnn gate (c)3: ADAG over stacked GRU replicas disagrees")
+    _held_update(init.params, out["cuda"], out["cpu"],
+                 {name: out[name] for name in _fault_lrs(0.01)}, "rnn gate (c)3")
+
+    # samples/s of both trainers at the defaults' width, and a profiled epoch
+    ttoks, tonehot, _ = _parity_tokens(np, 8 * RNN["batch"], RNN["seq"], RNN["vocab"], seed=4)
+    tds = Dataset({"features": ttoks, "label": tonehot})
+    spec = lstm_classifier_spec()
+    for label, make in (("SingleTrainer", lambda: SingleTrainer(
+                            spec, batch_size=RNN["batch"], learning_rate=0.01, device="cuda")),
+                        (f"ADAG x{RNN_ADAG_REPLICAS}", lambda: ADAG(
+                            spec, num_workers=RNN_ADAG_REPLICAS,
+                            batch_size=RNN["batch"] // RNN_ADAG_REPLICAS,
+                            communication_window=RNN_ADAG_WINDOW, learning_rate=0.01,
+                            device="cuda"))):
+        make().train(tds, shuffle=False)
+        torch.cuda.synchronize()
+        tr = make()
+        t0 = time.perf_counter()
+        tr.train(tds, shuffle=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pwall, busy_ms, busy = _profiled(torch, lambda: make().train(tds, shuffle=False))
+        print(f"rnn timing {label} ({smi}): lstm_classifier_spec defaults, {len(ttoks)} rows, "
+              f"batch {RNN['batch']}: {len(ttoks) / wall:.1f} samples/s (host clock, one warm "
+              f"epoch); profiled epoch wall {pwall * 1e3:.1f} ms, device busy {busy_ms:.1f} ms, "
+              f"idle share {100 * (1 - busy_ms / 1e3 / pwall):.1f} %")
+        for key, (us, n) in sorted(busy.items(), key=lambda kv: -kv[1][0])[:5]:
+            print(f"  {us / 1e3:9.3f} ms  {100 * us / busy_ms / 1e3:5.1f} %  {n:6d} launches  "
+                  f"{key[:100]}")
+    counts = _counts(fa)
+    print(f"moe (b) and rnn (c): launches of the port's kernels {counts} "
+          f"({time.perf_counter() - t_c:.1f} s for (c))")
+    check(not any(counts.values()), "the classifier or the RNN family launched a kernel")
+    print(f"moe_rnn phase: {time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
 def _run_main(fn, argv):
     """An example's ``main(argv)`` with its standard output captured (and
     echoed); a ``SystemExit`` other than 0 fails the phase."""
@@ -3600,6 +4029,14 @@ def run() -> int:
     sparse_counts = dict(_counts(fa), decode_step=ds.DECODE_STEP.launches)
     print(f"sparse phase: launches of the port's kernels {sparse_counts}")
     check(not any(sparse_counts.values()), "the sparse phase launched a kernel of the port")
+    # the MoE LM trains through B1 and B2; its classifier and the RNN family
+    # launch none
+    _zero_counts(fa)
+    ds.DECODE_STEP.launches = 0
+    moe_counts = moe_rnn_phase(torch, np, smi, fa)
+    check(ds.DECODE_STEP.launches == 0, "the moe_rnn phase launched the decode step")
+    for name, n in moe_counts.items():
+        launches[name] += n
     entry_profile(torch, np, smi)
     family_timing_fn()
 

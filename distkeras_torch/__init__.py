@@ -18,7 +18,10 @@ and the scale-out hub (a center sharded over several hubs, shared-memory
 frame rings, batched receives) with its launcher (``distkeras-torch-ps``),
 the asynchronous path's survival of faults, and the telemetry plane
 (``distkeras_torch.observability``: metrics, spans, trace contexts across
-the hub's wire, the live health plane and ``distkeras-torch-top``).
+the hub's wire, the live health plane and ``distkeras-torch-top``), and
+the recurrent family (``models.rnn``) and Switch mixture of experts on one
+device (``parallel.moe``: the MoE classifier, the MoE TransformerLM's
+blocks, ``make_moe_train_step`` and ``make_moe_lm_train_step``).
 Entry points run on the CUDA card unless a caller passes ``device="cpu"``.
 Imports PyTorch, numpy and the standard library only.
 """

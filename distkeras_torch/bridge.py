@@ -31,6 +31,26 @@ automatic names, nested as Flax nests them):
     table/embedding, table_f/embedding  -> table.weight, table_f.weight [rows, dim] as is
     Dense_i/kernel, bias                -> Dense_i.weight [out, in], bias
 
+``rnn`` (one Flax Dense a gate, under the cell's automatic name):
+
+    Embed_0/embedding [V, E]            -> Embed_0.weight [V, E] as is
+    OptimizedLSTMCell_i/{ii,if,ig,io}/kernel [in, H]
+                                        -> OptimizedLSTMCell_i.{ii,...}.weight [H, in]
+    OptimizedLSTMCell_i/{hi,hf,hg,ho}/kernel, bias
+                                        -> OptimizedLSTMCell_i.{hi,...}.weight [H, H], bias
+    GRUCell_i/{ir,iz,in,hn}/kernel, bias, GRUCell_i/{hr,hz}/kernel (likewise)
+    Dense_0/kernel, bias                -> Dense_0.weight [out, in], bias
+
+``moe_mlp_classifier`` and MoE ``transformer_lm`` blocks (``moe_experts``;
+a block then has ``moe`` in place of ``up`` and ``down``).  The expert
+slabs and the router are plain params, not Dense kernels, and the port
+keeps Flax's layout for them:
+
+    embed/kernel, head/kernel [in, out] -> embed.weight, head.weight [out, in] (Dense)
+    [block_i/]moe/router [D, E]         -> [block_i.]moe.router [D, E] as is
+    [block_i/]moe/w_up   [E, D, F]      -> [block_i.]moe.w_up   [E, D, F] as is
+    [block_i/]moe/w_down [E, F, D]      -> [block_i.]moe.w_down [E, F, D] as is
+
 ``sequential`` (layers named by their index, in lowercase):
 
     dense_i/kernel, bias                -> dense_i.weight [out, in], bias
@@ -54,10 +74,11 @@ from distkeras_torch.models.base import ModelSpec
 from distkeras_torch.platform import DeviceLike, resolve_device
 
 BRIDGED = ("transformer_lm", "mlp", "cnn", "resnet", "sequential", "embedding_classifier",
-           "multi_embedding_classifier")
+           "multi_embedding_classifier", "rnn", "moe_mlp_classifier")
 
 _CONV = ("Conv_", "conv_")     # Flax HWIO kernels -> OIHW
 _DENSE = ("Dense_", "dense_")   # [in, out] kernels -> [out, in]
+_CELLS = ("OptimizedLSTMCell_", "GRUCell_")  # RNN cells: a Dense kernel a gate
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
@@ -77,7 +98,16 @@ def _n_in_axes(flax_path: str) -> int:
 
 
 def _is_embed(module: str) -> bool:
-    return module in ("embed", "table") or module.startswith(("embed_", "table_"))
+    return module in ("embed", "table") or module.startswith(("embed_", "table_", "Embed_"))
+
+
+def _is_dense(spec: ModelSpec, parts) -> bool:
+    """Whether the port key ``parts`` (ending in ``weight``) is a Dense
+    kernel's: ``Dense_i``/``dense_i``, an RNN cell's gate, or the MoE
+    classifier's ``embed`` and ``head``."""
+    if parts[-2].startswith(_DENSE) or (len(parts) > 2 and parts[-3].startswith(_CELLS)):
+        return True
+    return spec.name == "moe_mlp_classifier" and parts[-2] in ("embed", "head")
 
 
 def _port_key(flax_path: str) -> str:
@@ -102,8 +132,10 @@ def _kernel_shapes(spec: ModelSpec) -> Dict[str, tuple]:
     d = e // h
     hkv = cfg.get("num_kv_heads") or h
     f = cfg.get("mlp_ratio", 4) * e
-    return {"qkv": (e, 3, h, d), "q": (e, h, d), "kv": (e, 2, hkv, d),
-            "proj": (h, d, e), "up": (e, f), "down": (f, e)}
+    shapes = {"qkv": (e, 3, h, d), "q": (e, h, d), "kv": (e, 2, hkv, d), "proj": (h, d, e)}
+    if not cfg.get("moe_experts"):
+        shapes.update(up=(e, f), down=(f, e))
+    return shapes
 
 
 def params_from_flax_tensors(flat: Mapping[str, torch.Tensor], spec: ModelSpec,
@@ -134,17 +166,17 @@ def flax_tensors(params: Mapping[str, torch.Tensor], spec: ModelSpec,
     for key, t in params.items():
         t = t.detach().cpu() if cpu else t.detach()
         parts = key.split(".")
-        if parts[-1] == "weight" and _is_embed(parts[-2]):
-            path = parts[:-1] + ["embedding"]
-        elif parts[-1] == "weight" and parts[-2] in kernel_shapes:
+        if parts[-1] == "weight" and parts[-2] in kernel_shapes:
             path = parts[:-1] + ["kernel"]
             t = t.T.reshape(kernel_shapes[parts[-2]])
         elif parts[-1] == "weight" and parts[-2].startswith(_CONV):
             path = parts[:-1] + ["kernel"]
             t = t.permute(2, 3, 1, 0)                           # OIHW -> HWIO
-        elif parts[-1] == "weight" and parts[-2].startswith(_DENSE):
+        elif parts[-1] == "weight" and _is_dense(spec, parts):
             path = parts[:-1] + ["kernel"]
             t = t.T
+        elif parts[-1] == "weight" and _is_embed(parts[-2]):
+            path = parts[:-1] + ["embedding"]
         elif parts[-1] == "weight":
             path = parts[:-1] + ["scale"]
         else:

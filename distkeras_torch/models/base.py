@@ -217,8 +217,8 @@ class ModelSpec:
         if self.config.get("moe_experts") or self.config.get("num_experts"):
             raise ValueError(
                 f"{where} would silently drop the MoE load-balance aux losses; "
-                "MoE training (make_moe_train_step / make_moe_lm_train_step) is "
-                "a later slice of the PyTorch port")
+                "train MoE models with distkeras_torch.parallel.moe :: "
+                "make_moe_train_step / make_moe_lm_train_step")
 
     def to_dict(self) -> Dict[str, Any]:
         return {

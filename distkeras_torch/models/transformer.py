@@ -12,9 +12,15 @@ use as Flax's ``promote_dtype`` does.  Parity points with the Flax modules:
 - the tied unembedding runs in the compute dtype (Flax's ``Embed.attend``
   promotes its float32 query to the module dtype).
 
-Sequence parallelism (``seq_axis``), tensor parallelism (``tp_axis``) and
-MoE FFNs belong to later slices and raise.  ``remat=True`` checkpoints each
-block (``torch.utils.checkpoint``), so its forward runs twice in training.
+``moe_experts > 0`` replaces every block's FFN with a Switch MoE layer
+(``distkeras_torch.parallel.moe.MoEMLP`` under ``block_i.moe``; capacity
+``moe_capacity``, or 2x the balanced share ``ceil(2 B L / E)`` when 0),
+whose load-balance losses and router stats a forward given ``sown``
+records; train such specs with ``make_moe_lm_train_step``.  Sequence
+parallelism (``seq_axis``) and tensor parallelism (``tp_axis``) are ROADMAP
+item 11 and expert parallelism (``ep_axis``) item 14c; they raise.
+``remat=True`` checkpoints each block (``torch.utils.checkpoint``), so its
+forward runs twice in training.
 """
 
 from __future__ import annotations
@@ -76,8 +82,16 @@ class TransformerBlock(nn.Module):
                  ep_axis: Optional[str] = None, ep_size: int = 1,
                  moe_dispatch: str = "auto", compute_dtype=None):
         super().__init__()
-        _unsupported(moe_experts=moe_experts, seq_axis=seq_axis, tp_axis=tp_axis,
-                     ep_axis=ep_axis)
+        if moe_experts and tp_size > 1:
+            raise ValueError("MoE FFN does not compose with tensor parallelism (v1); "
+                             "use either moe_experts or tp_size")
+        if moe_experts and seq_axis is not None:
+            raise ValueError("MoE FFN does not compose with sequence parallelism "
+                             "(v1); train MoE LMs with make_moe_lm_train_step")
+        _unsupported(seq_axis=seq_axis, tp_axis=tp_axis)
+        from distkeras_torch.parallel.moe import MoEMLP, _reject_ep
+
+        _reject_ep(ep_axis, ep_size)                        # ROADMAP item 14c
         if tp_size != 1:
             raise NotImplementedError("tp_size > 1 is a later slice of the PyTorch port")
         if positional not in ("learned", "rope"):
@@ -101,8 +115,14 @@ class TransformerBlock(nn.Module):
             self.kv = nn.Linear(model_dim, 2 * kv_heads * self.head_dim, bias=False)
         self.proj = nn.Linear(hd, model_dim, bias=False)
         self.LayerNorm_1 = LayerNorm(model_dim)
-        self.up = nn.Linear(model_dim, mlp_ratio * model_dim, bias=False)
-        self.down = nn.Linear(mlp_ratio * model_dim, model_dim, bias=False)
+        if moe_experts:
+            self.moe = MoEMLP(num_experts=moe_experts, model_dim=model_dim,
+                              hidden_dim=mlp_ratio * model_dim, capacity=moe_capacity,
+                              router_top_k=moe_top_k, dispatch_impl=moe_dispatch,
+                              compute_dtype=self.dtype)
+        else:
+            self.up = nn.Linear(model_dim, mlp_ratio * model_dim, bias=False)
+            self.down = nn.Linear(mlp_ratio * model_dim, model_dim, bias=False)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         # lecun-normal fan-in scaling, Flax's Dense default
@@ -112,8 +132,10 @@ class TransformerBlock(nn.Module):
                 _normal_(layer.weight, layer.weight.shape[1] ** -0.5, gen)
         self.LayerNorm_0.reset_parameters(gen)
         self.LayerNorm_1.reset_parameters(gen)
+        if hasattr(self, "moe"):
+            self.moe.reset_parameters(gen)
 
-    def forward(self, x: torch.Tensor, pos_offset: int = 0) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pos_offset: int = 0, sown=None) -> torch.Tensor:
         dt = self.dtype
         b, l, _ = x.shape
         h, hkv, d = self.num_heads, self.kv_heads, self.head_dim
@@ -133,13 +155,18 @@ class TransformerBlock(nn.Module):
         o = attention(q, k, v, causal=True, impl=self.attn_impl)
         x = x + _linear(o.reshape(b, l, h * d), self.proj, dt)
         y = self.LayerNorm_1(x, dt)
+        if hasattr(self, "moe"):
+            out, aux = self.moe(y.reshape(b * l, -1), sown)
+            if sown is not None:
+                sown.setdefault("aux_loss", []).append(aux)
+            return x + out.reshape(x.shape)
         y = F.gelu(_linear(y, self.up, dt).float(), approximate="tanh").to(dt)
         return x + _linear(y, self.down, dt)
 
 
-def _replay_block(blk: "TransformerBlock", names, x: torch.Tensor, pos_offset: int,
+def _replay_block(blk: "TransformerBlock", names, x: torch.Tensor, pos_offset: int, sown,
                   *tensors: torch.Tensor) -> torch.Tensor:
-    return torch.func.functional_call(blk, dict(zip(names, tensors)), (x, pos_offset))
+    return torch.func.functional_call(blk, dict(zip(names, tensors)), (x, pos_offset, sown))
 
 
 @register_model("transformer_lm")
@@ -148,7 +175,8 @@ class TransformerLM(nn.Module):
 
     ``state_dict`` keys mirror the Flax param paths: ``embed.weight``,
     ``pos_embed``, ``block_{i}.{LayerNorm_0,qkv|q,kv,proj,LayerNorm_1,up,
-    down}.*``, ``final_norm.*`` (see ``distkeras_torch.bridge``)."""
+    down}.*`` (``moe.{router,w_up,w_down}`` in place of ``up`` and ``down``
+    with ``moe_experts``), ``final_norm.*`` (see ``distkeras_torch.bridge``)."""
 
     def __init__(self, vocab_size: int = 32000, model_dim: int = 512, num_heads: int = 4,
                  num_kv_heads: Optional[int] = None, num_layers: int = 6,
@@ -200,19 +228,21 @@ class TransformerLM(nn.Module):
         x = self.final_norm(x, self.dtype)
         return x @ self.embed.weight.to(self.dtype).T
 
-    def _trunk(self, tokens: torch.Tensor, pos_offset: int = 0) -> torch.Tensor:
+    def _trunk(self, tokens: torch.Tensor, pos_offset: int = 0, sown=None) -> torch.Tensor:
         x = self.embed_tokens(tokens, pos_offset)
         for blk in self.blocks():
             if not self.remat:
-                x = blk(x, pos_offset)
+                x = blk(x, pos_offset, sown)
                 continue
             # remat: the backward replays the block's forward instead of
             # keeping its activations (nn.remat in the JAX package).  The
             # block's parameters ride as inputs of the checkpoint, so the
             # replay sees the tensors of this call even when they were bound
-            # by torch.func.functional_call, which has returned by then.
+            # by torch.func.functional_call, which has returned by then.  The
+            # replay appends to ``sown`` again, in the backward, after the
+            # step has read the aux losses and stats of the forward.
             names, tensors = zip(*blk.named_parameters())
-            x = checkpoint(_replay_block, blk, names, x, pos_offset, *tensors,
+            x = checkpoint(_replay_block, blk, names, x, pos_offset, sown, *tensors,
                            use_reentrant=False)
         return x
 
@@ -220,8 +250,10 @@ class TransformerLM(nn.Module):
         """Forward without the unembed: [B, L] -> final-normed [B, L, E]."""
         return self.final_norm(self._trunk(tokens, pos_offset), self.dtype)
 
-    def forward(self, tokens: torch.Tensor, pos_offset: int = 0) -> torch.Tensor:
-        return self.head(self._trunk(tokens, pos_offset))
+    def forward(self, tokens: torch.Tensor, pos_offset: int = 0, sown=None) -> torch.Tensor:
+        """Logits; with a ``sown`` dict, MoE blocks record their aux losses
+        and router stats there (see ``distkeras_torch.parallel.moe``)."""
+        return self.head(self._trunk(tokens, pos_offset, sown))
 
 
 def small_lm_spec(vocab_size: int = 1024, model_dim: int = 256, num_heads: int = 2,

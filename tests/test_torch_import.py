@@ -45,6 +45,7 @@ def test_import_leaves_jax_out_of_sys_modules():
              "import distkeras_torch.data.text, distkeras_torch.observability\n"
              "import distkeras_torch.observability.health\n"
              "import distkeras_torch.observability.distributed\n"
+             "import distkeras_torch.models.rnn, distkeras_torch.parallel.moe\n"
              f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
              "print(bad)\n"
              "sys.exit(1 if bad else 0)")
@@ -134,6 +135,15 @@ calls = [lambda: default_device(), lambda: Model.init(spec),
          lambda: make_lm_train_step(spec, get_optimizer("sgd")),
          lambda: Model.init(mnist_cnn_spec()), lambda: SingleTrainer(mnist_cnn_spec()),
          lambda: ADAG(mnist_cnn_spec()), lambda: prefetch_to_device(iter([]))]
+from distkeras_torch.models.rnn import lstm_classifier_spec
+from distkeras_torch.parallel import moe
+moe_lm = small_lm_spec(vocab_size=11, model_dim=16, num_heads=2, num_layers=1, max_seq_len=8,
+                       moe_experts=2)
+calls += [lambda: Model.init(lstm_classifier_spec(vocab_size=5, seq_len=3)),
+          lambda: moe.make_moe_train_step(moe.moe_classifier_spec(), get_optimizer("sgd")),
+          lambda: moe.make_moe_lm_train_step(moe_lm, get_optimizer("sgd")),
+          lambda: moe.moe_data_sharding(None),
+          lambda: moe.moe_state_shardings(None, get_optimizer("sgd"), {})]
 model = Model.init(spec, device="cpu")
 calls.append(lambda: generate(model, [[1, 2]], 2))
 for i, call in enumerate(calls):

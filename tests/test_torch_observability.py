@@ -322,7 +322,7 @@ def test_dkt_telemetry_enables_at_import():
 def _emitted_names(package):
     """Every name literal a package passes to counter/gauge/histogram/span/
     record_span outside its observability package, and the constant parts
-    of the names it builds as f-strings (the feed's)."""
+    of the names it builds as f-strings (the feed's and the MoE steps')."""
     names, prefixes = set(), set()
     for path in (ROOT / package).rglob("*.py"):
         if "observability" in path.parts:
@@ -351,7 +351,9 @@ def test_every_emitted_name_is_a_jax_package_name():
     assert len(names) > 60
     assert sorted(names - TELEMETRY_NAMES) == []
     assert sorted(names - jax_names) == []
-    assert stems == {"_chunk_load_seconds", "_queue_depth", "_chunks_total"} <= jax_stems
+    # the feed's f-string families, and the MoE steps' moe_{stat} gauges
+    # (built the same way in the JAX package's parallel/moe.py)
+    assert stems == {"_chunk_load_seconds", "_queue_depth", "_chunks_total", "moe_"} <= jax_stems
 
 
 # -- the wire: T and M ------------------------------------------------------------------

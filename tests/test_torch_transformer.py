@@ -88,8 +88,14 @@ def test_init_is_seeded_and_unsupported_options_raise():
     assert all(torch.equal(a.params[k], b.params[k]) for k in a.params)
     c = TorchModel.init(spec, seed=4, device="cpu")
     assert not torch.equal(a.params["embed.weight"], c.params["embed.weight"])
-    for option in (dict(moe_experts=4), dict(seq_axis="sp"), dict(tp_axis="tp")):
+    for option in (dict(seq_axis="sp"), dict(tp_axis="tp")):
         bad = torch_small_lm_spec(vocab_size=31, model_dim=32, num_heads=2, num_layers=1,
                                   max_seq_len=8, **option)
         with pytest.raises(NotImplementedError, match="later slice"):
             bad.build()
+    # MoE FFNs build on one device; expert parallelism is ROADMAP item 14c
+    moe = torch_small_lm_spec(vocab_size=31, model_dim=32, num_heads=2, num_layers=1,
+                              max_seq_len=8, moe_experts=4)
+    assert hasattr(moe.build().block_0, "moe")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 14c"):
+        type(moe)(moe.name, dict(moe.config, ep_axis="ep"), moe.input_shape).build()
