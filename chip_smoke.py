@@ -200,7 +200,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
    above 0.9), ADAG over 8 stacked GRU replicas for one window card against
    CPU (f32; params and update, as gate 1); then samples/s of SingleTrainer and 8-replica ADAG and a
    profiled epoch of each.  No kernel of the port lies on (b) or (c);
-14. report: one JSON line of kernels, the card's name and power limit, and
+14. mesh (main path, after moe_rnn): layouts over several processes on
+   the one card (parallel/mesh.py).  First B1 and B2 (fused and split)
+   as the ring's blocks call them, [8, 1024, 4 or 2, 128] bf16, step 0
+   causal and a live step at q_offset 1024, with a random lse cotangent,
+   against their plain versions.  Then a mesh of one rank,
+   (dp, sp, tp) = (1, 1, 1), whose step must equal the one-device step
+   bit for bit (both on the split backward, which has no atomics; every
+   axis has size 1, so the step runs no collective), and the port's
+   all-reduce of its params over a one-rank NCCL world, which must give
+   them back bit for bit; beside it two processes that try NCCL on the
+   one card (what NCCL says is printed).  Then 4 processes in a Gloo group on the card (NCCL refuses
+   two ranks on one device; Gloo's collectives stage through pinned host
+   memory) run make_lm_train_step at the training phase's shape (seq 2048,
+   batch 8, 512 wide, 8 layers, 4 heads of 128, bf16, sgd 0.01) at
+   (dp, sp, tp) = (1, 2, 1), (1, 1, 2), (1, 2, 2) and (2, 1, 1), a 2-rank
+   layout on ranks 0-1.  Gates: (a) each rank's counted step launches B1
+   and B2 (sp rank + 1) x 8 times (a dead ring step launches nothing) and
+   B4 never; (b) the loss within 5e-4 of the one-device step's, the
+   gathered params within 1e-3 (JAX's bounds) and the update within 3e-2
+   of its norm; (c) tp = 2 greedy decoding at the serving model in
+   float32, 32 new tokens, equal to the one-device per-op tokens; (d)
+   ADAG over 2 processes x 2 stacked mnist_cnn replicas against 4 stacked
+   in one process, center within 1e-4 relative L2.  Each layout prints
+   its backend, host ms a step, tokens/s and rank 0's profiled device ms
+   and idle share;
+15. report: one JSON line of kernels, the card's name and power limit, and
    the final {"ok": true, ...} line.
 
 Weights are random, drawn from seed 0.  Needs nothing but this checkout,
@@ -3874,6 +3899,457 @@ def serving_family_timing(torch, np, smi, ds, spec, d_spec, t_params, d_params, 
     print(f"serving family timing: {time.perf_counter() - t0:.1f} s")
 
 
+
+# the mesh phase (phase 14): layouts over several processes on the one card
+MESH_LAYOUTS = ((1, 2, 1), (1, 1, 2), (1, 2, 2), (2, 1, 1))   # (dp, sp, tp)
+MESH_WORLD = 4                # processes; a 2-rank layout runs on ranks 0-1
+MESH_TIMEOUT = 300            # seconds: the group's collectives and the phase
+MESH_WARM, MESH_TIMED = 1, 3  # steps before the timed ones; timed steps
+# gate (b): JAX's own bounds (tests/test_lm_parallel.py: loss rtol 5e-4,
+# params atol 1e-3), and the update gap the training phase holds flash
+# against dense attention to (bf16 rounding of the attention path; the ring
+# merges its blocks in f32 and rounds once, tp sums bf16 partials)
+MESH_LOSS_TOL, MESH_PARAM_ATOL, MESH_UPDATE_TOL = 5e-4, 1e-3, 3e-2
+MESH_ENGINE_TOL = 1e-4        # gate (d): the trainer gates' relative L2
+MESH_ENGINE = dict(replicas=4, procs=2, batch=64, window=4, windows=2)
+MESH_DECODE_NEW = 32          # gate (c): tp = 2 greedy tokens, float32
+
+_MESH_CHILD = r"""
+import json, statistics, sys, time
+import numpy as np, torch, torch.distributed as dist
+
+cfg = json.loads(sys.argv[1])
+from distkeras_torch.runtime.launcher import initialize_multihost
+
+dev = initialize_multihost(backend="gloo", timeout=cfg["timeout"])
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+RANK = dist.get_rank()
+
+from distkeras_torch import Model, make_generate_fn, make_lm_train_step, shift_targets
+from distkeras_torch.models.base import ModelSpec
+from distkeras_torch.models.cnn import mnist_cnn_spec
+from distkeras_torch.models.decode import make_sharded_generate_fn
+from distkeras_torch.models.transformer import small_lm_spec
+from distkeras_torch.ops import decode_step as ds, flash_attention as fa
+from distkeras_torch.ops.losses import get_loss
+from distkeras_torch.ops.optimizers import get_optimizer
+from distkeras_torch.parallel.algorithms import AdagAlgorithm
+from distkeras_torch.parallel.engine import WindowEngine
+from distkeras_torch.parallel.lm import lm_data_shardings, lm_state_shardings
+from distkeras_torch.parallel.mesh import create_mesh, create_nd_mesh
+
+KERNELS = (fa.FLASH_FWD, fa.FLASH_BWD_FUSED, fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV, ds.DECODE_STEP)
+
+
+def counts():
+    return {k.symbol[len("dk_"):]: k.launches for k in KERNELS}
+
+
+def zero():
+    for k in KERNELS:
+        k.launches = 0
+
+
+def say(**kw):
+    print("MESH " + json.dumps(dict(rank=RANK, **kw)), flush=True)
+
+
+def gaps(p0, got, want):
+    num = den = unum = uden = 0.0
+    worst = 0.0
+    for k in want:
+        g, w, z = got[k].double(), want[k].double().cpu(), p0[k].double()
+        num += (g - w).norm().item() ** 2
+        den += w.norm().item() ** 2
+        unum += ((g - z) - (w - z)).norm().item() ** 2
+        uden += (w - z).norm().item() ** 2
+        worst = max(worst, (g - w).abs().max().item())
+    return (num / den) ** 0.5, (unum / uden) ** 0.5, worst
+
+
+def timed(fn, n):
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def profiled(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages())
+    return wall, busy / 1e6
+
+
+# -- the LM step at the bench LM leg, each layout ----------------------------------------
+t = cfg["train"]
+spec = small_lm_spec(vocab_size=t["vocab"], model_dim=t["dim"], num_heads=t["heads"],
+                     num_layers=t["layers"], max_seq_len=t["seq"], seq_axis="sp")
+spec.config["compute_dtype"] = "bfloat16"
+params = spec.init_params(seed=0, device="cpu")
+rng = np.random.default_rng(3)
+tokens = rng.integers(0, t["vocab"], (t["batch"], t["seq"]))
+targets = shift_targets(tokens)
+sgd = get_optimizer("sgd", 0.01)
+if RANK == 0:
+    one = make_lm_train_step(spec, sgd, device=dev)
+    p_dev = {k: v.to(dev) for k, v in params.items()}
+    p_ref, _, loss_ref = one(dict(p_dev), sgd.init(p_dev), tokens, targets)
+    p_ref, loss_ref = {k: v.cpu() for k, v in p_ref.items()}, loss_ref.item()
+    state = [dict(p_dev), sgd.init(p_dev)]
+
+    def one_step():
+        state[0], state[1], _ = one(state[0], state[1], tokens, targets)
+
+    for _ in range(cfg["warm"]):
+        one_step()
+    say(what="one_device", ms=timed(one_step, cfg["timed"]) * 1e3, loss=loss_ref)
+    del p_dev, state
+for shape in cfg["layouts"]:
+    mesh = create_nd_mesh(shape, ("dp", "sp", "tp"), device=dev)
+    if mesh.coords is None:
+        continue
+    step = make_lm_train_step(spec, sgd, mesh, tp_axis="tp")
+    psh, osh = lm_state_shardings(mesh, sgd, params, tp_axis="tp", spec=spec)
+    dsh = lm_data_shardings(mesh)
+    tok, tgt = dsh(tokens), dsh(targets)
+    state = [psh(params), osh(sgd.init(params))]
+    torch.cuda.synchronize()
+    zero()
+    p1, _, loss = step(state[0], state[1], tok, tgt)
+    torch.cuda.synchronize()
+    res = dict(what="layout", layout=shape, sp_rank=mesh.coord("sp"), counts=counts(),
+               loss=loss.item(), backend=dist.get_backend())
+    full = psh.gather(p1)
+    if RANK == 0:
+        rel_l2, update_gap, max_abs = gaps(params, full, p_ref)
+        res.update(loss_rel=abs(loss.item() - loss_ref) / loss_ref, rel_l2=rel_l2,
+                   update_gap=update_gap, max_abs=max_abs)
+    del p1, full
+
+    def mesh_step():
+        state[0], state[1], _ = step(state[0], state[1], tok, tgt)
+
+    for _ in range(cfg["warm"]):
+        mesh_step()
+    res["ms"] = timed(mesh_step, cfg["timed"]) * 1e3
+    if RANK == 0:               # every rank steps; rank 0 under the profiler
+        wall, busy = profiled(mesh_step)
+        res.update(profile_wall_ms=wall * 1e3, device_ms=busy * 1e3, idle=1 - busy / wall)
+    else:
+        mesh_step()
+    say(**res)
+    del state, step
+    torch.cuda.empty_cache()
+del params
+if RANK == 0:
+    del p_ref
+
+# -- the window engine over a replica group of 2 processes --------------------------------
+e = cfg["engine"]
+mesh = create_mesh(e["procs"], device=dev)
+if mesh.coords is not None:
+    model = Model.init(mnist_cnn_spec(), seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    shape = (e["windows"], e["window"], e["replicas"] * e["batch"])
+    xs = rng.standard_normal(shape + (28, 28, 1), dtype=np.float32)
+    ys = np.eye(10, dtype=np.float32)[rng.integers(0, 10, shape)]
+
+    def engine(m, n):
+        return WindowEngine(model.spec, get_loss("categorical_crossentropy"),
+                            get_optimizer("momentum", 0.01, momentum=0.9), AdagAlgorithm(),
+                            mesh=m, window=e["window"], num_replicas=n, device=dev)
+
+    zero()
+    group = engine(mesh, e["replicas"])
+    st, losses = group.run_epoch(group.init_state(model), xs, ys)
+    res = dict(what="engine", counts=counts(), losses=losses.tolist(),
+               ms=timed(lambda: group.run_epoch(group.init_state(model), xs, ys), 3) * 1e3)
+    if RANK == 0:
+        alone = engine(None, e["replicas"])
+        st1, losses1 = alone.run_epoch(alone.init_state(model), xs, ys)
+        num = sum((st.center[k] - st1.center[k]).double().norm().item() ** 2 for k in st1.center)
+        den = sum(st1.center[k].double().norm().item() ** 2 for k in st1.center)
+        res.update(center_rel=(num / den) ** 0.5, losses_alone=losses1.tolist(),
+                   ms_alone=timed(lambda: alone.run_epoch(alone.init_state(model), xs, ys),
+                                  3) * 1e3)
+    say(**res)
+
+# -- tp = 2 greedy decoding at the serving phase's model ----------------------------------
+d = cfg["decode"]
+mesh = create_nd_mesh((1, 2), ("dp", "tp"), device=dev)
+if mesh.coords is not None:
+    spec = small_lm_spec(vocab_size=d["vocab"], model_dim=d["dim"], num_heads=d["heads"],
+                         num_layers=d["layers"], max_seq_len=d["seq"])
+    spec.config["compute_dtype"] = "float32"
+    params = spec.init_params(seed=0, device="cpu")
+    prompt = np.random.default_rng(1).integers(0, d["vocab"], (d["batch"], d["prompt"]))
+    fn = make_sharded_generate_fn(spec, mesh, d["new"], tp_axis="tp", dp_axis="dp")
+    zero()
+    got = fn(params, prompt)
+    torch.cuda.synchronize()
+    res = dict(what="decode", counts=counts(), ms=timed(lambda: fn(params, prompt), 3) * 1e3)
+    if RANK == 0:
+        plain = make_generate_fn(spec, d["new"], step_impl="xla", device=dev)
+        p_dev = {k: v.to(dev) for k, v in params.items()}
+        want = plain(p_dev, prompt)
+        res.update(equal=bool(torch.equal(got.cpu(), want.cpu())),
+                   agree=float((got.cpu() == want.cpu()).float().mean()),
+                   ms_alone=timed(lambda: plain(p_dev, prompt), 3) * 1e3)
+    say(**res)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+_NCCL_PROBE_CHILD = r"""
+import sys, torch, torch.distributed as dist
+from distkeras_torch.runtime.launcher import initialize_multihost
+
+initialize_multihost(timeout=60)
+t = torch.ones(4, device="cuda")
+try:
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    print("PROBE ok " + str(t.tolist()), flush=True)
+except Exception as e:
+    print("PROBE refused " + " ".join(str(e).split())[:300], flush=True)
+dist.destroy_process_group()
+"""
+
+
+def _spawn_group(code: str, n: int, arg: str):
+    port = _free_port()
+    procs = []
+    for rank in range(n):
+        env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""),
+                   DKT_COORDINATOR=f"127.0.0.1:{port}", DKT_NUM_PROCESSES=str(n),
+                   DKT_PROCESS_ID=str(rank))
+        procs.append(subprocess.Popen([sys.executable, "-c", code, arg], cwd=HERE, env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True))
+    return procs
+
+
+def _collect(procs, timeout: float, what: str):
+    """Each process's (exit code, stdout, stderr), all within ``timeout``
+    seconds; every process is waited for or killed."""
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for p in procs:
+            try:
+                out, err = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"{what}: a process did not finish within {timeout:.0f} s")
+            outs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    return outs
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _one_rank_nccl(torch, np, fa, smi):
+    """Gate: a mesh of one rank, (dp, sp, tp) = (1, 1, 1), gives the
+    one-device step bit for bit.  Every axis has size 1, so the mesh step
+    runs no collective: this proves the size-1 mesh path equals the
+    one-device path, not NCCL.  NCCL's own work is one call after it: the
+    port's bucketed all-reduce of the updated params over the one-rank
+    NCCL world, which must give them back bit for bit.  Both steps run
+    the split backward (B3a + B3b, no atomics) so that two runs can be
+    equal; the layouts run the fused B2."""
+    import torch.distributed as dist
+
+    from distkeras_torch import make_lm_train_step, shift_targets, small_lm_spec
+    from distkeras_torch.ops.optimizers import get_optimizer
+    from distkeras_torch.parallel.lm import lm_data_shardings, lm_state_shardings
+    from distkeras_torch.parallel.mesh import all_reduce_tensors, create_nd_mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    cap = fa.FUSED_DQ_WORKSPACE_CAP
+    fa.FUSED_DQ_WORKSPACE_CAP = 0
+    try:
+        spec = small_lm_spec(vocab_size=VOCAB, model_dim=DIM, num_heads=TRAIN_HEADS,
+                             num_layers=LAYERS, max_seq_len=TRAIN_LEN, seq_axis="sp")
+        spec.config["compute_dtype"] = "bfloat16"
+        params = spec.init_params(seed=0, device="cpu")
+        tokens = np.random.default_rng(3).integers(0, VOCAB, (TRAIN_BATCH, TRAIN_LEN))
+        targets = shift_targets(tokens)
+        sgd = get_optimizer("sgd", 0.01)
+        p_dev = {k: v.cuda() for k, v in params.items()}
+        p_one, _, loss_one = make_lm_train_step(spec, sgd, device="cuda")(
+            dict(p_dev), sgd.init(p_dev), tokens, targets)
+        mesh = create_nd_mesh((1, 1, 1), ("dp", "sp", "tp"), device="cuda")
+        psh, osh = lm_state_shardings(mesh, sgd, params, tp_axis="tp", spec=spec)
+        dsh = lm_data_shardings(mesh)
+        p_mesh, _, loss_mesh = make_lm_train_step(spec, sgd, mesh, tp_axis="tp")(
+            psh(params), osh(sgd.init(params)), dsh(tokens), dsh(targets))
+        same = bool(torch.equal(loss_one, loss_mesh)) and all(
+            torch.equal(p_one[k], p_mesh[k]) for k in p_one)
+        keys = sorted(p_mesh)
+        summed = all_reduce_tensors([p_mesh[k] for k in keys], dist.group.WORLD)
+        torch.cuda.synchronize()
+        carried = all(torch.equal(p_mesh[k], t) for k, t in zip(keys, summed))
+        print(f"mesh phase ({smi}): (1, 1, 1) mesh step, split backward, no collective (every "
+              f"axis has size 1): loss {loss_mesh.item():.6f}, one device "
+              f"{loss_one.item():.6f}; bit for bit: {same}; then the port's all-reduce of the "
+              f"updated params over a one-rank {dist.get_backend()} world on the card: bit "
+              f"for bit: {carried}")
+        check(same, "the one-rank mesh step is not the one-device step bit for bit")
+        check(carried, "an all-reduce over the one-rank NCCL world changed the params")
+    finally:
+        fa.FUSED_DQ_WORKSPACE_CAP = cap
+        dist.destroy_process_group()
+
+
+def _ring_block_kernels(torch, fa):
+    """B1, and B2 fused and split, as a ring step of the sp = 2 layouts
+    calls them, against the plain forward and backward on the same
+    inputs: [8, 1024, H, 128] bf16 with H = 4 (sp alone) and H = 2 (the
+    local heads under tp = 2); step 0 causal at offsets (0, 0), a live
+    step causal at q_offset = L_local = 1024, k_offset = 0; each backward
+    with a random lse cotangent, as the merge feeds it.  q is a strided
+    view of one qkv tensor, k and v the halves of the stacked block the
+    ring rotates.  Tolerances: ``check_fwd``'s, and 1e-2 of max |d| for
+    the backward (``flash_bwd_phase``'s)."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    l_local = TRAIN_LEN // 2
+    for heads in (TRAIN_HEADS, TRAIN_HEADS // 2):
+        qkv = torch.randn((TRAIN_BATCH, l_local, 3, heads, TRAIN_D), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        q = qkv[:, :, 0]
+        kv = torch.stack((qkv[:, :, 1], qkv[:, :, 2]))
+        k, v = kv[0], kv[1]
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        dlse = torch.randn((TRAIN_BATCH, heads, l_local), generator=gen, device="cuda")
+        for name, qo in (("ring step 0", 0), ("ring live step", l_local)):
+            o, lse, _ = check_fwd(torch, fa, q, k, v, f"{name} (mesh phase)", True, qo, 0)
+            ref = fa.flash_backward_plain(q, k, v, o, lse, do, dlse, True, qo, 0)
+            for split in (False, True):
+                got = fa.flash_backward_cuda(q, k, v, o, lse, do, dlse, True, qo, 0,
+                                             split=split)
+                torch.cuda.synchronize()
+                errs = _rel_err(got, ref)
+                label = "split" if split else "fused"
+                print(f"mesh phase, flash_bwd {label} [{TRAIN_BATCH},{l_local},{heads},"
+                      f"{TRAIN_D}] {name} (q_offset {qo}, k_offset 0, dlse): max|d - d_plain| "
+                      f"(rel to max|d|) dq/dk/dv "
+                      + ", ".join(f"{e:.3e} ({r:.1e})" for e, r in errs) + " (tol 1e-02 rel)")
+                check(all(r <= 1e-2 for _, r in errs) and all(
+                    bool(torch.isfinite(g.float()).all()) for g in got),
+                      f"mesh phase: flash_bwd {label} disagrees with plain at the {name}")
+
+
+def mesh_phase(torch, np, smi, fa):
+    """Phase 14: layouts over several processes on the one card (see the
+    module note).  Returns the launches of the counted steps, summed over
+    layouts and ranks."""
+    t0 = time.perf_counter()
+    # the ring's kernel calls against their plain versions, before any
+    # process of the phase runs on the card
+    _ring_block_kernels(torch, fa)
+    cfg = dict(timeout=MESH_TIMEOUT, layouts=MESH_LAYOUTS, warm=MESH_WARM, timed=MESH_TIMED,
+               train=dict(vocab=VOCAB, dim=DIM, heads=TRAIN_HEADS, layers=LAYERS,
+                          seq=TRAIN_LEN, batch=TRAIN_BATCH),
+               engine=MESH_ENGINE,
+               decode=dict(vocab=VOCAB, dim=DIM, heads=HEADS, layers=LAYERS,
+                           seq=PROMPT + NEW + 16, batch=BATCH, prompt=PROMPT,
+                           new=MESH_DECODE_NEW))
+    # the NCCL probe beside the one-rank gate; the Gloo group after both,
+    # so that nothing else runs on the card while it times its steps
+    probe = _spawn_group(_NCCL_PROBE_CHILD, 2, "")
+    try:
+        _one_rank_nccl(torch, np, fa, smi)
+    finally:
+        outs = _collect(probe, 120, "the NCCL probe")
+    for code, out, err in outs:
+        lines = [l for l in out.splitlines() if l.startswith("PROBE")]
+        print(f"mesh phase: NCCL with two ranks on one card: "
+              f"{lines[0] if lines else f'exit {code}: ' + ' '.join(err.split())[-300:]}")
+    group = _spawn_group(_MESH_CHILD, MESH_WORLD, json.dumps(cfg))
+    results = _collect(group, MESH_TIMEOUT, "the mesh phase's processes")
+    for rank, (code, out, err) in enumerate(results):
+        check(code == 0, f"mesh phase: rank {rank} exited with {code}: {err[-3000:]}")
+    recs = [json.loads(l[5:]) for _, out, _ in results for l in out.splitlines()
+            if l.startswith("MESH ")]
+    launches = {"flash_fwd": 0, "flash_bwd_fused": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    one = next(r for r in recs if r["what"] == "one_device")
+    print(f"mesh phase ({smi}): one-device step {one['ms']:.2f} ms (host clock, median of "
+          f"{MESH_TIMED}), {TRAIN_BATCH * TRAIN_LEN / one['ms'] * 1e3:.1f} tokens/s")
+    for shape in MESH_LAYOUTS:
+        ranks = [r for r in recs if r["what"] == "layout" and tuple(r["layout"]) == shape]
+        check(len(ranks) == int(np.prod(shape)), f"mesh phase: {shape} reported {len(ranks)} ranks")
+        for r in ranks:
+            c, live = r["counts"], (r["sp_rank"] + 1) * LAYERS
+            bwd = c["flash_bwd_fused"] or c["flash_bwd_dq"]
+            print(f"mesh layout (dp, sp, tp) = {shape} rank {r['rank']} (sp rank {r['sp_rank']}):"
+                  f" launches {c}")
+            check(c["flash_fwd"] == live and bwd == live and c["decode_step"] == 0
+                  and (c["flash_bwd_dq"] == c["flash_bwd_dkv"]),
+                  f"mesh layout {shape} rank {r['rank']}: launches {c}, want B1 and B2 "
+                  f"{live} and B4 0")
+            for k in launches:
+                launches[k] += c[k]
+        r0 = next(r for r in ranks if r["rank"] == 0)
+        print(f"mesh layout (dp, sp, tp) = {shape} ({smi}, backend {r0['backend']}): loss "
+              f"{r0['loss']:.6f}, relative gap {r0['loss_rel']:.3e} (tol {MESH_LOSS_TOL:g}); "
+              f"gathered params relative L2 {r0['rel_l2']:.3e}, max abs {r0['max_abs']:.3e} "
+              f"(tol {MESH_PARAM_ATOL:g}), update gap {r0['update_gap']:.3e} (tol "
+              f"{MESH_UPDATE_TOL:g}); {r0['ms']:.2f} ms/step (host clock, median of "
+              f"{MESH_TIMED}; {one['ms']:.2f} on one device), "
+              f"{TRAIN_BATCH * TRAIN_LEN / r0['ms'] * 1e3:.1f} tokens/s; rank 0 profiled step: "
+              f"wall {r0['profile_wall_ms']:.1f} ms, device {r0['device_ms']:.1f} ms, idle share "
+              f"{100 * r0['idle']:.1f} %")
+        check(r0["loss_rel"] <= MESH_LOSS_TOL and r0["max_abs"] <= MESH_PARAM_ATOL
+              and r0["update_gap"] <= MESH_UPDATE_TOL,
+              f"mesh layout {shape} disagrees with the one-device step")
+    engine = [r for r in recs if r["what"] == "engine"]
+    e0 = next(r for r in engine if r["rank"] == 0)
+    e = MESH_ENGINE
+    print(f"mesh phase engine ({smi}): ADAG, {e['procs']} processes x "
+          f"{e['replicas'] // e['procs']} stacked mnist_cnn replicas against {e['replicas']} "
+          f"stacked in one process, {e['windows']} windows of {e['window']}, batch {e['batch']} "
+          f"a replica, f32: center relative L2 {e0['center_rel']:.3e} (tol "
+          f"{MESH_ENGINE_TOL:g}); losses {e0['losses']} against {e0['losses_alone']}; "
+          f"{e0['ms']:.1f} ms an epoch chunk ({e0['ms_alone']:.1f} in one process)")
+    check(len(engine) == e["procs"] and e0["center_rel"] <= MESH_ENGINE_TOL
+          and not any(v for r in engine for v in r["counts"].values()),
+          "the replica-group engine disagrees with the stacked one")
+    decode = [r for r in recs if r["what"] == "decode"]
+    d0 = next(r for r in decode if r["rank"] == 0)
+    print(f"mesh phase decoding ({smi}): tp = 2, batch {BATCH}, prompt {PROMPT}, "
+          f"{MESH_DECODE_NEW} new greedy tokens, float32: equal to the one-device per-op "
+          f"tokens: {d0['equal']} (agreement {d0['agree']:.4f}); "
+          f"{d0['ms'] / MESH_DECODE_NEW:.3f} ms/token ({d0['ms_alone'] / MESH_DECODE_NEW:.3f} "
+          f"on one device); launches {d0['counts']}")
+    check(len(decode) == 2 and d0["equal"] and not any(
+        v for r in decode for v in r["counts"].values()),
+          "tp decoding disagrees with the one-device decode or launched a kernel")
+    print(f"mesh phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def run() -> int:
     try:
         import torch
@@ -4036,6 +4512,12 @@ def run() -> int:
     moe_counts = moe_rnn_phase(torch, np, smi, fa)
     check(ds.DECODE_STEP.launches == 0, "the moe_rnn phase launched the decode step")
     for name, n in moe_counts.items():
+        launches[name] += n
+    # layouts over several processes: B1 and B2 in every ring step that is
+    # live; the counts are the child processes' own
+    _zero_counts(fa)
+    ds.DECODE_STEP.launches = 0
+    for name, n in mesh_phase(torch, np, smi, fa).items():
         launches[name] += n
     entry_profile(torch, np, smi)
     family_timing_fn()

@@ -61,6 +61,11 @@ keeps Flax's layout for them:
 Every Flax Dense kernel is ``[in..., out...]`` and every ``nn.Linear``
 weight ``[out, in]``: the move is a reshape to 2-D and a transpose; a conv
 kernel moves HWIO -> OIHW by a permutation.  Both are exact both ways.
+
+Under Megatron tensor parallelism (``parallel/lm.py``) a rank holds a
+shard of a ``transformer_lm``'s dict: :func:`shard_params_from_jax` cuts a
+full Flax tree into this rank's shard, :func:`gather_params_to_jax` joins
+the shards of a tp group back into the full Flax tree.
 """
 
 from __future__ import annotations
@@ -203,3 +208,26 @@ def params_to_jax(params: Mapping[str, torch.Tensor], spec: ModelSpec) -> Dict[s
         return {k: to_numpy(v) if isinstance(v, dict) else v.numpy() for k, v in node.items()}
 
     return to_numpy(flax_tensors(params, spec))
+
+
+def _tp_placement(params: Mapping[str, torch.Tensor], spec: ModelSpec, mesh, tp_axis):
+    from distkeras_torch.parallel.lm import StatePlacement, lm_param_specs
+
+    tp = tp_axis if (tp_axis in mesh.shape and mesh.shape[tp_axis] > 1) else None
+    return StatePlacement(mesh, lm_param_specs(params, tp, spec))
+
+
+def shard_params_from_jax(tree: Mapping, spec: ModelSpec, mesh,
+                          tp_axis: str = "tp") -> Dict[str, torch.Tensor]:
+    """A full Flax ``transformer_lm`` tree (numpy leaves) -> this rank's
+    shard of the port's param dict over ``tp_axis`` of ``mesh``, on the
+    mesh's device (the whole dict where the axis is absent or of size 1)."""
+    full = params_from_jax(tree, spec, device="cpu")
+    return _tp_placement(full, spec, mesh, tp_axis)(full)
+
+
+def gather_params_to_jax(params: Mapping[str, torch.Tensor], spec: ModelSpec, mesh,
+                         tp_axis: str = "tp") -> Dict[str, Any]:
+    """This rank's shard -> the full Flax tree of numpy arrays, joined over
+    ``tp_axis`` (a collective: every rank of the tp group calls it)."""
+    return params_to_jax(_tp_placement(params, spec, mesh, tp_axis).gather(dict(params)), spec)

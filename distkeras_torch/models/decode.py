@@ -14,7 +14,10 @@ port's param dict (``distkeras_torch.bridge`` lists the keys):
   the loop waits for the device, so the host runs ahead of the card;
 - ``step_impl="fused"`` runs each decode step through the hand-written
   kernel of ``ops/decode_step.py``; ``"xla"`` keeps the JAX package's name
-  for the plain per-op step.
+  for the plain per-op step;
+- :func:`make_sharded_generate_fn` decodes over a mesh of processes: heads
+  over ``tp`` (each rank's cache holds its head shard, and the per-op step
+  all-reduces after ``proj`` and after ``down``), prompt rows over ``dp``.
 """
 
 from __future__ import annotations
@@ -108,9 +111,13 @@ def _layer_norm(params: Dict, prefix: str, x: torch.Tensor, dtype) -> torch.Tens
 
 
 def _block(params: Dict, layer: int, x: torch.Tensor, cache, start_pos: int, dtype,
-           num_heads: int, positional: str = "learned"):
+           num_heads: int, positional: str = "learned", tp_group=None):
     """One transformer block over ``x`` [B, L, E], writing its L new K/V rows
-    into layer ``layer`` of the cache at ``start_pos``."""
+    into layer ``layer`` of the cache at ``start_pos``.  With ``tp_group``
+    the block holds a head and FFN shard (``num_heads`` local) and sums the
+    row-parallel outputs over the group."""
+    from distkeras_torch.parallel.mesh import all_reduce
+
     p = f"block_{layer}."
     head_dim = cache.k.shape[-1]
     quant = isinstance(cache, QKVCache)
@@ -159,21 +166,22 @@ def _block(params: Dict, layer: int, x: torch.Tensor, cache, start_pos: int, dty
         attn = attn * cache.v_scale[layer][..., 0].permute(0, 2, 1)[:, :, None, None, :]
     attn = attn.to(dtype)
     o = torch.einsum("bhgqk,bkhd->bqhgd", attn, cv.to(dtype)).reshape(b, l, num_heads * head_dim)
-    x = x + _linear(o, params[p + "proj.weight"], dtype)
+    x = x + all_reduce(_linear(o, params[p + "proj.weight"], dtype), tp_group)
 
     y = _layer_norm(params, p + "LayerNorm_1", x, dtype)
     up = _linear(y, params[p + "up.weight"], dtype)
     y = torch.nn.functional.gelu(up.float(), approximate="tanh").to(dtype)
-    return x + _linear(y, params[p + "down.weight"], dtype)
+    return x + all_reduce(_linear(y, params[p + "down.weight"], dtype), tp_group)
 
 
 def init_cache(config: dict, batch: int, cache_len: int, quantized: bool = False,
-               device: DeviceLike = None):
+               device: DeviceLike = None, tp_size: int = 1):
     """Zero cache sized for ``cache_len`` total positions (prompt + new);
-    ``quantized`` selects the int8 :class:`QKVCache` layout."""
+    ``quantized`` selects the int8 :class:`QKVCache` layout; ``tp_size``
+    keeps one rank's shard of the KV heads."""
     dev = resolve_device(device)
     n_layers = config["num_layers"]
-    heads = config.get("num_kv_heads") or config["num_heads"]
+    heads = (config.get("num_kv_heads") or config["num_heads"]) // tp_size
     head_dim = config["model_dim"] // config["num_heads"]
     shape = (n_layers, batch, cache_len, heads, head_dim)
     if quantized:
@@ -195,17 +203,19 @@ def _head(params: Dict, x: torch.Tensor, dtype) -> torch.Tensor:
 
 @torch.no_grad()
 def forward_with_cache(params: Dict, config: dict, tokens: torch.Tensor, start_pos: int,
-                       cache, last_only: bool = False):
+                       cache, last_only: bool = False, tp_group=None, tp_size: int = 1):
     """Run tokens [B, L] at positions ``start_pos..start_pos+L-1`` against the
     cache (updated in place); returns (float32 logits, cache) —
-    [B, L, vocab], or [B, 1, vocab] when ``last_only``."""
+    [B, L, vocab], or [B, 1, vocab] when ``last_only``.  ``tp_group`` /
+    ``tp_size``: ``params`` and ``cache`` hold this rank's head shard."""
     dtype = _cfg_dtype(config)
     positional = config.get("positional") or "learned"
     x = params["embed.weight"].to(dtype)[tokens]
     if positional == "learned":
         x = x + params["pos_embed"][start_pos:start_pos + tokens.shape[1]].to(dtype)
     for i in range(config["num_layers"]):
-        x = _block(params, i, x, cache, start_pos, dtype, config["num_heads"], positional)
+        x = _block(params, i, x, cache, start_pos, dtype, config["num_heads"] // tp_size,
+                   positional, tp_group)
     if last_only:
         x = x[:, -1:]
     return _head(params, x, dtype), cache
@@ -327,57 +337,146 @@ def make_generate_fn(spec: ModelSpec, max_new_tokens: int, *,
         raise ValueError(f"top_k must be in [0, vocab_size="
                          f"{config['vocab_size']}], got {top_k}")
     dev = resolve_device(device)
-    max_seq = config["max_seq_len"]
 
     @torch.no_grad()
     def generate_fn(params: Dict, prompt, rng: Optional[torch.Generator] = None):
-        prompt = torch.as_tensor(np.asarray(prompt) if not torch.is_tensor(prompt) else prompt,
-                                 device=dev).long()
-        batch, prompt_len = prompt.shape
-        total = cache_len or (prompt_len + max_new_tokens)
-        # both step impls accept and reject the same capacities
-        if prompt_len + max_new_tokens > total:
-            raise ValueError(
-                f"cache_len = {total} cannot hold prompt ({prompt_len}) + "
-                f"max_new_tokens ({max_new_tokens}); out-of-range cache "
-                "writes would corrupt generation")
-        if ((config.get("positional") or "learned") == "learned"
-                and prompt_len + max_new_tokens > max_seq):
-            raise ValueError(
-                f"prompt ({prompt_len}) + max_new_tokens ({max_new_tokens}) "
-                f"exceeds the positional table max_seq_len = {max_seq}")
-        if quantize_cache:
-            impl = "xla"
-        else:
-            from distkeras_torch.ops.decode_step import resolve_step_impl
-
-            impl = resolve_step_impl(config, batch, total, step_impl, dev)
-        if rng is None:
-            rng = torch.Generator(device=dev).manual_seed(0)
-        params = dequant_embed({k: v.to(dev) for k, v in params.items()})
-
-        cache = init_cache(config, batch, total, quantized=quantize_cache, device=dev)
-        logits, cache = forward_with_cache(params, config, prompt, 0, cache, last_only=True)
-        tok = _sample(logits[:, -1], rng, temperature, top_k, top_p)
-        # the EOS token itself is kept in the output; rows are padded after
-        done = (torch.zeros(batch, dtype=torch.bool, device=dev) if eos_id is None
-                else tok == eos_id)
-        state = make_fused_state(params, config) if impl == "fused" else None
-        out = [tok]
-        for pos in range(prompt_len, prompt_len + max_new_tokens - 1):
-            if state is not None:
-                logits = fused_token_forward(state, tok, pos, cache)
-            else:
-                logits, cache = forward_with_cache(params, config, tok[:, None], pos, cache)
-            nxt = _sample(logits[:, -1], rng, temperature, top_k, top_p)
-            if eos_id is not None:
-                nxt = torch.where(done, torch.full_like(nxt, pad_id), nxt)
-                done = done | (nxt == eos_id)
-            out.append(nxt)
-            tok = nxt
-        return torch.stack(out, dim=1)
+        return _generate(params, prompt, rng, config, dev, max_new_tokens, temperature, top_k,
+                         top_p, eos_id, pad_id, cache_len, step_impl, quantize_cache)
 
     return generate_fn
+
+
+def _generate(params: Dict, prompt, rng, config: dict, dev: torch.device, max_new_tokens: int,
+              temperature: float, top_k: int, top_p: float, eos_id: Optional[int], pad_id: int,
+              cache_len: Optional[int], step_impl: Optional[str], quantize_cache: bool,
+              tp_group=None, tp_size: int = 1) -> torch.Tensor:
+    """The generation loop of :func:`make_generate_fn`; with ``tp_group``
+    the params are one rank's head shard and the step is per-op."""
+    max_seq = config["max_seq_len"]
+    prompt = torch.as_tensor(np.asarray(prompt) if not torch.is_tensor(prompt) else prompt,
+                             device=dev).long()
+    batch, prompt_len = prompt.shape
+    total = cache_len or (prompt_len + max_new_tokens)
+    # both step impls accept and reject the same capacities
+    if prompt_len + max_new_tokens > total:
+        raise ValueError(
+            f"cache_len = {total} cannot hold prompt ({prompt_len}) + "
+            f"max_new_tokens ({max_new_tokens}); out-of-range cache "
+            "writes would corrupt generation")
+    if ((config.get("positional") or "learned") == "learned"
+            and prompt_len + max_new_tokens > max_seq):
+        raise ValueError(
+            f"prompt ({prompt_len}) + max_new_tokens ({max_new_tokens}) "
+            f"exceeds the positional table max_seq_len = {max_seq}")
+    if quantize_cache or tp_group is not None:
+        impl = "xla"
+    else:
+        from distkeras_torch.ops.decode_step import resolve_step_impl
+
+        impl = resolve_step_impl(config, batch, total, step_impl, dev)
+    if rng is None:
+        rng = torch.Generator(device=dev).manual_seed(0)
+    params = dequant_embed({k: v.to(dev) for k, v in params.items()})
+
+    cache = init_cache(config, batch, total, quantized=quantize_cache, device=dev,
+                       tp_size=tp_size)
+    logits, cache = forward_with_cache(params, config, prompt, 0, cache, last_only=True,
+                                       tp_group=tp_group, tp_size=tp_size)
+    tok = _sample(logits[:, -1], rng, temperature, top_k, top_p)
+    # the EOS token itself is kept in the output; rows are padded after
+    done = (torch.zeros(batch, dtype=torch.bool, device=dev) if eos_id is None
+            else tok == eos_id)
+    state = make_fused_state(params, config) if impl == "fused" else None
+    out = [tok]
+    for pos in range(prompt_len, prompt_len + max_new_tokens - 1):
+        if state is not None:
+            logits = fused_token_forward(state, tok, pos, cache)
+        else:
+            logits, cache = forward_with_cache(params, config, tok[:, None], pos, cache,
+                                               tp_group=tp_group, tp_size=tp_size)
+        nxt = _sample(logits[:, -1], rng, temperature, top_k, top_p)
+        if eos_id is not None:
+            nxt = torch.where(done, torch.full_like(nxt, pad_id), nxt)
+            done = done | (nxt == eos_id)
+        out.append(nxt)
+        tok = nxt
+    return torch.stack(out, dim=1)
+
+
+def make_sharded_generate_fn(spec: ModelSpec, mesh, max_new_tokens: int, *,
+                             tp_axis: Optional[str] = "tp", dp_axis: Optional[str] = None,
+                             **kw):
+    """Decoding over a :class:`~distkeras_torch.parallel.mesh.Mesh` of
+    processes.
+
+    Every rank takes the full params and prompt, keeps its Megatron shard
+    (``parallel/lm.py :: lm_param_specs``: qkv / q / kv column-parallel
+    over heads, proj and down row-parallel, up column-parallel) and its
+    prompt rows over ``dp_axis``, and decodes them with the per-op step:
+    its cache holds its KV-head shard, and the row-parallel outputs of
+    ``proj`` and ``down`` are all-reduced over ``tp_axis``, so every tp
+    rank samples from the same logits.  The tokens are gathered over dp.
+    The fused step (B4) runs every head of a layer in one launch with no
+    collective inside, so it is never taken here, as the JAX package's
+    sharded program always takes its XLA step.
+
+    Returns ``fn(params, prompt, rng=None) -> tokens [B, max_new_tokens]``
+    on every rank; all ranks of the mesh call it together."""
+    if kw.get("step_impl") is None:
+        kw["step_impl"] = "xla"
+    if kw["step_impl"] != "xla":
+        raise ValueError("make_sharded_generate_fn requires step_impl='xla': the fused "
+                         "decode kernel runs every head of a layer in one launch and has "
+                         "no collective between its phases")
+    kw.setdefault("device", mesh.device)
+    make_generate_fn(spec, max_new_tokens, **kw)  # validates the spec and options
+    for name, axis in (("tp_axis", tp_axis), ("dp_axis", dp_axis)):
+        # a typo'd axis must not silently degrade to full replication
+        if axis is not None and axis not in mesh.shape:
+            raise ValueError(f"{name} {axis!r} is not a mesh axis of {mesh}; "
+                             "pass None to disable that parallelism")
+    tp = mesh.shape[tp_axis] if tp_axis else 1
+    if spec.config["num_heads"] % tp:
+        raise ValueError(f"num_heads {spec.config['num_heads']} not divisible "
+                         f"by tp={tp} over mesh axis {tp_axis!r}")
+    kv_heads = spec.config.get("num_kv_heads") or spec.config["num_heads"]
+    if kv_heads % tp:
+        raise ValueError(f"num_kv_heads {kv_heads} not divisible by tp={tp}: "
+                         "the cache's head axis is the sharded one — use a "
+                         "tp that divides the KV heads, or dp-only decoding")
+    config = validate_decode_spec(spec, "decoding")
+    dev = resolve_device(kw.pop("device"))
+    opts = dict(temperature=0.0, top_k=0, top_p=0.0, eos_id=None, pad_id=0, cache_len=None,
+                quantize_cache=False)
+    opts.update({k: v for k, v in kw.items() if k in opts})
+
+    @torch.no_grad()
+    def fn(params: Dict, prompt, rng: Optional[torch.Generator] = None):
+        from distkeras_torch.parallel.lm import StatePlacement, lm_param_specs
+        from distkeras_torch.parallel.mesh import all_gather
+
+        if any(isinstance(v, QTensor) for v in params.values()):
+            raise ValueError("int8-quantized trees are not supported with "
+                             "sharded decoding (v1): per-channel scale dims "
+                             "don't carry the Megatron partition specs; use "
+                             "make_generate_fn (single-program) instead")
+        prompt = torch.as_tensor(np.asarray(prompt) if not torch.is_tensor(prompt) else prompt)
+        dp = mesh.shape[dp_axis] if dp_axis else 1
+        if dp_axis and prompt.shape[0] % dp:
+            raise ValueError(f"batch {prompt.shape[0]} not divisible by dp={dp}")
+        local = StatePlacement(mesh, lm_param_specs(params, tp_axis if tp > 1 else None,
+                                                    config))(params)
+        if dp > 1:
+            rows = prompt.shape[0] // dp
+            prompt = prompt[mesh.coord(dp_axis) * rows:(mesh.coord(dp_axis) + 1) * rows]
+        tp_group = mesh.group(tp_axis) if tp > 1 else None
+        tokens = _generate(local, prompt, rng, config, dev, max_new_tokens,
+                           opts["temperature"], opts["top_k"], opts["top_p"], opts["eos_id"],
+                           opts["pad_id"], opts["cache_len"], "xla", opts["quantize_cache"],
+                           tp_group=tp_group, tp_size=tp)
+        return all_gather(tokens, mesh.group(dp_axis)) if dp > 1 else tokens
+
+    return fn
 
 
 def generate(model: Model, prompt, max_new_tokens: int, *, temperature: float = 0.0,

@@ -16,9 +16,20 @@ use as Flax's ``promote_dtype`` does.  Parity points with the Flax modules:
 (``distkeras_torch.parallel.moe.MoEMLP`` under ``block_i.moe``; capacity
 ``moe_capacity``, or 2x the balanced share ``ceil(2 B L / E)`` when 0),
 whose load-balance losses and router stats a forward given ``sown``
-records; train such specs with ``make_moe_lm_train_step``.  Sequence
-parallelism (``seq_axis``) and tensor parallelism (``tp_axis``) are ROADMAP
-item 11 and expert parallelism (``ep_axis``) item 14c; they raise.
+records; train such specs with ``make_moe_lm_train_step``.  Expert
+parallelism (``ep_axis``) is ROADMAP item 14c and raises.
+
+Layouts over several devices (``seq_axis``, ``tp_axis`` / ``tp_size``) run
+when a forward is given the :class:`~distkeras_torch.parallel.mesh.Mesh`
+of its step (``mesh=``): ring attention over ``seq_axis``, and Megatron
+tensor parallelism with the LOCAL sizes ``num_heads // tp_size``,
+``num_kv_heads // tp_size`` and ``mlp_ratio * model_dim // tp_size``
+(f before ``qkv`` / ``q`` / ``kv`` and ``up``, g after ``proj`` and
+``down``, where the JAX package has ``_maybe_psum``).  Positions are global
+through ``pos_offset``.  Initialization builds the full model
+(``tp_size=1``); ``parallel/lm.py`` cuts it into shards.  Without a mesh
+the collectives are the identity and a ``seq_axis`` model attends over the
+sequence it is given.
 ``remat=True`` checkpoints each block (``torch.utils.checkpoint``), so its
 forward runs twice in training.
 """
@@ -66,13 +77,6 @@ def _normal_(t: torch.Tensor, std: float, gen: torch.Generator) -> None:
         t.copy_(torch.randn(t.shape, generator=gen) * std)
 
 
-def _unsupported(**options) -> None:
-    for name, value in options.items():
-        if value:
-            raise NotImplementedError(f"{name}={value!r} is a later slice of the "
-                                      "PyTorch port; see ROADMAP")
-
-
 class TransformerBlock(nn.Module):
     def __init__(self, model_dim: int, num_heads: int, num_kv_heads: Optional[int] = None,
                  mlp_ratio: int = 4, positional: str = "learned",
@@ -82,37 +86,43 @@ class TransformerBlock(nn.Module):
                  ep_axis: Optional[str] = None, ep_size: int = 1,
                  moe_dispatch: str = "auto", compute_dtype=None):
         super().__init__()
+        if num_heads % tp_size:
+            raise ValueError(f"num_heads {num_heads} not divisible by tp_size {tp_size}")
         if moe_experts and tp_size > 1:
             raise ValueError("MoE FFN does not compose with tensor parallelism (v1); "
                              "use either moe_experts or tp_size")
         if moe_experts and seq_axis is not None:
             raise ValueError("MoE FFN does not compose with sequence parallelism "
                              "(v1); train MoE LMs with make_moe_lm_train_step")
-        _unsupported(seq_axis=seq_axis, tp_axis=tp_axis)
         from distkeras_torch.parallel.moe import MoEMLP, _reject_ep
 
         _reject_ep(ep_axis, ep_size)                        # ROADMAP item 14c
-        if tp_size != 1:
-            raise NotImplementedError("tp_size > 1 is a later slice of the PyTorch port")
         if positional not in ("learned", "rope"):
             raise ValueError(f"positional must be 'learned' or 'rope', got {positional!r}")
         kv_heads = num_kv_heads or num_heads
         if num_heads % kv_heads:
             raise ValueError(f"num_heads {num_heads} not a multiple of "
                              f"num_kv_heads {kv_heads}")
-        self.num_heads = num_heads
-        self.kv_heads = kv_heads
+        if kv_heads != num_heads and kv_heads % tp_size:
+            raise ValueError(f"num_kv_heads {kv_heads} not divisible by "
+                             f"tp_size {tp_size}")
         self.head_dim = model_dim // num_heads
+        self.num_heads = num_heads // tp_size          # local heads
+        self.kv_heads = kv_heads // tp_size
+        self.mha = kv_heads == num_heads
+        self.seq_axis = seq_axis
+        self.tp_axis = tp_axis
         self.positional = positional
         self.attn_impl = attn_impl
         self.dtype = resolve_dtype(compute_dtype)
-        hd = num_heads * self.head_dim
+        hd = self.num_heads * self.head_dim
+        ffn = mlp_ratio * model_dim // tp_size
         self.LayerNorm_0 = LayerNorm(model_dim)
-        if kv_heads == num_heads:
+        if self.mha:
             self.qkv = nn.Linear(model_dim, 3 * hd, bias=False)
         else:
             self.q = nn.Linear(model_dim, hd, bias=False)
-            self.kv = nn.Linear(model_dim, 2 * kv_heads * self.head_dim, bias=False)
+            self.kv = nn.Linear(model_dim, 2 * self.kv_heads * self.head_dim, bias=False)
         self.proj = nn.Linear(hd, model_dim, bias=False)
         self.LayerNorm_1 = LayerNorm(model_dim)
         if moe_experts:
@@ -121,8 +131,8 @@ class TransformerBlock(nn.Module):
                               router_top_k=moe_top_k, dispatch_impl=moe_dispatch,
                               compute_dtype=self.dtype)
         else:
-            self.up = nn.Linear(model_dim, mlp_ratio * model_dim, bias=False)
-            self.down = nn.Linear(mlp_ratio * model_dim, model_dim, bias=False)
+            self.up = nn.Linear(model_dim, ffn, bias=False)
+            self.down = nn.Linear(ffn, model_dim, bias=False)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         # lecun-normal fan-in scaling, Flax's Dense default
@@ -135,12 +145,15 @@ class TransformerBlock(nn.Module):
         if hasattr(self, "moe"):
             self.moe.reset_parameters(gen)
 
-    def forward(self, x: torch.Tensor, pos_offset: int = 0, sown=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pos_offset: int = 0, sown=None,
+                mesh=None) -> torch.Tensor:
+        from distkeras_torch.parallel.mesh import copy_to_tp, reduce_from_tp
+
         dt = self.dtype
         b, l, _ = x.shape
         h, hkv, d = self.num_heads, self.kv_heads, self.head_dim
-        y = self.LayerNorm_0(x, dt)
-        if hkv == h:
+        y = copy_to_tp(self.LayerNorm_0(x, dt), mesh, self.tp_axis)
+        if self.mha:
             qkv = _linear(y, self.qkv, dt).view(b, l, 3, h, d)
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         else:
@@ -152,21 +165,25 @@ class TransformerBlock(nn.Module):
 
             pos = pos_offset + torch.arange(l, device=x.device)
             q, k = rope_rotate(q, pos), rope_rotate(k, pos)
-        o = attention(q, k, v, causal=True, impl=self.attn_impl)
-        x = x + _linear(o.reshape(b, l, h * d), self.proj, dt)
+        o = attention(q, k, v, causal=True, axis_name=self.seq_axis, impl=self.attn_impl,
+                      mesh=mesh)
+        x = x + reduce_from_tp(_linear(o.reshape(b, l, h * d), self.proj, dt), mesh,
+                               self.tp_axis)
         y = self.LayerNorm_1(x, dt)
         if hasattr(self, "moe"):
             out, aux = self.moe(y.reshape(b * l, -1), sown)
             if sown is not None:
                 sown.setdefault("aux_loss", []).append(aux)
             return x + out.reshape(x.shape)
+        y = copy_to_tp(y, mesh, self.tp_axis)
         y = F.gelu(_linear(y, self.up, dt).float(), approximate="tanh").to(dt)
-        return x + _linear(y, self.down, dt)
+        return x + reduce_from_tp(_linear(y, self.down, dt), mesh, self.tp_axis)
 
 
 def _replay_block(blk: "TransformerBlock", names, x: torch.Tensor, pos_offset: int, sown,
-                  *tensors: torch.Tensor) -> torch.Tensor:
-    return torch.func.functional_call(blk, dict(zip(names, tensors)), (x, pos_offset, sown))
+                  mesh, *tensors: torch.Tensor) -> torch.Tensor:
+    return torch.func.functional_call(blk, dict(zip(names, tensors)),
+                                      (x, pos_offset, sown, mesh))
 
 
 @register_model("transformer_lm")
@@ -228,11 +245,12 @@ class TransformerLM(nn.Module):
         x = self.final_norm(x, self.dtype)
         return x @ self.embed.weight.to(self.dtype).T
 
-    def _trunk(self, tokens: torch.Tensor, pos_offset: int = 0, sown=None) -> torch.Tensor:
+    def _trunk(self, tokens: torch.Tensor, pos_offset: int = 0, sown=None,
+               mesh=None) -> torch.Tensor:
         x = self.embed_tokens(tokens, pos_offset)
         for blk in self.blocks():
             if not self.remat:
-                x = blk(x, pos_offset, sown)
+                x = blk(x, pos_offset, sown, mesh)
                 continue
             # remat: the backward replays the block's forward instead of
             # keeping its activations (nn.remat in the JAX package).  The
@@ -242,18 +260,20 @@ class TransformerLM(nn.Module):
             # replay appends to ``sown`` again, in the backward, after the
             # step has read the aux losses and stats of the forward.
             names, tensors = zip(*blk.named_parameters())
-            x = checkpoint(_replay_block, blk, names, x, pos_offset, sown, *tensors,
+            x = checkpoint(_replay_block, blk, names, x, pos_offset, sown, mesh, *tensors,
                            use_reentrant=False)
         return x
 
-    def hidden(self, tokens: torch.Tensor, pos_offset: int = 0) -> torch.Tensor:
+    def hidden(self, tokens: torch.Tensor, pos_offset: int = 0, mesh=None) -> torch.Tensor:
         """Forward without the unembed: [B, L] -> final-normed [B, L, E]."""
-        return self.final_norm(self._trunk(tokens, pos_offset), self.dtype)
+        return self.final_norm(self._trunk(tokens, pos_offset, mesh=mesh), self.dtype)
 
-    def forward(self, tokens: torch.Tensor, pos_offset: int = 0, sown=None) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, pos_offset: int = 0, sown=None,
+                mesh=None) -> torch.Tensor:
         """Logits; with a ``sown`` dict, MoE blocks record their aux losses
-        and router stats there (see ``distkeras_torch.parallel.moe``)."""
-        return self.head(self._trunk(tokens, pos_offset, sown))
+        and router stats there (see ``distkeras_torch.parallel.moe``).
+        ``mesh`` binds the layout's axes (see the module note)."""
+        return self.head(self._trunk(tokens, pos_offset, sown, mesh))
 
 
 def small_lm_spec(vocab_size: int = 1024, model_dim: int = 256, num_heads: int = 2,

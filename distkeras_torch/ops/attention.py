@@ -1,7 +1,10 @@
-"""Attention ops: dense causal attention and the kernel dispatch.
+"""Attention ops: dense causal attention, ring attention and the dispatch.
 
-Counterpart of ``distkeras_tpu/ops/attention.py``.  Ring attention (the
-``axis_name`` path) belongs to a later slice of the port and raises here.
+Counterpart of ``distkeras_tpu/ops/attention.py``.  Ring attention (Liu et
+al. 2023) shards the sequence over a mesh axis: each rank holds a query
+block, the key/value blocks travel around the ring
+(:func:`~distkeras_torch.parallel.mesh.ring_shift`), and the per-block
+``(o, lse)`` partials merge online in float32.
 """
 
 from __future__ import annotations
@@ -11,7 +14,8 @@ from typing import Optional
 
 import torch
 
-from distkeras_torch.ops.flash_attention import HEAD_DIMS, flash_attention
+from distkeras_torch.ops.flash_attention import (HEAD_DIMS, flash_attention,
+                                                 flash_attention_with_lse)
 
 
 def repeat_kv_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -60,15 +64,138 @@ def flash_supported(q: torch.Tensor, k: torch.Tensor) -> bool:
             and q.dtype == k.dtype and q.shape[-1] in HEAD_DIMS)
 
 
+def ring_block_impl(q: torch.Tensor, k: torch.Tensor) -> str:
+    """The per-block compute ``ring_attention`` takes when ``impl`` is
+    ``None``: the flash kernel for every block it supports
+    (:func:`flash_supported`), the dense float32 block otherwise.  The JAX
+    package's rule is a TPU crossover by block area; no crossover has been
+    measured on the card (PERF.md)."""
+    return "flash" if flash_supported(q, k) else "dense"
+
+
+def _dense_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, step_causal: bool):
+    """One ``(o, lse)`` partial in float32, the exact reference: scores
+    times the f32 scale, ``-inf`` under the mask, then the softmax's max,
+    sum and log-sum-exp."""
+    d = q.shape[-1]
+    scale = 1.0 / torch.sqrt(torch.tensor(float(d), dtype=torch.float32))
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale.to(q.device)
+    if step_causal:
+        pos = torch.arange(q.shape[1], device=q.device)
+        logits = logits.masked_fill(~(pos[:, None] >= pos[None, :]), float("-inf"))
+    m = logits.amax(dim=-1)
+    p = torch.exp(logits - m[..., None])
+    l_sum = p.sum(dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return o / l_sum.transpose(1, 2)[..., None], m + torch.log(l_sum)
+
+
+class _Join(torch.autograd.Function):
+    """``out`` as it is, with ``blocks`` as inputs whose cotangent is 0:
+    it makes the last rotation reachable in the backward on every rank,
+    so every rank runs every ring shift's adjoint, in the same order."""
+
+    @staticmethod
+    def forward(ctx, out, *blocks):
+        ctx.shapes = [(b.shape, b.dtype, b.device) for b in blocks]
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g,) + tuple(torch.zeros(s, dtype=dt, device=dev) for s, dt, dev in ctx.shapes)
+
+
+def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh, axis_name: str,
+                   causal: bool = True, impl: Optional[str] = None) -> torch.Tensor:
+    """Sequence-parallel attention over ``axis_name`` of ``mesh``.
+
+    Each rank holds its sequence shard: q [B, L_local, H, D], k/v
+    [B, L_local, Hkv, D].  k and v travel together as one tensor, one
+    :func:`ring_shift` a step; the block held at step ``s`` came from
+    rank ``(my - s) mod sp``.  The schedule of the JAX package:
+
+    - step 0 runs causal; a live step ``s > 0`` (``src < my``: the block
+      is strictly in the past) runs the flash kernel with
+      ``q_offset = L_local``, so no key is masked;
+    - a dead step (``src > my``: the block is in this rank's future) runs
+      nothing, since its partial would be ``(0, -inf)``; the rotation
+      itself runs on every rank at every step;
+    - grouped KV heads are repeated after the rotation, so the ring
+      carries the Hkv-sized tensors;
+    - the partials merge online in float32 with a running max, the
+      ``-inf`` guards and a ``1e-20`` floor on the denominator.
+
+    ``impl``: ``None`` takes :func:`ring_block_impl`, ``"flash"`` the
+    flash kernel through :func:`~distkeras_torch.ops.flash_attention.
+    flash_attention_with_lse` (its plain version on CPU tensors),
+    ``"dense"`` the float32 block."""
+    from distkeras_torch.parallel.mesh import ring_shift
+
+    sp = mesh.shape[axis_name]
+    my = mesh.coord(axis_name)
+    b, l_local, h, d = q.shape
+    if impl is None:
+        impl = ring_block_impl(q, k)
+    if impl not in ("flash", "dense"):
+        raise ValueError(f"unknown ring impl {impl!r}: expected 'flash' or 'dense'")
+
+    def block_attn(kv_blk, step_causal):
+        k_blk, v_blk = repeat_kv_heads(q, kv_blk[0], kv_blk[1])
+        if impl == "flash":
+            o, lse = flash_attention_with_lse(q, k_blk, v_blk, causal=True,
+                                              q_offset=0 if step_causal else l_local,
+                                              k_offset=0)
+            return o.float(), lse
+        return _dense_block(q, k_blk, v_blk, step_causal)
+
+    neg_inf = torch.tensor(float("-inf"), device=q.device)
+    zero = torch.zeros((), device=q.device)
+    m = torch.full((b, h, l_local), float("-inf"), dtype=torch.float32, device=q.device)
+    l_sum = torch.zeros((b, h, l_local), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, l_local, h, d), dtype=torch.float32, device=q.device)
+    kv_blk = torch.stack((k, v))
+    for s in range(sp):
+        if s:
+            kv_blk = ring_shift(kv_blk, mesh, axis_name)
+        src = (my - s) % sp              # the rank the current block came from
+        if causal and s and src > my:
+            continue                     # dead: its partial is (0, -inf)
+        o_s, lse_s = block_attn(kv_blk, causal and not s)
+        new_m = torch.maximum(m, lse_s)
+        safe_m = torch.where(torch.isneginf(new_m), zero, new_m)
+        corr = torch.exp(torch.where(torch.isneginf(m), neg_inf, m - safe_m))
+        w = torch.exp(torch.where(torch.isneginf(lse_s), neg_inf, lse_s - safe_m))
+        l_sum = l_sum * corr + w
+        acc = acc * corr.transpose(1, 2)[..., None] + o_s * w.transpose(1, 2)[..., None]
+        m = new_m
+    out = (acc / torch.clamp(l_sum, min=1e-20).transpose(1, 2)[..., None]).to(q.dtype)
+    if sp > 1 and torch.is_grad_enabled() and kv_blk.requires_grad:
+        out = _Join.apply(out, kv_blk)
+    return out
+
+
 def attention(q, k, v, causal: bool = True, axis_name: Optional[str] = None,
-              impl: Optional[str] = None):
-    """Dispatch: ``"flash"`` (the CUDA kernel; plain version on CPU) or
-    ``"dense"``.  ``impl=None`` takes the kernel for every CUDA tensor it
-    supports and dense attention otherwise; the crossover on the card is
-    recorded in PERF.md."""
-    if axis_name is not None:
-        raise NotImplementedError("ring attention (axis_name) is a later slice "
-                                  "of the PyTorch port; see ROADMAP")
+              impl: Optional[str] = None, mesh=None):
+    """Dispatch: ring attention when ``axis_name`` is an axis of ``mesh``,
+    else ``"flash"`` (the CUDA kernel; plain version on CPU) or
+    ``"dense"``.
+
+    A sequence-parallel model called outside a mesh (``mesh=None``: init,
+    one-device evaluation of the same spec) has the whole sequence, and
+    attention over it is exact; called inside a mesh that lacks
+    ``axis_name`` it would attend within each shard alone, so that raises.
+    A ring of one rank is its one block, so an axis of size 1 takes the
+    plain dispatch too.  ``impl=None`` takes the kernel for every CUDA
+    tensor it supports and dense attention otherwise (under the ring it
+    picks the per-block compute, :func:`ring_block_impl`)."""
+    if axis_name is not None and mesh is not None:
+        if axis_name not in mesh.shape:
+            raise ValueError(
+                f"sequence axis {axis_name!r} is not bound by the enclosing mesh "
+                f"(bound axes: {sorted(mesh.shape)}); the model's seq_axis must match "
+                f"the mesh axis the sequence is sharded over")
+        if mesh.shape[axis_name] > 1:
+            return ring_attention(q, k, v, mesh, axis_name, causal=causal, impl=impl)
     if impl is None:
         impl = "flash" if flash_supported(q, k) else "dense"
     if impl == "flash":

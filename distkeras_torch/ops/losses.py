@@ -94,21 +94,22 @@ class _Hidden(torch.nn.Module):
         super().__init__()
         self.lm = lm
 
-    def forward(self, tokens: torch.Tensor, pos_offset: int = 0) -> torch.Tensor:
-        return self.lm.hidden(tokens, pos_offset)
+    def forward(self, tokens: torch.Tensor, pos_offset: int = 0, mesh=None) -> torch.Tensor:
+        return self.lm.hidden(tokens, pos_offset, mesh=mesh)
 
 
 def lm_token_cross_entropy(module: torch.nn.Module, params: Dict[str, torch.Tensor],
                            tokens: torch.Tensor, targets: torch.Tensor,
                            pos_offset: int = 0, chunk_rows: Optional[int] = None,
-                           compute_dtype=torch.bfloat16) -> torch.Tensor:
+                           compute_dtype=torch.bfloat16, mesh=None) -> torch.Tensor:
     """Per-position next-token CE ``[B, L]`` for a tied-embedding LM.
 
     ``module`` exposes ``hidden`` (forward through the final norm, no
     unembed) and keeps its tied table at ``params["embed.weight"]``: the
-    port's ``TransformerLM``.  Differentiable in ``params``."""
+    port's ``TransformerLM``.  Differentiable in ``params``.  ``mesh``
+    binds the axes of a layout over several devices (``parallel/lm.py``)."""
     h = torch.func.functional_call(_Hidden(module), {f"lm.{k}": t for k, t in params.items()},
-                                   (tokens,), {"pos_offset": pos_offset})
+                                   (tokens,), {"pos_offset": pos_offset, "mesh": mesh})
     return unembed_cross_entropy(h, params["embed.weight"], targets,
                                  chunk_rows=chunk_rows, compute_dtype=compute_dtype)
 

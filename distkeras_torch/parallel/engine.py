@@ -17,8 +17,18 @@ The stacked update is exact for every optimizer of the port: the
 elementwise ones run over the stacked tensors as they are, and ``lamb`` /
 ``lars`` take their per-leaf norms per replica
 (:func:`~distkeras_torch.ops.optimizers.over_replicas`); the replicas
-share the step count.  Meshes (more than one device, through
-``torch.distributed``) are ROADMAP item 11 and raise.
+share the step count.
+
+Over a :class:`~distkeras_torch.parallel.mesh.Mesh` (``mesh=``, its
+``axis_name`` the replica group; the JAX engine's ``shard_map``), each
+process stacks its own ``num_replicas / group size`` replicas on its
+device, process ``p`` holding global replicas ``p * R_local ..`` and the
+matching columns of every global batch.  The commit first sums the
+stacked replicas, then all-reduces over the group
+(``Algorithm.window_commit(..., group)``); dropout keys take the global
+replica index; the per-window mean loss is averaged over the group.
+Every process passes the same global chunk, as in the JAX package's
+multi-process runs.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ from distkeras_torch import observability as obs
 from distkeras_torch.models.base import Model, ModelSpec
 from distkeras_torch.ops.optimizers import Optimizer, apply_updates, over_replicas
 from distkeras_torch.parallel.algorithms import Algorithm
+from distkeras_torch.parallel.mesh import all_gather, all_reduce, all_reduce_tensors
 from distkeras_torch.platform import DeviceLike, resolve_device
 
 Params = Dict[str, torch.Tensor]
@@ -103,21 +114,31 @@ class WindowEngine:
 
     def __init__(self, spec: ModelSpec, loss: Callable, optimizer: Optimizer,
                  algorithm: Algorithm, mesh=None, window: int = 1,
-                 num_replicas: int = 1, device: DeviceLike = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the PyTorch port's WindowEngine stacks its replicas on one device; "
-                "meshes of several devices (torch.distributed) are ROADMAP item 11")
+                 num_replicas: Optional[int] = None, device: DeviceLike = None,
+                 axis_name: str = "replica"):
+        """``num_replicas`` counts every replica of the run (default: one a
+        process of the mesh, else 1); with a mesh it must divide over the
+        group, and the engine computes on the mesh's device."""
         spec.reject_silent_aux("WindowEngine")
         self.spec = spec
         self.loss = loss
         self.optimizer = over_replicas(optimizer)
         self.algorithm = algorithm
         self.window = int(window)
-        self.num_replicas = int(num_replicas)
+        self.mesh = mesh
+        self.axis_name = axis_name
+        procs = mesh.shape[axis_name] if mesh is not None else 1
+        self.num_replicas = int(procs if num_replicas is None else num_replicas)
         if self.num_replicas < 1:
             raise ValueError(f"num_replicas must be at least 1, got {num_replicas}")
-        self.device = resolve_device(device)
+        if self.num_replicas % procs:
+            raise ValueError(f"{self.num_replicas} replicas do not divide over the "
+                             f"{procs} processes of mesh axis {axis_name!r}")
+        self.local_replicas = self.num_replicas // procs
+        self.group = mesh.group(axis_name) if mesh is not None else None
+        self.replica_offset = (mesh.coord(axis_name) * self.local_replicas
+                               if mesh is not None else 0)
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.needs_rng = spec.needs_rng
         apply = spec.train_apply_fn() if self.needs_rng else spec.apply_fn()
         self._grads = vmap(grad_and_value(_loss_of(apply, loss, self.needs_rng)))
@@ -125,14 +146,16 @@ class WindowEngine:
     # -- state ----------------------------------------------------------------
     def init_state(self, model: Model, divergent_seeds: Optional[Sequence[int]] = None) -> ReplicaState:
         """Every replica starts from the model (or, with ``divergent_seeds``,
-        from its own ``spec.init_params(seed)``: EnsembleTrainer's
-        decorrelation); the center starts from the model."""
-        r, dev = self.num_replicas, self.device
+        one a replica of the run, from its own ``spec.init_params(seed)``:
+        EnsembleTrainer's decorrelation); the center starts from the
+        model.  Over a mesh each process keeps its own replicas."""
+        r, dev = self.local_replicas, self.device
         center = {k: t.detach().to(dev).clone() for k, t in model.params.items()}
         if divergent_seeds is not None:
-            if len(divergent_seeds) != r:
-                raise ValueError(f"need {r} seeds, got {len(divergent_seeds)}")
-            rows = [self.spec.init_params(seed=s, device=dev) for s in divergent_seeds]
+            if len(divergent_seeds) != self.num_replicas:
+                raise ValueError(f"need {self.num_replicas} seeds, got {len(divergent_seeds)}")
+            mine = divergent_seeds[self.replica_offset:self.replica_offset + r]
+            rows = [self.spec.init_params(seed=s, device=dev) for s in mine]
         else:
             rows = [center] * r
         local = {k: torch.stack([row[k] for row in rows]) for k in center}
@@ -140,19 +163,39 @@ class WindowEngine:
         return ReplicaState(center=center, local=local, opt_state=self.optimizer.init(local),
                             extra=extra, step=0)
 
+    def local_batch_range(self, global_batch: int):
+        """The columns of a global batch that this process's replicas own."""
+        if global_batch % self.num_replicas:
+            raise ValueError(f"global batch {global_batch} is not divisible by "
+                             f"{self.num_replicas} replicas; pad or resize the batch")
+        per = global_batch // self.num_replicas
+        return self.replica_offset * per, (self.replica_offset + self.local_replicas) * per
+
+    def local_columns(self, xs, ys):
+        """This process's columns (dim 2) of a global host chunk."""
+        if self.mesh is None:
+            return xs, ys
+        lo, hi = self.local_batch_range(np.shape(xs)[2])
+        return xs[:, :, lo:hi], ys[:, :, lo:hi]
+
     def place_data(self, xs, ys):
-        """Host arrays -> tensors on the engine's device (tensors pass)."""
+        """Host arrays -> tensors on the engine's device.  Over a mesh a
+        host chunk is the global one and keeps this process's columns;
+        tensors pass as they are (already placed)."""
+        if not (torch.is_tensor(xs) and torch.is_tensor(ys)):
+            xs, ys = self.local_columns(xs, ys)
         return (torch.as_tensor(xs, device=self.device), torch.as_tensor(ys, device=self.device))
 
     # -- training --------------------------------------------------------------
     def _run(self, state: ReplicaState, xs: torch.Tensor, ys: torch.Tensor,
              keys: Optional[torch.Tensor]):
-        r = self.num_replicas
-        num_windows, window, global_batch = xs.shape[:3]
-        if global_batch % r:
-            raise ValueError(f"global batch {global_batch} is not divisible by "
-                             f"{r} replicas; pad or resize the batch")
-        bs = global_batch // r
+        r = self.local_replicas
+        num_windows, window, columns = xs.shape[:3]
+        if columns % r:
+            raise ValueError(f"a batch of {columns} columns is not divisible by {r} "
+                             "replicas; pad or resize the batch")
+        bs = columns // r
+        replica_ids = self.replica_offset + torch.arange(r, device=xs.device)
         center, local, opt_state, extra = state.center, state.local, state.opt_state, state.extra
         window_losses = []
         for w in range(num_windows):
@@ -163,16 +206,20 @@ class WindowEngine:
                 args = (local, x, y)
                 if self.needs_rng:
                     # one key per batch, made distinct per replica
-                    args += (keys[w, s][None] + torch.arange(r, device=keys.device)[:, None],)
+                    args += (keys[w, s][None] + replica_ids.to(keys.device)[:, None],)
                 grads, loss_r = self._grads(*args)
                 updates, opt_state = self.optimizer.update(grads, opt_state, local)
                 local = apply_updates(local, updates)
                 step_losses.append(loss_r.detach())
-            center, local, extra = self.algorithm.window_commit(center, local, extra)
+            center, local, extra = self.algorithm.window_commit(center, local, extra,
+                                                                self.group)
             window_losses.append(torch.stack(step_losses).mean())
         new = ReplicaState(center=center, local=local, opt_state=opt_state, extra=extra,
                            step=state.step + num_windows * window)
-        return new, torch.stack(window_losses)
+        losses = torch.stack(window_losses)
+        if self.group is not None:                 # lax.pmean over the replica axis
+            losses = all_reduce(losses, self.group) / self.mesh.shape[self.axis_name]
+        return new, losses
 
     def run_epoch(self, state: ReplicaState, xs, ys, keys=None):
         """``xs``/``ys``: ``[num_windows, window, global_batch, ...]`` host
@@ -240,10 +287,47 @@ class WindowEngine:
         return Model(spec=self.spec, params={k: t.clone() for k, t in state.center.items()})
 
     def local_models(self, state: ReplicaState) -> List[Model]:
-        """Every replica's model (EnsembleTrainer's return value)."""
-        return [Model(spec=self.spec, params={k: t[i].clone() for k, t in state.local.items()})
+        """Every replica's model (EnsembleTrainer's return value); over a
+        mesh every process gathers all of them."""
+        local = {k: all_gather(t, self.group) for k, t in state.local.items()}
+        return [Model(spec=self.spec, params={k: t[i].clone() for k, t in local.items()})
                 for i in range(self.num_replicas)]
 
     def averaged_model(self, state: ReplicaState) -> Model:
         """Arithmetic mean of the replicas (AveragingTrainer)."""
-        return Model(spec=self.spec, params={k: t.mean(dim=0) for k, t in state.local.items()})
+        keys = list(state.local)
+        sums = all_reduce_tensors([state.local[k].sum(dim=0) for k in keys], self.group)
+        return Model(spec=self.spec,
+                     params={k: s / self.num_replicas for k, s in zip(keys, sums)})
+
+    def gather_state(self, state: ReplicaState) -> ReplicaState:
+        """The whole run's state: every replica's rows of ``local``,
+        ``opt_state`` and ``extra`` stacked in global order (a collective
+        over the group), as one process stacking them all would hold it."""
+        if self.group is None:
+            return state
+
+        def stacked(tree):
+            if isinstance(tree, dict):
+                return {k: stacked(v) for k, v in tree.items()}
+            return all_gather(tree, self.group) if torch.is_tensor(tree) and tree.dim() else tree
+
+        return ReplicaState(center=state.center, local=stacked(state.local),
+                            opt_state=stacked(state.opt_state), extra=stacked(state.extra),
+                            step=state.step)
+
+    def scatter_state(self, state: ReplicaState) -> ReplicaState:
+        """This process's rows of a whole run's state (the inverse of
+        :meth:`gather_state`)."""
+        if self.group is None:
+            return state
+        lo, hi = self.replica_offset, self.replica_offset + self.local_replicas
+
+        def rows(tree):
+            if isinstance(tree, dict):
+                return {k: rows(v) for k, v in tree.items()}
+            return tree[lo:hi].clone() if torch.is_tensor(tree) and tree.dim() else tree
+
+        return ReplicaState(center=state.center, local=rows(state.local),
+                            opt_state=rows(state.opt_state), extra=rows(state.extra),
+                            step=state.step)

@@ -23,6 +23,7 @@ no device work, so the daemon reads the blob onto the CPU.
 from __future__ import annotations
 
 import argparse
+import datetime
 import os
 import signal
 import threading
@@ -36,7 +37,9 @@ import torch
 def initialize_multihost(coordinator_address: Optional[str] = None,
                          num_processes: Optional[int] = None,
                          process_id: Optional[int] = None,
-                         cpu_devices_per_process: Optional[int] = None) -> torch.device:
+                         cpu_devices_per_process: Optional[int] = None,
+                         backend: Optional[str] = None,
+                         timeout: Optional[float] = None) -> torch.device:
     """Join this process into a ``torch.distributed`` process group and
     return the device it computes on.
 
@@ -49,6 +52,12 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
     ``N`` virtual devices; the port has none, and stacks a trainer's
     replicas on its one device instead (ROADMAP Queue C).  Without a card
     and without that argument it raises: there is no silent CPU fallback.
+
+    ``backend="gloo"`` on the card joins a Gloo group on the CUDA device:
+    NCCL refuses two ranks on one device, so processes that share a card
+    form their group this way (``parallel/mesh.py`` then stages their
+    collectives through pinned host memory).  ``timeout`` (seconds)
+    bounds the rendezvous and every collective of the group.
     """
     import torch.distributed as dist
 
@@ -66,7 +75,7 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
             raise ValueError(f"cpu_devices_per_process must be >= 1, "
                              f"got {cpu_devices_per_process}")
         torch.set_num_threads(int(cpu_devices_per_process))
-        backend, device = "gloo", torch.device("cpu")
+        backend, device = backend or "gloo", torch.device("cpu")
     else:
         if not torch.cuda.is_available():
             raise RuntimeError("initialize_multihost joins an NCCL group on the CUDA card and "
@@ -74,9 +83,13 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
                                "for a Gloo group on the CPU")
         device = torch.device("cuda", int(process_id) % torch.cuda.device_count())
         torch.cuda.set_device(device)
-        backend = "nccl"
+        backend = backend or "nccl"
+    if backend not in ("nccl", "gloo") or (backend == "nccl" and device.type != "cuda"):
+        raise ValueError(f"backend {backend!r} on {device}: use 'nccl' or 'gloo' on the card, "
+                         "'gloo' on the CPU")
+    kwargs = {} if timeout is None else {"timeout": datetime.timedelta(seconds=float(timeout))}
     dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
-                            world_size=int(num_processes), rank=int(process_id))
+                            world_size=int(num_processes), rank=int(process_id), **kwargs)
     return device
 
 

@@ -371,17 +371,29 @@ class DistributedTrainer(Trainer):
     """Common scaffolding for replica training.  ``num_workers`` replicas are
     stacked on the one device; ``None`` is one per visible CUDA device (one
     on the CPU).  Subclasses provide ``allocate_algorithm()``, the commit
-    rule."""
+    rule.
+
+    ``mesh``: a :class:`~distkeras_torch.parallel.mesh.Mesh` whose
+    ``"replica"`` axis is a group of processes (``create_mesh``).  Every
+    process of the group runs ``train`` on the same dataset; ``num_workers``
+    (default: one a process) counts the replicas of the whole run, each
+    process stacks its share on its device (the mesh's), takes their
+    columns of every global batch, and the commits all-reduce over the
+    group (``parallel/engine.py``).  Every process returns the same model;
+    a checkpoint is written by rank 0 of the group, with every replica's
+    rows."""
 
     def __init__(self, model, num_workers: Optional[int] = None, communication_window: int = 5,
                  mesh=None, **kwargs):
         if mesh is not None:
-            raise NotImplementedError(
-                "the PyTorch trainers stack their workers on one device; meshes of "
-                "several devices (torch.distributed) are ROADMAP item 11")
+            kwargs.setdefault("device", mesh.device)
         super().__init__(model, **kwargs)
         self.communication_window = int(communication_window)
-        if num_workers is None:
+        self.mesh = mesh
+        if mesh is not None:
+            procs = mesh.shape["replica"]        # a KeyError without the axis, as in JAX
+            num_workers = procs if num_workers is None else num_workers
+        elif num_workers is None:
             num_workers = torch.cuda.device_count() if self.device.type == "cuda" else 1
         self.num_workers = int(num_workers)
         self._engine: Optional[WindowEngine] = None
@@ -397,8 +409,9 @@ class DistributedTrainer(Trainer):
         if self._engine is None:
             self._engine = WindowEngine(
                 spec=self.model.spec, loss=self.loss, optimizer=self.optimizer,
-                algorithm=self.allocate_algorithm(), window=self.communication_window,
-                num_replicas=self.num_workers, device=self.device)
+                algorithm=self.allocate_algorithm(), mesh=self.mesh,
+                window=self.communication_window, num_replicas=self.num_workers,
+                device=self.device)
         return self._engine
 
     def _validation_params(self, state):
@@ -423,9 +436,10 @@ class DistributedTrainer(Trainer):
         if checkpointer is not None:
             ckpt_step = checkpointer.latest_step()
             if ckpt_step is not None:
-                restored = checkpointer.restore({"state": state_tree(state, spec)},
+                whole = engine.gather_state(state)
+                restored = checkpointer.restore({"state": state_tree(whole, spec)},
                                                 step=ckpt_step)["state"]
-                state = state_from_tree(restored, spec, state)
+                state = engine.scatter_state(state_from_tree(restored, spec, whole))
                 start_epoch = int(checkpointer.metadata(step=ckpt_step)["metadata"]["epochs_done"])
         global_batch = self.batch_size * self.num_workers
         window = self.communication_window
@@ -439,7 +453,7 @@ class DistributedTrainer(Trainer):
                                      window=window,
                                      chunk_windows=self._resolve_chunk_windows(
                                          ds, global_batch, window)),
-                    self._place, device=self.device)
+                    lambda ch: engine.local_columns(*self._place(ch)), device=self.device)
                 with obs.span("trainer.epoch", trainer=type(self).__name__, epoch=epoch):
                     for chunk_idx, (xs, ys) in enumerate(placed):
                         keys = None
@@ -448,18 +462,30 @@ class DistributedTrainer(Trainer):
                         state, losses = engine.run_epoch(state, xs, ys, keys=keys)
                         self._record_window_losses(losses)
                         samples += xs.shape[0] * window * global_batch
-                self._record_epoch_metrics(epoch, samples, time.time() - t_epoch, chips=1)
+                self._record_epoch_metrics(epoch, samples, time.time() - t_epoch,
+                                           chips=1 if self.mesh is None else self.mesh.size)
                 if validation_data is not None:
                     vparams = self._validation_params(state)
                     self.metrics[-1].update(self._validate(vparams, validation_data))
                 if checkpointer is not None:
-                    checkpointer.save(epoch + 1, {"state": state_tree(state, spec)},
-                                      metadata={"epochs_done": epoch + 1})
+                    self._save_state(checkpointer, engine, state, epoch + 1)
                 if stopper is not None and stopper.update(epoch, self.metrics[-1], vparams):
                     if stopper.restore_best and stopper.best_params is not None:
                         self._es_best_params = stopper.best_params
                     break
         return state
+
+    def _save_state(self, checkpointer, engine: WindowEngine, state, epochs_done: int) -> None:
+        """Every replica's rows; over a mesh rank 0 of the group writes and
+        the group waits for it."""
+        whole = engine.gather_state(state)
+        if self.mesh is None or self.mesh.coord("replica") == 0:
+            checkpointer.save(epochs_done, {"state": state_tree(whole, self.model.spec)},
+                              metadata={"epochs_done": epochs_done})
+        if engine.group is not None:
+            import torch.distributed as dist
+
+            dist.barrier(group=engine.group)
 
     def train(self, dataset: Dataset, shuffle: bool = True, checkpointer=None,
               validation_data: Optional[Dataset] = None,

@@ -100,8 +100,15 @@ def test_attention_dispatch_on_cpu():
     torch.testing.assert_close(dense, tatt.dense_attention(q, k, v), rtol=0, atol=0)
     flash = tatt.attention(q, k, v, impl="flash")  # the plain flash version
     torch.testing.assert_close(flash, dense, rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ring attention"):
-        tatt.attention(q, k, v, axis_name="sp")
+    # a sequence axis outside a mesh: the whole sequence is here, dense is
+    # exact (the JAX fallback); inside a mesh that lacks the axis, the JAX
+    # error (ring attention over processes: tests/test_torch_mesh.py)
+    torch.testing.assert_close(tatt.attention(q, k, v, axis_name="sp"), dense, rtol=0, atol=0)
+    from distkeras_torch.parallel.mesh import create_nd_mesh
+
+    with pytest.raises(ValueError, match="not bound"):
+        tatt.attention(q, k, v, axis_name="sp",
+                       mesh=create_nd_mesh((1,), ("dp",), device="cpu"))
     with pytest.raises(ValueError, match="unknown attention impl"):
         tatt.attention(q, k, v, impl="fast")
 

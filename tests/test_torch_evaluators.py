@@ -16,6 +16,7 @@ from distkeras_torch import Model as TModel, ModelSpec as TSpec
 from distkeras_torch import evaluators as tev
 from distkeras_torch.bridge import params_from_jax
 from distkeras_torch.data.dataset import Dataset as TDataset
+from distkeras_torch.parallel.mesh import create_nd_mesh
 from distkeras_torch.predictors import ModelPredictor as TPredictor
 from distkeras_tpu import evaluators as jev
 from distkeras_tpu.data.dataset import Dataset as JDataset
@@ -147,5 +148,11 @@ def test_predictor_reads_live_params_and_rejects_a_mesh():
     tm.params["Dense_1.bias"] += 1.0
     after = pred.predict(TDataset({"features": x}))["prediction"]
     np.testing.assert_allclose(after, before + 1.0, rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        TPredictor(tm, mesh=object(), device="cpu")
+    # a mesh of one process predicts what no mesh does; an axis it lacks
+    # is the JAX predictor's error (a mesh of several processes:
+    # tests/test_torch_mesh.py)
+    one = create_nd_mesh((1,), ("replica",), device="cpu")
+    np.testing.assert_allclose(TPredictor(tm, mesh=one, batch_size=3).predict(
+        TDataset({"features": x}))["prediction"], after, rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="is not found in mesh"):
+        TPredictor(tm, mesh=one, data_axis="batch")

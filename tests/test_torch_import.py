@@ -46,6 +46,7 @@ def test_import_leaves_jax_out_of_sys_modules():
              "import distkeras_torch.observability.health\n"
              "import distkeras_torch.observability.distributed\n"
              "import distkeras_torch.models.rnn, distkeras_torch.parallel.moe\n"
+             "import distkeras_torch.parallel.mesh, distkeras_torch.parallel.lm\n"
              f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
              "print(bad)\n"
              "sys.exit(1 if bad else 0)")
@@ -72,9 +73,7 @@ def test_source_imports_nothing_of_jax(relpath):
 
 # the JAX package's public names that have no counterpart in the port yet,
 # with the ROADMAP item that ports each
-UNPORTED_NAMES = {
-    "create_mesh": "11",
-}
+UNPORTED_NAMES = {}
 # names the port leaves out by design (ROADMAP Queue C says why)
 BY_DESIGN = {"pin_cpu_devices"}
 

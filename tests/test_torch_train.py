@@ -222,11 +222,17 @@ def test_shift_targets_matches_jax():
 
 
 def test_unsupported_layouts_raise():
+    """Bad layouts raise the JAX step's errors (an sp axis the spec's
+    seq_axis does not name, a tp axis the mesh lacks), and axis sizes past
+    1 without a Mesh of processes raise; the layouts themselves run in
+    tests/test_torch_mesh.py."""
     tspec = TorchSpec.from_dict(_spec("float32").to_dict())
     opt = get_optimizer("sgd", LR)
-    for kwargs in (dict(mesh={"dp": 2}), dict(sp_axis="sp"), dict(tp_axis="tp"),
-                   dict(mesh={"dp": 1, "sp": 2}, sp_axis="sp")):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+    for kwargs, error in ((dict(mesh={"dp": 2}), "create_nd_mesh"),
+                          (dict(mesh={"dp": 1}, tp_axis="tp"), "is not a mesh axis"),
+                          (dict(tp_axis="tp"), "is not a mesh axis"),
+                          (dict(mesh={"dp": 1, "sp": 2}, sp_axis="sp"), "must equal sp_axis")):
+        with pytest.raises(ValueError, match=error):
             torch_step_fn(tspec, opt, device="cpu", **kwargs)
     moe = TorchSpec.from_dict(small_lm_spec(vocab_size=VOCAB, model_dim=64, num_heads=2,
                                             num_layers=1, moe_experts=2).to_dict())

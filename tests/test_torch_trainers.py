@@ -24,6 +24,7 @@ from distkeras_torch.data.dataset import Dataset as TDataset
 from distkeras_torch.ops.optimizers import get_optimizer
 from distkeras_torch.parallel import algorithms as ta
 from distkeras_torch.parallel.engine import WindowEngine
+from distkeras_torch.parallel.mesh import create_nd_mesh
 from distkeras_torch.runtime.async_trainer import AsyncADAG
 from distkeras_tpu import trainers as jt
 from distkeras_tpu.data.dataset import Dataset as JDataset
@@ -256,11 +257,14 @@ def test_entry_points_refuse_what_is_not_ported():
     x, y, _ = _data()
     with pytest.raises(ValueError, match="sparse_cache_rows requires num_shards=1"):
         AsyncADAG(tm, device="cpu", sparse_tables="auto", sparse_cache_rows=4, num_shards=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        tt.ADAG(tm, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+    # a mesh without the replica axis: the JAX trainer's and engine's
+    # KeyError (replica groups of processes: tests/test_torch_mesh.py)
+    dp = create_nd_mesh((1,), ("dp",), device="cpu")
+    with pytest.raises(KeyError, match="replica"):
+        tt.ADAG(tm, device="cpu", mesh=dp)
+    with pytest.raises(KeyError, match="replica"):
         WindowEngine(tm.spec, tt.get_loss("mse"), get_optimizer("sgd"),
-                     ta.AdagAlgorithm(), mesh=object(), device="cpu")
+                     ta.AdagAlgorithm(), mesh=dp, device="cpu")
     with pytest.raises(ValueError, match="scalar learning_rate"):
         tt.AEASGD(tm, learning_rate=lambda step: 0.1, device="cpu")
     eng = WindowEngine(tm.spec, tt.get_loss("mse"), get_optimizer("sgd"), ta.AdagAlgorithm(),

@@ -88,11 +88,22 @@ def test_init_is_seeded_and_unsupported_options_raise():
     assert all(torch.equal(a.params[k], b.params[k]) for k in a.params)
     c = TorchModel.init(spec, seed=4, device="cpu")
     assert not torch.equal(a.params["embed.weight"], c.params["embed.weight"])
+    # the layout options build; outside a mesh their forward is the plain
+    # model's (the layouts run in tests/test_torch_mesh.py); a tp_size the
+    # heads do not divide raises the JAX block's error
+    tokens = torch.arange(8)[None] % 31
+    want = spec.build()
     for option in (dict(seq_axis="sp"), dict(tp_axis="tp")):
-        bad = torch_small_lm_spec(vocab_size=31, model_dim=32, num_heads=2, num_layers=1,
-                                  max_seq_len=8, **option)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            bad.build()
+        laid = torch_small_lm_spec(vocab_size=31, model_dim=32, num_heads=2, num_layers=1,
+                                   max_seq_len=8, **option)
+        got = torch.func.functional_call(laid.build(), a.params, (tokens,))
+        torch.testing.assert_close(
+            got, torch.func.functional_call(want, a.params, (tokens,)), rtol=0, atol=0)
+    for config, error in ((dict(tp_size=3), "num_heads 2 not divisible by tp_size 3"),
+                          (dict(num_heads=4, num_kv_heads=1, tp_size=2),
+                           "num_kv_heads 1 not divisible by tp_size 2")):
+        with pytest.raises(ValueError, match=error):
+            type(spec)(spec.name, dict(spec.config, **config), spec.input_shape).build()
     # MoE FFNs build on one device; expert parallelism is ROADMAP item 14c
     moe = torch_small_lm_spec(vocab_size=31, model_dim=32, num_heads=2, num_layers=1,
                               max_seq_len=8, moe_experts=4)
