@@ -184,9 +184,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    which a step with learning rate 0 or 1.02 times too large must fail);
    (2) sorted against dense on the card, loss and router stats; (3) B1 and
    B2 once a layer in each leg's counted step; (4) 20 adam 3e-3 steps on a
-   fixed batch lower the loss; (5) an ep > 1 mesh and make_generate_fn on
-   the MoE spec raise; (6) the bf16 top-1 step with dense attention in
-   place of B1 and B2, loss, stats and update.
+   fixed batch lower the loss; (5) 8 experts over an ep axis of 3 and
+   make_generate_fn on the MoE spec raise; (6) the bf16 top-1 step with
+   dense attention in place of B1 and B2, loss, stats and update.
    Then each leg's ms a step (host-clock median of 3 and the profiler's
    device ms), tokens/s, idle share, the expert-FLOP-accounted MFU as
    bench.py:1160-1170 reckons it, dispatch_flops_pct, dropped fraction and
@@ -224,7 +224,48 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ADAG over 2 processes x 2 stacked mnist_cnn replicas against 4 stacked
    in one process, center within 1e-4 relative L2.  Each layout prints
    its backend, host ms a step, tokens/s and rank 0's profiled device ms
-   and idle share;
+   and idle share.  B1 and the fused B2 are first held against their
+   plain versions at the shapes the last layouts give them, bf16 and
+   float32: [1, 256, 2, 128] (a pipeline microbatch) and [2, 512, 4, 128]
+   / [1, 512, 4, 128] (an ep rank's rows).  Then, in the same group, the
+   last layouts:
+   (e) pipeline parallelism (parallel/pipeline.py) at bench.py:964-1031's
+   pipeline leg (batch 8, seq 256, 256 wide, 2 heads of 128, 4 layers,
+   vocab 8192, bf16, sgd 0.01), GPipe and 1F1B, at (dp, pp) = (1, 2) on
+   ranks 0-1 (8 microbatches) and (2, 2) (4 a dp row; one row a
+   microbatch, so B1 and B2 run at [1, 256, 2, 128]): the loss within
+   1e-3 of the one-device make_lm_train_step's and the gathered params
+   within 1e-3 (JAX's bounds), 1F1B's params within 1e-3 of GPipe's; the
+   update (new params less the init) within 3e-2 of the one-device step's
+   relative L2 over the whole dict, the block slabs and the outer leaves
+   each, and 1F1B's within 3e-2 of GPipe's, a learning-rate-0 step reading
+   above 10x that; the same steps in float32 held to 1e-3 on each update
+   gap and 1F1B's against GPipe's, with faulty steps at learning rate 0
+   and 1.02x the rate each reading above 1e-2; the
+   head run M times on the last pp rank and never elsewhere, and each
+   rank's counted step launching B1 and B2 as the schedule dictates
+   (pp_launches): GPipe runs a stage on each of its M + pp - 1 ticks and
+   replays it (checkpoint) in the backward, 1F1B only its M forward and M
+   backward units, a stage being 2 blocks, so a rank launches B1 / B2
+   36 / 18 (GPipe) and 32 / 16 (1F1B) at (1, 2), 20 / 10 and 16 / 8 at
+   (2, 2), and B4 never; each schedule prints host ms a step, tokens/s,
+   rank 0's profiled device ms and idle share and the 1f1b / gpipe ratio;
+   (f) expert parallelism (parallel/moe.py over dp x ep) at bench.py:1114's
+   MoE leg (batch 4, seq 512, 512 wide, 4 heads of 128, 8 layers, vocab
+   8192, 8 experts, capacity 512, sorted dispatch) at (dp, ep) = (1, 2)
+   and (2, 2), top-1 and top-2 in float32: each rank holds 8 / ep
+   experts, launches B1 and B2 8 times, and its loss (rtol 5e-4), params
+   (atol 1e-3) and dropped_fraction and max_expert_load (1e-6) equal the
+   one-device step on the same shards, each routed alone, and its update
+   within 1e-3 of that step's over the whole dict, the expert slabs and
+   the rest each (top-1 also with faulty steps at learning rate 0 and
+   1.02x the rate, each reading above 1e-2); then one bf16
+   top-1 timing a layout with the all_to_all bytes a step; (g) ZeRO-1
+   (parallel/zero.py) on mnist_cnn_spec (float32, adam 1e-3, batch 1024)
+   over 2 and 4 ranks: the params after 3 steps within rtol 2e-5 / atol
+   1e-6 of replicated DP on one device (the n shards' mean gradient, the
+   whole adam state) on the same batch, each rank's optimizer state
+   exactly 2 x ceil(P / N) x 4 bytes, and host ms a step;
 15. report: one JSON line of kernels, the card's name and power limit, and
    the final {"ok": true, ...} line.
 
@@ -3257,8 +3298,8 @@ def moe_rnn_phase(torch, np, smi, fa):
     # gate 5: what a MoE spec may not do here
     rejected = []
     for call, exc in ((lambda: moe.make_moe_lm_train_step(legs["top1"]["spec"], sgd,
-                                                          {"dp": 1, "ep": 2}, device="cuda"),
-                       NotImplementedError),
+                                                          {"dp": 1, "ep": 3}, device="cuda"),
+                       ValueError),
                       (lambda: make_generate_fn(legs["top1"]["spec"], 4, device="cuda"),
                        ValueError)):
         try:
@@ -3266,8 +3307,8 @@ def moe_rnn_phase(torch, np, smi, fa):
         except exc as e:
             rejected.append(str(e))
     print(f"moe gate 5: {rejected}")
-    check(len(rejected) == 2 and "14c" in rejected[0] and "MoE" in rejected[1],
-          "moe gate 5: an ep > 1 mesh or MoE decoding did not raise")
+    check(len(rejected) == 2 and "not divisible by ep" in rejected[0] and "MoE" in rejected[1],
+          "moe gate 5: 8 experts over ep 3 or MoE decoding did not raise")
 
     # timings: host-clock median of 3, the profiler's device ms, MFU as bench.py
     model_fl, dispatch_fl = _moe_flops(moe)
@@ -3903,7 +3944,7 @@ def serving_family_timing(torch, np, smi, ds, spec, d_spec, t_params, d_params, 
 # the mesh phase (phase 14): layouts over several processes on the one card
 MESH_LAYOUTS = ((1, 2, 1), (1, 1, 2), (1, 2, 2), (2, 1, 1))   # (dp, sp, tp)
 MESH_WORLD = 4                # processes; a 2-rank layout runs on ranks 0-1
-MESH_TIMEOUT = 300            # seconds: the group's collectives and the phase
+MESH_TIMEOUT = 600            # seconds: the group's collectives and the phase
 MESH_WARM, MESH_TIMED = 1, 3  # steps before the timed ones; timed steps
 # gate (b): JAX's own bounds (tests/test_lm_parallel.py: loss rtol 5e-4,
 # params atol 1e-3), and the update gap the training phase holds flash
@@ -3913,6 +3954,38 @@ MESH_LOSS_TOL, MESH_PARAM_ATOL, MESH_UPDATE_TOL = 5e-4, 1e-3, 3e-2
 MESH_ENGINE_TOL = 1e-4        # gate (d): the trainer gates' relative L2
 MESH_ENGINE = dict(replicas=4, procs=2, batch=64, window=4, windows=2)
 MESH_DECODE_NEW = 32          # gate (c): tp = 2 greedy tokens, float32
+# gate (e): bench.py:964-1031's pipeline leg (pp 2, batch 8, seq 256, 256 wide, 2 heads
+# of 128, 4 layers, vocab 8192, bf16, sgd 0.01) at (dp, pp) = (1, 2) and (2, 2), one row
+# a microbatch; JAX's bounds (tests/test_pipeline.py), and the update gap held to
+# MESH_UPDATE_TOL (the bf16 step's microbatches round otherwise than the one-device
+# batch: 6.9e-3 over the whole dict at both layouts and schedules, measured on an H100)
+# and, in float32 parity steps of the same leg, to UPDATE_TOL with its faulty steps
+MESH_PP = dict(layouts=((1, 2), (2, 2)), vocab=8192, dim=256, heads=2, layers=4, seq=256,
+               batch=8)
+MESH_PP_LOSS_TOL, MESH_PP_PARAM_ATOL = 1e-3, 1e-3
+# gate (f): bench.py:1114's MoE leg at (dp, ep) = (1, 2) and (2, 2), sorted dispatch,
+# float32 for the gates (bf16 near-ties move whole rows; the update held to
+# UPDATE_TOL with its faulty steps), then one bf16 timing
+MESH_EP = dict(layouts=((1, 2), (2, 2)), batch=4, seq=512, dim=512, heads=4, layers=8,
+               vocab=8192, experts=8, capacity=512)
+MESH_EP_LOSS_TOL, MESH_EP_PARAM_ATOL, MESH_EP_STAT_TOL = 5e-4, 1e-3, 1e-6
+# gate (g): ZeRO-1 on mnist_cnn_spec, float32, adam(1e-3), batch 1024, 3 steps, over 2
+# and 4 ranks; JAX's bounds (tests/test_zero.py) against its reference, replicated DP, run
+# on one device (the shards' mean gradient: a full-batch gradient sums in another order,
+# and adam turns that rounding into 3.6e-06 on elements whose gradient is near its eps)
+MESH_ZERO = dict(ranks=(2, 4), batch=1024, steps=3)
+MESH_ZERO_RTOL, MESH_ZERO_ATOL = 2e-5, 1e-6
+
+
+def pp_launches(schedule: str, m: int, pp: int, layers: int):
+    """(B1, B2) a rank launches in one pipeline step of ``m`` microbatches.
+    GPipe computes every stage on every one of its M + pp - 1 ticks, and
+    its backward replays each checkpointed stage (B1 again) before B2;
+    1F1B computes only the units with a microbatch: M forward units (B1)
+    and M backward units (B1 to recompute, then B2).  A stage is
+    layers / pp blocks, one attention each."""
+    units = m + pp - 1 if schedule == "gpipe" else m
+    return 2 * units * (layers // pp), units * (layers // pp)
 
 _MESH_CHILD = r"""
 import json, statistics, sys, time
@@ -3967,6 +4040,25 @@ def gaps(p0, got, want):
         uden += (w - z).norm().item() ** 2
         worst = max(worst, (g - w).abs().max().item())
     return (num / den) ** 0.5, (unum / uden) ** 0.5, worst
+
+
+def step_gap(p0, got, want, keys=None):
+    # ||(got - p0) - (want - p0)|| / ||want - p0|| over ``keys`` (all of want)
+    num = den = 0.0
+    for k in want if keys is None else keys:
+        g, w, z = got[k].double().cpu(), want[k].double().cpu(), p0[k].double()
+        num += ((g - z) - (w - z)).norm().item() ** 2
+        den += (w - z).norm().item() ** 2
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def grouped(p0, got, want, inner):
+    # the update gap over the whole dict, over the leaves ``inner`` picks
+    # (a stage's block slabs, the expert slabs) and over the rest
+    keys = [k for k in want if inner(k)]
+    rest = [k for k in want if not inner(k)]
+    return {"all": step_gap(p0, got, want), "inner": step_gap(p0, got, want, keys),
+            "rest": step_gap(p0, got, want, rest)}
 
 
 def timed(fn, n):
@@ -4108,6 +4200,322 @@ if mesh.coords is not None:
                    agree=float((got.cpu() == want.cpu()).float().mean()),
                    ms_alone=timed(lambda: plain(p_dev, prompt), 3) * 1e3)
     say(**res)
+
+# -- (e) pipeline parallelism at the bench's pipeline leg, both schedules ----------------
+from distkeras_torch.parallel import moe as moe_mod, pipeline as pl, zero as zero_mod
+from distkeras_torch.parallel import mesh as mesh_mod
+from distkeras_torch.parallel.moe import _collect_router_stats, _lm_loss
+from distkeras_torch.ops.optimizers import apply_updates
+
+P = cfg["pipeline"]
+spec = small_lm_spec(vocab_size=P["vocab"], model_dim=P["dim"], num_heads=P["heads"],
+                     num_layers=P["layers"], max_seq_len=P["seq"])
+spec.config["compute_dtype"] = "bfloat16"
+params = spec.init_params(seed=0, device="cpu")
+rng = np.random.default_rng(4)
+tokens = rng.integers(0, P["vocab"], (P["batch"], P["seq"]))
+targets = shift_targets(tokens)
+sgd = get_optimizer("sgd", 0.01)
+# the faulty steps each parity run is also taken with: learning rate 0 (no
+# update) and 1.02 times the rate; each must fail the update gate
+faults = {name: get_optimizer("sgd", lr) for name, lr in cfg["fault_lrs"].items()}
+outer, blocks = pl.split_block_params(params)
+
+
+def is_block(k):
+    return k.startswith("block_")
+
+
+def pp_steps(sp, opts, mesh, m, schedule, psh, osh, tok, tgt):
+    # one step from the init with each optimizer: the gathered params, the loss
+    out = {}
+    for name, opt in opts.items():
+        step = pl.make_pp_train_step(sp, opt, mesh, m, schedule=schedule)
+        p1, _, loss = step(psh((outer, blocks)), osh(opt.init({**outer, **blocks})), tok, tgt)
+        out[name] = pl.merge_block_params(*psh.gather(p1)), loss.item()
+    return out
+
+
+if RANK == 0:
+    one = make_lm_train_step(spec, sgd, device=dev)
+    p_dev = {k: v.to(dev) for k, v in params.items()}
+    p_ref, _, loss_ref = one(dict(p_dev), sgd.init(p_dev), tokens, targets)
+    p_ref, loss_ref = {k: v.cpu() for k, v in p_ref.items()}, loss_ref.item()
+    state = [dict(p_dev), sgd.init(p_dev)]
+
+    def one_step():
+        state[0], state[1], _ = one(state[0], state[1], tokens, targets)
+
+    for _ in range(cfg["warm"]):
+        one_step()
+    say(what="pp_one_device", ms=timed(one_step, cfg["timed"]) * 1e3, loss=loss_ref)
+    del p_dev, state
+    merged = {}
+for shape in P["layouts"]:
+    mesh = create_nd_mesh(shape, ("dp", "pp"), device=dev)
+    if mesh.coords is None:
+        continue
+    m = P["batch"] // shape[0]            # microbatches of one row
+    psh, osh = pl.pp_state_shardings(mesh, sgd, outer, blocks)
+    dsh = lm_data_shardings(mesh, sp_axis=None)
+    tok, tgt = dsh(tokens), dsh(targets)
+    for schedule in ("gpipe", "1f1b"):
+        step = pl.make_pp_train_step(spec, sgd, mesh, m, schedule=schedule)
+        state = [psh((outer, blocks)), osh(sgd.init({**outer, **blocks}))]
+        torch.cuda.synchronize()
+        zero()
+        step.head.runs = 0
+        p1, _, loss = step(state[0], state[1], tok, tgt)
+        torch.cuda.synchronize()
+        res = dict(what="pp", layout=shape, schedule=schedule, m=m, pp_rank=mesh.coord("pp"),
+                   counts=counts(), heads=step.head.runs, loss=loss.item())
+        full = pl.merge_block_params(*psh.gather(p1))
+        bad = pp_steps(spec, {"lr 0": faults["lr 0"]}, mesh, m, schedule, psh, osh, tok, tgt)
+        if RANK == 0:
+            rel_l2, _, max_abs = gaps(params, full, p_ref)
+            merged[(tuple(shape), schedule)] = full
+            res.update(loss_rel=abs(loss.item() - loss_ref) / loss_ref, rel_l2=rel_l2,
+                       update=grouped(params, full, p_ref, is_block), max_abs=max_abs,
+                       faults={k: step_gap(params, v[0], p_ref) for k, v in bad.items()})
+            if schedule == "1f1b":
+                g = merged[(tuple(shape), "gpipe")]
+                res["vs_gpipe"] = max((full[k] - g[k]).abs().max().item() for k in g)
+                res["vs_gpipe_update"] = step_gap(params, full, g)
+        del p1, full, bad
+
+        def pp_step():
+            state[0], state[1], _ = step(state[0], state[1], tok, tgt)
+
+        for _ in range(cfg["warm"]):
+            pp_step()
+        res["ms"] = timed(pp_step, cfg["timed"]) * 1e3
+        if RANK == 0:
+            wall, busy = profiled(pp_step)
+            res.update(profile_wall_ms=wall * 1e3, device_ms=busy * 1e3, idle=1 - busy / wall)
+        else:
+            pp_step()
+        say(**res)
+        del state, step
+    torch.cuda.empty_cache()
+if RANK == 0:
+    del merged, p_ref
+
+# (e) in float32: the same leg's parity runs, held to the f32 update gate
+# against the plain one-device step in float32 (make_lm_train_step's
+# unembed CE rounds to bf16 whatever the model's dtype; the pipeline's head
+# computes in the model's)
+spec32 = small_lm_spec(vocab_size=P["vocab"], model_dim=P["dim"], num_heads=P["heads"],
+                       num_layers=P["layers"], max_seq_len=P["seq"])
+spec32.config["compute_dtype"] = "float32"
+if RANK == 0:
+    with torch.device("meta"):
+        module = spec32.build()
+    leaves = {k: t.to(dev).requires_grad_(True) for k, t in params.items()}
+    logits = torch.func.functional_call(module, leaves, (torch.as_tensor(tokens, device=dev),))
+    loss_ref = _lm_loss(logits, torch.as_tensor(targets, device=dev))
+    grads = dict(zip(leaves, torch.autograd.grad(loss_ref, list(leaves.values()))))
+    updates, _ = sgd.update(grads, sgd.init(params), leaves)
+    p_ref = {k: t.cpu() for k, t in apply_updates(
+        {k: t.detach() for k, t in leaves.items()}, updates).items()}
+    loss_ref = loss_ref.item()
+    del module, leaves, logits, grads, updates
+for shape in P["layouts"]:
+    mesh = create_nd_mesh(shape, ("dp", "pp"), device=dev)
+    if mesh.coords is None:
+        continue
+    m = P["batch"] // shape[0]
+    psh, osh = pl.pp_state_shardings(mesh, sgd, outer, blocks)
+    dsh = lm_data_shardings(mesh, sp_axis=None)
+    tok, tgt = dsh(tokens), dsh(targets)
+    gpipe = None
+    for schedule in ("gpipe", "1f1b"):
+        runs = pp_steps(spec32, {"gate": sgd, **faults}, mesh, m, schedule, psh, osh, tok, tgt)
+        if RANK == 0:
+            full, loss = runs["gate"]
+            res = dict(what="pp32", layout=shape, schedule=schedule,
+                       loss_rel=abs(loss - loss_ref) / loss_ref,
+                       max_abs=max((full[k] - p_ref[k]).abs().max().item() for k in p_ref),
+                       update=grouped(params, full, p_ref, is_block),
+                       faults={k: step_gap(params, runs[k][0], p_ref) for k in faults})
+            if schedule == "1f1b":
+                res["vs_gpipe_update"] = step_gap(params, full, gpipe)
+            gpipe = full
+            say(**res)
+        del runs
+if RANK == 0:
+    del p_ref, gpipe
+del params, outer, blocks
+
+# -- (f) expert parallelism at the bench's MoE leg ----------------------------------------
+E = cfg["moe"]
+a2a = {"bytes": 0}
+_a2a = mesh_mod._all_to_all
+
+
+def counted_a2a(x, group, split_axis, concat_axis):
+    a2a["bytes"] += x.numel() * x.element_size()
+    return _a2a(x, group, split_axis, concat_axis)
+
+
+mesh_mod._all_to_all = counted_a2a
+
+
+def moe_spec(top_k, dtype):
+    s = small_lm_spec(vocab_size=E["vocab"], model_dim=E["dim"], num_heads=E["heads"],
+                      num_layers=E["layers"], max_seq_len=E["seq"], moe_experts=E["experts"],
+                      moe_capacity=E["capacity"], moe_top_k=top_k, moe_dispatch="sorted")
+    s.config["compute_dtype"] = dtype
+    return s
+
+
+def moe_reference(s, p, x_shards, y_shards):
+    # the one-device step on the same shards: every expert local, each
+    # shard routed alone (capacity is per shard), the loss and the router
+    # stats their mean over shards, then sgd
+    with torch.device("meta"):
+        module = s.build()
+    leaves = {k: t.to(dev).requires_grad_(True) for k, t in p.items()}
+    n = len(x_shards)
+    total, stats = 0.0, {}
+    for xs, ys in zip(x_shards, y_shards):
+        sown = {}
+        logits = torch.func.functional_call(module, leaves, (xs.to(dev),), {"sown": sown})
+        aux = sum(sown["aux_loss"]) / len(sown["aux_loss"])
+        total = total + (_lm_loss(logits, ys.to(dev)) + 0.01 * aux) / n
+        for name, vals in _collect_router_stats(sown["router_stats"]).items():
+            stats[name] = stats.get(name, 0.0) + (sum(vals) / len(vals)).item() / n
+    grads = dict(zip(leaves, torch.autograd.grad(total, list(leaves.values()))))
+    updates, _ = sgd.update(grads, sgd.init(p), leaves)
+    new = apply_updates({k: t.detach() for k, t in leaves.items()}, updates)
+    return total.item(), stats, {k: t.cpu() for k, t in new.items()}
+
+
+rng = np.random.default_rng(6)
+x_moe = rng.integers(0, E["vocab"], (E["batch"], E["seq"]))
+y_moe = shift_targets(x_moe)
+for shape in E["layouts"]:
+    mesh = create_nd_mesh(shape, ("dp", "ep"), device=dev)
+    if mesh.coords is None:
+        continue
+    n = int(np.prod(shape))
+    dsh = moe_mod.moe_data_sharding(mesh)
+    xs, ys = dsh(x_moe), dsh(y_moe)
+    for top_k in (1, 2):
+        s32 = moe_spec(top_k, "float32")
+        full = s32.init_params(seed=0, device="cpu")
+        psh, osh = moe_mod.moe_state_shardings(mesh, sgd, full)
+        step = moe_mod.make_moe_lm_train_step(s32, sgd, mesh)
+        zero()
+        p1, _, loss, st = step(psh(full), osh(sgd.init(full)), xs, ys)
+        torch.cuda.synchronize()
+        res = dict(what="ep", layout=shape, top_k=top_k, counts=counts(), loss=loss.item(),
+                   stats={k: v.item() for k, v in st.items()},
+                   experts=sorted({t.shape[0] for k, t in p1.items() if k.endswith("w_up")}))
+        got = psh.gather(p1)
+        bad = {}
+        for name, opt in (faults.items() if top_k == 1 else ()):
+            p_bad = moe_mod.make_moe_lm_train_step(s32, opt, mesh)(
+                psh(full), osh(opt.init(full)), xs, ys)[0]
+            bad[name] = psh.gather(p_bad)
+            del p_bad
+        if RANK == 0:
+            rows = torch.as_tensor(x_moe).chunk(n), torch.as_tensor(y_moe).chunk(n)
+            loss_ref, stats_ref, p_ref = moe_reference(s32, full, *rows)
+            res.update(loss_ref=loss_ref, stats_ref=stats_ref,
+                       loss_rel=abs(loss.item() - loss_ref) / loss_ref,
+                       max_abs=max((got[k] - p_ref[k]).abs().max().item() for k in p_ref),
+                       update=grouped(full, got, p_ref, lambda k: k.endswith(("w_up", "w_down"))),
+                       faults={k: step_gap(full, v, p_ref) for k, v in bad.items()})
+            del p_ref
+        say(**res)
+        del p1, got, step, bad
+        torch.cuda.empty_cache()
+    # one bf16 timing a layout: sorted top-1
+    s16 = moe_spec(1, "bfloat16")
+    full = s16.init_params(seed=0, device="cpu")
+    psh, osh = moe_mod.moe_state_shardings(mesh, sgd, full)
+    step = moe_mod.make_moe_lm_train_step(s16, sgd, mesh)
+    state = [psh(full), osh(sgd.init(full))]
+
+    def ep_step():
+        state[0], state[1], _, _ = step(state[0], state[1], xs, ys)
+
+    for _ in range(cfg["warm"]):
+        ep_step()
+    a2a["bytes"] = 0
+    ep_step()
+    torch.cuda.synchronize()
+    res = dict(what="ep_time", layout=shape, a2a_bytes=a2a["bytes"],
+               ms=timed(ep_step, cfg["timed"]) * 1e3)
+    if RANK == 0:
+        wall, busy = profiled(ep_step)
+        res.update(profile_wall_ms=wall * 1e3, device_ms=busy * 1e3, idle=1 - busy / wall)
+    else:
+        ep_step()
+    say(**res)
+    del state, step
+    torch.cuda.empty_cache()
+mesh_mod._all_to_all = _a2a
+
+# -- (g) ZeRO-1 on the headline trainer model ---------------------------------------------
+Z = cfg["zero"]
+zspec = mnist_cnn_spec("float32")
+zparams = zspec.init_params(seed=0, device="cpu")
+rng = np.random.default_rng(7)
+zx = rng.standard_normal((Z["batch"], 28, 28, 1), dtype=np.float32)
+zy = np.eye(10, dtype=np.float32)[rng.integers(0, 10, Z["batch"])]
+adam = get_optimizer("adam", 1e-3)
+cce = get_loss("categorical_crossentropy")
+z_ref = {}
+if RANK == 0:
+    # replicated DP on one device: each of the n row shards' gradient, their
+    # mean, the whole optimizer state (what ZeRO shards)
+    apply_fn = zspec.apply_fn()
+    for n in Z["ranks"]:
+        p = {k: v.to(dev) for k, v in zparams.items()}
+        st = adam.init(p)
+        shards = list(zip(torch.from_numpy(zx).to(dev).chunk(n),
+                          torch.from_numpy(zy).to(dev).chunk(n)))
+        for _ in range(Z["steps"]):
+            total = None
+            for xd, yd in shards:
+                leaves = {k: t.detach().requires_grad_(True) for k, t in p.items()}
+                g = torch.autograd.grad(cce(apply_fn(leaves, xd), yd), list(leaves.values()))
+                total = g if total is None else [a + b for a, b in zip(total, g)]
+            updates, st = adam.update({k: t / n for k, t in zip(p, total)}, st, p)
+            p = apply_updates(p, updates)
+        z_ref[n] = {k: v.cpu() for k, v in p.items()}
+        del p, st
+for n in Z["ranks"]:
+    mesh = create_mesh(n, device=dev)
+    if mesh.coords is None:
+        continue
+    step = zero_mod.make_zero_train_step(zspec, cce, adam, mesh)
+    zero()
+    state = [{k: v.to(dev) for k, v in zparams.items()},
+             zero_mod.zero_init_state(zparams, adam, mesh, spec=zspec)]
+    dsh = zero_mod.zero_data_sharding(mesh)
+    xs, ys = dsh(zx), dsh(zy)
+
+    def z_step():
+        state[0], state[1], _ = step(state[0], state[1], xs, ys)
+
+    for _ in range(Z["steps"]):
+        z_step()
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for k in ("mu", "nu")
+                 for t in state[1][k].values())
+    res = dict(what="zero", ranks=n, state_bytes=nbytes, count=state[1]["count"],
+               params=sum(t.numel() for t in zparams.values()), counts=counts())
+    if RANK == 0:
+        ref = z_ref[n]
+        ok = all(bool(torch.allclose(state[0][k].cpu(), ref[k], rtol=Z["rtol"],
+                                     atol=Z["atol"])) for k in ref)
+        res.update(close=ok, max_abs=max((state[0][k].cpu() - ref[k]).abs().max().item()
+                                         for k in ref))
+    res["ms"] = timed(z_step, cfg["timed"]) * 1e3
+    say(**res)
+    del state, step
 dist.barrier()
 dist.destroy_process_group()
 """
@@ -4261,21 +4669,70 @@ def _ring_block_kernels(torch, fa):
                       f"mesh phase: flash_bwd {label} disagrees with plain at the {name}")
 
 
+def _layout_block_kernels(torch, fa):
+    """B1 and the fused B2 as gates (e) and (f) call them, against the
+    plain forward and backward on the same inputs: [1, 256, 2, 128] (a
+    pipeline microbatch of one row) and [2, 512, 4, 128] / [1, 512, 4, 128]
+    (an ep rank's rows at (dp, ep) = (1, 2) and (2, 2)); causal, q/k/v
+    strided views of one qkv tensor; bf16 (the counted and timed steps)
+    and float32 (the CUDA-core instances the parity steps run).
+    Tolerances: bf16 ``check_fwd``'s and 1e-2 of max |d|
+    (``flash_bwd_phase``'s); float32 ``flash_phase``'s (1e-5 + 1e-5|o|,
+    lse 1e-5) and 1e-5 of max |d| (``flash_bwd_phase``'s)."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    P, E = MESH_PP, MESH_EP
+    shapes = [(1, P["seq"], P["heads"], P["dim"] // P["heads"])]
+    shapes += [(E["batch"] // (dp * ep), E["seq"], E["heads"], E["dim"] // E["heads"])
+               for dp, ep in E["layouts"]]
+    for b, l, h, d in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            qkv = torch.randn((b, l, 3, h, d), generator=gen, device="cuda").to(dtype)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+            name = f"{str(dtype)[6:]} causal (mesh phase)"
+            at = f"[{b},{l},{h},{d}] {name}"
+            if dtype == torch.bfloat16:
+                o, lse, _ = check_fwd(torch, fa, q, k, v, name, True, 0, 0)
+                tol = 1e-2
+            else:
+                o, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+                torch.cuda.synchronize()
+                o_ref, lse_ref = fa.flash_attention_plain(q, k, v, True, 0, 0)
+                err_o = (o - o_ref).abs()
+                err_lse = (lse - lse_ref).abs().max().item()
+                print(f"flash_fwd {at}: max|o-o_plain| {err_o.max().item():.3e} (tol 1e-5 + "
+                      f"1e-5|o|), max|lse-lse_plain| {err_lse:.3e} (tol 1e-5)")
+                check(bool((err_o <= 1e-5 + 1e-5 * o_ref.abs()).all()) and err_lse <= 1e-5,
+                      f"mesh phase: flash_fwd {at} disagrees with plain")
+                tol = 1e-5
+            got = fa.flash_backward_cuda(q, k, v, o, lse, do, None, True, 0, 0, split=False)
+            torch.cuda.synchronize()
+            errs = _rel_err(got, fa.flash_backward_plain(q, k, v, o, lse, do, None, True, 0, 0))
+            print(f"flash_bwd fused {at}: max|d - d_plain| (rel to max|d|) dq/dk/dv "
+                  + ", ".join(f"{e:.3e} ({r:.1e})" for e, r in errs) + f" (tol {tol:.0e} rel)")
+            check(all(r <= tol for _, r in errs) and all(
+                bool(torch.isfinite(g.float()).all()) for g in got),
+                  f"mesh phase: flash_bwd fused {at} disagrees with plain")
+
+
 def mesh_phase(torch, np, smi, fa):
     """Phase 14: layouts over several processes on the one card (see the
     module note).  Returns the launches of the counted steps, summed over
     layouts and ranks."""
     t0 = time.perf_counter()
-    # the ring's kernel calls against their plain versions, before any
-    # process of the phase runs on the card
+    # the ring's and the pipeline and ep layouts' kernel calls against
+    # their plain versions, before any process of the phase runs on the card
     _ring_block_kernels(torch, fa)
+    _layout_block_kernels(torch, fa)
     cfg = dict(timeout=MESH_TIMEOUT, layouts=MESH_LAYOUTS, warm=MESH_WARM, timed=MESH_TIMED,
                train=dict(vocab=VOCAB, dim=DIM, heads=TRAIN_HEADS, layers=LAYERS,
                           seq=TRAIN_LEN, batch=TRAIN_BATCH),
                engine=MESH_ENGINE,
                decode=dict(vocab=VOCAB, dim=DIM, heads=HEADS, layers=LAYERS,
                            seq=PROMPT + NEW + 16, batch=BATCH, prompt=PROMPT,
-                           new=MESH_DECODE_NEW))
+                           new=MESH_DECODE_NEW),
+               pipeline=MESH_PP, moe=MESH_EP, fault_lrs=_fault_lrs(0.01),
+               zero=dict(MESH_ZERO, rtol=MESH_ZERO_RTOL, atol=MESH_ZERO_ATOL))
     # the NCCL probe beside the one-rank gate; the Gloo group after both,
     # so that nothing else runs on the card while it times its steps
     probe = _spawn_group(_NCCL_PROBE_CHILD, 2, "")
@@ -4346,8 +4803,178 @@ def mesh_phase(torch, np, smi, fa):
     check(len(decode) == 2 and d0["equal"] and not any(
         v for r in decode for v in r["counts"].values()),
           "tp decoding disagrees with the one-device decode or launched a kernel")
+    for name, n in _pipeline_gates(np, smi, recs).items():
+        launches[name] += n
+    for name, n in _ep_gates(np, smi, recs).items():
+        launches[name] += n
+    _zero_gates(smi, recs)
     print(f"mesh phase: {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+def _attn_counts(c):
+    return c["flash_fwd"], c["flash_bwd_fused"] + c["flash_bwd_dq"]
+
+
+def _pipeline_gates(np, smi, recs):
+    """Gate (e) over the ranks' records; returns the counted steps'
+    launches."""
+    P = MESH_PP
+    launches = {"flash_fwd": 0, "flash_bwd_fused": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    one = next(r for r in recs if r["what"] == "pp_one_device")
+    tokens = P["batch"] * P["seq"]
+    print(f"mesh phase pipeline ({smi}): bench pipeline leg, batch {P['batch']}, seq "
+          f"{P['seq']}, {P['dim']} wide, {P['heads']} heads, {P['layers']} layers, vocab "
+          f"{P['vocab']}, bf16, sgd 0.01; one-device step {one['ms']:.2f} ms (host clock, "
+          f"median of {MESH_TIMED}), {tokens / one['ms'] * 1e3:.1f} tokens/s")
+    for shape in P["layouts"]:
+        ms = {}
+        for schedule in ("gpipe", "1f1b"):
+            ranks = [r for r in recs if r["what"] == "pp" and tuple(r["layout"]) == shape
+                     and r["schedule"] == schedule]
+            check(len(ranks) == int(np.prod(shape)),
+                  f"pipeline {shape} {schedule} reported {len(ranks)} ranks")
+            for r in ranks:
+                c = r["counts"]
+                want_b1, want_b2 = pp_launches(schedule, r["m"], shape[1], P["layers"])
+                b1, b2 = _attn_counts(c)
+                head = r["m"] if r["pp_rank"] == shape[1] - 1 else 0
+                print(f"mesh pipeline (dp, pp) = {shape} {schedule} rank {r['rank']} (pp rank "
+                      f"{r['pp_rank']}): launches {c}, head ran {r['heads']} times")
+                check(b1 == want_b1 and b2 == want_b2 and c["decode_step"] == 0
+                      and c["flash_bwd_dq"] == c["flash_bwd_dkv"] and r["heads"] == head,
+                      f"pipeline {shape} {schedule} rank {r['rank']}: launches {c}, head "
+                      f"{r['heads']}; want B1 {want_b1}, B2 {want_b2}, head {head}")
+                for k in launches:
+                    launches[k] += c[k]
+            r0 = next(r for r in ranks if r["rank"] == 0)
+            ms[schedule] = r0["ms"]
+            extra = (f"; 1f1b against gpipe: params max abs {r0['vs_gpipe']:.3e} (tol "
+                     f"{MESH_PP_PARAM_ATOL:g}), update gap {r0['vs_gpipe_update']:.3e} (tol "
+                     f"{MESH_UPDATE_TOL:g})" if schedule == "1f1b" else "")
+            print(f"mesh pipeline (dp, pp) = {shape} {schedule} ({smi}), {r0['m']} "
+                  f"microbatches a dp row: loss {r0['loss']:.6f}, relative gap "
+                  f"{r0['loss_rel']:.3e} (tol {MESH_PP_LOSS_TOL:g}); params max abs "
+                  f"{r0['max_abs']:.3e} (tol {MESH_PP_PARAM_ATOL:g}); "
+                  f"{_pp_update_text(r0, MESH_UPDATE_TOL)}{extra}; {r0['ms']:.2f} ms/step (host "
+                  f"clock, median of {MESH_TIMED}; {one['ms']:.2f} on one device), "
+                  f"{tokens / r0['ms'] * 1e3:.1f} tokens/s; rank 0 profiled step: wall "
+                  f"{r0['profile_wall_ms']:.1f} ms, device {r0['device_ms']:.1f} ms, idle share "
+                  f"{100 * r0['idle']:.1f} %")
+            check(r0["loss_rel"] <= MESH_PP_LOSS_TOL and r0["max_abs"] <= MESH_PP_PARAM_ATOL
+                  and r0.get("vs_gpipe", 0.0) <= MESH_PP_PARAM_ATOL
+                  and r0.get("vs_gpipe_update", 0.0) <= MESH_UPDATE_TOL,
+                  f"pipeline {shape} {schedule} disagrees with the one-device step")
+            _held(r0, MESH_UPDATE_TOL, f"pipeline {shape} {schedule} bf16")
+            f32 = next(r for r in recs if r["what"] == "pp32" and tuple(r["layout"]) == shape
+                       and r["schedule"] == schedule)
+            extra = (f"; 1f1b against gpipe: update gap {f32['vs_gpipe_update']:.3e} (tol "
+                     f"{UPDATE_TOL:g})" if schedule == "1f1b" else "")
+            print(f"mesh pipeline (dp, pp) = {shape} {schedule}, float32 parity step ({smi}): "
+                  f"loss relative gap {f32['loss_rel']:.3e} (tol {MESH_PP_LOSS_TOL:g}); params "
+                  f"max abs {f32['max_abs']:.3e} (tol {MESH_PP_PARAM_ATOL:g}); "
+                  f"{_pp_update_text(f32, UPDATE_TOL)}{extra}")
+            check(f32["loss_rel"] <= MESH_PP_LOSS_TOL and f32["max_abs"] <= MESH_PP_PARAM_ATOL
+                  and f32.get("vs_gpipe_update", 0.0) <= UPDATE_TOL,
+                  f"pipeline {shape} {schedule} float32 disagrees with the one-device step")
+            _held(f32, UPDATE_TOL, f"pipeline {shape} {schedule} float32")
+        print(f"mesh pipeline (dp, pp) = {shape}: 1f1b / gpipe host ms "
+              f"{ms['1f1b'] / ms['gpipe']:.3f}")
+    return launches
+
+
+def _pp_update_text(r, tol):
+    u = r["update"]
+    return (f"update gap {u['all']:.3e} (blocks {u['inner']:.3e}, outer {u['rest']:.3e}; tol "
+            f"{tol:g} each); faulty steps "
+            + ", ".join(f"{k} {v:.3e}" for k, v in r["faults"].items())
+            + f" (each must read above {10 * tol:g})")
+
+
+def _held(r, tol, what):
+    """The update gate of a parity record: every group's update gap within
+    ``tol``, every faulty step's (if the record ran any) above ten times
+    it."""
+    check(max(r["update"].values()) <= tol,
+          f"{what}: the update departs from the one-device step's: {r['update']}")
+    check(all(v > 10 * tol for v in r["faults"].values()),
+          f"{what}: a faulty step passed the update gate: {r['faults']}")
+
+
+def _ep_gates(np, smi, recs):
+    """Gate (f) over the ranks' records; returns the counted steps'
+    launches."""
+    E = MESH_EP
+    launches = {"flash_fwd": 0, "flash_bwd_fused": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    for shape in E["layouts"]:
+        ep = shape[1]
+        for top_k in (1, 2):
+            ranks = [r for r in recs if r["what"] == "ep" and tuple(r["layout"]) == shape
+                     and r["top_k"] == top_k]
+            check(len(ranks) == int(np.prod(shape)),
+                  f"ep {shape} top-{top_k} reported {len(ranks)} ranks")
+            for r in ranks:
+                c = r["counts"]
+                b1, b2 = _attn_counts(c)
+                check(b1 == E["layers"] and b2 == E["layers"] and c["decode_step"] == 0
+                      and r["experts"] == [E["experts"] // ep],
+                      f"ep {shape} top-{top_k} rank {r['rank']}: launches {c}, experts "
+                      f"{r['experts']}; want B1 and B2 {E['layers']}, {E['experts'] // ep} "
+                      f"experts")
+                for k in launches:
+                    launches[k] += c[k]
+            r0 = next(r for r in ranks if r["rank"] == 0)
+            stat_gap = max(abs(r0["stats"][k] - r0["stats_ref"][k])
+                           for k in ("dropped_fraction", "max_expert_load"))
+            print(f"mesh ep (dp, ep) = {shape} top-{top_k} sorted, float32 ({smi}): each rank "
+                  f"holds {r0['experts'][0]} of {E['experts']} experts; loss {r0['loss']:.6f} "
+                  f"against {r0['loss_ref']:.6f} on one device (each shard routed alone), "
+                  f"relative gap {r0['loss_rel']:.3e} (tol {MESH_EP_LOSS_TOL:g}); params max "
+                  f"abs {r0['max_abs']:.3e} (tol {MESH_EP_PARAM_ATOL:g}); stats {r0['stats']} "
+                  f"against {r0['stats_ref']}, gap {stat_gap:.3e} (tol {MESH_EP_STAT_TOL:g}); "
+                  f"launches a rank {r0['counts']}")
+            u = r0["update"]
+            faulty = ("; faulty steps " + ", ".join(f"{k} {v:.3e}" for k, v in r0["faults"].items())
+                      + f" (each must read above {10 * UPDATE_TOL:g})" if r0["faults"] else "")
+            print(f"mesh ep (dp, ep) = {shape} top-{top_k}: update gap {u['all']:.3e} (expert "
+                  f"slabs {u['inner']:.3e}, the rest {u['rest']:.3e}; tol {UPDATE_TOL:g} "
+                  f"each){faulty}")
+            check(r0["loss_rel"] <= MESH_EP_LOSS_TOL and r0["max_abs"] <= MESH_EP_PARAM_ATOL
+                  and stat_gap <= MESH_EP_STAT_TOL,
+                  f"ep {shape} top-{top_k} disagrees with the one-device step")
+            _held(r0, UPDATE_TOL, f"ep {shape} top-{top_k}")
+        t0 = next(r for r in recs if r["what"] == "ep_time" and tuple(r["layout"]) == shape
+                  and r["rank"] == 0)
+        tokens = E["batch"] * E["seq"]
+        print(f"mesh ep (dp, ep) = {shape} top-1 sorted, bf16 ({smi}): {t0['ms']:.2f} ms/step "
+              f"(host clock, median of {MESH_TIMED}), {tokens / t0['ms'] * 1e3:.1f} tokens/s; "
+              f"rank 0 profiled step: wall {t0['profile_wall_ms']:.1f} ms, device "
+              f"{t0['device_ms']:.1f} ms, idle share {100 * t0['idle']:.1f} %; all_to_all "
+              f"{t0['a2a_bytes']} bytes a step on rank 0 (both exchanges of every layer, "
+              f"forward and backward)")
+    return launches
+
+
+def _zero_gates(smi, recs):
+    """Gate (g) over the ranks' records."""
+    Z = MESH_ZERO
+    for n in Z["ranks"]:
+        ranks = [r for r in recs if r["what"] == "zero" and r["ranks"] == n]
+        check(len(ranks) == n, f"zero over {n} ranks reported {len(ranks)} ranks")
+        r0 = next(r for r in ranks if r["rank"] == 0)
+        p = r0["params"]
+        want = 2 * -(-p // n) * 4
+        print(f"mesh ZeRO-1 over {n} ranks ({smi}): mnist_cnn_spec, float32, adam 1e-3, batch "
+              f"{Z['batch']}: params after {Z['steps']} steps within rtol {MESH_ZERO_RTOL:g} / "
+              f"atol {MESH_ZERO_ATOL:g} of replicated DP on one device (the {n} shards' mean "
+              f"gradient, the whole adam state): {r0['close']} (max "
+              f"abs {r0['max_abs']:.3e}); optimizer state a rank "
+              f"{[r['state_bytes'] for r in ranks]} bytes (2 x ceil({p} / {n}) x 4 = {want}; "
+              f"replicated {2 * p * 4}); {r0['ms']:.2f} ms/step (host clock, median of "
+              f"{MESH_TIMED})")
+        check(r0["close"] and all(r["state_bytes"] == want and r["count"] == Z["steps"]
+                                  and not any(r["counts"].values()) for r in ranks),
+              f"ZeRO over {n} ranks disagrees with the replicated step or its state size")
 
 
 def run() -> int:

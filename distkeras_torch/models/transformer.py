@@ -16,8 +16,9 @@ use as Flax's ``promote_dtype`` does.  Parity points with the Flax modules:
 (``distkeras_torch.parallel.moe.MoEMLP`` under ``block_i.moe``; capacity
 ``moe_capacity``, or 2x the balanced share ``ceil(2 B L / E)`` when 0),
 whose load-balance losses and router stats a forward given ``sown``
-records; train such specs with ``make_moe_lm_train_step``.  Expert
-parallelism (``ep_axis``) is ROADMAP item 14c and raises.
+records; train such specs with ``make_moe_lm_train_step``, which runs
+them over a (dp, ep) mesh too (``ep_axis`` / ``ep_size``: a block then
+holds its rank's experts).
 
 Layouts over several devices (``seq_axis``, ``tp_axis`` / ``tp_size``) run
 when a forward is given the :class:`~distkeras_torch.parallel.mesh.Mesh`
@@ -94,9 +95,8 @@ class TransformerBlock(nn.Module):
         if moe_experts and seq_axis is not None:
             raise ValueError("MoE FFN does not compose with sequence parallelism "
                              "(v1); train MoE LMs with make_moe_lm_train_step")
-        from distkeras_torch.parallel.moe import MoEMLP, _reject_ep
+        from distkeras_torch.parallel.moe import MoEMLP
 
-        _reject_ep(ep_axis, ep_size)                        # ROADMAP item 14c
         if positional not in ("learned", "rope"):
             raise ValueError(f"positional must be 'learned' or 'rope', got {positional!r}")
         kv_heads = num_kv_heads or num_heads
@@ -128,8 +128,8 @@ class TransformerBlock(nn.Module):
         if moe_experts:
             self.moe = MoEMLP(num_experts=moe_experts, model_dim=model_dim,
                               hidden_dim=mlp_ratio * model_dim, capacity=moe_capacity,
-                              router_top_k=moe_top_k, dispatch_impl=moe_dispatch,
-                              compute_dtype=self.dtype)
+                              ep_axis=ep_axis, ep_size=ep_size, router_top_k=moe_top_k,
+                              dispatch_impl=moe_dispatch, compute_dtype=self.dtype)
         else:
             self.up = nn.Linear(model_dim, ffn, bias=False)
             self.down = nn.Linear(ffn, model_dim, bias=False)
@@ -171,7 +171,7 @@ class TransformerBlock(nn.Module):
                                self.tp_axis)
         y = self.LayerNorm_1(x, dt)
         if hasattr(self, "moe"):
-            out, aux = self.moe(y.reshape(b * l, -1), sown)
+            out, aux = self.moe(y.reshape(b * l, -1), sown, mesh)
             if sown is not None:
                 sown.setdefault("aux_loss", []).append(aux)
             return x + out.reshape(x.shape)

@@ -90,21 +90,6 @@ def _dense_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, step_causal:
     return o / l_sum.transpose(1, 2)[..., None], m + torch.log(l_sum)
 
 
-class _Join(torch.autograd.Function):
-    """``out`` as it is, with ``blocks`` as inputs whose cotangent is 0:
-    it makes the last rotation reachable in the backward on every rank,
-    so every rank runs every ring shift's adjoint, in the same order."""
-
-    @staticmethod
-    def forward(ctx, out, *blocks):
-        ctx.shapes = [(b.shape, b.dtype, b.device) for b in blocks]
-        return out.view_as(out)
-
-    @staticmethod
-    def backward(ctx, g):
-        return (g,) + tuple(torch.zeros(s, dtype=dt, device=dev) for s, dt, dev in ctx.shapes)
-
-
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh, axis_name: str,
                    causal: bool = True, impl: Optional[str] = None) -> torch.Tensor:
     """Sequence-parallel attention over ``axis_name`` of ``mesh``.
@@ -129,7 +114,7 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh, axis
     flash kernel through :func:`~distkeras_torch.ops.flash_attention.
     flash_attention_with_lse` (its plain version on CPU tensors),
     ``"dense"`` the float32 block."""
-    from distkeras_torch.parallel.mesh import ring_shift
+    from distkeras_torch.parallel.mesh import join, ring_shift
 
     sp = mesh.shape[axis_name]
     my = mesh.coord(axis_name)
@@ -170,7 +155,7 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh, axis
         m = new_m
     out = (acc / torch.clamp(l_sum, min=1e-20).transpose(1, 2)[..., None]).to(q.dtype)
     if sp > 1 and torch.is_grad_enabled() and kv_blk.requires_grad:
-        out = _Join.apply(out, kv_blk)
+        out = join(out, kv_blk)
     return out
 
 

@@ -112,14 +112,21 @@ def _map_state(state: Any, pspecs: Mapping[str, Optional[TpShard]], shapes) -> A
     return None
 
 
-def lm_opt_specs(optimizer: Optimizer, params: Mapping[str, torch.Tensor],
-                 tp_axis: Optional[str], spec) -> Any:
+def opt_specs(optimizer: Optimizer, params: Mapping[str, torch.Tensor],
+              pspecs: Mapping[str, Optional[TpShard]]) -> Any:
     """The optimizer state's tree with a ``TpShard`` or ``None`` at each
-    leaf: moments follow the params they shadow, counts are replicated."""
+    leaf: moments follow the params they shadow (``pspecs``), counts are
+    replicated."""
     meta = {k: torch.empty(tuple(t.shape), dtype=t.dtype, device="meta")
             for k, t in params.items()}
     shapes = {k: tuple(t.shape) for k, t in params.items()}
-    return _map_state(optimizer.init(meta), lm_param_specs(params, tp_axis, spec), shapes)
+    return _map_state(optimizer.init(meta), pspecs, shapes)
+
+
+def lm_opt_specs(optimizer: Optimizer, params: Mapping[str, torch.Tensor],
+                 tp_axis: Optional[str], spec) -> Any:
+    """:func:`opt_specs` under the Megatron rule of :func:`lm_param_specs`."""
+    return opt_specs(optimizer, params, lm_param_specs(params, tp_axis, spec))
 
 
 def _cut(t: torch.Tensor, s: TpShard, n: int, i: int) -> torch.Tensor:
@@ -199,24 +206,26 @@ def _sp_active(shape: Mapping[str, int], sp_axis: Optional[str]) -> bool:
 
 class DataPlacement:
     """This rank's block of a host batch ``[B, L]``: rows cut over
-    ``dp_axis``, columns over ``sp_axis`` where it is active (the JAX
-    package's ``P(dp, sp)``), as a tensor on the mesh's device."""
+    ``dp_axis`` (one axis, or several taken together row-major, as the JAX
+    package's ``P((dp, ep))``), columns over ``sp_axis`` where it is
+    active (``P(dp, sp)``), as a tensor on the mesh's device."""
 
-    def __init__(self, mesh: Mesh, dp_axis: Optional[str], sp_axis: Optional[str]):
+    def __init__(self, mesh: Mesh, dp_axis, sp_axis: Optional[str]):
         self.mesh = mesh
-        self.dp_axis = dp_axis if dp_axis in mesh.shape else None
+        rows = (dp_axis,) if isinstance(dp_axis, str) else tuple(dp_axis or ())
+        self.row_axes = tuple(a for a in rows if a in mesh.shape)
         self.sp_axis = sp_axis if _sp_active(mesh.shape, sp_axis) else None
 
     def __call__(self, x) -> torch.Tensor:
         x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
-        for dim, axis in ((0, self.dp_axis), (1, self.sp_axis)):
-            if axis is not None:
-                n = self.mesh.shape[axis]
+        for dim, axes in ((0, self.row_axes), (1, (self.sp_axis,) if self.sp_axis else ())):
+            if axes:
+                n = self.mesh.axis_size(axes)
                 if x.shape[dim] % n:
                     raise ValueError(f"dim {dim} of {tuple(x.shape)} is not divisible by "
-                                     f"{axis}={n}")
+                                     f"{'x'.join(axes)}={n}")
                 size = x.shape[dim] // n
-                x = x.narrow(dim, self.mesh.coord(axis) * size, size)
+                x = x.narrow(dim, self.mesh.coord(axes) * size, size)
         return x.to(self.mesh.device)
 
 

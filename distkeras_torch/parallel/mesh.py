@@ -7,9 +7,10 @@ the collectives inside it.  Here one process is one device: a
 world out row-major over named axes (as the JAX package's
 ``np.array(devices[:n]).reshape(sizes)`` does), holds this rank's
 coordinate, and makes one process group for every axis and for each set
-of several axes in ``joint_axes`` (by default the LM step's loss over
-``("dp", "sp")``), so that a collective "over dp x sp" is a call on that
-group.  Every rank builds every group, in the same order, as
+of several axes in ``joint_axes`` (by default the steps' sets: the LM
+loss over ``("dp", "sp")``, the MoE loss over ``("dp", "ep")``, the
+pipeline's outer grads over ``("dp", "pp")``), so that a collective "over
+dp x sp" is a call on that group.  Every rank builds every group, in the same order, as
 ``dist.new_group`` requires; axes of size 1 drop out of a set, a set of
 size 1 gets no group, and a collective over it is the identity.  A mesh
 of one device needs no process group at all.
@@ -28,13 +29,24 @@ whose backward is the adjoint that JAX applies:
 - :func:`sum_over`: the sum of a scalar over a set of axes, identity
   backward (JAX's ``psum`` of a varying value, whose transpose is the
   broadcast).
+- :func:`all_to_all`: the tiled ``lax.all_to_all``; the backward is the
+  all-to-all with the split and concat axes swapped.
+- :func:`reduce_scatter`: the tiled ``lax.psum_scatter`` over dim 0; the
+  backward is the all-gather of the cotangent.
+- :func:`join`: its first input as it is, every other input given a zero
+  cotangent, so that a collective whose output this rank does not read
+  still runs its adjoint here (the others wait for it).
+
+:func:`ring_exchange` (no autograd) posts a +1 and a -1 shift in one
+batch, for schedules that carry their own cotangents (1F1B).
 
 Backend.  A Gloo group takes CUDA tensors for all-reduce and broadcast
-only, not for send, receive or all-gather.  A group whose backend is Gloo
-therefore stages every CUDA tensor through pinned host memory (one copy
-to the host, the collective, one copy back), for every op alike; an NCCL
-group and a Gloo group on CPU tensors run on the tensors as they are.
-The rule reads the group's backend (:func:`_staged`), never an error.
+only, not for send, receive, all-gather, all-to-all or reduce-scatter.
+A group whose backend is Gloo therefore stages every CUDA tensor through
+pinned host memory (one copy to the host, the collective, one copy back),
+for every op alike; an NCCL group and a Gloo group on CPU tensors run
+on the tensors as they are.  The rule reads the group's backend
+(:func:`_staged`), never an error.
 """
 
 from __future__ import annotations
@@ -47,6 +59,10 @@ import torch
 from distkeras_torch.platform import DeviceLike, resolve_device
 
 Axes = Union[str, Sequence[str]]
+# the sets of several axes whose groups a mesh makes by default (where it
+# has every axis of the set): the LM loss, the MoE loss, the pipeline's
+# outer grads
+JOINT_AXES = (("dp", "sp"), ("dp", "ep"), ("dp", "pp"))
 
 
 def _dist():
@@ -74,7 +90,7 @@ class Mesh:
 
     def __init__(self, axis_sizes: Sequence[int], axis_names: Sequence[str],
                  device: DeviceLike = None,
-                 joint_axes: Iterable[Sequence[str]] = (("dp", "sp"),)):
+                 joint_axes: Iterable[Sequence[str]] = JOINT_AXES):
         sizes = tuple(int(n) for n in axis_sizes)
         names = tuple(axis_names)
         if len(sizes) != len(names) or len(set(names)) != len(names):
@@ -175,7 +191,7 @@ def create_mesh(num_devices: Optional[int] = None, axis_name: str = "replica",
 
 def create_nd_mesh(axis_sizes: Sequence[int], axis_names: Sequence[str],
                    device: DeviceLike = None,
-                   joint_axes: Iterable[Sequence[str]] = (("dp", "sp"),)) -> Mesh:
+                   joint_axes: Iterable[Sequence[str]] = JOINT_AXES) -> Mesh:
     """N-D mesh, e.g. ``create_nd_mesh((2, 2, 2), ('dp', 'tp', 'sp'))``;
     ``joint_axes`` as :class:`Mesh` takes it."""
     n = int(np.prod(axis_sizes, dtype=np.int64))
@@ -242,21 +258,29 @@ def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     return out.to(t.device) if staged else out
 
 
-def _shift(x: torch.Tensor, group, ranks: List[int], step: int) -> torch.Tensor:
-    """Send ``x`` to the rank ``step`` ahead in ``ranks`` and receive from
-    the rank ``step`` behind, both posted together (never a blocking send
-    before a receive)."""
+def _shifts(pairs: List[Tuple[torch.Tensor, int]], group,
+            ranks: List[int]) -> List[torch.Tensor]:
+    """For each ``(x, step)``: send ``x`` to the rank ``step`` ahead in
+    ``ranks`` and receive its like from the rank ``step`` behind, every
+    send and receive posted in one batch (never a blocking send before a
+    receive)."""
     dist = _dist()
     n = len(ranks)
     me = ranks.index(dist.get_rank())
-    staged = _staged(group, x)
-    src = _host(x) if staged else x.contiguous()
-    dst = torch.empty_like(src)
-    ops = [dist.P2POp(dist.isend, src, ranks[(me + step) % n], group),
-           dist.P2POp(dist.irecv, dst, ranks[(me - step) % n], group)]
+    staged = _staged(group, pairs[0][0])
+    ops, dsts = [], []
+    for x, step in pairs:
+        src = _host(x) if staged else x.contiguous()
+        dsts.append(torch.empty_like(src))
+        ops += [dist.P2POp(dist.isend, src, ranks[(me + step) % n], group),
+                dist.P2POp(dist.irecv, dsts[-1], ranks[(me - step) % n], group)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    return dst.to(x.device) if staged else dst
+    return [d.to(x.device) if staged else d for d, (x, _) in zip(dsts, pairs)]
+
+
+def _shift(x: torch.Tensor, group, ranks: List[int], step: int) -> torch.Tensor:
+    return _shifts([(x, step)], group, ranks)[0]
 
 
 class _RingShift(torch.autograd.Function):
@@ -327,3 +351,105 @@ def sum_over(x: torch.Tensor, mesh: Optional[Mesh], axes: Iterable[str]) -> torc
     axes = tuple(a for a in axes if mesh is not None and a in mesh.shape)
     group = mesh.group(axes) if axes else None
     return x if group is None else _ReduceFromTp.apply(x, group)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.group, ctx.axes = group, (split_axis, concat_axis)
+        return _all_to_all(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis = ctx.axes
+        return _all_to_all(g, ctx.group, concat_axis, split_axis), None, None, None
+
+
+def _all_to_all(x: torch.Tensor, group, split_axis: int, concat_axis: int) -> torch.Tensor:
+    dist = _dist()
+    n = dist.get_world_size(group)
+    if x.shape[split_axis] % n:
+        raise ValueError(f"dim {split_axis} of {tuple(x.shape)} does not split {n} ways")
+    # chunk j goes to group rank j; what rank i sent lands at row i
+    send = torch.stack(x.chunk(n, dim=split_axis))
+    staged = _staged(group, x)
+    src = _host(send) if staged else send.contiguous()
+    dst = torch.empty_like(src)
+    dist.all_to_all_single(dst, src, group=group)
+    out = torch.cat(dst.unbind(0), dim=concat_axis)
+    return out.to(x.device) if staged else out
+
+
+def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """``lax.all_to_all(x, axis, split_axis, concat_axis, tiled=True)``:
+    ``x`` cut into ``n`` blocks along ``split_axis``, block ``j`` sent to
+    the ``j``-th rank of the axis, the blocks received concatenated along
+    ``concat_axis`` in the senders' order.  The identity where the axis
+    has size 1."""
+    group = mesh.group(axis)
+    if group is None:
+        return x
+    return _AllToAll.apply(x, group, split_axis, concat_axis)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        dist = _dist()
+        n = dist.get_world_size(group)
+        if x.shape[0] % n:
+            raise ValueError(f"dim 0 of {tuple(x.shape)} does not split {n} ways")
+        staged = _staged(group, x)
+        src = _host(x) if staged else x.contiguous()
+        dst = src.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+        dist.reduce_scatter_tensor(dst, src, group=group)
+        return dst.to(x.device) if staged else dst
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group), None
+
+
+def reduce_scatter(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """``lax.psum_scatter(x, axis, scatter_dimension=0, tiled=True)``: the
+    sum of ``x`` over the axis, of which the ``i``-th rank keeps the
+    ``i``-th block along dim 0.  ``x`` itself where the axis has size 1."""
+    group = mesh.group(axis)
+    if group is None:
+        return x
+    return _ReduceScatter.apply(x, group)
+
+
+class _Join(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, out, *dead):
+        ctx.shapes = [(d.shape, d.dtype, d.device) for d in dead]
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g,) + tuple(torch.zeros(s, dtype=dt, device=dev) for s, dt, dev in ctx.shapes)
+
+
+def join(out: torch.Tensor, *dead: torch.Tensor) -> torch.Tensor:
+    """``out`` as it is, with ``dead`` as inputs whose cotangent is 0.
+    Autograd runs a node only where its output reaches the loss; a
+    collective whose output this rank never reads (the last ring rotation,
+    a pipeline tick's shift into rank 0) is joined to what the rank does
+    read, so that its adjoint runs on every rank, in the same order."""
+    live = [d for d in dead if d.requires_grad]
+    return _Join.apply(out, *live) if live else out
+
+
+def ring_exchange(down: torch.Tensor, up: torch.Tensor, mesh: Mesh,
+                  axis: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shift ``down`` by +1 and ``up`` by -1 along ``axis`` in one batch of
+    sends and receives: returns (the previous rank's ``down``, the next
+    rank's ``up``).  No autograd; every rank of the axis calls it."""
+    group = mesh.group(axis)
+    if group is None:
+        return down, up
+    prev_down, next_up = _shifts([(down, 1), (up, -1)], group, mesh.group_ranks(axis))
+    return prev_down, next_up

@@ -342,6 +342,18 @@ def test_job_commits_scale_by_hub_flavor_staleness(flavor):
                                                              + np.float32(0.3) * 0.5))
 
 
+def _settled_fleet_info(hub, deadline: float = 10.0):
+    """``hub.fleet_info()`` once the hub has dropped every closed client: a
+    handler thread sees a client's close some time after the client
+    returns, so a read right after can still count it live."""
+    end = time.monotonic() + deadline
+    info = hub.fleet_info()
+    while info["live_workers"] and time.monotonic() < end:
+        time.sleep(0.01)
+        info = hub.fleet_info()
+    return info
+
+
 @pytest.mark.parametrize("hub_kind", ["python", "native"])
 def test_fleet_info_is_json_safe_and_complete(hub_kind):
     if hub_kind == "python":
@@ -358,7 +370,7 @@ def test_fleet_info_is_json_safe_and_complete(hub_kind):
             if h is not hub or hub_kind == "python":
                 with _client("port", h.port, job="a") as c:
                     c.pull()
-        info, want = hub.fleet_info(), ref.fleet_info()
+        info, want = _settled_fleet_info(hub), _settled_fleet_info(ref)
         assert json.loads(json.dumps(info)) == info
         assert set(info) == set(want)
         assert info["clock"] == info["num_updates"] == 1

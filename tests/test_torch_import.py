@@ -47,6 +47,7 @@ def test_import_leaves_jax_out_of_sys_modules():
              "import distkeras_torch.observability.distributed\n"
              "import distkeras_torch.models.rnn, distkeras_torch.parallel.moe\n"
              "import distkeras_torch.parallel.mesh, distkeras_torch.parallel.lm\n"
+             "import distkeras_torch.parallel.zero, distkeras_torch.parallel.pipeline\n"
              f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
              "print(bad)\n"
              "sys.exit(1 if bad else 0)")

@@ -2,9 +2,10 @@
 
 The JAX side runs in this process on the conftest's 8 virtual CPU devices.
 The port's side runs in ``WORLD`` Gloo processes started once for the file
-(``pool``): each joins through ``initialize_multihost(cpu_devices_per_process=1)``,
-imports torch and ``distkeras_torch`` only (``CHILD`` below; never this
-module, which imports JAX), and serves jobs read from its standard input.
+(``pool``, ``tests/torch_pool.py``): each joins through
+``initialize_multihost(cpu_devices_per_process=1)``, imports torch and
+``distkeras_torch`` only (the jobs of ``CHILD`` below; never this module,
+which imports JAX), and serves jobs read from its standard input.
 A mesh of fewer devices than the world uses the first ranks, as the JAX
 package's ``devices[:n]`` does.  Inputs and weights are made here from a
 numpy seed and cross in ``.npz`` files; the port's weights come from the
@@ -26,15 +27,6 @@ window engine's center and locals 1e-5 relative (the trainer tests'
 ``TOL``: float32 sums in another order).
 """
 
-import json
-import os
-import pathlib
-import queue
-import socket
-import subprocess
-import sys
-import tempfile
-import threading
 import types
 
 import jax
@@ -51,8 +43,9 @@ from distkeras_tpu.ops.losses import lm_token_cross_entropy
 from distkeras_tpu.parallel.lm import (lm_data_shardings, lm_state_shardings,
                                        make_lm_train_step, shift_targets)
 from distkeras_tpu.parallel.mesh import create_mesh, create_nd_mesh
+from tests import torch_pool
+from tests.torch_pool import SEP, flat as _flat, subtree as _tree
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
 WORLD = 8
 JOB_TIMEOUT = 120.0
 # the step's update (params less init) against JAX's, relative L2 over the
@@ -63,37 +56,7 @@ JOB_TIMEOUT = 120.0
 # 5e-3.  LayerNorm grads summed over tp as well move it by 0.2 to 0.7.
 UPDATE_RTOL = {"bfloat16": 3e-2, "float32": 5e-3}
 
-CHILD = r'''
-import json, sys, traceback
-import numpy as np, torch, torch.distributed as dist
-from distkeras_torch.runtime.launcher import initialize_multihost
-
-initialize_multihost(cpu_devices_per_process=1, timeout=60)
-RANK = dist.get_rank()
-SEP = "|"
-
-
-def unflatten(arrs, prefix):
-    tree = {}
-    for key in arrs.files:
-        if not key.startswith(prefix):
-            continue
-        node, parts = tree, key[len(prefix):].split(SEP)
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = arrs[key]
-    return tree
-
-
-def flatten(tree, prefix, out):
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            flatten(v, prefix + k + SEP, out)
-        else:
-            out[prefix + k] = np.asarray(v)
-    return out
-
-
+CHILD = torch_pool.child(r'''
 def job_ring(a, arrs):
     from distkeras_torch.ops import flash_attention as fa
     from distkeras_torch.ops.attention import ring_attention
@@ -246,137 +209,12 @@ def job_resume(a, arrs):
     out.update({"r" + SEP + k: v.numpy() for k, v in resumed.params.items()})
     out.update({"w" + SEP + k: v.numpy() for k, v in whole.params.items()})
     return out
-
-
-JOBS = {name[4:]: fn for name, fn in list(globals().items()) if name.startswith("job_")}
-
-for line in sys.stdin:
-    req = json.loads(line)
-    if req["job"] == "exit":
-        break
-    try:
-        result = JOBS[req["job"]](req["args"], np.load(req["dir"] + "/in.npz"))
-        if result is not None:
-            np.savez(f"{req['dir']}/out_{RANK}.npz", **result)
-        bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax",
-                                                                  "distkeras_tpu"))
-        print("DONE " + json.dumps(bad), flush=True)
-    except Exception:
-        print("FAIL " + json.dumps(traceback.format_exc()), flush=True)
-dist.destroy_process_group()
-'''
-
-SEP = "|"
-
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-class Pool:
-    """``WORLD`` Gloo processes that run one job at a time, all together."""
-
-    def __init__(self):
-        self.tmp = tempfile.mkdtemp(prefix="dkt-mesh-")
-        self.procs, self.lines = [], []
-        port = _free_port()
-        for rank in range(WORLD):
-            env = dict(os.environ, DKT_COORDINATOR=f"127.0.0.1:{port}",
-                       DKT_NUM_PROCESSES=str(WORLD), DKT_PROCESS_ID=str(rank),
-                       PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
-            err = open(os.path.join(self.tmp, f"err_{rank}.log"), "w")
-            p = subprocess.Popen([sys.executable, "-c", CHILD], env=env, cwd=ROOT,
-                                 stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err,
-                                 text=True)
-            q = queue.Queue()
-            threading.Thread(target=lambda p=p, q=q: [q.put(l) for l in p.stdout],
-                             daemon=True).start()
-            self.procs.append(p)
-            self.lines.append(q)
-        self.jobs = 0
-
-    def alive(self):
-        return all(p.poll() is None for p in self.procs)
-
-    def run(self, job, args, arrays):
-        self.jobs += 1
-        d = os.path.join(self.tmp, f"job{self.jobs}")
-        os.makedirs(d)
-        np.savez(os.path.join(d, "in.npz"), **arrays)
-        req = json.dumps({"job": job, "args": args, "dir": d}) + "\n"
-        for p in self.procs:
-            p.stdin.write(req)
-            p.stdin.flush()
-        outs = []
-        for rank, q in enumerate(self.lines):
-            try:
-                line = q.get(timeout=JOB_TIMEOUT)
-            except queue.Empty:
-                raise AssertionError(f"rank {rank} gave no answer to {job} in "
-                                     f"{JOB_TIMEOUT} s: {self._err(rank)}")
-            if not line.startswith("DONE "):
-                raise AssertionError(f"rank {rank} failed {job}: "
-                                     f"{json.loads(line[5:]) if line.startswith('FAIL ') else line}")
-            assert json.loads(line[5:]) == [], f"rank {rank} imported {line[5:]}"
-            path = os.path.join(d, f"out_{rank}.npz")
-            outs.append(dict(np.load(path)) if os.path.exists(path) else None)
-        return outs
-
-    def _err(self, rank):
-        with open(os.path.join(self.tmp, f"err_{rank}.log")) as f:
-            return f.read()[-3000:]
-
-    def close(self):
-        for p in self.procs:
-            try:
-                if p.poll() is None:
-                    p.stdin.write(json.dumps({"job": "exit"}) + "\n")
-                    p.stdin.flush()
-            except OSError:
-                pass
-        for p in self.procs:
-            try:
-                p.wait(timeout=20)
-            except subprocess.TimeoutExpired:
-                p.kill()
-                p.wait(timeout=10)
+''')
 
 
 @pytest.fixture(scope="module")
 def pool():
-    holder = {"pool": None}
-
-    def run(job, args, arrays):
-        if holder["pool"] is None or not holder["pool"].alive():
-            holder["pool"] = Pool()
-        try:
-            return holder["pool"].run(job, args, arrays)
-        except BaseException:
-            for p in holder["pool"].procs:       # a stuck or failed rank: start anew
-                p.kill()
-            holder["pool"].close()
-            holder["pool"] = None
-            raise
-
-    yield run
-    if holder["pool"] is not None:
-        holder["pool"].close()
-
-
-def _flat(tree, prefix=""):
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out.update(_flat(v, prefix + k + SEP))
-        else:
-            out[prefix + k] = np.asarray(v)
-    return out
-
-
-def _tree(arrs, prefix):
-    return {k[len(prefix):]: v for k, v in arrs.items() if k.startswith(prefix)}
+    yield from torch_pool.serve(CHILD, WORLD, JOB_TIMEOUT)
 
 
 # -- ring attention (tests/test_attention.py) -------------------------------------------------

@@ -444,15 +444,25 @@ def test_telemetry_gauges(monkeypatch):
 
 
 def test_one_device_placements():
-    """``moe_state_shardings`` / ``moe_data_sharding`` on one device: every
-    tensor leaf's device, ``None`` for the step count."""
+    """``moe_state_shardings`` / ``moe_data_sharding`` on one device (axis
+    sizes that are all 1): placements that move a full tree onto the
+    device whole (no expert is cut at ep = 1) and gather it back, the step
+    count passing through."""
     tspec = TSpec.from_dict(_lm_spec("float32").to_dict())
     p = TModel.init(tspec, seed=0, device="cpu").params
     opt = get_optimizer("adam", 1e-3)
     psh, osh = tmoe.moe_state_shardings({"dp": 1, "ep": 1}, opt, p, device="cpu")
-    assert psh.keys() == p.keys() and set(psh.values()) == {torch.device("cpu")}
-    assert osh["count"] is None and osh["mu"].keys() == p.keys()
-    assert tmoe.moe_data_sharding(None, device="cpu") == torch.device("cpu")
+    placed = psh(p)
+    assert placed.keys() == p.keys() and all(torch.equal(placed[k], p[k]) for k in p)
+    state = osh(opt.init(p))
+    assert state["count"] == 0 and state["mu"].keys() == p.keys()
+    assert all(torch.equal(a, p[k]) for k, a in psh.gather(placed).items())
+    specs = tmoe.moe_param_specs(p)
+    assert {k for k, s in specs.items() if s is not None} == {
+        k for k in p if k.endswith(("moe.w_up", "moe.w_down"))}
+    x = np.arange(24).reshape(6, 4)
+    got = tmoe.moe_data_sharding(None, device="cpu")(x)
+    assert got.device == torch.device("cpu") and np.array_equal(got.numpy(), x)
 
 
 def test_dense_lm_step_rejects_moe_spec():
@@ -482,22 +492,47 @@ def test_generic_training_paths_reject_moe_spec():
 
 
 def test_multi_device_and_decode_reject():
-    """ep > 1, an ep axis on the spec, MoE with tp or sp, and MoE decoding
-    raise, naming ROADMAP item 14c or the JAX package's reason."""
+    """The layouts' errors, as the JAX package raises them: ``num_experts``
+    not divisible by the ep axis (the step, and a module's ``ep_size``),
+    a mesh whose ep axis differs from the module's ``ep_size``, MoE with
+    tp or sp, and MoE decoding.  Axis sizes past 1 without a ``Mesh``
+    raise naming ``create_nd_mesh``."""
     from distkeras_torch.models.decode import make_generate_fn
+    from distkeras_torch.parallel.mesh import create_nd_mesh as t_mesh
+    from jax.sharding import PartitionSpec as P
 
     opt = get_optimizer("sgd", 0.01)
-    lm = TSpec.from_dict(_lm_spec().to_dict())
+    lm = TSpec.from_dict(_lm_spec().to_dict())            # 2 experts
+    with pytest.raises(ValueError) as want:
+        jmoe.make_moe_lm_train_step(_lm_spec(), optax.sgd(0.01),
+                                    create_nd_mesh((1, 3), ("dp", "ep")))
+    with pytest.raises(ValueError) as got:
+        tmoe.make_moe_lm_train_step(lm, opt, {"dp": 1, "ep": 3}, device="cpu")
+    assert str(got.value) == str(want.value)
+    assert str(got.value) == "num_experts 2 not divisible by ep mesh axis size 3"
     for mesh in ({"dp": 1, "ep": 2}, {"dp": 2, "ep": 1}):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 14c"):
+        with pytest.raises(ValueError, match="create_nd_mesh"):
             tmoe.make_moe_lm_train_step(lm, opt, mesh, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP item 14c"):
+        with pytest.raises(ValueError, match="create_nd_mesh"):
             tmoe.moe_data_sharding(mesh, device="cpu")
-    clf = TSpec.from_dict(tmoe.moe_classifier_spec(ep_axis="ep").to_dict())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14c"):
-        tmoe.make_moe_train_step(clf, opt, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14c"):
-        clf.build()
+    x = np.random.default_rng(0).normal(size=(8, D)).astype(np.float32)
+    # ep_size 2 on a mesh whose ep axis has size 1
+    jm = jmoe.MoEMLP(num_experts=E, model_dim=D, hidden_dim=F, capacity=8, ep_axis="ep",
+                     ep_size=2, compute_dtype=jnp.float32)
+    with pytest.raises(ValueError) as want:
+        jax.shard_map(lambda v: jm.init(jax.random.PRNGKey(0), v),
+                      mesh=create_nd_mesh((1,), ("ep",)), in_specs=P("ep"),
+                      out_specs=P())(jnp.asarray(x))
+    tm = tmoe.MoEMLP(E, D, F, 8, ep_axis="ep", ep_size=2, compute_dtype="float32")
+    with pytest.raises(ValueError) as got:
+        tm(torch.from_numpy(x), mesh=t_mesh((1, 1), ("dp", "ep"), device="cpu"))
+    assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError) as want:
+        jmoe.MoEMLP(num_experts=E, model_dim=D, hidden_dim=F, capacity=8,
+                    ep_size=3).init(jax.random.PRNGKey(0), jnp.asarray(x))
+    with pytest.raises(ValueError) as got:
+        tmoe.MoEMLP(E, D, F, 8, ep_size=3)
+    assert str(got.value) == str(want.value)
     for change, match in ((dict(tp_size=2), "tensor parallelism"),
                           (dict(seq_axis="sp"), "sequence parallelism")):
         with pytest.raises(ValueError, match=match):

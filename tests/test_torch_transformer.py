@@ -18,7 +18,12 @@ VARIANTS = {
     "gqa": dict(num_heads=4, num_kv_heads=2),
     "rope": dict(positional="rope"),
     "mha-flash": dict(attn_impl="flash"),
+    # __graft_entry__.entry()'s model (the single-chip compile check), at its
+    # batch of [4, 256] tokens
+    "graft-entry": dict(vocab_size=2048, model_dim=256, num_heads=2, num_layers=4,
+                        max_seq_len=256),
 }
+TOKENS = {"graft-entry": (4, 256)}
 # f32: same math, different summation order; bf16: logits are bf16 on both
 # sides (Flax's Embed.attend promotes to the compute dtype) and a one-ulp
 # flip at any of the 2 layers' rounding points carries forward, so allow
@@ -39,24 +44,29 @@ def _pair(variant, dtype):
     return jm, tm
 
 
-def _tokens(seed=0, shape=(2, 12)):
-    return np.random.default_rng(seed).integers(0, 97, shape).astype(np.int32)
+def _tokens(seed=0, shape=(2, 12), vocab=97):
+    return np.random.default_rng(seed).integers(0, vocab, shape).astype(np.int32)
+
+
+def _variant_tokens(variant, jm, seed):
+    return _tokens(seed, TOKENS.get(variant, (2, 12)), jm.spec.config["vocab_size"])
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 def test_logits_match_jax_f32(variant):
     jm, tm = _pair(variant, "float32")
-    toks = _tokens()
+    toks = _variant_tokens(variant, jm, 0)
     want = np.asarray(jm.apply(jnp.asarray(toks)))
     got = tm.apply(torch.from_numpy(toks).long())
-    assert got.dtype == torch.float32 and got.shape == (2, 12, 97)
+    assert got.dtype == torch.float32 and got.shape == toks.shape + (
+        jm.spec.config["vocab_size"],)
     np.testing.assert_allclose(got.numpy(), want, atol=TOL_F32, rtol=TOL_F32)
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 def test_logits_match_jax_bf16(variant):
     jm, tm = _pair(variant, "bfloat16")
-    toks = _tokens(1)
+    toks = _variant_tokens(variant, jm, 1)
     want = np.asarray(jm.apply(jnp.asarray(toks)), np.float32)
     got = tm.apply(torch.from_numpy(toks).long())
     assert got.dtype == torch.bfloat16
@@ -104,9 +114,12 @@ def test_init_is_seeded_and_unsupported_options_raise():
                            "num_kv_heads 1 not divisible by tp_size 2")):
         with pytest.raises(ValueError, match=error):
             type(spec)(spec.name, dict(spec.config, **config), spec.input_shape).build()
-    # MoE FFNs build on one device; expert parallelism is ROADMAP item 14c
+    # MoE FFNs build on one device, and over ep with this rank's experts; an
+    # ep_size the experts do not divide raises the JAX layer's error
     moe = torch_small_lm_spec(vocab_size=31, model_dim=32, num_heads=2, num_layers=1,
                               max_seq_len=8, moe_experts=4)
     assert hasattr(moe.build().block_0, "moe")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14c"):
-        type(moe)(moe.name, dict(moe.config, ep_axis="ep"), moe.input_shape).build()
+    laid = type(moe)(moe.name, dict(moe.config, ep_axis="ep", ep_size=2), moe.input_shape)
+    assert laid.build().block_0.moe.w_up.shape[0] == 2
+    with pytest.raises(ValueError, match="num_experts 4 not divisible by ep_size 3"):
+        type(moe)(moe.name, dict(moe.config, ep_axis="ep", ep_size=3), moe.input_shape).build()
