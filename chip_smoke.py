@@ -48,7 +48,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    bench (bench.py:1245-1288: mnist_cnn_spec, 2 workers, window 8, batch
    256, 8 windows a worker an epoch, 3 epochs, sgd 0.01, bf16 compute),
    their worker threads each on its own CUDA stream with pinned staging,
-   against the port's Python hub and its C++ hub (native/ps_server.cpp,
+   against the port's Python hub and its C++ hub (distkeras_torch/native/ps_server.cpp,
    built with g++ into distkeras_torch/_build/ beside the kernels). Gates:
    one worker, card against CPU (f32); one worker, socket against inproc
    and the C++ hub against the Python hub, to the bit; every commit of a
@@ -80,7 +80,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
    final loss within max(0.05, 0.15 |fault_free|) of fault_free, the
    promoted standby holding every acknowledged commit, the restored
    clock at least the last snapshot's; each leg prints samples/s and its
-   time to recover, and one leg is profiled;
+   time to recover, and one leg is profiled. Then the attach gate: a raw
+   standby attaches to the port's C++ primary while 2 card workers commit
+   (ATTACH_RUNS runs of one epoch, one attach a run, each made when the
+   primary has no standby, its sync read ATTACH_HOLD_S late so commits
+   land inside the sync window); after the run the standby has every
+   commit past its sync clock and its center is the primary's (within
+   ATTACH_TOL: concurrent commits may publish out of clock order). The
+   lockset gate, after the async phase: one AsyncADAG leg (Python hub, 2
+   card workers, pipelined, pinned staging and landing guards, one epoch)
+   under the port's lockset instrumentation (distkeras_torch.analysis.
+   lockset) with zero findings;
 8. entry points (main path): the user's scripts on the models and data
    under them, at full width on the loaders' full-size synthetic stand-ins.
    Gates: ResNet-20 (16/32/64 channels, CIFAR-100 head), one DynSGD window
@@ -1808,6 +1818,11 @@ def async_timing(torch, np, smi):
 # bench's configuration (bench.py:1840-2060 and its tripwires at :2330-2345)
 RECOVERY_KILL_AFTER = ASYNC_WORKERS * ASYNC_WPE * ASYNC_EPOCHS // 2  # half the run's commits
 RECOVERY_SNAPSHOT_S = 0.1      # hub_restore: seconds between the hub's snapshots
+# the attach gate: runs of one epoch, each with one standby attached
+# mid-run; the standby reads its sync this late, so commits land in the
+# sync window; the center's tolerance covers adds reordered by concurrent
+# publishes (a lost commit moves it by a whole scaled delta)
+ATTACH_RUNS, ATTACH_HOLD_S, ATTACH_TOL = 3, 0.2, 1e-6
 BARRIER_SHARDS, BARRIER_WALL_S, BARRIER_INTERVAL_S, BARRIER_REPS = 4, 0.5, 0.05, 3
 
 
@@ -1880,6 +1895,170 @@ def _snapshot_barrier(np):
     still = statistics.median(one_leg(False)[0] for _ in range(BARRIER_REPS))
     ticks = [one_leg(True) for _ in range(BARRIER_REPS)]
     return still, statistics.median(r for r, _ in ticks), min(s for _, s in ticks)
+
+
+def _recv_repl(np, net, sock, shapes):
+    """One ``R`` frame off a raw standby socket: (clock, kind, leaves).  A
+    socket timeout before the frame's first byte propagates (nothing was
+    read); one inside a frame waits on, up to 120 timeouts."""
+    import socket
+    import struct
+
+    def exact(n, first):
+        buf = bytearray(n)
+        view, got, waits = memoryview(buf), 0, 0
+        while got < n:
+            try:
+                k = sock.recv_into(view[got:])
+            except socket.timeout:
+                if first and got == 0:
+                    raise
+                waits += 1
+                check(waits < 120, "attach gate: the feed stalled inside a frame")
+                continue
+            check(k > 0, "attach gate: the primary closed the feed")
+            got += k
+        return bytes(buf)
+
+    (n,) = struct.unpack(">Q", exact(8, True))
+    action, blobs = net.decode_tensors(exact(n, False))
+    check(action == net.ACTION_REPL, f"attach gate: a {action!r} frame on the feed")
+    clock, kind = net.decode_repl_header(blobs[0])
+    return clock, kind, [np.frombuffer(b, np.float32).reshape(s)
+                         for b, s in zip(blobs[1:], shapes)]
+
+
+def attach_gate(np, smi, model0, spec, ds, common):
+    """Standbys attaching to the port's C++ primary while the workers
+    commit.  Each of ATTACH_RUNS one-epoch AsyncADAG runs gets one raw
+    standby, attached mid-run once the primary has no standby left (so
+    every attach starts from a primary that replicates to nobody); it
+    reads its sync ATTACH_HOLD_S late, then drains the stream.  After
+    the run it must hold every commit past its sync clock, and its center
+    must be the primary's.  Returns the commits each sync window held."""
+    import socket
+
+    from distkeras_torch.runtime import async_trainer as at
+    from distkeras_torch.runtime import networking as net
+    from distkeras_torch.runtime.launcher import start_parameter_server
+
+    primary = start_parameter_server(model0, mode="adag", num_workers=ASYNC_WORKERS,
+                                     idle_timeout=None, native=True)
+    windows = []
+    try:
+        shapes = [w.shape for w in primary.get_weights()]
+        for run in range(ATTACH_RUNS):
+            start = primary.stats()["clock"]
+            rec = {}
+            done = threading.Event()
+
+            def standby():
+                try:
+                    sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+                    sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 4096)
+                    sock.settimeout(30.0)
+                    sock.connect(("127.0.0.1", primary.port))
+                    with sock:
+                        hello = net.encode_repl_hello(0)
+                        sock.sendall(len(hello).to_bytes(8, "big") + hello)
+                        sock.recv(8, socket.MSG_PEEK)  # the sync write started
+                        time.sleep(ATTACH_HOLD_S)
+                        sync, kind, leaves = _recv_repl(np, net, sock, shapes)
+                        rec["window"] = primary.stats()["clock"] - sync
+                        check(kind == net.REPL_SYNC, f"attach gate: frame kind {kind} first")
+                        center = [w.copy() for w in leaves]
+                        seen = set()
+                        sock.settimeout(0.5)
+                        deadline = None
+                        while True:
+                            if done.is_set():
+                                deadline = deadline or time.monotonic() + 30.0
+                                final = rec["final"]
+                                if seen >= set(range(sync + 1, final + 1)):
+                                    break
+                                check(time.monotonic() < deadline,
+                                      f"attach gate: run {run}: commits "
+                                      f"{sorted(set(range(sync + 1, final + 1)) - seen)} past "
+                                      f"the sync clock {sync} never reached the standby")
+                            try:
+                                clock, kind, leaves = _recv_repl(np, net, sock, shapes)
+                            except socket.timeout:
+                                continue
+                            check(kind == net.REPL_DELTA and clock > sync and clock not in seen,
+                                  f"attach gate: delta frame clock {clock}, kind {kind}")
+                            seen.add(clock)
+                            for c, d in zip(center, leaves):
+                                c += d
+                        rec.update(sync=sync, center=center, deltas=len(seen))
+                except BaseException as e:
+                    rec["error"] = e
+
+            tr = at.AsyncADAG(spec, **dict(common, num_epoch=1,
+                                                  ps_address=("127.0.0.1", primary.port)))
+            trainer = threading.Thread(target=lambda: tr.train(ds, shuffle=False))
+            trainer.start()
+            reader = None
+            deadline = time.monotonic() + 120.0
+            while trainer.is_alive() and time.monotonic() < deadline:
+                st = primary.stats()
+                if st["clock"] - start >= ASYNC_WPE // 2 and st["replicas_connected"] == 0:
+                    reader = threading.Thread(target=standby)
+                    reader.start()
+                    break
+                time.sleep(0.001)
+            trainer.join(timeout=300.0)
+            check(not trainer.is_alive() and tr.worker_errors == [],
+                  f"attach gate: run {run}: the trainer failed ({tr.worker_errors})")
+            check(reader is not None, f"attach gate: run {run}: no attach before the run ended")
+            rec["final"] = primary.stats()["clock"]
+            done.set()
+            reader.join(timeout=60.0)
+            check(not reader.is_alive(), f"attach gate: run {run}: the standby hung")
+            if "error" in rec:
+                raise rec["error"]
+            want = primary.get_weights()
+            gap = max(float(np.max(np.abs(c - w))) for c, w in zip(rec["center"], want))
+            print(f"attach gate ({smi}): run {run}: the C++ primary at clock {rec['final']}, "
+                  f"the standby synced at {rec['sync']} with {rec['window']} commits applied "
+                  f"in its sync window ({ATTACH_HOLD_S} s), {rec['deltas']} deltas streamed "
+                  f"after it; center max |standby - primary| {gap:.3e} (tol {ATTACH_TOL:g})")
+            check(rec["sync"] < rec["final"], f"attach gate: run {run}: attached after the run")
+            check(gap <= ATTACH_TOL, f"attach gate: run {run}: the standby's center is "
+                                     f"{gap:.3e} from the primary's")
+            windows.append(rec["window"])
+    finally:
+        primary.stop()
+    print(f"attach gate ({smi}): {ATTACH_RUNS} attaches to the port's C++ primary under card "
+          f"workers, commits in each sync window {windows}, every standby equal to its primary")
+    return windows
+
+
+def lockset_gate(np, smi, device="cuda"):
+    """One AsyncADAG leg (the Python hub, 2 workers, pipelined; on the
+    card the workers' own streams, pinned staging and landing guards)
+    under the port's lockset instrumentation: zero findings."""
+    from distkeras_torch import mnist_cnn_spec
+    from distkeras_torch.analysis import lockset
+    from distkeras_torch.data import Dataset
+    from distkeras_torch.runtime import async_trainer as at
+
+    rows = ASYNC_WORKERS * ASYNC_BATCH * ASYNC_WINDOW * 2
+    x, y = async_images(np, rows, np.random.default_rng(2))
+    ds = Dataset({"features": x, "label": y})
+    t0 = time.perf_counter()
+    with lockset.instrument(*lockset.hub_classes()) as chk:
+        tr = at.AsyncADAG(mnist_cnn_spec(compute_dtype="bfloat16"), num_workers=ASYNC_WORKERS,
+                          communication_window=ASYNC_WINDOW, batch_size=ASYNC_BATCH,
+                          num_epoch=1, device=device, **ASYNC_OPT)
+        tr.train(ds, shuffle=False)
+    wall = time.perf_counter() - t0
+    check(tr.worker_errors == [] and tr.parameter_server.num_updates == len(tr.history) > 0,
+          f"lockset gate: the leg failed ({tr.worker_errors})")
+    print(f"lockset gate ({smi}): AsyncADAG, python hub, {ASYNC_WORKERS} workers pipelined, "
+          f"{len(tr.history)} windows, under lockset instrumentation: {chk.writes_checked} "
+          f"attribute writes checked, {len(chk.findings)} findings, wall {wall:.3f} s")
+    check(chk.writes_checked > 0, "lockset gate: no write was observed")
+    check(not chk.findings, "lockset gate: " + "; ".join(str(f) for f in chk.findings))
 
 
 def recovery_phase(torch, np, smi):
@@ -2144,6 +2323,7 @@ def recovery_phase(torch, np, smi):
           f"snapshots, {ticking:.1f} with the coordinator ticking every "
           f"{BARRIER_INTERVAL_S} s ({100 * (still - ticking) / still:.2f} % fewer; median of "
           f"{BARRIER_REPS} legs of {BARRIER_WALL_S} s, at least {sets} sets a leg)")
+    attach_gate(np, smi, model0, bf16, ds, common)
     print(f"recovery phase: {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -5059,6 +5239,7 @@ def run() -> int:
     t_async = time.perf_counter()
     async_phase(torch, np, smi)
     scale_out_phase(torch, np, smi)
+    lockset_gate(np, smi)
     print(f"async phase: {time.perf_counter() - t_async:.1f} s")
     async_counts = dict(_counts(fa), decode_step=ds.DECODE_STEP.launches)
     print(f"async phase: launches of the port's kernels {async_counts}")

@@ -2,7 +2,7 @@
 
 Counterpart of ``distkeras_tpu/data/colfile.py``: the same ``DKCOL1``
 format, so a file written by either package loads in the other.  The
-repo's C++ loader (``native/data_loader.cpp``) is built with ``g++`` into
+port's C++ loader (``distkeras_torch/native/data_loader.cpp``) is built with ``g++`` into
 ``distkeras_torch/_build/`` at first use, as ``runtime/native.py`` builds
 the hub, and bound with ``ctypes``: columns come back as zero-copy numpy
 views over the mapping, an optional background thread warms the page
@@ -35,7 +35,7 @@ import numpy as np
 
 from distkeras_torch.data.dataset import Dataset
 
-SOURCE = Path(__file__).resolve().parents[2] / "native" / "data_loader.cpp"
+SOURCE = Path(__file__).resolve().parents[1] / "native" / "data_loader.cpp"
 MAGIC = b"DKCOL1\0\0"
 _ALIGN = 64
 

@@ -9,8 +9,6 @@ at each call.
 
 from __future__ import annotations
 
-from typing import Optional
-
 import numpy as np
 import torch
 

@@ -506,7 +506,7 @@ class AsyncDistributedTrainer(Trainer):
         fn = self._window_fns.get(idx)
         if fn is None:
             fn = self._window_fns[idx] = _make_window_fn(
-                self, self.model.spec.apply_fn(), self.loss, self.optimizer)
+                self, self.model.spec.apply_fn(), self.loss, self.optimizer)  # lint: unguarded-ok keyed by worker slot: only the one live thread of a slot reads or inserts its key (a respawn takes a slot after its previous thread left _run_worker), and dict stores of distinct keys are atomic under the GIL
         return fn
 
     def _to_params(self, flat: Sequence[torch.Tensor], treedef) -> Dict[str, torch.Tensor]:
@@ -625,7 +625,7 @@ class AsyncDistributedTrainer(Trainer):
         with (torch.cuda.stream(stream) if on_card else contextlib.nullcontext()):
             client = make_client(pin_memory=on_card, landing_guard=landing_guard,
                                  trace_context=ctx)
-            self.worker_transports[idx] = getattr(client, "transport", "inproc")
+            self.worker_transports[idx] = getattr(client, "transport", "inproc")  # lint: unguarded-ok each worker thread stores only its own slot of the list train() sized before the threads started
 
             def send_health() -> None:
                 nonlocal h_seq, h_wall_ms, h_wall_n
@@ -972,7 +972,7 @@ class AsyncDistributedTrainer(Trainer):
 
         histories: List[List[torch.Tensor]] = [[] for _ in range(self.num_workers)]
         self.window_seconds = [[] for _ in range(self.num_workers)]
-        self.worker_transports = [""] * self.num_workers
+        self.worker_transports = [""] * self.num_workers  # lint: unguarded-ok rebound before this run's worker threads start; they store into their own slots
         errors: List[BaseException] = []
         restart_counts = [0] * self.num_workers
 

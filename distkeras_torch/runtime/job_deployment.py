@@ -273,7 +273,7 @@ class Punchcard:
                     fd = os.open(path, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
                     os.write(fd, str(os.getpid()).encode())
                     os.close(fd)
-                    self._lock_path = path  # set before the accept/executor threads exist
+                    self._lock_path = path  # lint: unguarded-ok start-time store, before the accept/executor threads exist; all later mutation goes through _release_spool_lock under _lock
                     return
                 except FileExistsError:
                     try:

@@ -1,6 +1,6 @@
-"""ctypes binding of the C++ parameter-server hub (``native/ps_server.cpp``).
+"""ctypes binding of the C++ parameter-server hub (``distkeras_torch/native/ps_server.cpp``).
 
-The port's own binding of the repo's C++ hub: the source is compiled on
+The port's own binding of its own copy of the C++ hub: the source is compiled on
 first use with ``g++`` and the JAX package's flags (``-ffp-contract=off``
 keeps the apply a separate multiply and add, numpy's float32 sequence, so
 this hub and the Python hub move the center to the same bits) into
@@ -62,7 +62,8 @@ from distkeras_torch._build import BUILD_DIR
 from distkeras_torch.observability import distributed as dtrace
 from distkeras_torch.runtime import networking as net
 
-SOURCE = Path(__file__).resolve().parents[2] / "native" / "ps_server.cpp"
+SOURCE = Path(__file__).resolve().parents[1] / "native" / "ps_server.cpp"
+LIB_STEM = "ps_server"  # lint: telemetry-ok the library's file stem, not a metric or span name
 BUILD_FLAGS = ["-O3", "-shared", "-fPIC", "-pthread", "-std=c++17", "-ffp-contract=off"]
 
 MODE_DELTA = 0   # center += d              (DOWNPOUR, elastic)
@@ -81,7 +82,7 @@ def shared_library_path(source: Path, stem: str, flags=BUILD_FLAGS) -> Path:
 
 
 def build_shared_library(source: Path, stem: str, flags=BUILD_FLAGS) -> Path:
-    """Compile a C++ source of ``native/`` with ``g++`` if its library is
+    """Compile a C++ source of ``distkeras_torch/native/`` with ``g++`` if its library is
     missing; raise with the compiler's output (also printed) when it
     fails."""
     if not source.exists():
@@ -111,13 +112,13 @@ def build_shared_library(source: Path, stem: str, flags=BUILD_FLAGS) -> Path:
 
 def library_path() -> Path:
     """Where the hub's library is (or will be) built."""
-    return shared_library_path(SOURCE, "ps_server")
+    return shared_library_path(SOURCE, LIB_STEM)
 
 
 def build() -> Path:
     """Compile the hub if its library is missing (see
     :func:`build_shared_library`)."""
-    return build_shared_library(SOURCE, "ps_server")
+    return build_shared_library(SOURCE, LIB_STEM)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -235,7 +236,7 @@ class NativeParameterServer:
 
     _POLL_INTERVAL_S = 0.25
 
-    # dk_ps_stats slot order (native/ps_server.cpp StatSlot)
+    # dk_ps_stats slot order (distkeras_torch/native/ps_server.cpp StatSlot)
     _STAT_KEYS = ("commits", "pulls", "commit_bytes", "pull_bytes",
                   "fenced_commits", "live_workers", "idle_evictions", "clock",
                   "commit_log_dropped",

@@ -265,7 +265,7 @@ class ReplicationFeed:
                     self._codec.pack(net.ACTION_REPL,
                                      [net.encode_repl_header(clock, net.REPL_SYNC)]
                                      + list(self.hub.center))
-                self._codec.send_packed(conn)
+                self._codec.send_packed(conn)  # lint: blocking-ok full-sync must serialize with the delta stream; stall bounded by REPLICA_SEND_TIMEOUT
             except BaseException:
                 self._conns.remove(entry)
                 raise
@@ -327,7 +327,7 @@ class ReplicationFeed:
                         if sp_frame is None:
                             sp_frame = self._sp_enc.pack(net.ACTION_REPL, self._sparse_blobs(
                                 net.encode_repl_header(clock, net.REPL_SPARSE), scaled))
-                        conn.sendall(sp_frame)
+                        conn.sendall(sp_frame)  # lint: blocking-ok send-before-ack IS the zero-loss replication contract; stall bounded by REPLICA_SEND_TIMEOUT, then detach
                         net._count_tx(self._sp_enc.frame_len)
                         sp_sent += 1
                     else:
@@ -337,7 +337,7 @@ class ReplicationFeed:
                                              + (self._densify(scaled) if has_rows
                                                 else list(scaled)))
                             packed = True
-                        self._codec.send_packed(conn)
+                        self._codec.send_packed(conn)  # lint: blocking-ok send-before-ack IS the zero-loss replication contract; stall bounded by REPLICA_SEND_TIMEOUT, then detach
                 except (OSError, ValueError) as e:
                     dead.append((entry, e))
             for entry, e in dead:
@@ -3265,7 +3265,7 @@ class PSClient(_HotTierCacheSurface):
             # a commit and a health report await the same ack byte; only a
             # commit's round trip is a commit latency sample
             reply = net.recv_action(self.sock)
-            self._last_io = time.monotonic()
+            self._last_io = time.monotonic()  # lint: unguarded-ok receive leg runs outside the io lock by design; the _consuming flag excludes the heartbeat's round trips, and a racing timestamp store only under-reports idleness
             if reply != net.ACTION_ACK:
                 raise ConnectionError(f"expected ack, got {reply!r}")
             if kind == net.ACTION_ACK and obs.enabled():
@@ -3290,7 +3290,7 @@ class PSClient(_HotTierCacheSurface):
             self._flip ^= 1
             self._pending.appendleft((kind, t_sent))
             raise
-        self._last_io = time.monotonic()
+        self._last_io = time.monotonic()  # lint: unguarded-ok receive leg runs outside the io lock by design; the _consuming flag excludes the heartbeat's round trips, and a racing timestamp store only under-reports idleness
         if self._sparse:
             # a full pull seeds the caches, the stable copies the sparse
             # pulls merge into
@@ -3341,7 +3341,7 @@ class PSClient(_HotTierCacheSurface):
             self._flip ^= 1
             self._pending.appendleft((net.ACTION_SPARSE_WEIGHTS, t_sent))
             raise
-        self._last_io = time.monotonic()
+        self._last_io = time.monotonic()  # lint: unguarded-ok receive leg runs outside the io lock by design; the _consuming flag excludes the heartbeat's round trips, and a racing timestamp store only under-reports idleness
         self._sparse_pull_ids.popleft()
         self._guard_caches()
         result: List[np.ndarray] = []
