@@ -8,10 +8,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
 1. build: compile every kernel under distkeras_torch/csrc/ with nvcc
    (sm_90a), one process per source, all started together, and the C++
    parameter-server hub with g++ beside them; then count the
-   tensor-core instructions (HMMA) of each bf16 flash and decode kernel in
-   the built library with cuobjdump -sass (none is a failure), and read its
-   registers and stack frame with cuobjdump -res-usage (a stack frame, where
-   spilled registers go, is a failure);
+   tensor-core instructions of each bf16 flash and decode kernel in the
+   built library with cuobjdump -sass: B1 and B2 must hold warpgroup MMA
+   (HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA), B3a, B3b and B4
+   mma.sync (HMMA); and read its registers and stack frame with cuobjdump
+   -res-usage (a stack frame, where spilled registers go, is a failure);
 2. kernels: hold each kernel against its plain PyTorch version on the card,
    at the shapes of the main path (bf16), plus one float32 case for each
    flash kernel (its float32 instance runs on the CUDA cores), check that
@@ -98,9 +99,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    stack with dropout, eval forward card against CPU, train forward bitwise
    reproducible and equal to the CPU's masks, the kept fraction, ADAG with
    4 stacked replicas learning with dropout on; the BASELINE matrix through
-   examples.baseline.run_config (config 1 to its target, configs 2-4 one
-   epoch each, config 5 one epoch of its first 4096 rows, the loss
-   falling, configs 2-4 above chance); the workflow
+   examples.baseline.run_config (config 1 to its target, configs 2-5 one
+   epoch each: 2 on its first 16384 rows, 3 on all, 4 on its first 24576,
+   5 on its first 2048; each record's steady rate over 16 windows; the
+   loss falling, configs 2-4 above chance); the workflow
    example with ADAG and AsyncADAG, the streaming example and the Higgs
    walkthrough (Punchcard round trip included). No kernel of the port
    lies on this path either;
@@ -422,37 +424,51 @@ def _cuobjdump(_build, flag, lib):
     return out.stdout.splitlines()
 
 
+# B1 and B2 run on Hopper's warpgroup MMA (HGMMA in the SASS) fed by TMA
+# loads (UTMALDG) and issue no mma.sync (HMMA); B3a, B3b and B4 run on mma.sync
+WGMMA_KERNELS = ("flash_fwd_kernel", "flash_bwd_fused_kernel")
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+
+
 def sass_phase(_build):
-    """Per instance (D 32, 64, 128) of the bf16 flash and decode kernels: its HMMA
-    instructions, from cuobjdump -sass of the built library, and its
-    registers and stack frame, from cuobjdump -res-usage.  An instance
-    without HMMA (the tensor cores unused) or with a stack frame (registers
-    spilled to local memory) fails."""
+    """Per instance (D 32, 64, 128) of the bf16 flash and decode kernels: its
+    HGMMA, UTMALDG and HMMA instructions, from cuobjdump -sass of the built
+    library, and its registers and stack frame, from cuobjdump -res-usage.
+    B1 or B2 without HGMMA or UTMALDG, or with HMMA, fails, as does B3a, B3b
+    or B4 without HMMA (the tensor cores unused), and any instance with a
+    stack frame (registers spilled to local memory)."""
     for lib, kernel in MMA_KERNELS:
-        hmma, fn = {}, None
+        ops, fn = {}, None
         for line in _cuobjdump(_build, "-sass", lib):
             m = re.search(r"Function\s*:?\s*(\w+)", line)
             if m:
                 fn = m.group(1) if kernel in m.group(1) else None
                 if fn:
-                    hmma[fn] = 0
-            elif fn and "HMMA" in line:
-                hmma[fn] += 1
-        check(len(hmma) == 3, f"{kernel}: want 3 instances (D 32/64/128) in the SASS, "
-                              f"found {len(hmma)}")
+                    ops[fn] = dict.fromkeys(SASS_OPS, 0)
+            elif fn:
+                for op in SASS_OPS:
+                    if re.search(rf"\b{op}\b", line):
+                        ops[fn][op] += 1
+        check(len(ops) == 3, f"{kernel}: want 3 instances (D 32/64/128) in the SASS, "
+                             f"found {len(ops)}")
         usage, fn = {}, None
         for line in _cuobjdump(_build, "-res-usage", lib):
             m = re.search(r"Function\s*:?\s*(\w+)", line)
             if m:
                 fn = m.group(1)
-            elif fn in hmma and "REG:" in line:
+            elif fn in ops and "REG:" in line:
                 usage[fn] = {k: int(n) for k, n in re.findall(r"(REG|STACK):(\d+)", line)}
-        for f, count in hmma.items():
+        for f, count in ops.items():
             d = re.search(r"ILi(\d+)E", f)
             use = usage.get(f, {})
-            print(f"sass {kernel}<{d.group(1) if d else '?'}>: {count} HMMA, "
-                  f"{use.get('REG', '?')} registers, stack frame {use.get('STACK', '?')} bytes")
-            check(count > 0, f"{f}: no HMMA instruction, the tensor cores are not used")
+            print(f"sass {kernel}<{d.group(1) if d else '?'}>: "
+                  + ", ".join(f"{count[op]} {op}" for op in SASS_OPS)
+                  + f", {use.get('REG', '?')} registers, stack frame {use.get('STACK', '?')} bytes")
+            if kernel in WGMMA_KERNELS:
+                check(count["HGMMA"] > 0 and count["UTMALDG"] > 0 and count["HMMA"] == 0,
+                      f"{f}: want HGMMA and UTMALDG and no HMMA (warpgroup MMA fed by TMA)")
+            else:
+                check(count["HMMA"] > 0, f"{f}: no HMMA instruction, the tensor cores are not used")
             check(use.get("STACK") == 0, f"{f}: stack frame {use.get('STACK', 'not reported')} "
                                          f"bytes, registers spill")
 
@@ -2344,12 +2360,18 @@ ENTRY_RESNET_TOL = 1e-3
 # at seed 0; the card's bf16 convs accumulate in f32 as the CPU's do
 ENTRY_BF16_TOL = 2e-2
 ENTRY_SEQ_TOL = 1e-5      # the Sequential forward, card against CPU, f32 (gate 2)
-# BASELINE config 5 (ResNet-20, host-bound) trains on its first 4096 rows,
-# 16 windows of 4 minibatches of 64 an epoch.  Its record's steady rate
-# runs 4 x 3 passes over a chunk of up to 64 windows: on the whole set that
-# alone took about 170 s of an H100 run, and the script passed half its
-# time limit.
-ENTRY_CONFIG5_ROWS = 4096
+# Each BASELINE record's steady rate runs 4 x 3 passes over a chunk of up
+# to 64 windows; on an H100 those passes were most of each config's wall
+# (config 3's 64 windows of 512 rows: ~50 s), so the phase times them over
+# ENTRY_STEADY_WINDOWS.  The configs train one epoch on their first rows,
+# config 1 (to its target) and config 3 on all: measured on an H100, one
+# epoch's accuracy against the gate's 0.2 is 0.306 for config 2 at 16384
+# rows (0.162 at 12288), 0.335 for config 4 at 24576 (0.202 at 16384), and
+# config 3 misses it below all its rows (0.198 at 24576, 0.185 at 32768).
+# Config 5 (ResNet-20, host-bound; only its loss is gated) lowered its loss
+# 5.1719 -> 4.6609 on 2048 rows.
+ENTRY_STEADY_WINDOWS = 16
+ENTRY_CONFIG_ROWS = {2: 16384, 4: 24576, 5: 2048}
 ENTRY_KEEP_TOL = 0.01     # dropout's kept fraction against 0.75
 
 
@@ -3661,7 +3683,9 @@ def entry_phase(torch, np, smi):
     bitwise reproducible with the CPU's masks, the kept fraction, and ADAG
     with 4 stacked replicas learning with dropout on; (3) the BASELINE
     matrix through examples.baseline.run_config (config 1 to its target,
-    configs 2-5 one epoch each); (4) the workflow (ADAG and AsyncADAG),
+    configs 2-5 one epoch each, 2, 4 and 5 on their first ENTRY_CONFIG_ROWS
+    rows, each record's steady rate over ENTRY_STEADY_WINDOWS windows); (4)
+    the workflow (ADAG and AsyncADAG),
     streaming and Higgs examples."""
     from distkeras_torch import ADAG, DynSGD, Model, SingleTrainer, resnet20_spec
     from distkeras_torch.data import Dataset, load_cifar100
@@ -3747,9 +3771,9 @@ def entry_phase(torch, np, smi):
     for num in (1, 2, 3, 4, 5):
         t0 = time.perf_counter()
         cap = 18 if num == 1 else 1
-        rows = ENTRY_CONFIG5_ROWS if num == 5 else None
+        rows = ENTRY_CONFIG_ROWS.get(num)
         rec, tr = baseline.run_config(num, epochs_cap=cap, device="cuda", return_trainer=True,
-                                      train_rows=rows)
+                                      train_rows=rows, steady_windows=ENTRY_STEADY_WINDOWS)
         print(f"entry gate 3, BASELINE config {num} ({smi}; epochs cap {cap}, train rows "
               f"{rows or 'all'}, "
               f"{time.perf_counter() - t0:.1f} s with its data): {json.dumps(rec)}")

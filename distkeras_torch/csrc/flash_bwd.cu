@@ -15,35 +15,52 @@
 // is the same in both tiers.  dq and dk are scaled by `scale` at the end.
 // Query rows that see no key get dq = 0, keys that no row sees dk = dv = 0.
 //
-// bfloat16 runs on the tensor cores, through mma.sync m16n8k16
-// (flash_mma.cuh), with tiles in XOR-swizzled shared memory that ldmatrix
-// reads without bank conflicts and that cp.async fills (zeros past a
-// tensor's end):
+// bfloat16 runs on the tensor cores:
 //
-// flash_bwd_fused_kernel (B2) and flash_bwd_dkv_kernel (B3b) share one body
-// (kv_mma_tile).  One block per (batch, head, 128 keys), eight warps, each
-// owning 16 key rows and the f32 dK and dV accumulators of those rows in
-// registers.  K and V stay in shared memory for the whole block (at D = 128
-// their fragments next to both accumulators would pass the 255 registers a
-// thread may hold; ldmatrix reads them back per k-step).  The block streams
-// 64-row tiles of q and dO, with their lse and delta, double-buffered with
+// flash_bwd_fused_kernel (B2): warpgroup MMA (wgmma) fed by the Tensor
+// Memory Accelerator (TMA), through hopper.cuh.  One block per (batch,
+// head, 128 keys), three warpgroups.  K and V come in once by TMA.  A
+// producer warp (the third warpgroup, registers given back with
+// setmaxnreg) streams 64-row tiles of q and dO by TMA, with their lse (times
+// log2 e) and delta, through a ring of two stages whose "full" and "empty"
+// mbarriers it and the consumers share, skipping the q rows that see none
+// of the block's keys; TMA reads the strided [B, L, H, D] operands through
+// 4-D maps (D, H, L, B), zero-fills rows past L and writes the 128-byte
+// swizzle wgmma reads.  Two consumer warpgroups own 64 keys each and the
+// f32 dK and dV accumulators of those keys in registers (128 a thread at
+// D = 128, hence setmaxnreg: producer 40, consumers 232; the dQ partial
+// reuses S^T's accumulator registers, as a third accumulator beside dK and
+// dV makes ptxas serialize the wgmmas and spill).  Per q tile, in
+// key-major orientation so that P^T and dS^T come out of the accumulators
+// already in A-operand layout:
+//   S^T = K Q^T and dP^T = V dO^T (wgmma m64n64k16, both operands K-major
+//   in shared memory);
+//   p and ds on the f32 fragments; dV += bf16(P^T) dO and dK += bf16(dS^T) Q
+//   (wgmma with A in registers, dO and Q read MN-major);
+//   dS^T of the block's 128 keys staged in shared memory as bf16, then
+//   dQ_partial = bf16(dS) K over those keys (both operands MN-major), the
+//   warpgroups splitting the head dim at D = 128 (the first one alone at
+//   D <= 64), staged as f32 and added into the f32 [B, Lq, H, D] workspace
+//   by TMA bulk reduce-add (cp.reduce.async.bulk.tensor), one instruction a
+//   box in place of per-thread atomics: the GPU form of the Pallas
+//   kernel's [Lq, D] scratch.  The wrapper scales and casts it.  The order
+//   of the adds varies from run to run, so dQ of the fused tier is not
+//   bitwise reproducible.  Block y = 0 (key tile 0, which sees the most q
+//   rows under causal masking) launches first.
+//
+// flash_bwd_dkv_kernel (B3b) runs on mma.sync m16n8k16 (flash_mma.cuh),
+// with tiles in XOR-swizzled shared memory that ldmatrix reads without
+// bank conflicts and that cp.async fills (zeros past a tensor's end): one
+// block per (batch, head, 128 keys), eight warps, each owning 16 key rows
+// and the f32 dK and dV accumulators of those rows in registers.  K and V
+// stay in shared memory for the whole block (at D = 128 their fragments
+// next to both accumulators would pass the 255 registers a thread may
+// hold; ldmatrix reads them back per k-step).  The block streams 64-row
+// tiles of q and dO, with their lse and delta, double-buffered with
 // cp.async, skipping the q rows that see none of its keys, and for each
 // tile, in two halves of 32 q rows, runs the products in key-major
-// orientation so that P^T and dS^T come out of the accumulators already in
-// A-fragment layout:
-//   S^T = K Q^T, dP^T = V dO^T, dV += bf16(P^T) dO, dK += bf16(dS^T) Q.
-// B2 then also stages dS^T of the whole tile in shared memory (bf16, read
-// back transposed by ldmatrix.trans) and forms dQ_partial = bf16(dS) K for
-// the tile's 64 q rows, which every block adds into an f32 [B, Lq, H, D]
-// workspace with 16-byte atomicAdd (float4, result unused: a RED
-// instruction): the GPU form of the Pallas kernel's [Lq, D] scratch.  The
-// wrapper scales and casts it.  The atomics are what held B2 back most
-// (PERF.md), hence 16 bytes per add and 128 keys per block, which halves
-// the adds per dQ element against 64.  The order of the atomic adds varies
-// from run to run, so dQ of the fused tier is not bitwise reproducible.
-// B3b drops the dS staging, the dS K products and the atomics.  Block y = 0
-// (key tile 0, which sees the most q rows under causal masking) launches
-// first.
+// orientation: S^T = K Q^T, dP^T = V dO^T, dV += bf16(P^T) dO,
+// dK += bf16(dS^T) Q.  Block y = 0 launches first.
 //
 // flash_bwd_dq_kernel (B3a) is q-major: one block per (batch, head, 64 q
 // rows), four warps, each owning 16 q rows whose Q and dO fragments it
@@ -82,14 +99,17 @@
 // Bound.  At the training shape (B 8, L 2048, H 4, D 128, bf16, causal) the
 // fused backward does 10 * D flops per visible score (~86 GFLOP) and moves
 // ~118 MB: operations-bound on the tensor cores (~0.087 ms); B3a does 6 * D
-// (~0.052 ms), B3b 8 * D (~0.069 ms).  mma.sync reaches a part of that
-// rate (wgmma the rest); PERF.md records the times.
+// (~0.052 ms), B3b 8 * D (~0.069 ms).  B2's five products per tile are
+// short (64 x 64 scores) with the softmax terms, the dS staging and the dQ
+// reduce between them; B3a and B3b are on mma.sync, which reaches a part of
+// the rate only.  PERF.md records the times.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 
 #include "flash_mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -440,7 +460,7 @@ cudaError_t launch_dq_f32(const Args& a) {
   return cudaGetLastError();
 }
 
-// ------------------------------------------- B2, B3b: bf16, key-major mma
+// ---------------------------------------------------- B3b: bf16, key-major mma
 
 using namespace flash_mma;
 
@@ -449,34 +469,30 @@ constexpr int kMmaKeys = 16 * kMmaWarps;  // keys per block, 16 per warp
 constexpr int kMmaQ = 64;                 // q rows per streamed tile
 constexpr int kMmaThreads = 32 * kMmaWarps;
 
-template <int D, bool WITH_DQ>
+template <int D>
 struct MmaSmem {  // byte offsets into the block's dynamic shared memory
   static constexpr uint32_t kTileQ = kMmaQ * D * sizeof(bf16);
   static constexpr uint32_t K = 0;
   static constexpr uint32_t V = K + kMmaKeys * D * sizeof(bf16);
   static constexpr uint32_t Q = V + kMmaKeys * D * sizeof(bf16);  // two tiles
   static constexpr uint32_t dO = Q + 2 * kTileQ;                   // two tiles
-  static constexpr uint32_t dS = dO + 2 * kTileQ;                  // WITH_DQ: [keys][q] bf16
-  static constexpr uint32_t stats = dS + (WITH_DQ ? kMmaKeys * kMmaQ * sizeof(bf16) : 0);
+  static constexpr uint32_t stats = dO + 2 * kTileQ;
   static constexpr uint32_t bytes = stats + 4 * kMmaQ * sizeof(float);  // lse[2], delta[2]
 };
 
-// dK and dV of the block's 128 keys and, WITH_DQ, the atomic dQ partial
-// sums: the body of B2 (flash_bwd_fused_kernel) and B3b (flash_bwd_dkv_kernel)
-template <int D, bool WITH_DQ>
+// dK and dV of the block's 128 keys: the body of B3b (flash_bwd_dkv_kernel)
+template <int D>
 __device__ __forceinline__ void kv_mma_tile(const bf16* __restrict__ q,
                                             const bf16* __restrict__ k,
                                             const bf16* __restrict__ v,
                                             const bf16* __restrict__ dout,
                                             const float* __restrict__ lse,
-                                            const float* __restrict__ delta,
-                                            float* __restrict__ dq_acc, bf16* __restrict__ dk,
+                                            const float* __restrict__ delta, bf16* __restrict__ dk,
                                             bf16* __restrict__ dv, const Strides& st, int H,
                                             int Lq, int Lk, int causal, int q_offset,
                                             int k_offset, float scale) {
   using Sw = Swizzle<D>;
-  using SwS = Swizzle<kMmaQ>;
-  using L = MmaSmem<D, WITH_DQ>;
+  using L = MmaSmem<D>;
   constexpr int KS = D / 16;  // k-steps over the head dim
   constexpr int NO = D / 8;   // n-blocks of a [16, D] accumulator
   extern __shared__ __align__(128) unsigned char smem[];
@@ -575,7 +591,7 @@ __device__ __forceinline__ void kv_mma_tile(const bf16* __restrict__ q,
 
       // p and ds; element (j, e) is key krow + g + 8 (e / 2), q column
       // hq * 32 + 8 j + 2 t + e % 2.  bf16(P^T), bf16(dS^T) become A
-      // fragments (two k-steps of 16 q); B2 also puts dS^T in shared memory.
+      // fragments (two k-steps of 16 q).
       uint32_t pa[2][4], da[2][4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -598,11 +614,6 @@ __device__ __forceinline__ void kv_mma_tile(const bf16* __restrict__ q,
         pa[ks][hi + 1] = pack_bf16(pv[2], pv[3]);
         da[ks][hi] = pack_bf16(dsv[0], dsv[1]);
         da[ks][hi + 1] = pack_bf16(dsv[2], dsv[3]);
-        if constexpr (WITH_DQ) {
-          *reinterpret_cast<uint32_t*>(smem + L::dS + SwS::elem(krow + g, qc)) = da[ks][hi];
-          *reinterpret_cast<uint32_t*>(smem + L::dS + SwS::elem(krow + g + 8, qc)) =
-              da[ks][hi + 1];
-        }
       }
 
       // dV += bf16(P^T) dO and dK += bf16(dS^T) Q over these 32 q rows
@@ -622,55 +633,7 @@ __device__ __forceinline__ void kv_mma_tile(const bf16* __restrict__ q,
         }
       }
     }
-    // every warp is done with this q tile (its buffer is free for it + 2)
-    // and, WITH_DQ, dS^T of the whole tile is in shared memory
-    __syncthreads();
-    if constexpr (WITH_DQ) {
-      // dQ partial = bf16(dS) K over the block's keys for q rows 16 rg ..
-      // 16 rg + 15 of the tile and the warp's share of the head dim, added
-      // into the f32 workspace 16 bytes at a time: lanes t and t ^ 1 swap a
-      // row's pair of columns so that each holds four neighbours of one row
-      constexpr int kParts = kMmaWarps / 4;      // warps sharing a row group
-      constexpr int kPairs = D / 16 / kParts;    // 16-column pairs per warp
-      constexpr int kChunk = kPairs < 2 ? kPairs : 2;
-      const int rg = warp % 4, part = warp / 4;
-      uint32_t dsq[kMmaKeys / 16][4];
-#pragma unroll
-      for (int ks = 0; ks < kMmaKeys / 16; ++ks)
-        ldmatrix_x4_trans(dsq[ks], base + L::dS +
-                                       SwS::chunk(ks * 16 + (lane & 7) + ((lane >> 4) << 3),
-                                                  2 * rg + ((lane >> 3) & 1)));
-      const bool odd = t & 1;
-      const int qi = q0 + rg * 16 + g + (odd ? 8 : 0);
-      float* dq_row = dq_acc + (((long long)b * Lq + qi) * H + h) * D + 4 * (t >> 1);
-#pragma unroll 1
-      for (int c0 = 0; c0 < kPairs; c0 += kChunk) {
-        float acc[2 * kChunk][4];
-#pragma unroll
-        for (int j = 0; j < 2 * kChunk; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-        const int jp0 = part * kPairs + c0;
-#pragma unroll
-        for (int ks = 0; ks < kMmaKeys / 16; ++ks) {
-#pragma unroll
-          for (int jj = 0; jj < kChunk; ++jj) {
-            uint32_t bk[4];
-            ldmatrix_x4_trans(bk, base + L::K +
-                                      Sw::chunk(ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
-                                                2 * (jp0 + jj) + (lane >> 4)));
-            mma_bf16(acc[2 * jj], dsq[ks], bk[0], bk[1]);
-            mma_bf16(acc[2 * jj + 1], dsq[ks], bk[2], bk[3]);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < 2 * kChunk; ++j) {
-          const float x0 = __shfl_xor_sync(0xffffffffu, odd ? acc[j][0] : acc[j][2], 1);
-          const float x1 = __shfl_xor_sync(0xffffffffu, odd ? acc[j][1] : acc[j][3], 1);
-          const float4 val = odd ? make_float4(x0, x1, acc[j][2], acc[j][3])
-                                 : make_float4(acc[j][0], acc[j][1], x0, x1);
-          if (qi < Lq) atomicAdd(reinterpret_cast<float4*>(dq_row + (jp0 * 2 + j) * 8), val);
-        }
-      }
-    }
+    __syncthreads();  // every warp is done with this q tile (its buffer is free for it + 2)
   }
   cp_async_wait<0>();
 
@@ -695,23 +658,17 @@ __device__ __forceinline__ void kv_mma_tile(const bf16* __restrict__ q,
       bf16 *__restrict__ dv, Strides st, int H, int Lq, int Lk, int causal, int q_offset,  \
       int k_offset, float scale
 
-// B2: dK, dV and the atomic dQ partial sums
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads) flash_bwd_fused_kernel(DK_KV_MMA_PARAMS) {
-  kv_mma_tile<D, true>(DK_KV_ARGS);
-}
-
 // B3b: dK and dV only (the split tier's second kernel)
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dkv_kernel(DK_KV_MMA_PARAMS) {
-  kv_mma_tile<D, false>(DK_KV_ARGS);
+  kv_mma_tile<D>(q, k, v, dout, lse, delta, dk, dv, st, H, Lq, Lk, causal, q_offset, k_offset,
+                 scale);
 }
 
-template <int D, bool WITH_DQ>
-cudaError_t launch_kv_mma(const Args& a) {
+template <int D>
+cudaError_t launch_dkv_mma(const Args& a) {
   auto kernel = flash_bwd_dkv_kernel<D>;
-  if constexpr (WITH_DQ) kernel = flash_bwd_fused_kernel<D>;
-  const size_t smem = MmaSmem<D, WITH_DQ>::bytes;
+  const size_t smem = MmaSmem<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -914,7 +871,315 @@ cudaError_t launch_dq_mma(const Args& a) {
   return cudaGetLastError();
 }
 
-// dtype 0 (float32) takes the CUDA-core kernels, 1 (bfloat16) the mma ones
+// ------------------------------------------------ B2: bf16, wgmma + TMA
+
+namespace hp = hopper;
+
+constexpr int kB2Keys = 128;      // keys per block, 64 per consumer warpgroup
+constexpr int kB2Q = 64;          // q rows per streamed tile
+constexpr int kB2Stages = 2;      // q / dO tiles in flight
+constexpr int kB2Threads = 384;   // two consumer warpgroups, then the producer's
+
+template <int D>
+struct B2Smem {  // byte offsets from the 1024-aligned base
+  static constexpr int kCols = hp::box_cols<bf16>(D);  // columns in a box
+  static constexpr int R = kCols * 2;                  // bytes of a box row
+  static constexpr int kBoxes = D / kCols;
+  static constexpr int kFCols = hp::box_cols<float>(D);  // f32 columns in a dQ box
+  static constexpr uint32_t kKBox = kB2Keys * R;
+  static constexpr uint32_t kQBox = kB2Q * R;
+  static constexpr uint32_t kQTile = kB2Q * D * 2;     // one q (or dO) tile
+  static constexpr uint32_t kDsTile = kB2Keys * kB2Q * 2;  // dS^T: [keys][64 q] bf16
+  static constexpr uint32_t kFBox = kB2Q * 128;        // one f32 dQ box: 64 rows x 128 B
+  static constexpr uint32_t kDqStage = kB2Q * kCols * 4;  // a warpgroup's dQ partial
+  static constexpr uint32_t K = 0;
+  static constexpr uint32_t V = K + kB2Keys * D * 2;
+  static constexpr uint32_t Q = V + kB2Keys * D * 2;   // kB2Stages tiles
+  static constexpr uint32_t dO = Q + kB2Stages * kQTile;  // kB2Stages tiles
+  static constexpr uint32_t dS = dO + kB2Stages * kQTile;  // two tiles
+  static constexpr uint32_t dQ = dS + 2 * kDsTile;     // one stage per warpgroup
+  static constexpr uint32_t stats = dQ + 2 * kDqStage;  // per stage: lse * log2 e [64], delta [64]
+  static constexpr uint32_t bars = stats + kB2Stages * 2 * kB2Q * 4;  // kv_full, full[], empty[]
+  static constexpr uint32_t bytes = bars + 8 * (1 + 2 * kB2Stages) + 1024;  // + alignment
+};
+
+template <int D>
+__global__ void __launch_bounds__(kB2Threads, 1)
+flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const __grid_constant__ CUtensorMap tdq, const float* __restrict__ lse,
+                       const float* __restrict__ delta, bf16* __restrict__ dk,
+                       bf16* __restrict__ dv, int H, int Lq, int Lk, int causal, int q_offset,
+                       int k_offset, float scale) {
+  using L = B2Smem<D>;
+  constexpr int R = L::R;
+  constexpr int KPB = R / 32;                 // k-steps of 16 columns in a box row
+  constexpr int kDqGroups = D / L::kCols;     // warpgroups sharing dQ's columns
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (hp::smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* const gbase = smem_raw + (base - hp::smem_u32(smem_raw));  // generic, for stats
+  const uint32_t kv_full = base + L::bars;
+  auto full = [&](int s) { return base + L::bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return base + L::bars + 8 * (1 + kB2Stages + s); };
+  auto stats = [&](int s) { return reinterpret_cast<float*>(gbase + L::stats) + s * 2 * kB2Q; };
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int k0 = blockIdx.y * kB2Keys;
+  // q rows before the first one that sees key k0 contribute nothing
+  int q_begin = 0;
+  if (causal) q_begin = max(0, min(Lq, k_offset + k0 - q_offset));
+  const int n_qt = (Lq - q_begin + kB2Q - 1) / kB2Q;
+
+  if (threadIdx.x == 0) {
+    hp::mbar_init(kv_full, 1);
+    for (int s = 0; s < kB2Stages; ++s) {
+      hp::mbar_init(full(s), 32);
+      hp::mbar_init(empty(s), 256);
+    }
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ------------------------------------------------------------ producer
+    hp::setmaxnreg_dec<40>();
+    const int lane = threadIdx.x % 32;
+    if (threadIdx.x < 256 + 32 && n_qt > 0) {
+      if (lane == 0) {
+        hp::mbar_arrive_expect(kv_full, 2 * kB2Keys * D * 2);
+        for (int n = 0; n < L::kBoxes; ++n) {
+          hp::tma_load(base + L::K + n * L::kKBox, &tk, kv_full, n * L::kCols, h, k0, b);
+          hp::tma_load(base + L::V + n * L::kKBox, &tv, kv_full, n * L::kCols, h, k0, b);
+        }
+      }
+      const long long stat0 = ((long long)b * H + h) * Lq;
+      for (int it = 0; it < n_qt; ++it) {
+        const int s = it % kB2Stages;
+        const int q0 = q_begin + it * kB2Q;
+        hp::mbar_wait(empty(s), ((it / kB2Stages) & 1) ^ 1);
+        float* st = stats(s);
+        for (int i = lane; i < kB2Q; i += 32) {
+          const bool ok = q0 + i < Lq;
+          st[i] = ok ? lse[stat0 + q0 + i] * hp::kLog2e : 0.f;
+          st[kB2Q + i] = ok ? delta[stat0 + q0 + i] : 0.f;
+        }
+        if (lane == 0) {
+          hp::mbar_arrive_expect(full(s), 2 * L::kQTile);
+          for (int n = 0; n < L::kBoxes; ++n) {
+            hp::tma_load(base + L::Q + s * L::kQTile + n * L::kQBox, &tq, full(s),
+                         n * L::kCols, h, q0, b);
+            hp::tma_load(base + L::dO + s * L::kQTile + n * L::kQBox, &tdo, full(s),
+                         n * L::kCols, h, q0, b);
+          }
+        } else {
+          hp::mbar_arrive(full(s));
+        }
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    hp::setmaxnreg_inc<232>();
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, c = lane % 4;
+    const int krow = 64 * wg + 16 * warp + g;  // block key row of d[4j], d[4j+1]; +8 the others
+    const int k0w = k0 + 64 * wg;              // the warpgroup's first key
+    const bool with_dq = wg < kDqGroups;
+    const uint32_t sK = base + L::K + 64 * wg * R;  // the warpgroup's keys in each box
+    const uint32_t sV = base + L::V + 64 * wg * R;
+    const float scale_l2 = scale * hp::kLog2e;
+
+    float dka[L::kBoxes][L::kCols / 2], dva[L::kBoxes][L::kCols / 2];
+#pragma unroll
+    for (int n = 0; n < L::kBoxes; ++n) {
+#pragma unroll
+      for (int i = 0; i < L::kCols / 2; ++i) dka[n][i] = dva[n][i] = 0.f;
+    }
+    if (n_qt > 0) hp::mbar_wait(kv_full, 0);
+    for (int it = 0; it < n_qt; ++it) {
+      const int s = it % kB2Stages;
+      const int q0 = q_begin + it * kB2Q;
+      const uint32_t sQ = base + L::Q + s * L::kQTile;
+      const uint32_t sO = base + L::dO + s * L::kQTile;
+      const uint32_t sDs = base + L::dS + (it & 1) * L::kDsTile;
+      hp::mbar_wait(full(s), (it / kB2Stages) & 1);
+
+      // S^T = K Q^T and dP^T = V dO^T: the warpgroup's 64 keys x 64 q rows.
+      // st later holds the dQ partial (its first k-step overwrites), so that
+      // no third accumulator is live
+      float st[kB2Q / 2], dpt[kB2Q / 2];
+#pragma unroll
+      for (int i = 0; i < kB2Q / 2; ++i) st[i] = dpt[i] = 0.f;
+      hp::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t ka = (kk / KPB) * L::kKBox + (kk % KPB) * 32;
+        const uint32_t qa = (kk / KPB) * L::kQBox + (kk % KPB) * 32;
+        hp::Wgmma<kB2Q>::ss<0, 0>(st, hp::desc<R>(sK + ka, L::kKBox),
+                                  hp::desc<R>(sQ + qa, L::kQBox), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t ka = (kk / KPB) * L::kKBox + (kk % KPB) * 32;
+        const uint32_t qa = (kk / KPB) * L::kQBox + (kk % KPB) * 32;
+        hp::Wgmma<kB2Q>::ss<0, 0>(dpt, hp::desc<R>(sV + ka, L::kKBox),
+                                  hp::desc<R>(sO + qa, L::kQBox), kk > 0);
+      }
+      hp::wgmma_commit();
+      hp::wgmma_wait<0>();
+      hp::fence_regs(st);
+      hp::fence_regs(dpt);
+
+      // p and ds; element i is key krow + 8 ((i / 2) % 2), q column
+      // 8 (i / 4) + 2 c + i % 2 of the tile
+      const float* lse_s = stats(s);
+      const float* delta_s = lse_s + kB2Q;
+      const bool edge = q0 + kB2Q > Lq || k0w + 64 > Lk ||
+                        (causal && q_offset + q0 < k_offset + k0w + 63);
+#pragma unroll
+      for (int i = 0; i < kB2Q / 2; ++i) {
+        const int col = 8 * (i / 4) + 2 * c + (i & 1);
+        float p = hp::exp2_approx(fmaf(st[i], scale_l2, -lse_s[col]));
+        if (edge) {
+          const int kj = k0 + krow + 8 * ((i >> 1) & 1);
+          const int qi = q0 + col;
+          if (kj >= Lk || qi >= Lq || (causal && q_offset + qi < k_offset + kj)) p = 0.f;
+        }
+        st[i] = p;
+        dpt[i] = p * (dpt[i] - delta_s[col]);
+      }
+      // bf16(P^T) and bf16(dS^T) as A operands (one k-step per 16 q rows);
+      // dS^T also into shared memory, rows = the block's keys
+      uint32_t pa[kB2Q / 16][4], da[kB2Q / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kB2Q / 16; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {  // r: row half r % 2, q block 2 kk + r / 2
+          const int i = 8 * kk + 4 * (r >> 1) + 2 * (r & 1);
+          pa[kk][r] = hp::pack_bf16(st[i], st[i + 1]);
+          da[kk][r] = hp::pack_bf16(dpt[i], dpt[i + 1]);
+          hp::st_shared(sDs + hp::swizzled<128>(krow + 8 * (r & 1), 2 * kk + (r >> 1)) + 4 * c,
+                        da[kk][r]);
+        }
+      }
+
+      // dV += bf16(P^T) dO and dK += bf16(dS^T) Q: dO and Q read MN-major
+      hp::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kB2Q / 16; ++kk) {
+#pragma unroll
+        for (int n = 0; n < L::kBoxes; ++n) {
+          const uint32_t off = n * L::kQBox + kk * 16 * R;
+          hp::Wgmma<L::kCols>::template rs<1>(dva[n], pa[kk], hp::desc<R>(sO + off, L::kQBox),
+                                              1);
+          hp::Wgmma<L::kCols>::template rs<1>(dka[n], da[kk], hp::desc<R>(sQ + off, L::kQBox),
+                                              1);
+        }
+      }
+      hp::wgmma_commit();
+
+      // dS^T of all 128 keys is in shared memory
+      hp::fence_async_shared();
+      hp::named_sync(1, 256);
+      float (&dq)[L::kCols / 2] = *reinterpret_cast<float(*)[L::kCols / 2]>(&st);
+      if (with_dq) {
+        // dQ partial = bf16(dS) K over the block's keys, this warpgroup's
+        // box of columns: dS^T and K both read MN-major
+        hp::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kB2Keys / 16; ++kk)
+          hp::Wgmma<L::kCols>::template ss<1, 1>(
+              dq, hp::desc<128>(sDs + kk * 16 * 128, L::kDsTile),
+              hp::desc<R>(base + L::K + wg * L::kKBox + kk * 16 * R, L::kKBox), kk > 0);
+        hp::wgmma_commit();
+      }
+      hp::wgmma_wait<0>();
+#pragma unroll
+      for (int n = 0; n < L::kBoxes; ++n) {
+        hp::fence_regs(dka[n]);
+        hp::fence_regs(dva[n]);
+      }
+      hp::fence_regs(dq);
+      hp::mbar_arrive(empty(s));  // q and dO of this stage are read
+
+      if (with_dq) {
+        // stage the f32 partial (64 q rows x kCols, boxes of 32 columns in
+        // the 128-byte swizzle) and add it into the workspace by TMA
+        const uint32_t stage = base + L::dQ + wg * L::kDqStage;
+        if (tid == 0) hp::bulk_wait_read();  // the last tile's reduce has read it
+        hp::named_sync(2 + wg, 128);
+#pragma unroll
+        for (int i = 0; i < L::kCols / 2; i += 2) {
+          const int row = 16 * warp + g + 8 * ((i >> 1) & 1);
+          const int col = 8 * (i / 4) + 2 * c;
+          const int fc = col % L::kFCols;
+          hp::st_shared(stage + (col / L::kFCols) * L::kFBox + hp::swizzled<128>(row, fc / 4) +
+                            4 * (fc % 4),
+                        dq[i], dq[i + 1]);
+        }
+        hp::fence_async_shared();
+        hp::named_sync(2 + wg, 128);
+        if (tid == 0) {
+          for (int f = 0; f < L::kCols / L::kFCols; ++f)
+            hp::tma_reduce_add(&tdq, stage + f * L::kFBox, wg * L::kCols + f * L::kFCols, h, q0,
+                               b);
+          hp::bulk_commit();
+        }
+      }
+    }
+    if (with_dq && tid == 0) hp::bulk_wait();
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kj = k0 + krow + 8 * r;
+      if (kj >= Lk) continue;
+      const long long row = (((long long)b * Lk + kj) * H + h) * D + 2 * c;
+#pragma unroll
+      for (int n = 0; n < L::kBoxes; ++n) {
+#pragma unroll
+        for (int j = 0; j < L::kCols / 8; ++j) {
+          const int col = n * L::kCols + 8 * j;
+          *reinterpret_cast<uint32_t*>(dk + row + col) =
+              hp::pack_bf16(dka[n][4 * j + 2 * r] * scale, dka[n][4 * j + 2 * r + 1] * scale);
+          *reinterpret_cast<uint32_t*>(dv + row + col) =
+              hp::pack_bf16(dva[n][4 * j + 2 * r], dva[n][4 * j + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_fused_tma(const Args& a) {
+  const Strides& s = a.st;
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  cudaError_t err = hp::make_map<bf16>(&tq, a.q, a.B, a.Lq, a.H, D, s.qb, s.ql, s.qh, kB2Q);
+  if (err == cudaSuccess)
+    err = hp::make_map<bf16>(&tk, a.k, a.B, a.Lk, a.H, D, s.kb, s.kl, s.kh, kB2Keys);
+  if (err == cudaSuccess)
+    err = hp::make_map<bf16>(&tv, a.v, a.B, a.Lk, a.H, D, s.vb, s.vl, s.vh, kB2Keys);
+  if (err == cudaSuccess)
+    err = hp::make_map<bf16>(&tdo, a.dout, a.B, a.Lq, a.H, D, s.ob, s.ol, s.oh, kB2Q);
+  if (err == cudaSuccess)  // the f32 workspace, contiguous [B, Lq, H, D]
+    err = hp::make_map<float>(&tdq, a.dq, a.B, a.Lq, a.H, D, (long long)a.Lq * a.H * D,
+                              (long long)a.H * D, D, kB2Q);
+  if (err != cudaSuccess) return err;
+  const size_t smem = B2Smem<D>::bytes;
+  err = cudaFuncSetAttribute(flash_bwd_fused_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid(a.B * a.H, (a.Lk + kB2Keys - 1) / kB2Keys);
+  flash_bwd_fused_kernel<D><<<grid, kB2Threads, smem, a.stream>>>(
+      tq, tk, tv, tdo, tdq, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
+      a.H, a.Lq, a.Lk, a.causal, a.q_offset, a.k_offset, a.scale);
+  return cudaGetLastError();
+}
+
+// dtype 0 (float32) takes the CUDA-core kernels, 1 (bfloat16) the tensor-core ones
 template <int D>
 cudaError_t launch(int dtype, Which which, const Args& a) {
   if (dtype == 0) {
@@ -925,8 +1190,8 @@ cudaError_t launch(int dtype, Which which, const Args& a) {
     }
   } else if (dtype == 1) {
     switch (which) {
-      case kFused: return launch_kv_mma<D, true>(a);
-      case kDkv: return launch_kv_mma<D, false>(a);
+      case kFused: return launch_fused_tma<D>(a);
+      case kDkv: return launch_dkv_mma<D>(a);
       case kDq: return launch_dq_mma<D>(a);
     }
   }

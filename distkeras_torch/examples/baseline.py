@@ -93,14 +93,16 @@ def _steady_rate(trainer, train_ds, reps: int = 3, max_windows: int = 64) -> flo
 def run_config(num: int, epochs_cap: int, batch_size: Optional[int] = None,
                synthetic_target: Optional[float] = None, device=None,
                num_workers: Optional[int] = None, return_trainer: bool = False,
-               train_rows: Optional[int] = None):
+               train_rows: Optional[int] = None, steady_windows: int = 64):
     """Train one BASELINE config to its accuracy target (or the epoch cap)
     on ``device`` (the card unless ``device="cpu"``); returns the metric
     record, or ``(record, trainer)`` with ``return_trainer`` (its
     ``history`` holds every window's loss).  ``num_workers`` sets the
     distributed configs' stacked replicas (``None``: one per visible
     card).  ``train_rows`` keeps only the first rows of the training set
-    (a shorter run at the same widths; the test set stays whole)."""
+    (a shorter run at the same widths; the test set stays whole).
+    ``steady_windows`` caps the chunk the steady rate is timed over (see
+    ``_steady_rate``): its passes are most of a short run's wall."""
     from distkeras_torch import ADAG, AEASGD, DOWNPOUR, DynSGD, SingleTrainer
     from distkeras_torch.data.loaders import load_cifar10, load_cifar100, load_mnist
     from distkeras_torch.models.cnn import cifar_cnn_spec, mnist_cnn_spec
@@ -202,7 +204,8 @@ def run_config(num: int, epochs_cap: int, batch_size: Optional[int] = None,
         "samples_per_sec_per_chip_train": max(
             (m["samples_per_sec_per_chip"] for m in trainer.metrics), default=None),
         # the data on the device, no feed, no evaluation (see _steady_rate)
-        "samples_per_sec_per_chip_steady": round(_steady_rate(trainer, train_ds), 1),
+        "samples_per_sec_per_chip_steady": round(
+            _steady_rate(trainer, train_ds, max_windows=steady_windows), 1),
         "final_loss": round(trainer.history[-1], 4) if trainer.history else None,
     }
     return (record, trainer) if return_trainer else record

@@ -9,11 +9,12 @@ when the fused tier's f32 dQ workspace would pass
 exists only to fit TPU VMEM and has no counterpart here.
 
 Each entry point picks its kernel by dtype: bfloat16 runs the tensor-core
-kernels (``mma.sync`` through ``csrc/flash_mma.cuh``: B1's
-``flash_fwd_kernel``, B2's ``flash_bwd_fused_kernel``, and the split
-tier's ``flash_bwd_dq_kernel`` (B3a) and ``flash_bwd_dkv_kernel`` (B3b)),
-float32 runs CUDA-core kernels (the same names with ``_f32``:
-``flash_fwd_f32_kernel``, ``flash_bwd_fused_f32_kernel``,
+kernels (B1's ``flash_fwd_kernel`` and B2's ``flash_bwd_fused_kernel`` on
+Hopper's warpgroup MMA, fed by TMA through ``csrc/hopper.cuh``; the split
+tier's ``flash_bwd_dq_kernel`` (B3a) and ``flash_bwd_dkv_kernel`` (B3b) on
+``mma.sync`` through ``csrc/flash_mma.cuh``), float32 runs CUDA-core
+kernels (the same names with ``_f32``: ``flash_fwd_f32_kernel``,
+``flash_bwd_fused_f32_kernel``,
 ``flash_bwd_dq_f32_kernel``, ``flash_bwd_dkv_f32_kernel``) so that no
 float32 product is rounded to TF32.  The split tier uses no atomics, so
 its gradients are bitwise reproducible; the fused tier's dQ is not.
@@ -35,7 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -59,6 +60,39 @@ HEAD_DIMS = (32, 64, 128)
 # _FUSED_DQ_SCRATCH_CAP / _FUSED_WIDE_CAP); above this many bytes the split
 # tier runs instead.  The training shape [8, 2048, 4, 128] needs 32 MiB.
 FUSED_DQ_WORKSPACE_CAP = 1 << 30
+
+
+# Rows of the TMA boxes the bf16 kernels load: B1 a block's 128 q rows and
+# 128-key tiles; B2 a block's 128 keys and 64-row q, dO and dQ tiles.
+FWD_BOX_ROWS = 128
+BWD_KEY_ROWS, BWD_Q_ROWS = 128, 64
+
+
+class TmaGeometry(NamedTuple):
+    dims: Tuple[int, int, int, int]     # (D, H, L, B), innermost first
+    strides: Tuple[int, int, int]       # bytes between heads, rows, batches
+    box: Tuple[int, int, int, int]      # (columns, 1, rows, 1)
+    boxes: int                          # boxes across a row of D
+
+
+def tma_geometry(t: torch.Tensor, rows: int) -> TmaGeometry:
+    """The tensor map ``csrc/hopper.cuh::make_map`` builds over a ``[B, L,
+    H, D]`` operand from its strides: dims (D, H, L, B), the byte strides of
+    H, L and B, a box of one head's ``rows`` rows by at most 128 bytes of
+    columns (so a bf16 row of D = 128 is two boxes of 64), swizzled by the
+    box's row bytes.  Raises ValueError where TMA cannot read the tensor:
+    a head dim that is not contiguous, or a stride that is not a multiple
+    of 16 bytes."""
+    b, length, h, d = t.shape
+    size = t.element_size()
+    if t.stride(-1) != 1:
+        raise ValueError(f"TMA needs a contiguous head dim, got strides {t.stride()}")
+    strides = tuple(t.stride(i) * size for i in (2, 1, 0))
+    if any(s % 16 for s in strides):
+        raise ValueError(f"TMA needs strides that are multiples of 16 bytes, got "
+                         f"{strides} bytes (head, row, batch)")
+    cols = min(d, 128 // size)
+    return TmaGeometry((d, h, length, b), strides, (cols, 1, rows, 1), d // cols)
 
 
 def use_split_backward(q: torch.Tensor) -> bool:
@@ -168,6 +202,9 @@ def flash_forward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch ``csrc/flash_fwd.cu`` on CUDA tensors: ``(o, lse)``."""
     _check_cuda_inputs(q, k, v)
     q, k, v = _aligned(q, k, v)
+    if q.dtype == torch.bfloat16:
+        for t in (q, k, v):
+            tma_geometry(t, FWD_BOX_ROWS)
     b, lq, h, d = q.shape
     lk = k.shape[1]
     o = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
@@ -192,9 +229,10 @@ def flash_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         q_offset: int = 0, k_offset: int = 0, split: bool = False):
     """Launch ``csrc/flash_bwd.cu`` on CUDA tensors: ``(dq, dk, dv)``.
 
-    ``split=False`` runs the fused kernel (one launch, dQ summed with f32
-    atomics into a workspace that is then scaled and cast); ``split=True``
-    runs the dq kernel, then the dkv kernel."""
+    ``split=False`` runs the fused kernel (one launch, dQ summed into an f32
+    workspace -- TMA reduce-adds in bf16, atomics in float32 -- that is then
+    scaled and cast); ``split=True`` runs the dq kernel, then the dkv
+    kernel."""
     _check_cuda_inputs(q, k, v)
     for name, t in (("o", o), ("dO", do)):
         if t.shape != q.shape or t.dtype != q.dtype or not t.is_cuda:
@@ -206,6 +244,10 @@ def flash_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"flash backward: {name} must be [B, H, Lq] = {stats} on the "
                              f"card, got {tuple(t.shape)} on {t.device}")
     q, k, v, do = _aligned(q, k, v, do)
+    if q.dtype == torch.bfloat16 and not split:
+        for t, rows in ((q, BWD_Q_ROWS), (k, BWD_KEY_ROWS), (v, BWD_KEY_ROWS),
+                        (do, BWD_Q_ROWS)):
+            tma_geometry(t, rows)
     b, lq, h, d = q.shape
     lk = k.shape[1]
     scale = 1.0 / math.sqrt(d)

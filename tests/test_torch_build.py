@@ -49,3 +49,16 @@ def test_flash_libraries_follow_the_mma_header(tmp_path, monkeypatch):
     header.write_text(header.read_text() + "\n// edited\n")
     for name, digest in before.items():
         assert _build.source_digest(name) != digest, name
+
+
+def test_flash_libraries_follow_the_hopper_header(tmp_path, monkeypatch):
+    """An edit of the package's hopper.cuh (TMA, mbarriers, wgmma: B1 and
+    B2) renames both flash libraries."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {n: _build.source_digest(n) for n in ("flash_fwd", "flash_bwd")}
+    header = csrc / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    for name, digest in before.items():
+        assert _build.source_digest(name) != digest, name

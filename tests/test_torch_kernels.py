@@ -10,10 +10,13 @@ import torch
 pytestmark = pytest.mark.gpu
 
 
-# (causal, q_offset, k_offset, Lq, Lk): ragged tiles, a q shard after the
-# keys, and q_offset < k_offset with fully masked rows
-FLASH_CASES = [(True, 0, 0, 100, 100), (False, 0, 0, 70, 130), (True, 64, 0, 70, 134),
-                  (True, 0, 40, 96, 96)]
+# (causal, q_offset, k_offset, Lq, Lk, packed): ragged tiles, a q shard
+# after the keys, q_offset < k_offset with fully masked rows, keys over six
+# 128-key tiles with a ragged end, and (packed) q, k and v as strided views
+# of one [B, L, 3, H, D] qkv tensor in the forward test too
+FLASH_CASES = [(True, 0, 0, 100, 100, False), (False, 0, 0, 70, 130, False),
+               (True, 64, 0, 70, 134, False), (True, 0, 40, 96, 96, False),
+               (True, 600, 0, 90, 650, False), (True, 0, 0, 257, 257, True)]
 
 
 @pytest.fixture
@@ -32,11 +35,15 @@ def test_flash_kernel_matches_plain(cuda, dtype, d, case):
     and fully masked rows."""
     from distkeras_torch.ops import flash_attention as fa
 
-    causal, qo, ko, lq, lk = case
+    causal, qo, ko, lq, lk, packed = case
     gen = torch.Generator(device=cuda).manual_seed(0)
-    q = torch.randn((2, lq, 3, d), generator=gen, device=cuda).to(dtype)
-    k = torch.randn((2, lk, 3, d), generator=gen, device=cuda).to(dtype)
-    v = torch.randn((2, lk, 3, d), generator=gen, device=cuda).to(dtype)
+    if packed:
+        qkv = torch.randn((2, max(lq, lk), 3, 3, d), generator=gen, device=cuda).to(dtype)
+        q, k, v = qkv[:, :lq, 0], qkv[:, :lk, 1], qkv[:, :lk, 2]
+    else:
+        q = torch.randn((2, lq, 3, d), generator=gen, device=cuda).to(dtype)
+        k = torch.randn((2, lk, 3, d), generator=gen, device=cuda).to(dtype)
+        v = torch.randn((2, lk, 3, d), generator=gen, device=cuda).to(dtype)
     before = fa.FLASH_FWD.launches
     o, lse = fa.flash_attention_with_lse(q, k, v, causal=causal, q_offset=qo, k_offset=ko)
     torch.cuda.synchronize()
@@ -52,7 +59,7 @@ def test_flash_kernel_matches_plain(cuda, dtype, d, case):
 
 
 def _bwd_inputs(cuda, dtype, d, case, b=2, h=3):
-    causal, qo, ko, lq, lk = case
+    causal, qo, ko, lq, lk = case[:5]
     gen = torch.Generator(device=cuda).manual_seed(1)
     # q/k/v as the model hands them over: strided views of one qkv tensor
     qkv = torch.randn((b, max(lq, lk), 3, h, d), generator=gen, device=cuda).to(dtype)
@@ -67,13 +74,14 @@ def _bwd_inputs(cuda, dtype, d, case, b=2, h=3):
 @pytest.mark.parametrize("case", FLASH_CASES)
 def test_flash_backward_kernels_match_plain(cuda, dtype, d, case):
     """B2 (fused) and B3a + B3b (split), each against flash_backward_plain
-    on the same inputs, with an lse cotangent.  Tolerance relative to each
+    on the same inputs (q, k and v strided views of one qkv tensor), with an
+    lse cotangent.  Tolerance relative to each
     grad's largest magnitude: f32 1e-5 (summation order, atomics in B2);
     bf16 1e-2, about 2.5 ulps (an f32 sum in another order can flip the
     bf16 rounding of p or ds)."""
     from distkeras_torch.ops import flash_attention as fa
 
-    causal, qo, ko, lq, lk = case
+    causal, qo, ko, lq, lk = case[:5]
     q, k, v, do, dlse = _bwd_inputs(cuda, dtype, d, case)
     o, lse = fa.flash_forward_cuda(q, k, v, causal, qo, ko)
     rel = 1e-2 if dtype == torch.bfloat16 else 1e-5
