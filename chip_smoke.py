@@ -771,28 +771,37 @@ def draft_decode_shapes():
                  for pos in (PROMPT, cache - 1))
 
 
-def decode_shape_case(torch, ds, batch, dim, heads, mlp, cache, pos, layers=2,
-                      dtype="bfloat16"):
-    """B4 against its plain version at one shape: hidden state and the new
-    rows within 2 % of the largest magnitude in bf16, 2e-5 of it in float32
-    (the same arithmetic in another summation order), other cache rows
-    untouched."""
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    bf = getattr(torch, dtype)
+def decode_inputs(torch, ds, seed, batch, dim, heads, mlp, cache, layers=2,
+                  dtype="bfloat16", ln_noise=0.0, x_scale=1.0):
+    """Random B4 weights, caches and input on the card, drawn from ``seed``:
+    ``(DecodeWeights, x, k_cache, v_cache)``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
 
     def randn(*shape, scale=1.0):
-        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(bf)
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dt)
 
     ln = torch.stack([torch.ones(layers, dim, device="cuda"),
                       torch.zeros(layers, dim, device="cuda")] * 2, dim=1)
-    ln += 0.1 * torch.randn(ln.shape, generator=gen, device="cuda")
+    if ln_noise:
+        ln += ln_noise * torch.randn(ln.shape, generator=gen, device="cuda")
     w = ds.DecodeWeights(ln, randn(layers, 3 * dim, dim, scale=dim ** -0.5),
                          randn(layers, dim, dim, scale=dim ** -0.5),
                          randn(layers, mlp, dim, scale=dim ** -0.5),
                          randn(layers, dim, mlp, scale=mlp ** -0.5))
     kc = randn(layers, batch, cache, heads, dim // heads)
     vc = randn(layers, batch, cache, heads, dim // heads)
-    x = randn(batch, dim)
+    return w, randn(batch, dim, scale=x_scale), kc, vc
+
+
+def decode_shape_case(torch, ds, batch, dim, heads, mlp, cache, pos, layers=2,
+                      dtype="bfloat16"):
+    """B4 against its plain version at one shape: hidden state and the new
+    rows within 2 % of the largest magnitude in bf16, 2e-5 of it in float32
+    (the same arithmetic in another summation order), other cache rows
+    untouched."""
+    w, x, kc, vc = decode_inputs(torch, ds, 3, batch, dim, heads, mlp, cache, layers, dtype,
+                                 ln_noise=0.1)
     kp, vp = kc.clone(), vc.clone()
     out = ds.fused_decode_step(w, x, kc, vc, pos, heads=heads)
     torch.cuda.synchronize()
@@ -878,9 +887,21 @@ def decode_timing(torch, ds, state, cache, x):
         check(gap <= 0.2, f"decode_step pos {pos}: the profiler's time is {100 * gap:.1f} % "
                           f"from the stamped span")
     mid = (PROMPT + total - 2) // 2
+    draft_ms = draft_timing(torch, ds, mid)
     ms, plain_ms, bms, by = timings[mid]
+    print(f"decode_step pos {mid}: serving (B8, 8 layers, E512) {ms:.4f} ms; b1 draft step "
+          f"(2 layers, E{DRAFT_DIM}) {draft_ms:.4f} ms")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": None, "at_pos": mid}
+            "library_ms": None, "at_pos": mid, "draft_b1_ms": draft_ms}
+
+
+def draft_timing(torch, ds, pos):
+    """B4 as the b1 speculative draft step (2 layers, 128 wide, bf16, the
+    bf16 legs' cache), random weights: the profiler's device time."""
+    w, x, kc, vc = decode_inputs(torch, ds, 5, 1, DRAFT_DIM, DRAFT_HEADS, MLP * DRAFT_DIM,
+                                 PROMPT + NEW + SPEC_K + 1, DRAFT_LAYERS)
+    return device_ms(torch, lambda: ds.fused_decode_step(w, x, kc, vc, pos, heads=DRAFT_HEADS),
+                     "decode_kernel")
 
 
 def feed_check(torch, np):
@@ -1120,6 +1141,44 @@ def train_timing(torch, step, sgd, params, tokens, targets):
           f"{100 * flops / sec / PEAK_FLOPS['bfloat16']:.2f} % (host clock, {TIMED_STEPS} "
           f"steps)")
     train_profile(torch, step, p, state, tokens, targets)
+    ce_product_timing(torch)
+
+
+def _kernel_times(torch, fn, reps: int = 5):
+    """Device time by kernel name of ``fn`` under the profiler, per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            out[e.key] = out.get(e.key, 0.0) + us / 1e3 / reps
+    return out
+
+
+def ce_product_timing(torch):
+    """The training CE's forward product (the headline leg's [16384, 512] x
+    [8192, 512]^T, one dense chunk): on the card a bf16 tensor-core GEMM with
+    an f32 result (ops/losses.py::_UnembedF32), beside the f32 GEMM of the
+    upcast operands that it replaces.  Prints each one's kernels and device
+    time."""
+    from distkeras_torch.ops import losses
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    hc = torch.randn((TRAIN_BATCH * TRAIN_LEN, DIM), generator=gen, device="cuda").bfloat16()
+    table = torch.randn((VOCAB, DIM), generator=gen, device="cuda").bfloat16()
+    for name, fn in (("tensor-core product (bf16 in, f32 out)", lambda: losses._chunk_logits(hc, table)),
+                     ("f32 product of the upcast operands", lambda: hc.float() @ table.float().T)):
+        times = _kernel_times(torch, fn)
+        top = sorted(times.items(), key=lambda kv: -kv[1])[:2]
+        print(f"training CE forward product, {name}: {sum(times.values()):.4f} ms; "
+              + "; ".join(f"{ms:.4f} ms {k[:90]}" for k, ms in top))
 
 
 def train_profile(torch, step, p, state, tokens, targets):

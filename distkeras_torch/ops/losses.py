@@ -9,10 +9,12 @@ is ``unembed_cross_entropy``, ``lm_token_cross_entropy`` and
 The JAX package computes the unembed from bf16 operands with f32
 accumulation and f32 logits (``preferred_element_type=float32``).  A bf16
 ``torch.matmul`` would round the logits to bf16, which is a different
-loss, so here both operands are rounded to the compute dtype and then
-upcast to f32: the products are exact in f32 and the logits stay f32.  This
-needs TF32 off for float32 matrix products, which is PyTorch's default
-(``torch.backends.cuda.matmul.allow_tf32 = False``).
+loss.  So both operands are rounded to the compute dtype, and on the card
+the product runs on the tensor cores with an f32 result
+(``torch.mm(..., out_dtype=torch.float32)``); on the CPU both are upcast to
+f32 and multiplied there (the products are exact in f32 and the logits stay
+f32).  The upcast path needs TF32 off for float32 matrix products, which is
+PyTorch's default (``torch.backends.cuda.matmul.allow_tf32 = False``).
 """
 
 from __future__ import annotations
@@ -51,9 +53,39 @@ def _pick_chunks(rows: int, vocab: int, target_rows: Optional[int]) -> int:
     return 1
 
 
+class _UnembedF32(torch.autograd.Function):
+    """``hc @ table.T`` of compute-dtype CUDA operands as one tensor-core
+    GEMM with f32 accumulation and an f32 result (``aten::mm.dtype``).
+
+    The backward is the f32 path's: the f32 cotangent times the f32-upcast
+    other operand, each rounded to its operand's dtype, as autograd computes
+    for ``hc.float() @ table.float().T``."""
+
+    @staticmethod
+    def forward(ctx, hc, table):
+        ctx.save_for_backward(hc, table)
+        return torch.mm(hc, table.T, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        hc, table = ctx.saved_tensors
+        return (g @ table.float()).to(hc.dtype), (g.T @ hc.float()).to(table.dtype)
+
+
+def _chunk_logits(hc: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """f32 logits ``[rows_c, V]``.  On the card, bf16 (or fp16) operands go
+    to the tensor cores with an f32 result, as the reference's
+    ``preferred_element_type=float32`` product; elsewhere the operands are
+    upcast and multiplied in f32 (the products of bf16 values are exact in
+    f32, so both give the same logits up to summation order)."""
+    if hc.is_cuda and hc.dtype in (torch.bfloat16, torch.float16) and table.dtype == hc.dtype:
+        return _UnembedF32.apply(hc, table)
+    return hc.float() @ table.float().T
+
+
 def _chunk_ce(hc: torch.Tensor, tc: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """CE of ``rows_c`` rows: f32 logits from the f32-upcast operands."""
-    logits = hc.float() @ table.float().T                        # [rows_c, V] f32
+    """CE of ``rows_c`` rows from f32 logits."""
+    logits = _chunk_logits(hc, table)                            # [rows_c, V] f32
     return torch.logsumexp(logits, dim=-1) - logits.gather(-1, tc[:, None])[:, 0]
 
 

@@ -1,5 +1,7 @@
 """The port's fused unembed + CE loss against the JAX package's."""
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -104,3 +106,50 @@ def test_lm_token_cross_entropy_matches_jax(dtype):
                                     compute_dtype=None if cdt is None else torch.bfloat16)
     tol = 1e-4 if dtype == "float32" else 2e-2
     np.testing.assert_allclose(got.detach().numpy(), want, atol=tol, rtol=tol)
+
+
+# (rows, width, vocab) of one chunk's unembed product
+PRODUCT_SHAPES = [(24, 16, 40), (7, 32, 50), (64, 8, 3)]
+
+
+@pytest.mark.parametrize("rows,width,vocab", PRODUCT_SHAPES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_unembed_product_backward_is_the_f32_paths(rows, width, vocab, dtype):
+    """On the card the logits product is ``_UnembedF32`` (compute-dtype
+    operands on the tensor cores, f32 logits).  Its backward, run here
+    directly, equals autograd through the f32 path's
+    ``hc.float() @ table.float().T`` bit for bit for one f32 cotangent,
+    and JAX's transpose of the reference's ``preferred_element_type=float32``
+    product within one ulp of the compute dtype (summation order only)."""
+    rng = np.random.default_rng(rows + vocab)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    ulp = BF16_ULP if dtype == "bfloat16" else 2.0 ** -10
+    hc = torch.from_numpy(rng.normal(size=(rows, width)).astype(np.float32)).to(tdt)
+    table = torch.from_numpy(rng.normal(size=(vocab, width)).astype(np.float32)).to(tdt)
+    g = torch.from_numpy(rng.normal(size=(rows, vocab)).astype(np.float32))
+    got = tl._UnembedF32.backward(SimpleNamespace(saved_tensors=(hc, table)), g)
+    h_f, t_f = hc.clone().requires_grad_(True), table.clone().requires_grad_(True)
+    want = torch.autograd.grad(h_f.float() @ t_f.float().T, (h_f, t_f), g)
+    for a, b in zip(got, want):
+        assert a.dtype == tdt and torch.equal(a, b)
+    _, vjp = jax.vjp(lambda h, t: jax.lax.dot_general(
+        h, t, (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32),
+        jnp.asarray(hc.float().numpy(), jdt), jnp.asarray(table.float().numpy(), jdt))
+    for a, b in zip(got, vjp(jnp.asarray(g.numpy()))):
+        b = np.asarray(b, np.float32)
+        np.testing.assert_allclose(a.float().numpy(), b, rtol=0, atol=ulp * np.abs(b).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunk_logits_on_the_cpu_is_the_f32_product(dtype):
+    """Off the card the logits are the f32 product of the upcast operands,
+    exactly as before the tensor-core path, and autograd goes through it."""
+    rng = np.random.default_rng(5)
+    tdt = getattr(torch, dtype)
+    hc = torch.from_numpy(rng.normal(size=(12, 16)).astype(np.float32)).to(tdt)
+    table = torch.from_numpy(rng.normal(size=(30, 16)).astype(np.float32)).to(tdt)
+    hc.requires_grad_(True)
+    logits = tl._chunk_logits(hc, table)
+    assert logits.dtype == torch.float32
+    assert torch.equal(logits, hc.float() @ table.float().T)
+    assert logits.grad_fn is not None and "UnembedF32" not in type(logits.grad_fn).__name__
