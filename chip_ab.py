@@ -18,6 +18,9 @@ profiler's device time, the median over the calls):
 - B1 (``flash_fwd_kernel``) at the training shape [8, 2048, 4, 128] and at
   the scoring shape [8, 640, 8, 64];
 - B2 (``flash_bwd_fused_kernel``) at the training shape;
+- B3a (``flash_bwd_dq_kernel``) and B3b (``flash_bwd_dkv_kernel``), the
+  split tier (``flash_backward_cuda(..., split=True)``), at the training
+  shape and at [8, 2048, 8, 64] (their D = 64 instances);
 - SDPA's forward and backward at the training shape, the yardstick.
 
 ``decode``, B4 (``decode_kernel``), one bf16 step with weights and caches
@@ -68,6 +71,15 @@ def flash_times(torch, cs, tree):
     out["b2_train_ms"] = cs.device_ms(
         torch, lambda: fa.flash_backward_cuda(q, k, v, o, lse, do, None, True, 0, 0, split=False),
         "flash_bwd_fused_kernel", reps=10)
+    for tag, shape in (("train", (8, 2048, 4, 128)), ("d64", (8, 2048, 8, 64))):
+        a, b_, c = (q, k, v) if tag == "train" else qkv(*shape)
+        oa, la = fa.flash_forward_cuda(a, b_, c, True, 0, 0)
+        da = do if tag == "train" else torch.randn(a.shape, generator=gen,
+                                                   device="cuda").to(torch.bfloat16)
+        split = lambda: fa.flash_backward_cuda(a, b_, c, oa, la, da, None, True, 0, 0,
+                                               split=True)
+        out[f"b3a_{tag}_ms"] = cs.device_ms(torch, split, "flash_bwd_dq_kernel", reps=10)
+        out[f"b3b_{tag}_ms"] = cs.device_ms(torch, split, "flash_bwd_dkv_kernel", reps=10)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out["sdpa_fwd_train_ms"] = cs.device_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True))

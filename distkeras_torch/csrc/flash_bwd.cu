@@ -3,8 +3,8 @@
 // Replaces the three Pallas TPU backward kernels of
 // distkeras_tpu/ops/flash_attention.py:
 //   dk_flash_bwd_fused -> _bwd_fused_kernel (launched by _fused_backward_call)
-//   dk_flash_bwd_dq    -> _bwd_dq_kernel    (the split tier, launched by _backward)
-//   dk_flash_bwd_dkv   -> _bwd_dkv_kernel   (the split tier, launched by _backward)
+//   dk_flash_bwd_dq    -> _bwd_dq_kernel :185  (the split tier, launched by _backward)
+//   dk_flash_bwd_dkv   -> _bwd_dkv_kernel :208 (the split tier, launched by _backward)
 // All rebuild the same [q row, key] terms as _recompute_p_ds: s = (q . k) *
 // scale from input-dtype operands with f32 accumulation, p = exp(s - lse)
 // (masked entries exactly 0), dp = dO . v, ds = p * (dp - delta), where
@@ -48,34 +48,35 @@
 //   bitwise reproducible.  Block y = 0 (key tile 0, which sees the most q
 //   rows under causal masking) launches first.
 //
-// flash_bwd_dkv_kernel (B3b) runs on mma.sync m16n8k16 (flash_mma.cuh),
-// with tiles in XOR-swizzled shared memory that ldmatrix reads without
-// bank conflicts and that cp.async fills (zeros past a tensor's end): one
-// block per (batch, head, 128 keys), eight warps, each owning 16 key rows
-// and the f32 dK and dV accumulators of those rows in registers.  K and V
-// stay in shared memory for the whole block (at D = 128 their fragments
-// next to both accumulators would pass the 255 registers a thread may
-// hold; ldmatrix reads them back per k-step).  The block streams 64-row
-// tiles of q and dO, with their lse and delta, double-buffered with
-// cp.async, skipping the q rows that see none of its keys, and for each
-// tile, in two halves of 32 q rows, runs the products in key-major
-// orientation: S^T = K Q^T, dP^T = V dO^T, dV += bf16(P^T) dO,
-// dK += bf16(dS^T) Q.  Block y = 0 launches first.
+// flash_bwd_dkv_kernel (B3b) is B2 without dQ: the same block body
+// (kv_block, WITH_DQ = false), so its dK and dV are B2's to the bit; it
+// drops the dS^T staging, the barrier between the consumers, the dQ
+// product, the f32 staging and the reduce-add.  The shared memory they
+// held is left free: a third q / dO stage did not make it faster at
+// D = 128.
 //
-// flash_bwd_dq_kernel (B3a) is q-major: one block per (batch, head, 64 q
-// rows), four warps, each owning 16 q rows whose Q and dO fragments it
-// loads into registers once and whose f32 dQ accumulator it keeps there.
-// K and V move in 64-key tiles, double-buffered with cp.async, up to the
-// last key any row of the block can see; per tile, in two halves of 32
-// keys (registers: at D = 128 the Q and dO fragments and the accumulator
-// take 128 of them), S = Q K^T and dP = dO V^T (K and V as the col-major B
-// operand), ds on the f32 fragments, bf16(dS) re-packed in registers as
-// the A operand of dQ += bf16(dS) K (K read k-major by ldmatrix.trans).
-// Only tiles that straddle the diagonal or a ragged end are masked.  dQ is
-// scaled and written once, by its block.  Blocks are numbered so that the
-// longest causal rows (the last q tiles) start first.
-// Neither split kernel uses atomics: the split tier is bitwise
-// reproducible.
+// flash_bwd_dq_kernel (B3a) is the q-major twin, on the same machinery:
+// one block per (batch, head, 128 q rows), two consumer warpgroups of 64
+// rows and a producer warp.  Q and dO come in once by TMA and stay; K and
+// V stream in 64-key tiles through a ring of three stages (a "full"
+// mbarrier per stage, and an "empty" one per stage and consumer, so that
+// the warpgroup of the earlier rows, which reads fewer tiles under causal
+// masking, never holds the ring).  Each thread reads the lse (times
+// log2 e) and delta of its two rows once.  Per key tile:
+//   S = Q K^T and dP = dO V^T (wgmma m64n64k16, both operands K-major in
+//   shared memory), issued behind the last tile's dQ product;
+//   p = exp2(s scale log2 e - lse log2 e), masked to exactly 0 on the
+//   tiles that straddle the diagonal or the end of k, and ds = p (dp -
+//   delta) on the f32 fragments;
+//   dQ += bf16(dS) K (wgmma with A in registers, K read MN-major, one
+//   instruction per 64-column box), with the f32 dQ accumulator (D / 2
+//   registers a thread) in registers for the whole block.
+// Keys past the last one the block's rows can see are never loaded, and a
+// warpgroup multiplies no tile past its own rows' last visible key; dQ is
+// scaled and written once, by its block.  Blocks are
+// numbered so that the longest causal rows (the last q tiles) start first.
+// Neither split kernel uses atomics or reduce-adds: every output element
+// is written by one block, so the split tier is bitwise reproducible.
 //
 // float32 inputs run CUDA-core kernels (no TF32 anywhere): a row of the
 // block's own tile is shared by D/16 threads, each holding 16 elements of
@@ -98,17 +99,24 @@
 //
 // Bound.  At the training shape (B 8, L 2048, H 4, D 128, bf16, causal) the
 // fused backward does 10 * D flops per visible score (~86 GFLOP) and moves
-// ~118 MB: operations-bound on the tensor cores (~0.087 ms); B3a does 6 * D
-// (~0.052 ms), B3b 8 * D (~0.069 ms).  B2's five products per tile are
-// short (64 x 64 scores) with the softmax terms, the dS staging and the dQ
-// reduce between them; B3a and B3b are on mma.sync, which reaches a part of
-// the rate only.  PERF.md records the times.
+// ~118 MB: operations-bound on the tensor cores (~0.087 ms).  The split
+// kernels are operations-bound too: B3a does 6 * D flops per visible score
+// (S, dP, dQ; ~0.052 ms), B3b 8 * D (S^T, dP^T, dV, dK; ~0.069 ms).  What
+// their design does about it: every product is a wgmma fed by TMA (no
+// address arithmetic on the consumers, no block-wide barrier a tile), the
+// two consumer warpgroups' products and softmax terms interleave on the
+// SM, and B3a issues one tile's dQ product and the next tile's S and dP
+// together, one wait a tile, with no product in flight across a branch.
+// What stays in the way: each warpgroup's wait for its products before p
+// and ds (B3b's dK and dV accumulators leave no registers to overlap two
+// tiles: ptxas serializes the wgmmas then), and one block an SM (384
+// threads of 168 registers; B3a holds 165 KB of shared memory at D = 128,
+// B3b 133 KB).  PERF.md records the times.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 
-#include "flash_mma.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -460,460 +468,48 @@ cudaError_t launch_dq_f32(const Args& a) {
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------- B3b: bf16, key-major mma
-
-using namespace flash_mma;
-
-constexpr int kMmaWarps = 8;
-constexpr int kMmaKeys = 16 * kMmaWarps;  // keys per block, 16 per warp
-constexpr int kMmaQ = 64;                 // q rows per streamed tile
-constexpr int kMmaThreads = 32 * kMmaWarps;
-
-template <int D>
-struct MmaSmem {  // byte offsets into the block's dynamic shared memory
-  static constexpr uint32_t kTileQ = kMmaQ * D * sizeof(bf16);
-  static constexpr uint32_t K = 0;
-  static constexpr uint32_t V = K + kMmaKeys * D * sizeof(bf16);
-  static constexpr uint32_t Q = V + kMmaKeys * D * sizeof(bf16);  // two tiles
-  static constexpr uint32_t dO = Q + 2 * kTileQ;                   // two tiles
-  static constexpr uint32_t stats = dO + 2 * kTileQ;
-  static constexpr uint32_t bytes = stats + 4 * kMmaQ * sizeof(float);  // lse[2], delta[2]
-};
-
-// dK and dV of the block's 128 keys: the body of B3b (flash_bwd_dkv_kernel)
-template <int D>
-__device__ __forceinline__ void kv_mma_tile(const bf16* __restrict__ q,
-                                            const bf16* __restrict__ k,
-                                            const bf16* __restrict__ v,
-                                            const bf16* __restrict__ dout,
-                                            const float* __restrict__ lse,
-                                            const float* __restrict__ delta, bf16* __restrict__ dk,
-                                            bf16* __restrict__ dv, const Strides& st, int H,
-                                            int Lq, int Lk, int causal, int q_offset,
-                                            int k_offset, float scale) {
-  using Sw = Swizzle<D>;
-  using L = MmaSmem<D>;
-  constexpr int KS = D / 16;  // k-steps over the head dim
-  constexpr int NO = D / 8;   // n-blocks of a [16, D] accumulator
-  extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t base = smem_addr(smem);
-  const float* stats = reinterpret_cast<const float*>(smem + L::stats);
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int k0 = blockIdx.y * kMmaKeys;
-  const int krow = warp * 16;  // the warp's first key row in the block
-
-  // q rows before the first one that sees key k0 contribute nothing
-  int q_begin = 0;
-  if (causal) q_begin = max(0, min(Lq, k_offset + k0 - q_offset));
-  const int n_qt = (Lq - q_begin + kMmaQ - 1) / kMmaQ;
-  const bf16* qb = q + b * st.qb + h * st.qh;
-  const bf16* ob = dout + b * st.ob + h * st.oh;
-  const long long stat0 = ((long long)b * H + h) * Lq;
-
-  auto load_q_tile = [&](int it) {
-    const int q0 = q_begin + it * kMmaQ;
-    const int n = min(kMmaQ, Lq - q0);
-    const uint32_t buf = it & 1;
-    load_tile_async<D, kMmaQ, kMmaThreads>(base + L::Q + buf * L::kTileQ, qb + q0 * st.ql,
-                                           st.ql, n, tid);
-    load_tile_async<D, kMmaQ, kMmaThreads>(base + L::dO + buf * L::kTileQ, ob + q0 * st.ol,
-                                           st.ol, n, tid);
-    if (tid < 2 * kMmaQ) {
-      const int i = tid % kMmaQ;
-      const bool ok = i < n;
-      const float* src = (tid < kMmaQ ? lse : delta) + stat0 + q0 + (ok ? i : 0);
-      const uint32_t slot = (tid < kMmaQ ? buf : 2 + buf) * kMmaQ + i;
-      cp_async4(base + L::stats + slot * 4, src, ok ? 4 : 0);
-    }
-  };
-
-  {
-    const int nk = min(kMmaKeys, Lk - k0);
-    load_tile_async<D, kMmaKeys, kMmaThreads>(base + L::K, k + b * st.kb + h * st.kh + k0 * st.kl,
-                                              st.kl, nk, tid);
-    load_tile_async<D, kMmaKeys, kMmaThreads>(base + L::V, v + b * st.vb + h * st.vh + k0 * st.vl,
-                                              st.vl, nk, tid);
-    if (n_qt > 0) load_q_tile(0);
-    cp_async_commit();
-  }
-
-  float dka[NO][4], dva[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
-  }
-
-  for (int it = 0; it < n_qt; ++it) {
-    const int q0 = q_begin + it * kMmaQ;
-    if (it + 1 < n_qt) load_q_tile(it + 1);  // streams in under this tile
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const uint32_t cQ = base + L::Q + (it & 1) * L::kTileQ;
-    const uint32_t cO = base + L::dO + (it & 1) * L::kTileQ;
-    const float* lse_s = stats + (it & 1) * kMmaQ;
-    const float* delta_s = stats + (2 + (it & 1)) * kMmaQ;
-    const bool edge = q0 + kMmaQ > Lq || k0 + kMmaKeys > Lk ||
-                      (causal && q_offset + q0 < k_offset + k0 + kMmaKeys - 1);
-
-#pragma unroll 1
-    for (int hq = 0; hq < 2; ++hq) {  // q columns hq * 32 .. hq * 32 + 31
-      // S^T = K Q^T and dP^T = V dO^T: the warp's 16 keys x 32 q rows
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-      }
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t ka[4], va[4];
-        ldmatrix_x4(ka, base + L::K + Sw::chunk(krow + (lane & 15), 2 * kk + (lane >> 4)));
-        ldmatrix_x4(va, base + L::V + Sw::chunk(krow + (lane & 15), 2 * kk + (lane >> 4)));
-#pragma unroll
-        for (int p = 0; p < 2; ++p) {
-          const uint32_t off = Sw::chunk(hq * 32 + p * 16 + (lane & 7) + ((lane >> 4) << 3),
-                                         2 * kk + ((lane >> 3) & 1));
-          uint32_t bq[4], bo[4];
-          ldmatrix_x4(bq, cQ + off);
-          mma_bf16(s[2 * p], ka, bq[0], bq[1]);
-          mma_bf16(s[2 * p + 1], ka, bq[2], bq[3]);
-          ldmatrix_x4(bo, cO + off);
-          mma_bf16(dp[2 * p], va, bo[0], bo[1]);
-          mma_bf16(dp[2 * p + 1], va, bo[2], bo[3]);
-        }
-      }
-
-      // p and ds; element (j, e) is key krow + g + 8 (e / 2), q column
-      // hq * 32 + 8 j + 2 t + e % 2.  bf16(P^T), bf16(dS^T) become A
-      // fragments (two k-steps of 16 q).
-      uint32_t pa[2][4], da[2][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qc = hq * 32 + j * 8 + 2 * t;
-        float pv[4], dsv[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = qc + (e & 1);
-          float pe = exp_approx(s[j][e] * scale - lse_s[col]);
-          if (edge) {
-            const int kj = k0 + krow + g + 8 * (e >> 1);
-            const int qi = q0 + col;
-            if (kj >= Lk || qi >= Lq || (causal && q_offset + qi < k_offset + kj)) pe = 0.f;
-          }
-          pv[e] = pe;
-          dsv[e] = pe * (dp[j][e] - delta_s[col]);
-        }
-        const int ks = j >> 1, hi = 2 * (j & 1);
-        pa[ks][hi] = pack_bf16(pv[0], pv[1]);
-        pa[ks][hi + 1] = pack_bf16(pv[2], pv[3]);
-        da[ks][hi] = pack_bf16(dsv[0], dsv[1]);
-        da[ks][hi + 1] = pack_bf16(dsv[2], dsv[3]);
-      }
-
-      // dV += bf16(P^T) dO and dK += bf16(dS^T) Q over these 32 q rows
-#pragma unroll
-      for (int ks = 0; ks < 2; ++ks) {
-        const int r = hq * 32 + ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-        for (int jp = 0; jp < NO / 2; ++jp) {
-          const uint32_t off = Sw::chunk(r, 2 * jp + (lane >> 4));
-          uint32_t bo[4], bq[4];
-          ldmatrix_x4_trans(bo, cO + off);
-          mma_bf16(dva[2 * jp], pa[ks], bo[0], bo[1]);
-          mma_bf16(dva[2 * jp + 1], pa[ks], bo[2], bo[3]);
-          ldmatrix_x4_trans(bq, cQ + off);
-          mma_bf16(dka[2 * jp], da[ks], bq[0], bq[1]);
-          mma_bf16(dka[2 * jp + 1], da[ks], bq[2], bq[3]);
-        }
-      }
-    }
-    __syncthreads();  // every warp is done with this q tile (its buffer is free for it + 2)
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int kj = k0 + krow + g + 8 * r;
-    if (kj >= Lk) continue;
-    const long long row = (((long long)b * Lk + kj) * H + h) * D + 2 * t;
-#pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      *reinterpret_cast<uint32_t*>(dk + row + j * 8) =
-          pack_bf16(dka[j][2 * r] * scale, dka[j][2 * r + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + row + j * 8) = pack_bf16(dva[j][2 * r], dva[j][2 * r + 1]);
-    }
-  }
-}
-
-#define DK_KV_MMA_PARAMS                                                                  \
-  const bf16 *__restrict__ q, const bf16 *__restrict__ k, const bf16 *__restrict__ v,     \
-      const bf16 *__restrict__ dout, const float *__restrict__ lse,                        \
-      const float *__restrict__ delta, float *__restrict__ dq_acc, bf16 *__restrict__ dk,  \
-      bf16 *__restrict__ dv, Strides st, int H, int Lq, int Lk, int causal, int q_offset,  \
-      int k_offset, float scale
-
-// B3b: dK and dV only (the split tier's second kernel)
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads) flash_bwd_dkv_kernel(DK_KV_MMA_PARAMS) {
-  kv_mma_tile<D>(q, k, v, dout, lse, delta, dk, dv, st, H, Lq, Lk, causal, q_offset, k_offset,
-                 scale);
-}
-
-template <int D>
-cudaError_t launch_dkv_mma(const Args& a) {
-  auto kernel = flash_bwd_dkv_kernel<D>;
-  const size_t smem = MmaSmem<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  dim3 grid(a.B * a.H, (a.Lk + kMmaKeys - 1) / kMmaKeys);
-  kernel<<<grid, kMmaThreads, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<float*>(a.dq), static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.st,
-      a.H, a.Lq, a.Lk, a.causal, a.q_offset, a.k_offset, a.scale);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------- B3a: bf16, q-major mma
-
-constexpr int kDqRows = 64;  // q rows per block, 16 per warp
-constexpr int kDqKeys = 64;  // keys per K / V tile
-constexpr int kDqWarps = 4;
-constexpr int kDqThreads = 32 * kDqWarps;
-
-template <int D>
-struct DqSmem {  // byte offsets into the block's dynamic shared memory
-  static constexpr uint32_t kTileK = kDqKeys * D * sizeof(bf16);
-  static constexpr uint32_t Q = 0;
-  static constexpr uint32_t dO = Q + kDqRows * D * sizeof(bf16);
-  static constexpr uint32_t K = dO + kDqRows * D * sizeof(bf16);  // two tiles
-  static constexpr uint32_t V = K + 2 * kTileK;                   // two tiles
-  static constexpr uint32_t bytes = V + 2 * kTileK;
-};
-
-template <int D>
-__global__ void __launch_bounds__(kDqThreads)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dq, Strides st, int H, int Lq, int Lk, int causal,
-                    int q_offset, int k_offset, float scale) {
-  using Sw = Swizzle<D>;
-  using L = DqSmem<D>;
-  constexpr int KS = D / 16;  // k-steps over the head dim
-  constexpr int NO = D / 8;   // n-blocks of the [16, D] dQ accumulator
-  extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t base = smem_addr(smem);
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kDqRows;  // longest rows first
-  const int nq = min(kDqRows, Lq - q0);
-
-  // keys past the block's last visible position are never loaded
-  int k_end = Lk;
-  if (causal) k_end = max(0, min(Lk, q_offset + q0 + nq - 1 - k_offset + 1));
-  const int n_tiles = (k_end + kDqKeys - 1) / kDqKeys;
-
-  const bf16* kb = k + b * st.kb + h * st.kh;
-  const bf16* vb = v + b * st.vb + h * st.vh;
-  auto load_kv_tile = [&](int tile) {
-    const int k0 = tile * kDqKeys;
-    const int n = min(kDqKeys, Lk - k0);
-    const uint32_t buf = (tile & 1) * L::kTileK;
-    load_tile_async<D, kDqKeys, kDqThreads>(base + L::K + buf, kb + k0 * st.kl, st.kl, n, tid);
-    load_tile_async<D, kDqKeys, kDqThreads>(base + L::V + buf, vb + k0 * st.vl, st.vl, n, tid);
-  };
-  load_tile_async<D, kDqRows, kDqThreads>(base + L::Q, q + b * st.qb + h * st.qh + q0 * st.ql,
-                                          st.ql, nq, tid);
-  load_tile_async<D, kDqRows, kDqThreads>(base + L::dO,
-                                          dout + b * st.ob + h * st.oh + q0 * st.ol, st.ol, nq,
-                                          tid);
-  if (n_tiles > 0) load_kv_tile(0);
-  cp_async_commit();
-
-  // rows g and g + 8 of the warp's 16: lse (times log2 e, for ex2) and delta
-  const int row0 = warp * 16 + g;
-  const long long stat0 = ((long long)b * H + h) * Lq + q0;
-  const float scale_l2 = scale * kLog2e;
-  float lse_l2[2], delta_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = row0 + 8 * r;
-    lse_l2[r] = i < nq ? lse[stat0 + i] * kLog2e : 0.f;
-    delta_r[r] = i < nq ? delta[stat0 + i] : 0.f;
-  }
-
-  float acc[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  uint32_t qf[KS][4], of[KS][4];
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int k0 = tile * kDqKeys;
-    cp_async_wait<0>();
-    __syncthreads();  // this tile is in, and every warp is done with the last one
-    if (tile + 1 < n_tiles) load_kv_tile(tile + 1);  // streams in under this tile
-    cp_async_commit();
-    if (tile == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        const uint32_t off = Sw::chunk(warp * 16 + (lane & 15), 2 * kk + (lane >> 4));
-        ldmatrix_x4(qf[kk], base + L::Q + off);
-        ldmatrix_x4(of[kk], base + L::dO + off);
-      }
-    }
-    const uint32_t cK = base + L::K + (tile & 1) * L::kTileK;
-    const uint32_t cV = base + L::V + (tile & 1) * L::kTileK;
-    const bool edge = k0 + kDqKeys > Lk || q0 + kDqRows > Lq ||
-                      (causal && q_offset + q0 < k_offset + k0 + kDqKeys - 1);
-
-#pragma unroll 1
-    for (int hk = 0; hk < 2; ++hk) {  // keys hk * 32 .. hk * 32 + 31 of the tile
-      // S = Q K^T and dP = dO V^T: the warp's 16 q rows x 32 keys
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-      }
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-        for (int p = 0; p < 2; ++p) {
-          const uint32_t off = Sw::chunk(hk * 32 + p * 16 + (lane & 7) + ((lane >> 4) << 3),
-                                         2 * kk + ((lane >> 3) & 1));
-          uint32_t bk[4], bv[4];
-          ldmatrix_x4(bk, cK + off);
-          mma_bf16(s[2 * p], qf[kk], bk[0], bk[1]);
-          mma_bf16(s[2 * p + 1], qf[kk], bk[2], bk[3]);
-          ldmatrix_x4(bv, cV + off);
-          mma_bf16(dp[2 * p], of[kk], bv[0], bv[1]);
-          mma_bf16(dp[2 * p + 1], of[kk], bv[2], bv[3]);
-        }
-      }
-
-      // ds; element (j, e) is q row row0 + 8 (e / 2), key hk * 32 + 8 j +
-      // 2 t + e % 2 of the tile.  bf16(dS) becomes the A fragments of two
-      // k-steps of 16 keys.
-      uint32_t da[2][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float dsv[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          float pe = exp2_approx(fmaf(s[j][e], scale_l2, -lse_l2[r]));
-          if (edge) {
-            const int kj = k0 + hk * 32 + j * 8 + 2 * t + (e & 1);
-            const int qi = q0 + row0 + 8 * r;
-            if (kj >= Lk || qi >= Lq || (causal && q_offset + qi < k_offset + kj)) pe = 0.f;
-          }
-          dsv[e] = pe * (dp[j][e] - delta_r[r]);
-        }
-        const int ks = j >> 1, hi = 2 * (j & 1);
-        da[ks][hi] = pack_bf16(dsv[0], dsv[1]);
-        da[ks][hi + 1] = pack_bf16(dsv[2], dsv[3]);
-      }
-
-      // dQ += bf16(dS) K over these 32 keys
-#pragma unroll
-      for (int ks = 0; ks < 2; ++ks) {
-        const int r = hk * 32 + ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-        for (int jp = 0; jp < NO / 2; ++jp) {
-          uint32_t bk[4];
-          ldmatrix_x4_trans(bk, cK + Sw::chunk(r, 2 * jp + (lane >> 4)));
-          mma_bf16(acc[2 * jp], da[ks], bk[0], bk[1]);
-          mma_bf16(acc[2 * jp + 1], da[ks], bk[2], bk[3]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + row0 + 8 * r;
-    if (qi >= Lq) continue;
-    bf16* row = dq + (((long long)b * Lq + qi) * H + h) * D + 2 * t;
-#pragma unroll
-    for (int j = 0; j < NO; ++j)
-      *reinterpret_cast<uint32_t*>(row + j * 8) =
-          pack_bf16(acc[j][2 * r] * scale, acc[j][2 * r + 1] * scale);
-  }
-}
-
-template <int D>
-cudaError_t launch_dq_mma(const Args& a) {
-  const size_t smem = DqSmem<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  dim3 grid(a.B * a.H, (a.Lq + kDqRows - 1) / kDqRows);
-  flash_bwd_dq_kernel<D><<<grid, kDqThreads, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<bf16*>(a.dq), a.st, a.H, a.Lq, a.Lk, a.causal, a.q_offset, a.k_offset,
-      a.scale);
-  return cudaGetLastError();
-}
-
-// ------------------------------------------------ B2: bf16, wgmma + TMA
+// -------------------------------------- B2 and B3b: bf16, key-major, wgmma + TMA
 
 namespace hp = hopper;
 
-constexpr int kB2Keys = 128;      // keys per block, 64 per consumer warpgroup
-constexpr int kB2Q = 64;          // q rows per streamed tile
-constexpr int kB2Stages = 2;      // q / dO tiles in flight
-constexpr int kB2Threads = 384;   // two consumer warpgroups, then the producer's
+constexpr int kKvKeys = 128;     // keys per block, 64 per consumer warpgroup
+constexpr int kKvQ = 64;         // q rows per streamed tile
+constexpr int kKvStages = 2;     // q / dO tiles in flight
+constexpr int kKvThreads = 384;  // two consumer warpgroups, then the producer's
 
-template <int D>
-struct B2Smem {  // byte offsets from the 1024-aligned base
+template <int D, bool WITH_DQ>
+struct KvSmem {  // byte offsets from the 1024-aligned base
   static constexpr int kCols = hp::box_cols<bf16>(D);  // columns in a box
   static constexpr int R = kCols * 2;                  // bytes of a box row
   static constexpr int kBoxes = D / kCols;
   static constexpr int kFCols = hp::box_cols<float>(D);  // f32 columns in a dQ box
-  static constexpr uint32_t kKBox = kB2Keys * R;
-  static constexpr uint32_t kQBox = kB2Q * R;
-  static constexpr uint32_t kQTile = kB2Q * D * 2;     // one q (or dO) tile
-  static constexpr uint32_t kDsTile = kB2Keys * kB2Q * 2;  // dS^T: [keys][64 q] bf16
-  static constexpr uint32_t kFBox = kB2Q * 128;        // one f32 dQ box: 64 rows x 128 B
-  static constexpr uint32_t kDqStage = kB2Q * kCols * 4;  // a warpgroup's dQ partial
+  static constexpr uint32_t kKBox = kKvKeys * R;
+  static constexpr uint32_t kQBox = kKvQ * R;
+  static constexpr uint32_t kQTile = kKvQ * D * 2;     // one q (or dO) tile
+  static constexpr uint32_t kDsTile = kKvKeys * kKvQ * 2;  // dS^T: [keys][64 q] bf16
+  static constexpr uint32_t kFBox = kKvQ * 128;        // one f32 dQ box: 64 rows x 128 B
+  static constexpr uint32_t kDqStage = kKvQ * kCols * 4;  // a warpgroup's dQ partial
   static constexpr uint32_t K = 0;
-  static constexpr uint32_t V = K + kB2Keys * D * 2;
-  static constexpr uint32_t Q = V + kB2Keys * D * 2;   // kB2Stages tiles
-  static constexpr uint32_t dO = Q + kB2Stages * kQTile;  // kB2Stages tiles
-  static constexpr uint32_t dS = dO + kB2Stages * kQTile;  // two tiles
-  static constexpr uint32_t dQ = dS + 2 * kDsTile;     // one stage per warpgroup
-  static constexpr uint32_t stats = dQ + 2 * kDqStage;  // per stage: lse * log2 e [64], delta [64]
-  static constexpr uint32_t bars = stats + kB2Stages * 2 * kB2Q * 4;  // kv_full, full[], empty[]
-  static constexpr uint32_t bytes = bars + 8 * (1 + 2 * kB2Stages) + 1024;  // + alignment
+  static constexpr uint32_t V = K + kKvKeys * D * 2;
+  static constexpr uint32_t Q = V + kKvKeys * D * 2;   // kKvStages tiles
+  static constexpr uint32_t dO = Q + kKvStages * kQTile;  // kKvStages tiles
+  static constexpr uint32_t dS = dO + kKvStages * kQTile;  // WITH_DQ: two tiles
+  static constexpr uint32_t dQ = dS + (WITH_DQ ? 2 * kDsTile : 0);  // one stage per warpgroup
+  static constexpr uint32_t stats = dQ + (WITH_DQ ? 2 * kDqStage : 0);  // per stage: lse * log2 e [64], delta [64]
+  static constexpr uint32_t bars = stats + kKvStages * 2 * kKvQ * 4;  // kv_full, full[], empty[]
+  static constexpr uint32_t bytes = bars + 8 * (1 + 2 * kKvStages) + 1024;  // + alignment
 };
 
-template <int D>
-__global__ void __launch_bounds__(kB2Threads, 1)
-flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tq,
-                       const __grid_constant__ CUtensorMap tk,
-                       const __grid_constant__ CUtensorMap tv,
-                       const __grid_constant__ CUtensorMap tdo,
-                       const __grid_constant__ CUtensorMap tdq, const float* __restrict__ lse,
-                       const float* __restrict__ delta, bf16* __restrict__ dk,
-                       bf16* __restrict__ dv, int H, int Lq, int Lk, int causal, int q_offset,
-                       int k_offset, float scale) {
-  using L = B2Smem<D>;
+// The block of B2 (WITH_DQ) and of B3b: dK and dV of 128 keys and, in B2,
+// the dQ partial sums of those keys added into the f32 workspace (tdq).
+template <int D, bool WITH_DQ>
+__device__ __forceinline__ void kv_block(const CUtensorMap* tq, const CUtensorMap* tk,
+                                         const CUtensorMap* tv, const CUtensorMap* tdo,
+                                         const CUtensorMap* tdq, const float* __restrict__ lse,
+                                         const float* __restrict__ delta, bf16* __restrict__ dk,
+                                         bf16* __restrict__ dv, int H, int Lq, int Lk, int causal,
+                                         int q_offset, int k_offset, float scale) {
+  using L = KvSmem<D, WITH_DQ>;
   constexpr int R = L::R;
   constexpr int KPB = R / 32;                 // k-steps of 16 columns in a box row
   constexpr int kDqGroups = D / L::kCols;     // warpgroups sharing dQ's columns
@@ -922,19 +518,19 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tq,
   unsigned char* const gbase = smem_raw + (base - hp::smem_u32(smem_raw));  // generic, for stats
   const uint32_t kv_full = base + L::bars;
   auto full = [&](int s) { return base + L::bars + 8 * (1 + s); };
-  auto empty = [&](int s) { return base + L::bars + 8 * (1 + kB2Stages + s); };
-  auto stats = [&](int s) { return reinterpret_cast<float*>(gbase + L::stats) + s * 2 * kB2Q; };
+  auto empty = [&](int s) { return base + L::bars + 8 * (1 + kKvStages + s); };
+  auto stats = [&](int s) { return reinterpret_cast<float*>(gbase + L::stats) + s * 2 * kKvQ; };
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int k0 = blockIdx.y * kB2Keys;
+  const int k0 = blockIdx.y * kKvKeys;
   // q rows before the first one that sees key k0 contribute nothing
   int q_begin = 0;
   if (causal) q_begin = max(0, min(Lq, k_offset + k0 - q_offset));
-  const int n_qt = (Lq - q_begin + kB2Q - 1) / kB2Q;
+  const int n_qt = (Lq - q_begin + kKvQ - 1) / kKvQ;
 
   if (threadIdx.x == 0) {
     hp::mbar_init(kv_full, 1);
-    for (int s = 0; s < kB2Stages; ++s) {
+    for (int s = 0; s < kKvStages; ++s) {
       hp::mbar_init(full(s), 32);
       hp::mbar_init(empty(s), 256);
     }
@@ -949,29 +545,29 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tq,
     const int lane = threadIdx.x % 32;
     if (threadIdx.x < 256 + 32 && n_qt > 0) {
       if (lane == 0) {
-        hp::mbar_arrive_expect(kv_full, 2 * kB2Keys * D * 2);
+        hp::mbar_arrive_expect(kv_full, 2 * kKvKeys * D * 2);
         for (int n = 0; n < L::kBoxes; ++n) {
-          hp::tma_load(base + L::K + n * L::kKBox, &tk, kv_full, n * L::kCols, h, k0, b);
-          hp::tma_load(base + L::V + n * L::kKBox, &tv, kv_full, n * L::kCols, h, k0, b);
+          hp::tma_load(base + L::K + n * L::kKBox, tk, kv_full, n * L::kCols, h, k0, b);
+          hp::tma_load(base + L::V + n * L::kKBox, tv, kv_full, n * L::kCols, h, k0, b);
         }
       }
       const long long stat0 = ((long long)b * H + h) * Lq;
       for (int it = 0; it < n_qt; ++it) {
-        const int s = it % kB2Stages;
-        const int q0 = q_begin + it * kB2Q;
-        hp::mbar_wait(empty(s), ((it / kB2Stages) & 1) ^ 1);
+        const int s = it % kKvStages;
+        const int q0 = q_begin + it * kKvQ;
+        hp::mbar_wait(empty(s), ((it / kKvStages) & 1) ^ 1);
         float* st = stats(s);
-        for (int i = lane; i < kB2Q; i += 32) {
+        for (int i = lane; i < kKvQ; i += 32) {
           const bool ok = q0 + i < Lq;
           st[i] = ok ? lse[stat0 + q0 + i] * hp::kLog2e : 0.f;
-          st[kB2Q + i] = ok ? delta[stat0 + q0 + i] : 0.f;
+          st[kKvQ + i] = ok ? delta[stat0 + q0 + i] : 0.f;
         }
         if (lane == 0) {
           hp::mbar_arrive_expect(full(s), 2 * L::kQTile);
           for (int n = 0; n < L::kBoxes; ++n) {
-            hp::tma_load(base + L::Q + s * L::kQTile + n * L::kQBox, &tq, full(s),
+            hp::tma_load(base + L::Q + s * L::kQTile + n * L::kQBox, tq, full(s),
                          n * L::kCols, h, q0, b);
-            hp::tma_load(base + L::dO + s * L::kQTile + n * L::kQBox, &tdo, full(s),
+            hp::tma_load(base + L::dO + s * L::kQTile + n * L::kQBox, tdo, full(s),
                          n * L::kCols, h, q0, b);
           }
         } else {
@@ -987,7 +583,7 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tq,
     const int g = lane / 4, c = lane % 4;
     const int krow = 64 * wg + 16 * warp + g;  // block key row of d[4j], d[4j+1]; +8 the others
     const int k0w = k0 + 64 * wg;              // the warpgroup's first key
-    const bool with_dq = wg < kDqGroups;
+    const bool with_dq = WITH_DQ && wg < kDqGroups;
     const uint32_t sK = base + L::K + 64 * wg * R;  // the warpgroup's keys in each box
     const uint32_t sV = base + L::V + 64 * wg * R;
     const float scale_l2 = scale * hp::kLog2e;
@@ -1000,32 +596,32 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tq,
     }
     if (n_qt > 0) hp::mbar_wait(kv_full, 0);
     for (int it = 0; it < n_qt; ++it) {
-      const int s = it % kB2Stages;
-      const int q0 = q_begin + it * kB2Q;
+      const int s = it % kKvStages;
+      const int q0 = q_begin + it * kKvQ;
       const uint32_t sQ = base + L::Q + s * L::kQTile;
       const uint32_t sO = base + L::dO + s * L::kQTile;
       const uint32_t sDs = base + L::dS + (it & 1) * L::kDsTile;
-      hp::mbar_wait(full(s), (it / kB2Stages) & 1);
+      hp::mbar_wait(full(s), (it / kKvStages) & 1);
 
       // S^T = K Q^T and dP^T = V dO^T: the warpgroup's 64 keys x 64 q rows.
-      // st later holds the dQ partial (its first k-step overwrites), so that
-      // no third accumulator is live
-      float st[kB2Q / 2], dpt[kB2Q / 2];
+      // In B2 st later holds the dQ partial (its first k-step overwrites),
+      // so that no third accumulator is live
+      float st[kKvQ / 2], dpt[kKvQ / 2];
 #pragma unroll
-      for (int i = 0; i < kB2Q / 2; ++i) st[i] = dpt[i] = 0.f;
+      for (int i = 0; i < kKvQ / 2; ++i) st[i] = dpt[i] = 0.f;
       hp::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t ka = (kk / KPB) * L::kKBox + (kk % KPB) * 32;
         const uint32_t qa = (kk / KPB) * L::kQBox + (kk % KPB) * 32;
-        hp::Wgmma<kB2Q>::ss<0, 0>(st, hp::desc<R>(sK + ka, L::kKBox),
+        hp::Wgmma<kKvQ>::ss<0, 0>(st, hp::desc<R>(sK + ka, L::kKBox),
                                   hp::desc<R>(sQ + qa, L::kQBox), kk > 0);
       }
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t ka = (kk / KPB) * L::kKBox + (kk % KPB) * 32;
         const uint32_t qa = (kk / KPB) * L::kQBox + (kk % KPB) * 32;
-        hp::Wgmma<kB2Q>::ss<0, 0>(dpt, hp::desc<R>(sV + ka, L::kKBox),
+        hp::Wgmma<kKvQ>::ss<0, 0>(dpt, hp::desc<R>(sV + ka, L::kKBox),
                                   hp::desc<R>(sO + qa, L::kQBox), kk > 0);
       }
       hp::wgmma_commit();
@@ -1036,11 +632,11 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tq,
       // p and ds; element i is key krow + 8 ((i / 2) % 2), q column
       // 8 (i / 4) + 2 c + i % 2 of the tile
       const float* lse_s = stats(s);
-      const float* delta_s = lse_s + kB2Q;
-      const bool edge = q0 + kB2Q > Lq || k0w + 64 > Lk ||
+      const float* delta_s = lse_s + kKvQ;
+      const bool edge = q0 + kKvQ > Lq || k0w + 64 > Lk ||
                         (causal && q_offset + q0 < k_offset + k0w + 63);
 #pragma unroll
-      for (int i = 0; i < kB2Q / 2; ++i) {
+      for (int i = 0; i < kKvQ / 2; ++i) {
         const int col = 8 * (i / 4) + 2 * c + (i & 1);
         float p = hp::exp2_approx(fmaf(st[i], scale_l2, -lse_s[col]));
         if (edge) {
@@ -1052,24 +648,25 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tq,
         dpt[i] = p * (dpt[i] - delta_s[col]);
       }
       // bf16(P^T) and bf16(dS^T) as A operands (one k-step per 16 q rows);
-      // dS^T also into shared memory, rows = the block's keys
-      uint32_t pa[kB2Q / 16][4], da[kB2Q / 16][4];
+      // in B2 dS^T also into shared memory, rows = the block's keys
+      uint32_t pa[kKvQ / 16][4], da[kKvQ / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < kB2Q / 16; ++kk) {
+      for (int kk = 0; kk < kKvQ / 16; ++kk) {
 #pragma unroll
         for (int r = 0; r < 4; ++r) {  // r: row half r % 2, q block 2 kk + r / 2
           const int i = 8 * kk + 4 * (r >> 1) + 2 * (r & 1);
           pa[kk][r] = hp::pack_bf16(st[i], st[i + 1]);
           da[kk][r] = hp::pack_bf16(dpt[i], dpt[i + 1]);
-          hp::st_shared(sDs + hp::swizzled<128>(krow + 8 * (r & 1), 2 * kk + (r >> 1)) + 4 * c,
-                        da[kk][r]);
+          if constexpr (WITH_DQ)
+            hp::st_shared(sDs + hp::swizzled<128>(krow + 8 * (r & 1), 2 * kk + (r >> 1)) + 4 * c,
+                          da[kk][r]);
         }
       }
 
       // dV += bf16(P^T) dO and dK += bf16(dS^T) Q: dO and Q read MN-major
       hp::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kB2Q / 16; ++kk) {
+      for (int kk = 0; kk < kKvQ / 16; ++kk) {
 #pragma unroll
         for (int n = 0; n < L::kBoxes; ++n) {
           const uint32_t off = n * L::kQBox + kk * 16 * R;
@@ -1081,20 +678,22 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tq,
       }
       hp::wgmma_commit();
 
-      // dS^T of all 128 keys is in shared memory
-      hp::fence_async_shared();
-      hp::named_sync(1, 256);
       float (&dq)[L::kCols / 2] = *reinterpret_cast<float(*)[L::kCols / 2]>(&st);
-      if (with_dq) {
-        // dQ partial = bf16(dS) K over the block's keys, this warpgroup's
-        // box of columns: dS^T and K both read MN-major
-        hp::wgmma_fence();
+      if constexpr (WITH_DQ) {
+        // dS^T of all 128 keys is in shared memory
+        hp::fence_async_shared();
+        hp::named_sync(1, 256);
+        if (with_dq) {
+          // dQ partial = bf16(dS) K over the block's keys, this warpgroup's
+          // box of columns: dS^T and K both read MN-major
+          hp::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kB2Keys / 16; ++kk)
-          hp::Wgmma<L::kCols>::template ss<1, 1>(
-              dq, hp::desc<128>(sDs + kk * 16 * 128, L::kDsTile),
-              hp::desc<R>(base + L::K + wg * L::kKBox + kk * 16 * R, L::kKBox), kk > 0);
-        hp::wgmma_commit();
+          for (int kk = 0; kk < kKvKeys / 16; ++kk)
+            hp::Wgmma<L::kCols>::template ss<1, 1>(
+                dq, hp::desc<128>(sDs + kk * 16 * 128, L::kDsTile),
+                hp::desc<R>(base + L::K + wg * L::kKBox + kk * 16 * R, L::kKBox), kk > 0);
+          hp::wgmma_commit();
+        }
       }
       hp::wgmma_wait<0>();
 #pragma unroll
@@ -1102,7 +701,7 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tq,
         hp::fence_regs(dka[n]);
         hp::fence_regs(dva[n]);
       }
-      hp::fence_regs(dq);
+      if constexpr (WITH_DQ) hp::fence_regs(dq);
       hp::mbar_arrive(empty(s));  // q and dO of this stage are read
 
       if (with_dq) {
@@ -1124,7 +723,7 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tq,
         hp::named_sync(2 + wg, 128);
         if (tid == 0) {
           for (int f = 0; f < L::kCols / L::kFCols; ++f)
-            hp::tma_reduce_add(&tdq, stage + f * L::kFBox, wg * L::kCols + f * L::kFCols, h, q0,
+            hp::tma_reduce_add(tdq, stage + f * L::kFBox, wg * L::kCols + f * L::kFCols, h, q0,
                                b);
           hp::bulk_commit();
         }
@@ -1152,32 +751,334 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// B2: dK, dV and the dQ partial sums (the fused tier's one kernel)
 template <int D>
-cudaError_t launch_fused_tma(const Args& a) {
+__global__ void __launch_bounds__(kKvThreads, 1)
+flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const __grid_constant__ CUtensorMap tdq, const float* __restrict__ lse,
+                       const float* __restrict__ delta, bf16* __restrict__ dk,
+                       bf16* __restrict__ dv, int H, int Lq, int Lk, int causal, int q_offset,
+                       int k_offset, float scale) {
+  kv_block<D, true>(&tq, &tk, &tv, &tdo, &tdq, lse, delta, dk, dv, H, Lq, Lk, causal, q_offset,
+                    k_offset, scale);
+}
+
+// B3b: dK and dV only (the split tier's second kernel)
+template <int D>
+__global__ void __launch_bounds__(kKvThreads, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int H, int Lq, int Lk, int causal, int q_offset,
+                     int k_offset, float scale) {
+  kv_block<D, false>(&tq, &tk, &tv, &tdo, nullptr, lse, delta, dk, dv, H, Lq, Lk, causal,
+                     q_offset, k_offset, scale);
+}
+
+template <int D, bool WITH_DQ>
+cudaError_t launch_kv_tma(const Args& a) {
   const Strides& s = a.st;
   CUtensorMap tq, tk, tv, tdo, tdq;
-  cudaError_t err = hp::make_map<bf16>(&tq, a.q, a.B, a.Lq, a.H, D, s.qb, s.ql, s.qh, kB2Q);
+  cudaError_t err = hp::make_map<bf16>(&tq, a.q, a.B, a.Lq, a.H, D, s.qb, s.ql, s.qh, kKvQ);
   if (err == cudaSuccess)
-    err = hp::make_map<bf16>(&tk, a.k, a.B, a.Lk, a.H, D, s.kb, s.kl, s.kh, kB2Keys);
+    err = hp::make_map<bf16>(&tk, a.k, a.B, a.Lk, a.H, D, s.kb, s.kl, s.kh, kKvKeys);
   if (err == cudaSuccess)
-    err = hp::make_map<bf16>(&tv, a.v, a.B, a.Lk, a.H, D, s.vb, s.vl, s.vh, kB2Keys);
+    err = hp::make_map<bf16>(&tv, a.v, a.B, a.Lk, a.H, D, s.vb, s.vl, s.vh, kKvKeys);
   if (err == cudaSuccess)
-    err = hp::make_map<bf16>(&tdo, a.dout, a.B, a.Lq, a.H, D, s.ob, s.ol, s.oh, kB2Q);
-  if (err == cudaSuccess)  // the f32 workspace, contiguous [B, Lq, H, D]
+    err = hp::make_map<bf16>(&tdo, a.dout, a.B, a.Lq, a.H, D, s.ob, s.ol, s.oh, kKvQ);
+  if (WITH_DQ && err == cudaSuccess)  // the f32 workspace, contiguous [B, Lq, H, D]
     err = hp::make_map<float>(&tdq, a.dq, a.B, a.Lq, a.H, D, (long long)a.Lq * a.H * D,
-                              (long long)a.H * D, D, kB2Q);
+                              (long long)a.H * D, D, kKvQ);
   if (err != cudaSuccess) return err;
-  const size_t smem = B2Smem<D>::bytes;
-  err = cudaFuncSetAttribute(flash_bwd_fused_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  dim3 grid(a.B * a.H, (a.Lk + kB2Keys - 1) / kB2Keys);
-  flash_bwd_fused_kernel<D><<<grid, kB2Threads, smem, a.stream>>>(
-      tq, tk, tv, tdo, tdq, static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
-      a.H, a.Lq, a.Lk, a.causal, a.q_offset, a.k_offset, a.scale);
+  const size_t smem = KvSmem<D, WITH_DQ>::bytes;
+  const dim3 grid(a.B * a.H, (a.Lk + kKvKeys - 1) / kKvKeys);
+  const float* lse = static_cast<const float*>(a.lse);
+  const float* delta = static_cast<const float*>(a.delta);
+  bf16* dk = static_cast<bf16*>(a.dk);
+  bf16* dv = static_cast<bf16*>(a.dv);
+  if constexpr (WITH_DQ) {
+    err = cudaFuncSetAttribute(flash_bwd_fused_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    flash_bwd_fused_kernel<D><<<grid, kKvThreads, smem, a.stream>>>(
+        tq, tk, tv, tdo, tdq, lse, delta, dk, dv, a.H, a.Lq, a.Lk, a.causal, a.q_offset,
+        a.k_offset, a.scale);
+  } else {
+    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkv_kernel<D><<<grid, kKvThreads, smem, a.stream>>>(
+        tq, tk, tv, tdo, lse, delta, dk, dv, a.H, a.Lq, a.Lk, a.causal, a.q_offset, a.k_offset,
+        a.scale);
+  }
   return cudaGetLastError();
 }
+
+// ------------------------------------------------ B3a: bf16, q-major, wgmma + TMA
+
+constexpr int kDqRows = 128;    // q rows per block, 64 per consumer warpgroup
+constexpr int kDqKeys = 64;     // keys per K / V tile
+constexpr int kDqStages = 3;    // K / V tiles in flight
+constexpr int kDqThreads = 384; // two consumer warpgroups, then the producer's
+
+template <int D>
+struct DqSmem {  // byte offsets from the 1024-aligned base
+  static constexpr int kCols = hp::box_cols<bf16>(D);  // columns in a box
+  static constexpr int R = kCols * 2;                  // bytes of a box row
+  static constexpr int kBoxes = D / kCols;
+  static constexpr uint32_t kQBox = kDqRows * R;
+  static constexpr uint32_t kKBox = kDqKeys * R;
+  static constexpr uint32_t kTile = kDqKeys * D * 2;   // one K (or V) tile
+  static constexpr uint32_t Q = 0;
+  static constexpr uint32_t dO = Q + kDqRows * D * 2;
+  static constexpr uint32_t K = dO + kDqRows * D * 2;  // kDqStages tiles
+  static constexpr uint32_t V = K + kDqStages * kTile;  // kDqStages tiles
+  static constexpr uint32_t bars = V + kDqStages * kTile;  // q_full, full[], empty[] of each consumer
+  static constexpr uint32_t bytes = bars + 8 * (1 + 3 * kDqStages) + 1024;  // + alignment
+};
+
+template <int D>
+__global__ void __launch_bounds__(kDqThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq, int H, int Lq,
+                    int Lk, int causal, int q_offset, int k_offset, float scale) {
+  using L = DqSmem<D>;
+  constexpr int R = L::R;
+  constexpr int KPB = R / 32;  // k-steps of 16 columns in a box row
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (hp::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_full = base + L::bars;
+  auto full = [&](int s) { return base + L::bars + 8 * (1 + s); };
+  // each consumer warpgroup frees a stage on its own barrier, so that one
+  // that reads fewer tiles than the other never holds the ring
+  auto empty = [&](int w, int s) { return base + L::bars + 8 * (1 + kDqStages * (1 + w) + s); };
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kDqRows;  // longest rows first
+  // the key tiles a consumer warpgroup reads: keys past the last one its
+  // rows can see are never loaded (none for rows past Lq)
+  auto tiles_of = [&](int w) {
+    const int r0 = q0 + 64 * w;
+    if (r0 >= Lq) return 0;
+    int k_end = Lk;
+    if (causal) k_end = max(0, min(Lk, q_offset + min(r0 + 64, Lq) - 1 - k_offset + 1));
+    return (k_end + kDqKeys - 1) / kDqKeys;
+  };
+  const int n0 = tiles_of(0), n1 = tiles_of(1);
+  const int n_tiles = max(n0, n1);
+
+  if (threadIdx.x == 0) {
+    hp::mbar_init(q_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      hp::mbar_init(full(s), 1);
+      hp::mbar_init(empty(0, s), 128);
+      hp::mbar_init(empty(1, s), 128);
+    }
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ------------------------------------------------------------ producer
+    hp::setmaxnreg_dec<40>();
+    if (threadIdx.x == 256 && n_tiles > 0) {
+      hp::mbar_arrive_expect(q_full, 2 * kDqRows * D * 2);
+      for (int n = 0; n < L::kBoxes; ++n) {
+        hp::tma_load(base + L::Q + n * L::kQBox, &tq, q_full, n * L::kCols, h, q0, b);
+        hp::tma_load(base + L::dO + n * L::kQBox, &tdo, q_full, n * L::kCols, h, q0, b);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kDqStages;
+        if (t >= kDqStages) {  // tile t - kDqStages is read by the warpgroups that read it
+          const uint32_t parity = ((t / kDqStages) & 1) ^ 1;
+          if (t - kDqStages < n0) hp::mbar_wait(empty(0, s), parity);
+          if (t - kDqStages < n1) hp::mbar_wait(empty(1, s), parity);
+        }
+        hp::mbar_arrive_expect(full(s), 2 * L::kTile);
+        for (int n = 0; n < L::kBoxes; ++n) {
+          hp::tma_load(base + L::K + s * L::kTile + n * L::kKBox, &tk, full(s), n * L::kCols, h,
+                       t * kDqKeys, b);
+          hp::tma_load(base + L::V + s * L::kTile + n * L::kKBox, &tv, full(s), n * L::kCols, h,
+                       t * kDqKeys, b);
+        }
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    hp::setmaxnreg_inc<232>();
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, c = lane % 4;
+    const int row0 = 64 * wg + 16 * warp + g;  // block row of d[4j], d[4j+1]; +8 the others
+    const int n_mine = wg == 0 ? n0 : n1;
+    const uint32_t sQ = base + L::Q + 64 * wg * R;  // the warpgroup's rows in each box
+    const uint32_t sO = base + L::dO + 64 * wg * R;
+    const float scale_l2 = scale * hp::kLog2e;
+
+    // rows row0 and row0 + 8: lse (times log2 e, for ex2) and delta, read once
+    const long long stat0 = ((long long)b * H + h) * Lq;
+    float lse_l2[2], delta_r[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = q0 + row0 + 8 * r;
+      lse_l2[r] = qi < Lq ? lse[stat0 + qi] * hp::kLog2e : 0.f;
+      delta_r[r] = qi < Lq ? delta[stat0 + qi] : 0.f;
+    }
+
+    float acc[L::kBoxes][L::kCols / 2];
+#pragma unroll
+    for (int n = 0; n < L::kBoxes; ++n) {
+#pragma unroll
+      for (int i = 0; i < L::kCols / 2; ++i) acc[n][i] = 0.f;
+    }
+    // S = Q K^T and dP = dO V^T of the tile in stage s: the warpgroup's 64
+    // rows x 64 keys, both operands K-major; issued, not committed
+    float st[kDqKeys / 2], dpt[kDqKeys / 2];
+    auto issue_sdp = [&](int s) {
+      const uint32_t sK = base + L::K + s * L::kTile;
+      const uint32_t sV = base + L::V + s * L::kTile;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint64_t a = hp::desc<R>(sQ + (kk / KPB) * L::kQBox + (kk % KPB) * 32, L::kQBox);
+        const uint64_t b = hp::desc<R>(sK + (kk / KPB) * L::kKBox + (kk % KPB) * 32, L::kKBox);
+        if (kk == 0)
+          hp::Wgmma<kDqKeys>::ss0<0, 0>(st, a, b);
+        else
+          hp::Wgmma<kDqKeys>::ss<0, 0>(st, a, b, 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint64_t a = hp::desc<R>(sO + (kk / KPB) * L::kQBox + (kk % KPB) * 32, L::kQBox);
+        const uint64_t b = hp::desc<R>(sV + (kk / KPB) * L::kKBox + (kk % KPB) * 32, L::kKBox);
+        if (kk == 0)
+          hp::Wgmma<kDqKeys>::ss0<0, 0>(dpt, a, b);
+        else
+          hp::Wgmma<kDqKeys>::ss<0, 0>(dpt, a, b, 1);
+      }
+    };
+    // ds = p (dp - delta), p = exp(s scale - lse), masked to exactly 0
+    // where the tile straddles the diagonal or the end of k (rows past Lq
+    // read zeros and are not written), as bf16 A operands of dQ += dS K,
+    // one k-step per 16 keys; element i is row row0 + 8 ((i / 2) % 2), key
+    // k0 + 8 (i / 4) + 2 c + i % 2
+    uint32_t da[kDqKeys / 16][4];
+    auto make_ds = [&](int k0) {
+      const bool edge = k0 + kDqKeys > Lk ||
+                        (causal && q_offset + q0 + 64 * wg < k_offset + k0 + kDqKeys - 1);
+#pragma unroll
+      for (int i = 0; i < kDqKeys / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        float p = hp::exp2_approx(fmaf(st[i], scale_l2, -lse_l2[r]));
+        if (edge) {
+          const int kj = k0 + 8 * (i / 4) + 2 * c + (i & 1);
+          if (kj >= Lk || (causal && q_offset + q0 + row0 + 8 * r < k_offset + kj)) p = 0.f;
+        }
+        dpt[i] = p * (dpt[i] - delta_r[r]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kDqKeys / 16; ++kk) {
+        const float* d0 = dpt + 8 * kk;  // key block 2 kk, then 2 kk + 1
+        da[kk][0] = hp::pack_bf16(d0[0], d0[1]);
+        da[kk][1] = hp::pack_bf16(d0[2], d0[3]);
+        da[kk][2] = hp::pack_bf16(d0[4], d0[5]);
+        da[kk][3] = hp::pack_bf16(d0[6], d0[7]);
+      }
+    };
+    // dQ += bf16(dS) K of the tile in stage s: K [keys, D] read MN-major,
+    // one box of columns an instruction; issued, not committed
+    auto issue_dq = [&](int s) {
+      const uint32_t sK = base + L::K + s * L::kTile;
+#pragma unroll
+      for (int kk = 0; kk < kDqKeys / 16; ++kk) {
+#pragma unroll
+        for (int n = 0; n < L::kBoxes; ++n)
+          hp::Wgmma<L::kCols>::template rs<1>(
+              acc[n], da[kk], hp::desc<R>(sK + n * L::kKBox + kk * 16 * R, L::kKBox), 1);
+      }
+    };
+    auto wait_all = [&] {
+      hp::wgmma_commit();
+      hp::wgmma_wait<0>();
+      hp::fence_regs(st);
+      hp::fence_regs(dpt);
+#pragma unroll
+      for (int n = 0; n < L::kBoxes; ++n) hp::fence_regs(acc[n]);
+    };
+
+    // Per tile, one wait: tile t's dQ product and tile t + 1's S and dP go
+    // to the tensor cores back to back, and ds of tile t + 1 follows.  No
+    // product is in flight across a branch (ptxas would serialize them).
+    if (n_mine > 0) {
+      hp::mbar_wait(q_full, 0);
+      hp::mbar_wait(full(0), 0);
+      hp::wgmma_fence();
+      issue_sdp(0);
+      wait_all();
+      for (int t = 0; t + 1 < n_mine; ++t) {
+        make_ds(t * kDqKeys);
+        const int s1 = (t + 1) % kDqStages;
+        hp::mbar_wait(full(s1), ((t + 1) / kDqStages) & 1);
+        hp::wgmma_fence();
+        issue_dq(t % kDqStages);
+        issue_sdp(s1);
+        wait_all();
+        hp::mbar_arrive(empty(wg, t % kDqStages));  // K and V of tile t are read
+      }
+      make_ds((n_mine - 1) * kDqKeys);
+      hp::wgmma_fence();
+      issue_dq((n_mine - 1) % kDqStages);
+      wait_all();
+      hp::mbar_arrive(empty(wg, (n_mine - 1) % kDqStages));
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = q0 + row0 + 8 * r;
+      if (qi >= Lq) continue;
+      bf16* row = dq + (((long long)b * Lq + qi) * H + h) * D + 2 * c;
+#pragma unroll
+      for (int n = 0; n < L::kBoxes; ++n) {
+#pragma unroll
+        for (int j = 0; j < L::kCols / 8; ++j)
+          *reinterpret_cast<uint32_t*>(row + n * L::kCols + 8 * j) =
+              hp::pack_bf16(acc[n][4 * j + 2 * r] * scale, acc[n][4 * j + 2 * r + 1] * scale);
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dq_tma(const Args& a) {
+  const Strides& s = a.st;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = hp::make_map<bf16>(&tq, a.q, a.B, a.Lq, a.H, D, s.qb, s.ql, s.qh, kDqRows);
+  if (err == cudaSuccess)
+    err = hp::make_map<bf16>(&tk, a.k, a.B, a.Lk, a.H, D, s.kb, s.kl, s.kh, kDqKeys);
+  if (err == cudaSuccess)
+    err = hp::make_map<bf16>(&tv, a.v, a.B, a.Lk, a.H, D, s.vb, s.vl, s.vh, kDqKeys);
+  if (err == cudaSuccess)
+    err = hp::make_map<bf16>(&tdo, a.dout, a.B, a.Lq, a.H, D, s.ob, s.ol, s.oh, kDqRows);
+  if (err != cudaSuccess) return err;
+  const size_t smem = DqSmem<D>::bytes;
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.B * a.H, (a.Lq + kDqRows - 1) / kDqRows);
+  flash_bwd_dq_kernel<D><<<grid, kDqThreads, smem, a.stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<bf16*>(a.dq), a.H, a.Lq, a.Lk, a.causal, a.q_offset, a.k_offset, a.scale);
+  return cudaGetLastError();
+}
+
 
 // dtype 0 (float32) takes the CUDA-core kernels, 1 (bfloat16) the tensor-core ones
 template <int D>
@@ -1190,9 +1091,9 @@ cudaError_t launch(int dtype, Which which, const Args& a) {
     }
   } else if (dtype == 1) {
     switch (which) {
-      case kFused: return launch_fused_tma<D>(a);
-      case kDkv: return launch_dkv_mma<D>(a);
-      case kDq: return launch_dq_mma<D>(a);
+      case kFused: return launch_kv_tma<D, true>(a);
+      case kDkv: return launch_kv_tma<D, false>(a);
+      case kDq: return launch_dq_tma<D>(a);
     }
   }
   return cudaErrorInvalidValue;

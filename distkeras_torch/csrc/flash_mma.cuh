@@ -1,5 +1,5 @@
-// Warp-level building blocks of the bf16 tensor-core flash kernels
-// (flash_fwd.cu, flash_bwd.cu), in inline PTX for sm_90a:
+// Warp-level building blocks of the bf16 fused decode step
+// (decode_step.cu), in inline PTX for sm_90a:
 //   - mma.sync m16n8k16, bf16 operands, f32 accumulators;
 //   - ldmatrix (x4, plain and .trans) from shared memory;
 //   - cp.async.cg 16-byte (and cp.async.ca 4-byte) copies with

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks of the bf16 flash kernels B1
-// (flash_fwd.cu) and B2 (flash_bwd.cu), in inline PTX:
+// (flash_fwd.cu), B2, B3a and B3b (flash_bwd.cu), in inline PTX:
 //   - tensor maps (host): a 4-D map over a strided [B, L, H, D] operand,
 //     innermost first (D, H, L, B), whose box is one head's rows x up to
 //     128 bytes of columns, swizzled; cuTensorMapEncodeTiled is a driver
@@ -269,9 +269,9 @@ constexpr float kLog2e = 1.4426950408889634f;
 // wgmma m64nNk16, bf16 operands, f32 accumulators d (N / 2 a thread; see
 // the layout above).  ss: A and B from shared memory (descriptors a, b;
 // TA / TB set for an MN-major operand); rs: A from registers, B from
-// shared memory.  acc = 0 overwrites d, else adds to it.  Wgmma<128>::ss0
-// overwrites d without reading it (B1's first k-step of S = Q K^T: no
-// zeroing, and nothing of the last tile kept live).
+// shared memory.  acc = 0 overwrites d, else adds to it.  ss0 overwrites d
+// without reading it (the first k-step of B1's S = Q K^T and of B3a's S
+// and dP: no zeroing, and nothing of the last tile kept live).
 template <int N>
 struct Wgmma;
 
@@ -329,6 +329,26 @@ struct Wgmma<64> {
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
+  }
+  template <int TA, int TB>
+  __device__ __forceinline__ static void ss0(float (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+          "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+          "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+          "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+          "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+          "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+          "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+          "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+        : "l"(a), "l"(b), "r"(0), "n"(TA), "n"(TB));
   }
   template <int TB>
   __device__ __forceinline__ static void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,

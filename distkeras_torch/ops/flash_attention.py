@@ -9,12 +9,11 @@ when the fused tier's f32 dQ workspace would pass
 exists only to fit TPU VMEM and has no counterpart here.
 
 Each entry point picks its kernel by dtype: bfloat16 runs the tensor-core
-kernels (B1's ``flash_fwd_kernel`` and B2's ``flash_bwd_fused_kernel`` on
-Hopper's warpgroup MMA, fed by TMA through ``csrc/hopper.cuh``; the split
-tier's ``flash_bwd_dq_kernel`` (B3a) and ``flash_bwd_dkv_kernel`` (B3b) on
-``mma.sync`` through ``csrc/flash_mma.cuh``), float32 runs CUDA-core
-kernels (the same names with ``_f32``: ``flash_fwd_f32_kernel``,
-``flash_bwd_fused_f32_kernel``,
+kernels (B1's ``flash_fwd_kernel``, B2's ``flash_bwd_fused_kernel`` and the
+split tier's ``flash_bwd_dq_kernel`` (B3a) and ``flash_bwd_dkv_kernel``
+(B3b), all on Hopper's warpgroup MMA fed by TMA through
+``csrc/hopper.cuh``), float32 runs CUDA-core kernels (the same names with
+``_f32``: ``flash_fwd_f32_kernel``, ``flash_bwd_fused_f32_kernel``,
 ``flash_bwd_dq_f32_kernel``, ``flash_bwd_dkv_f32_kernel``) so that no
 float32 product is rounded to TF32.  The split tier uses no atomics, so
 its gradients are bitwise reproducible; the fused tier's dQ is not.
@@ -36,7 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -63,9 +62,12 @@ FUSED_DQ_WORKSPACE_CAP = 1 << 30
 
 
 # Rows of the TMA boxes the bf16 kernels load: B1 a block's 128 q rows and
-# 128-key tiles; B2 a block's 128 keys and 64-row q, dO and dQ tiles.
+# 128-key tiles; B2 and B3b a block's 128 keys and 64-row q and dO tiles
+# (and B2 its 64-row dQ tiles); B3a a block's 128 q and dO rows and 64-key
+# K and V tiles.
 FWD_BOX_ROWS = 128
 BWD_KEY_ROWS, BWD_Q_ROWS = 128, 64
+SPLIT_DQ_Q_ROWS, SPLIT_DQ_KEY_ROWS = 128, 64
 
 
 class TmaGeometry(NamedTuple):
@@ -93,6 +95,19 @@ def tma_geometry(t: torch.Tensor, rows: int) -> TmaGeometry:
                          f"{strides} bytes (head, row, batch)")
     cols = min(d, 128 // size)
     return TmaGeometry((d, h, length, b), strides, (cols, 1, rows, 1), d // cols)
+
+
+def backward_tma_maps(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                      split: bool) -> Dict[str, TmaGeometry]:
+    """The bf16 operand maps a backward tier builds, by ``kernel.operand``:
+    the fused kernel's (B2), or the split tier's dq kernel (B3a) and dkv
+    kernel (B3b).  Raises ValueError where TMA cannot read an operand."""
+    kernels = ((("dq", SPLIT_DQ_Q_ROWS, SPLIT_DQ_KEY_ROWS), ("dkv", BWD_Q_ROWS, BWD_KEY_ROWS))
+               if split else (("fused", BWD_Q_ROWS, BWD_KEY_ROWS),))
+    return {f"{name}.{op}": tma_geometry(t, rows)
+            for name, q_rows, key_rows in kernels
+            for op, t, rows in (("q", q, q_rows), ("k", k, key_rows), ("v", v, key_rows),
+                                ("dO", do, q_rows))}
 
 
 def use_split_backward(q: torch.Tensor) -> bool:
@@ -244,10 +259,8 @@ def flash_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"flash backward: {name} must be [B, H, Lq] = {stats} on the "
                              f"card, got {tuple(t.shape)} on {t.device}")
     q, k, v, do = _aligned(q, k, v, do)
-    if q.dtype == torch.bfloat16 and not split:
-        for t, rows in ((q, BWD_Q_ROWS), (k, BWD_KEY_ROWS), (v, BWD_KEY_ROWS),
-                        (do, BWD_Q_ROWS)):
-            tma_geometry(t, rows)
+    if q.dtype == torch.bfloat16:
+        backward_tma_maps(q, k, v, do, split)
     b, lq, h, d = q.shape
     lk = k.shape[1]
     scale = 1.0 / math.sqrt(d)

@@ -1,8 +1,9 @@
-"""The TMA tensor maps of the bf16 flash kernels B1 and B2
-(``ops.flash_attention.tma_geometry``, the map ``csrc/hopper.cuh`` builds),
-checked without a card: dims, byte strides and boxes of contiguous operands
-and of strided views of one ``[B, L, 3, H, D]`` qkv tensor, the f32 dQ
-workspace, and the raise on what TMA cannot read."""
+"""The TMA tensor maps of the bf16 flash kernels B1, B2 and the split pair
+B3a + B3b (``ops.flash_attention.tma_geometry`` and ``backward_tma_maps``,
+the maps ``csrc/hopper.cuh`` builds), checked without a card: dims, byte
+strides and boxes of contiguous operands and of strided views of one
+``[B, L, 3, H, D]`` qkv tensor, the f32 dQ workspace, and the raise on what
+TMA cannot read."""
 
 import pytest
 import torch
@@ -74,3 +75,63 @@ def test_wrapper_alignment_rule_covers_tma():
         t = _unreadable(kind)
         assert not fa._rows_aligned(t)
         fa.tma_geometry(t.clone(memory_format=torch.contiguous_format), fa.FWD_BOX_ROWS)
+
+
+# box rows of each backward kernel's maps: (q and dO rows, k and v rows)
+BACKWARD_BOXES = {"fused": (64, 128), "dq": (128, 64), "dkv": (64, 128)}
+
+
+def _check_backward_maps(maps, split, dims, strides, d):
+    kernels = ("dq", "dkv") if split else ("fused",)
+    assert sorted(maps) == sorted(f"{n}.{op}" for n in kernels for op in ("q", "k", "v", "dO"))
+    for key, g in maps.items():
+        kernel, op = key.split(".")
+        q_rows, key_rows = BACKWARD_BOXES[kernel]
+        assert g.dims == dims[op] and g.strides == strides[op], key
+        assert g.box == (min(d, 64), 1, q_rows if op in ("q", "dO") else key_rows, 1), key
+        assert g.boxes == (2 if d == 128 else 1), key
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_backward_maps_contiguous(d, split):
+    """Lq != Lk: q and dO maps span Lq rows, k and v Lk; B3a's boxes are
+    128 q rows and 64-key tiles, B2's and B3b's 64 q rows and 128 keys."""
+    q, do = (torch.empty((2, 100, 3, d), dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.empty((2, 257, 3, d), dtype=torch.bfloat16) for _ in range(2))
+    maps = fa.backward_tma_maps(q, k, v, do, split)
+    row = 3 * d * 2
+    dims = {"q": (d, 3, 100, 2), "dO": (d, 3, 100, 2), "k": (d, 3, 257, 2), "v": (d, 3, 257, 2)}
+    strides = {"q": (2 * d, row, 100 * row), "dO": (2 * d, row, 100 * row),
+               "k": (2 * d, row, 257 * row), "v": (2 * d, row, 257 * row)}
+    _check_backward_maps(maps, split, dims, strides, d)
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_backward_maps_packed_qkv(d, split):
+    """q, k and v as the model hands them over (views of one qkv tensor,
+    rows 3 H D apart), dO contiguous."""
+    qkv = torch.empty((2, 130, 3, 4, d), dtype=torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = torch.empty((2, 130, 4, d), dtype=torch.bfloat16)
+    maps = fa.backward_tma_maps(q, k, v, do, split)
+    packed = (2 * d, 2 * 3 * 4 * d, 2 * 130 * 3 * 4 * d)
+    dims = dict.fromkeys(("q", "k", "v", "dO"), (d, 4, 130, 2))
+    strides = {"q": packed, "k": packed, "v": packed,
+               "dO": (2 * d, 2 * 4 * d, 2 * 130 * 4 * d)}
+    _check_backward_maps(maps, split, dims, strides, d)
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("kind", ["head stride", "row stride", "head dim"])
+def test_backward_maps_raise_on_unreadable(kind, split):
+    """An operand TMA cannot read raises, whichever operand it is (the
+    wrappers copy such tensors first: test_wrapper_alignment_rule_covers_tma)."""
+    bad = _unreadable(kind)
+    good = torch.empty(bad.shape, dtype=torch.bfloat16)
+    for i in range(4):
+        ops = [good] * 4
+        ops[i] = bad
+        with pytest.raises(ValueError, match="TMA needs"):
+            fa.backward_tma_maps(*ops, split)
